@@ -1,0 +1,20 @@
+"""deeplearning4j_tpu_torch — the PyTorch/CUDA port of deeplearning4j_tpu.
+
+A second package beside the JAX one, with the same module paths and names
+(``models/bert.py`` ↔ ``models/bert.py``), written in PyTorch for NVIDIA
+Hopper (sm_90a). Every Pallas TPU kernel of the JAX package becomes a
+kernel written by hand for the card (``kernels/csrc/``); each keeps a plain
+PyTorch version beside it, which is what a tensor on the CPU runs.
+
+Entry points run on the card (``runtime.device.default_device()``) unless
+the caller names another device. The package imports ``torch`` and never
+``jax`` nor anything of ``deeplearning4j_tpu``.
+
+Ported so far: the BERT serving path — ``models/bert.py`` behind
+``serving.ModelServer`` → ``serving.ModelRegistry`` →
+``parallel.ParallelInference``, through the flash-attention forward kernel.
+"""
+
+__version__ = "0.4.0"
+
+__all__ = ["__version__"]

@@ -1,0 +1,96 @@
+"""Build and load the CUDA kernels (route: nvcc → shared library → ctypes).
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>-<digest>.so``
+at the root of the checkout, then loaded with ``ctypes``. The digest covers
+the source and the flags, so an edited source is rebuilt and a stale
+library is never loaded. Nothing is compiled or loaded at import time:
+the CPU tests import this module on a host without ``nvcc``.
+
+``nvcc`` is looked up as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then
+under ``/usr/local/cuda``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, NamedTuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+class Built(NamedTuple):
+    path: Path
+    seconds: float  # 0.0 when an up-to-date library was already on disk
+    log: str        # nvcc/ptxas output (registers, shared memory, spills)
+
+
+_lock = threading.Lock()
+_built: Dict[str, Built] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME")
+    candidates = [str(Path(cuda_home) / "bin" / "nvcc")] if cuda_home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (tried $CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
+        "the port's CUDA kernels are compiled from source at first use")
+
+
+def build(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
+    with _lock:
+        if name in _built:
+            return _built[name]
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        if out.exists():
+            _built[name] = Built(out, 0.0, "")
+            return _built[name]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.monotonic()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.monotonic() - t0
+        log = (res.stdout + res.stderr).strip()
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed to build {src.name} (exit {res.returncode}):"
+                f"\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        _built[name] = Built(out, seconds, log)
+        return _built[name]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    path = build(name).path
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(path))
+        return _libs[name]

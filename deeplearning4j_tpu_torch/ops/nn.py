@@ -1,0 +1,45 @@
+"""NN ops (↔ deeplearning4j_tpu/ops/nn.py) — the ones the BERT slice uses.
+
+Layouts and numerics follow the JAX package:
+
+- ``linear`` weights are ``[in, out]`` and applied as ``x @ W + b``;
+- ``gelu`` is the tanh approximation (``jax.nn.gelu``'s default; torch's
+  default is the exact erf form);
+- ``layer_norm`` uses the population variance;
+- ``embedding_lookup`` raises on an out-of-range id, where ``jnp.take``
+  clamps it (a CUDA gather with a bad index would poison the context).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+relu = torch.relu
+tanh = torch.tanh
+
+
+def gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def layer_norm(x, gamma=None, beta=None, eps=1e-5):
+    """Over the last axis, population variance (``jnp.var``)."""
+    return F.layer_norm(x, x.shape[-1:], gamma, beta, eps)
+
+
+def linear(x, w, b=None):
+    """``x @ w + b`` with ``w`` laid out ``[in, out]``."""
+    return F.linear(x, w.t(), b)
+
+
+def embedding_lookup(table, ids):
+    """Rows of ``table`` [V, E] for integer ``ids`` (any shape)."""
+    ids = ids.long()
+    if ids.numel():
+        lo, hi = torch.aminmax(ids)
+        if int(lo) < 0 or int(hi) >= table.shape[0]:
+            raise IndexError(
+                f"embedding ids must lie in [0, {table.shape[0]}), got "
+                f"[{int(lo)}, {int(hi)}]")
+    return F.embedding(ids, table)

@@ -1,0 +1,79 @@
+"""The port stands alone: no jax, no deeplearning4j_tpu, no silent CPU.
+
+Each check runs in a fresh interpreter, so nothing this test process has
+imported (the JAX package, via conftest) can hide an import.
+"""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import deeplearning4j_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        deeplearning4j_tpu_torch.__path__, "deeplearning4j_tpu_torch."))
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+
+
+def test_every_port_module_imports_without_jax_or_the_jax_package():
+    mods = _modules()
+    assert "deeplearning4j_tpu_torch.serving.server" in mods
+    assert "deeplearning4j_tpu_torch.kernels.flash_attention" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'deeplearning4j_tpu' "
+        "or m.startswith('deeplearning4j_tpu.'))\n"
+        "print(bad)\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_refuse_to_fall_back_to_the_cpu():
+    code = (
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "from deeplearning4j_tpu_torch.runtime.device import default_device\n"
+        "from deeplearning4j_tpu_torch.models.bert import bert_tiny\n"
+        "from deeplearning4j_tpu_torch.parallel.inference import "
+        "ParallelInference\n"
+        "from deeplearning4j_tpu_torch.serving import ModelRegistry, spec\n"
+        "calls = [default_device, lambda: bert_tiny(),\n"
+        "         lambda: ParallelInference(lambda v, x: x, {}),\n"
+        "         lambda: ModelRegistry().register(\n"
+        "             'm', lambda v, x: x, {}, input_spec=spec((2,)))]\n"
+        "for call in calls:\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA is not available' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('fell back to the CPU')\n"
+        "print('refused', len(calls))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert out.stdout.strip() == "refused 4"
+
+
+def test_explicit_cpu_is_honoured():
+    code = (
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "from deeplearning4j_tpu_torch.models.bert import bert_tiny\n"
+        "m = bert_tiny(device='cpu', num_layers=1)\n"
+        "print(m.device)\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "cpu"
