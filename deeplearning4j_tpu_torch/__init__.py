@@ -12,7 +12,10 @@ the caller names another device. The package imports ``torch`` and never
 
 Ported so far: the BERT serving path — ``models/bert.py`` behind
 ``serving.ModelServer`` → ``serving.ModelRegistry`` →
-``parallel.ParallelInference``, through the flash-attention forward kernel.
+``parallel.ParallelInference``, through the flash-attention forward kernel
+— and BERT training — ``train.trainer.Trainer.fit`` with the JAX
+package's updaters, schedules, listeners and checkpoint format, through
+the flash-attention backward kernels.
 """
 
 __version__ = "0.4.0"

@@ -8,7 +8,9 @@ library is never loaded. Nothing is compiled or loaded at import time:
 the CPU tests import this module on a host without ``nvcc``.
 
 ``nvcc`` is looked up as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then
-under ``/usr/local/cuda``.
+under ``/usr/local/cuda``. Each source has its own lock, so several
+sources build at once from several threads (``chip_smoke.py`` starts one
+``nvcc`` per source together).
 """
 
 from __future__ import annotations
@@ -38,8 +40,9 @@ class Built(NamedTuple):
     log: str        # nvcc/ptxas output (registers, shared memory, spills)
 
 
-_lock = threading.Lock()
-_built: Dict[str, Built] = {}
+_lock = threading.Lock()  # guards _name_locks and _libs; never held over nvcc
+_name_locks: Dict[str, threading.Lock] = {}
+_built: Dict[str, Built] = {}  # written under the source's own lock
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -58,6 +61,8 @@ def nvcc_path() -> str:
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _built:
             return _built[name]
         src = CSRC / f"{name}.cu"

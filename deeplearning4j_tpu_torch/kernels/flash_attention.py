@@ -1,18 +1,26 @@
-"""Blockwise (flash) attention forward (↔ deeplearning4j_tpu/kernels/flash_attention.py).
+"""Blockwise (flash) attention, forward and backward (↔ deeplearning4j_tpu/kernels/flash_attention.py).
 
-Three functions:
-
-- :func:`reference_attention` — the plain PyTorch version, a port of the
+- :func:`reference_attention` — the plain PyTorch forward, a port of the
   JAX package's ``reference_attention`` in the same order of operations;
+  :func:`reference_attention_lse` also returns the row log-sum-exp;
+- :func:`reference_attention_bwd` — the plain backward from the saved
+  LSE, in the math of the JAX package's ``_bwd_recompute``;
 - :func:`flash_attention_cuda` — the wrapper of the hand-written Hopper
   kernel ``csrc/flash_fwd.cu`` (which replaces the Pallas ``_flash_kernel``);
+- :func:`flash_attention_bwd_cuda` — the wrapper of the two kernels of
+  ``csrc/flash_bwd.cu``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` (which
+  replace ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``);
 - :func:`flash_attention` — the entry point layers call: a CUDA tensor
-  launches the kernel, a CPU tensor runs the plain version.
+  launches the kernels, a CPU tensor runs the plain versions. With grad
+  enabled it goes through ``_FlashAttention`` (a ``torch.autograd.Function``:
+  the forward saves the LSE, the backward recomputes the scores from it),
+  the same path on both devices but for the kernels.
 
 Fully-masked query rows (a batch row whose key mask is all zero, such as
 the zero rows ``ParallelInference`` pads a bucket with) come out as 0 from
 the kernel and as uniform attention from the plain version, exactly as the
 JAX package's kernel and reference disagree; callers never read them.
+Their gradients are 0 from both backwards.
 """
 
 from __future__ import annotations
@@ -24,9 +32,30 @@ import torch
 from deeplearning4j_tpu_torch.kernels import _build, _dispatch
 
 _NEG_INF = -1e30
+_LSE_FLOOR = -1e20  # the JAX package's clamp of the LSE in backward
 KERNEL = "flash_fwd"
+BWD_KERNEL = "flash_bwd"  # one source, two kernels: flash_bwd_dkv, flash_bwd_dq
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _causal_keep(t_len, s_len, device):
+    """[T, S] bool: query i sees key j iff i + (S - T) >= j (bottom-right)."""
+    idx_t = torch.arange(t_len, device=device)[:, None]
+    idx_s = torch.arange(s_len, device=device)[None, :]
+    return idx_t + (s_len - t_len) >= idx_s
+
+
+def _scores(q, k, *, causal, bias, key_mask, scale):
+    s = torch.einsum("bhtd,bhsd->bhts", q, k).float() * scale
+    if bias is not None:
+        s = s + bias
+    if key_mask is not None:
+        s = s + torch.where(key_mask[:, None, None, :] > 0, 0.0, _NEG_INF)
+    if causal:
+        s = torch.where(_causal_keep(s.shape[-2], s.shape[-1], s.device), s,
+                        _NEG_INF)
+    return s
 
 
 def reference_attention(q, k, v, *, causal=False, bias=None, key_mask=None,
@@ -37,18 +66,58 @@ def reference_attention(q, k, v, *, causal=False, bias=None, key_mask=None,
     rows produce uniform attention (softmax of a constant)."""
     d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
-    s = torch.einsum("bhtd,bhsd->bhts", q, k).float() * scale
-    if bias is not None:
-        s = s + bias
-    if key_mask is not None:
-        s = s + torch.where(key_mask[:, None, None, :] > 0, 0.0, _NEG_INF)
-    if causal:
-        t_len, s_len = s.shape[-2], s.shape[-1]
-        idx_t = torch.arange(t_len, device=s.device)[:, None]
-        idx_s = torch.arange(s_len, device=s.device)[None, :]
-        s = torch.where(idx_t + (s_len - t_len) >= idx_s, s, _NEG_INF)
+    s = _scores(q, k, causal=causal, bias=bias, key_mask=key_mask,
+                scale=scale)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhts,bhsd->bhtd", p, v)
+
+
+def reference_attention_lse(q, k, v, *, causal=False, key_mask=None,
+                            scale=None):
+    """:func:`reference_attention` and the row log-sum-exp of the scaled,
+    masked scores, [B·H, T] float32 (about -1e30 on fully-masked rows),
+    the layout ``flash_attention_cuda(return_lse=True)`` writes."""
+    d = q.shape[-1]
+    scale = (d ** -0.5) if scale is None else scale
+    s = _scores(q, k, causal=causal, bias=None, key_mask=key_mask,
+                scale=scale)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    b, h, t, _ = q.shape
+    lse = torch.logsumexp(s, dim=-1).reshape(b * h, t)
+    return torch.einsum("bhts,bhsd->bhtd", p, v), lse
+
+
+def reference_attention_bwd(q, k, v, key_mask, out, lse, g, *, causal=False,
+                            scale=None):
+    """Plain FlashAttention-2 backward from the saved LSE → (dq, dk, dv).
+
+    The math of the JAX package's ``_bwd_recompute`` and its two kernels,
+    in float32, over the whole [T, S] score matrix at once:
+    delta = rowsum(dO·O); p = exp(s − max(lse, −1e20)), 0 where masked;
+    dp = dO·Vᵀ; dS = p·(dp − delta)·scale; dV = pᵀ·dO, dK = dSᵀ·Q,
+    dQ = dS·K. Causal is aligned to the bottom right. Rows whose keys are
+    all masked get 0 gradients. Gradients come out in the inputs' dtypes."""
+    d = q.shape[-1]
+    scale = (d ** -0.5) if scale is None else scale
+    b, h, t, _ = q.shape
+    s_len = k.shape[2]
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    s = torch.einsum("bhtd,bhsd->bhts", qf, kf) * scale
+    keep = torch.ones((1, 1, t, s_len), dtype=torch.bool, device=q.device)
+    if key_mask is not None:
+        keep = keep & (key_mask[:, None, None, :] > 0)
+    if causal:
+        keep = keep & _causal_keep(t, s_len, q.device)
+    s = torch.where(keep, s, _NEG_INF)
+    lse = torch.clamp(lse.reshape(b, h, t, 1), min=_LSE_FLOOR)
+    p = torch.exp(s - lse)  # exactly 0 where masked
+    delta = torch.sum(out.float() * gf, dim=-1, keepdim=True)
+    dp = torch.einsum("bhtd,bhsd->bhts", gf, vf)
+    ds = p * (dp - delta) * scale
+    dv = torch.einsum("bhts,bhtd->bhsd", p, gf)
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, key_mask):
@@ -127,20 +196,123 @@ def _lib():
     return lib
 
 
+def _bwd_lib():
+    lib = _build.load(BWD_KERNEL)
+    if lib.dl4j_flash_bwd_dq.argtypes is None:
+        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+        lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
+        lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.dl4j_flash_bwd_dkv.restype = ctypes.c_int
+        lib.dl4j_flash_bwd_dkv.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 9 + tail)
+        lib.dl4j_flash_bwd_dq.restype = ctypes.c_int
+        lib.dl4j_flash_bwd_dq.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 8 + tail)
+    return lib
+
+
+def flash_attention_bwd_cuda(q, k, v, key_mask, out, lse, g, *,
+                             causal=False, scale=None):
+    """Launch ``csrc/flash_bwd.cu``'s two kernels on the current stream →
+    (dq, dk, dv) in q's dtype.
+
+    q/out/g [B,H,T,D], k/v [B,H,S,D] contiguous CUDA tensors of one dtype
+    (float32 or bfloat16, D in (32, 64, 128)), ``key_mask`` [B,S] 1/0 or
+    None, ``lse`` [B·H, T] float32 as ``flash_attention_cuda`` writes it.
+    delta = rowsum(dO·O) is one torch reduction here, as the JAX package
+    computes it outside its kernels. ``flash_bwd_dkv`` then writes dK and
+    dV, ``flash_bwd_dq`` dQ; each counts its launch."""
+    _check(q, k, v, key_mask)
+    b, h, t, d = q.shape
+    s_len = k.shape[2]
+    for name, x in (("out", out), ("g", g)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(x.shape)} "
+                             f"{x.dtype} {x.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if (lse.shape != (b * h, t) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 [B·H, T] = "
+                         f"{(b * h, t)} on q's device")
+    scale = (d ** -0.5) if scale is None else float(scale)
+    delta = torch.sum(out.float() * g.float(), dim=-1).reshape(b * h, t)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    km = (key_mask.to(torch.float32).contiguous()
+          if key_mask is not None else None)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              km.data_ptr() if km is not None else None, g.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    tail = (b, h, t, s_len, d, scale, int(causal), _DTYPE_CODES[q.dtype],
+            stream)
+    for name, outs in (("flash_bwd_dkv", (dk.data_ptr(), dv.data_ptr())),
+                       ("flash_bwd_dq", (dq.data_ptr(),))):
+        rc = getattr(lib, f"dl4j_{name}")(q.device.index, *common, *outs,
+                                          *tail)
+        if rc != 0:
+            raise RuntimeError(
+                f"{name} launch failed: CUDA error {rc} "
+                f"({lib.dl4j_cuda_error_string(rc).decode()})")
+        _dispatch.count_launch(name)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention whose backward recomputes the scores from the saved LSE
+    (↔ the JAX package's ``_flash`` custom VJP). A CUDA tensor runs
+    ``flash_fwd`` with the LSE, then ``flash_bwd_dkv`` and ``flash_bwd_dq``;
+    a CPU tensor runs :func:`reference_attention_lse` and
+    :func:`reference_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, scale):
+        if _dispatch.use_kernel(q):
+            out, lse = flash_attention_cuda(q, k, v, key_mask, causal=causal,
+                                            scale=scale, return_lse=True)
+        else:
+            out, lse = reference_attention_lse(q, k, v, causal=causal,
+                                               key_mask=key_mask, scale=scale)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        bwd = (flash_attention_bwd_cuda if _dispatch.use_kernel(q)
+               else reference_attention_bwd)
+        dq, dk, dv = bwd(q, k, v, key_mask, out, lse, g.contiguous(),
+                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False, scale=None, bias=None,
                     key_mask=None):
     """Attention entry point; q [B,H,T,D], k/v [B,H,S,D] → [B,H,T,D].
 
-    CUDA tensors launch the hand kernel; CPU tensors run
-    :func:`reference_attention`. ``key_mask`` [B,S] 1/0 runs inside the
-    kernel. An additive ``bias`` has no kernel path and raises on CUDA
-    (nothing on the port's path passes one)."""
-    if not _dispatch.use_kernel(q):
+    CUDA tensors launch the hand kernels; CPU tensors run the plain
+    versions. ``key_mask`` [B,S] 1/0 runs inside the kernels. When grad is
+    enabled and q, k or v requires it, the call goes through
+    ``_FlashAttention``, whose backward is ``flash_bwd_dkv`` and
+    ``flash_bwd_dq`` on the card. An additive ``bias`` has no kernel path:
+    it runs the plain version on the CPU and raises on CUDA (nothing on the
+    port's path passes one)."""
+    if bias is not None:
+        if _dispatch.use_kernel(q):
+            raise NotImplementedError(
+                "flash_attention: an additive bias has no CUDA kernel path")
         return reference_attention(q, k, v, causal=causal, bias=bias,
                                    key_mask=key_mask, scale=scale)
-    if bias is not None:
-        raise NotImplementedError(
-            "flash_attention: an additive bias has no CUDA kernel path")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), key_mask, causal, scale)
+    if not _dispatch.use_kernel(q):
+        return reference_attention(q, k, v, causal=causal,
+                                   key_mask=key_mask, scale=scale)
     return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                 v.contiguous(), key_mask, causal=causal,
                                 scale=scale)

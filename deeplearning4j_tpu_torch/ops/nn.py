@@ -7,7 +7,10 @@ Layouts and numerics follow the JAX package:
   default is the exact erf form);
 - ``layer_norm`` uses the population variance;
 - ``embedding_lookup`` raises on an out-of-range id, where ``jnp.take``
-  clamps it (a CUDA gather with a bad index would poison the context).
+  clamps it (a CUDA gather with a bad index would poison the context);
+- ``dropout`` draws its mask from an explicit ``torch.Generator`` (on the
+  tensor's device) where the JAX version takes a key; the two give
+  different masks from the same seed, the same inverted scaling ``x/keep``.
 """
 
 from __future__ import annotations
@@ -43,3 +46,13 @@ def embedding_lookup(table, ids):
                 f"embedding ids must lie in [0, {table.shape[0]}), got "
                 f"[{int(lo)}, {int(hi)}]")
     return F.embedding(ids, table)
+
+
+def dropout(x, rate, generator, deterministic=False):
+    """Zero each element with probability ``rate`` and scale the kept ones
+    by ``1/keep``; a no-op when ``deterministic`` or ``rate == 0``."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)

@@ -3,13 +3,25 @@
 The JAX package names every leaf of a variables tree by its path,
 ``a/b/c`` (``flatten_with_names``); checkpoints and the port's parameters
 use the same names. This is the port's own copy over plain nested dicts,
-lists and tuples: dict keys are visited in sorted order, as
-``jax.tree_util`` does, so both packages list leaves in the same order.
+lists and tuples, and dataclasses registered with :func:`register_dataclass`
+(``TrainState``): dict keys are visited in sorted order and dataclass fields
+in declaration order, as ``jax.tree_util`` does, so both packages list and
+name leaves alike (``opt_state/m/embeddings/word``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Iterable, List, Tuple
+
+_DATACLASS_NODES: set = set()
+
+
+def register_dataclass(cls):
+    """Class decorator (↔ ``jax.tree_util.register_dataclass``): instances
+    are tree nodes whose children are their fields."""
+    _DATACLASS_NODES.add(cls)
+    return cls
 
 
 def _children(tree) -> Iterable[Tuple[str, Any]]:
@@ -17,11 +29,15 @@ def _children(tree) -> Iterable[Tuple[str, Any]]:
         return ((str(k), tree[k]) for k in sorted(tree))
     if isinstance(tree, (list, tuple)):
         return ((str(i), v) for i, v in enumerate(tree))
+    if type(tree) in _DATACLASS_NODES:
+        return ((f.name, getattr(tree, f.name))
+                for f in dataclasses.fields(tree))
     return ()
 
 
 def _is_leaf(tree) -> bool:
-    return not isinstance(tree, (dict, list, tuple))
+    return not (isinstance(tree, (dict, list, tuple))
+                or type(tree) in _DATACLASS_NODES)
 
 
 def flatten_with_names(tree) -> List[Tuple[str, Any]]:
@@ -58,7 +74,27 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    if type(tree) in _DATACLASS_NODES:
+        return type(tree)(**{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
     return fn(tree, *rest)
+
+
+def tree_map_with_names(fn: Callable, tree, prefix: str = ""):
+    """Like :func:`tree_map` over one tree, with ``fn(name, leaf)``; the
+    names are those :func:`flatten_with_names` gives."""
+    if _is_leaf(tree):
+        return fn(prefix, tree)
+    rebuilt = {name: tree_map_with_names(
+        fn, child, f"{prefix}/{name}" if prefix else name)
+        for name, child in _children(tree)}
+    if isinstance(tree, dict):
+        return {k: rebuilt[str(k)] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(rebuilt[str(i)] for i in range(len(tree)))
+    return type(tree)(**rebuilt)
 
 
 def tree_leaves(tree) -> List[Any]:

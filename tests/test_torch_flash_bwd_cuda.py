@@ -1,0 +1,182 @@
+"""The port's CUDA flash-attention backward kernels on the card.
+
+Marked ``cuda``: each test needs an NVIDIA Hopper card and skips without
+one (the kernels have no CPU or interpret mode; their CPU-side twin,
+``reference_attention_bwd``, is held against the JAX package in
+test_torch_flash_backward.py). On a host with the card and without JAX:
+
+    python -m pytest --noconftest tests/test_torch_flash_bwd_cuda.py -q
+
+(``--noconftest``: the repository's conftest configures JAX.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu_torch.kernels import _dispatch
+from deeplearning4j_tpu_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+    reference_attention,
+    reference_attention_bwd,
+)
+from deeplearning4j_tpu_torch.models.bert import bert_tiny, make_mlm_batch
+from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
+from deeplearning4j_tpu_torch.train.trainer import batch_to_device
+from deeplearning4j_tpu_torch.utils.pytree import flatten_with_names, unflatten
+
+pytestmark = pytest.mark.cuda
+
+# kernel vs plain backward, max |difference| / max(1, max |plain|): both
+# compute in float32 from the same inputs and LSE and differ only in the
+# order of their sums (float32: a few ulp), and in bfloat16 by the final
+# rounding of the gradient to bf16 (eps 2^-8, one ulp either way).
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+# (B, H, T, S, D, dtype, causal, key lengths per batch row)
+CASES = {
+    "padded_fp32": (3, 4, 128, 128, 64, torch.float32, False, [128, 37, 0]),
+    "padded_bf16": (3, 4, 128, 128, 64, torch.bfloat16, False, [128, 37, 0]),
+    "causal_fp32": (2, 3, 96, 96, 64, torch.float32, True, None),
+    "causal_t_lt_s_d32": (2, 2, 50, 130, 32, torch.float32, True, None),
+    "causal_padded_d32_bf16": (2, 2, 70, 70, 32, torch.bfloat16, True,
+                               [70, 23]),
+    "ragged_d128": (2, 2, 70, 90, 128, torch.float32, False, [90, 41]),
+    "causal_ragged_d128_bf16": (2, 2, 100, 100, 128, torch.bfloat16, True,
+                                [100, 61]),
+}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper card: the CUDA kernels have no "
+                    "CPU mode")
+    from deeplearning4j_tpu_torch.runtime.device import require_hopper
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return require_hopper()
+
+
+def _inputs(dev, b, h, t, s, d, dtype, lengths, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b, h, n, d), generator=g).to(dev, dtype)
+               for n in (t, s, s))
+    dout = torch.randn((b, h, t, d), generator=g).to(dev, dtype)
+    mask = None
+    if lengths is not None:
+        mask = (torch.arange(s)[None, :] < torch.tensor(lengths)[:, None]
+                ).to(dev, torch.float32)
+    return q, k, v, mask, dout
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bwd_kernels_match_plain_version(dev, case):
+    b, h, t, s, d, dtype, causal, lengths = CASES[case]
+    q, k, v, mask, dout = _inputs(dev, b, h, t, s, d, dtype, lengths,
+                                  seed=b * t + s + d)
+    out, lse = flash_attention_cuda(q, k, v, mask, causal=causal,
+                                    return_lse=True)
+    _dispatch.reset_launch_counts()
+    got = flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout,
+                                   causal=causal)
+    assert _dispatch.launch_counts() == {"flash_bwd_dkv": 1,
+                                         "flash_bwd_dq": 1}
+    want = reference_attention_bwd(q, k, v, mask, out, lse, dout,
+                                   causal=causal)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        err = (a.float() - w.float()).abs().max().item()
+        ref = max(1.0, w.float().abs().max().item())
+        assert err <= TOL[dtype] * ref, (name, err, ref)
+    if lengths is not None:
+        dead = torch.tensor(lengths, device=dev) == 0
+        for a in got:
+            assert (a[dead] == 0).all()  # fully-masked rows: 0, never NaN
+        keep = mask[:, None, :, None] > 0
+        for a in got[1:]:  # masked keys get dK = dV = 0
+            assert (a.masked_fill(keep, 0) == 0).all()
+
+
+def test_autograd_goes_through_the_three_kernels(dev):
+    q, k, v, mask, dout = _inputs(dev, 2, 3, 64, 64, 64, torch.float32,
+                                  [64, 19], seed=11)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    _dispatch.reset_launch_counts()
+    out = flash_attention(*leaves, key_mask=mask)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert _dispatch.launch_counts() == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        reference_attention(*plain, key_mask=mask), plain, dout)
+    for a, w in zip(got, want):
+        assert (a - w).abs().max().item() <= 1e-4
+
+
+def test_bert_tiny_train_step_grads_equal_the_plain_path(dev, monkeypatch):
+    model = bert_tiny(device=dev, dropout=0.1, attention_dropout=0.1)
+    params = {n: p.detach().clone().requires_grad_()
+              for n, p in model.named_parameters()}
+    batch = batch_to_device(make_mlm_batch(3, 4, 64, 1000, pad_frac=0.3,
+                                           max_predictions=10), dev)
+
+    def grads():
+        tree = unflatten((n.replace(".", "/"), p) for n, p in params.items())
+        gen = torch.Generator(dev).manual_seed(7)  # same dropout masks
+        loss, _ = model.loss_fn(tree, {}, batch, generator=gen)
+        return loss, torch.autograd.grad(loss, list(params.values()))
+
+    _dispatch.reset_launch_counts()
+    loss_k, g_kernel = grads()
+    n = model.config.num_layers
+    assert _dispatch.launch_counts() == {
+        "flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
+    monkeypatch.setattr(attention_mod, "flash_attention", reference_attention)
+    loss_p, g_plain = grads()
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
+    # float32, two layers: the kernels' ~1e-6 relative differences pass
+    # through LayerNorm and GELU backward. Each leaf to 1e-3 of its max,
+    # that max floored at 1e-4 of the model's largest gradient: the key
+    # biases' exact gradient is 0 (softmax ignores a shift of a whole row)
+    # and theirs are rounding noise of ~1e-10 on either path.
+    top = max(w.abs().max().item() for w in g_plain)
+    for name, a, w in zip(params, g_kernel, g_plain):
+        scale = max(w.abs().max().item(), 1e-4 * top)
+        assert (a - w).abs().max().item() <= 1e-3 * scale, name
+    assert np.isfinite(loss_k.item())
+
+
+def test_remat_replays_the_cuda_generator(dev):
+    """With dropout on, a remat step's gradients equal the plain step's:
+    the recomputation in backward restores the card's generator state."""
+    from deeplearning4j_tpu_torch.train.trainer import Trainer
+
+    batch = batch_to_device(make_mlm_batch(4, 4, 64, 1000, pad_frac=0.3,
+                                           max_predictions=10), dev)
+    out = []
+    for remat in (False, True):
+        model = bert_tiny(device=dev, dropout=0.1, attention_dropout=0.1,
+                          remat=remat)
+        trainer = Trainer(model)
+        params = trainer.init_state().params  # the same seed both times
+        gen = torch.Generator(dev).manual_seed(5)
+        _dispatch.reset_launch_counts()
+        loss, _, _, grads = trainer._grad_of(params, {}, batch, gen)
+        n = model.config.num_layers
+        # remat runs each block's forward twice, so flash_fwd twice
+        assert _dispatch.launch_counts() == {
+            "flash_fwd": n * (2 if remat else 1), "flash_bwd_dkv": n,
+            "flash_bwd_dq": n}
+        out.append((loss.item(), dict(flatten_with_names(grads))))
+    assert out[0][0] == out[1][0]  # the same forward, op for op
+    # backward sums may be ordered differently by the library; a dropout
+    # mask drawn anew would differ by far more than this
+    top = max(g.abs().max().item() for g in out[0][1].values())
+    for name, g in out[0][1].items():
+        diff = (out[1][1][name] - g).abs().max().item()
+        assert diff <= 1e-6 * max(g.abs().max().item(), 1e-4 * top), name
