@@ -32,16 +32,40 @@ caught:
    checkpoint restored bit-equal with the same next-step loss; three
    mixed-precision (bf16) steps; step time, throughput, peak memory, the
    device's idle share and each flash kernel's share of a step.
+6. kernels (LSTM) — lstm_fwd and lstm_bwd against their plain versions at
+   the char-RNN's training shape (N=32, T=256, H=256, Graves peepholes,
+   forget bias 1), without peepholes, at H=200 with N=3 and from a
+   non-zero initial state; then timed beside their bounds, the plain
+   versions and torch.nn.LSTM (cuDNN, the case without peepholes).
+7. char-RNN serving — text_generation_lstm (vocab 77, hidden 256, seq
+   256, GravesLSTM, backend "pallas"), weights from a seed, behind
+   ModelServer (batched, max batch 8): int char ids in, the last step's
+   next-char probabilities out, one-hot encoded on the card; every
+   response held against the same model with plain LSTMs on the card;
+   exactly 2 lstm_fwd launches per dispatched batch.
+8. char-RNN training — Trainer.fit with Adam(1e-3) on batches of 32 x
+   256 one-hot chars of a learnable synthetic text from the seed: loss
+   and every gradient through the kernels against the plain path; 30
+   steps with 2 lstm_fwd + 2 lstm_bwd launches each and a loss that falls
+   by at least LOSS_FALL; a checkpoint restored bit-equal with the same
+   next-step loss; step time, tokens/s, peak memory, the device's idle
+   share and each LSTM kernel's share of a step.
 
-It prints the kernels line ({"kernels": [...]}), the serving line, the
-training line, the nvidia-smi line and, last, {"ok": true, "device":
-{...}}. It imports nothing of JAX nor of the JAX package.
+On the LSTM paths the plain ops/rnn.lstm must never see a CUDA tensor
+(it is the plain path the kernels are held against, run separately).
+
+It prints the kernels line ({"kernels": [...]}), the serving, training,
+char-RNN serving and char-RNN training lines, the nvidia-smi line and,
+last, {"ok": true, "device": {...}}. It imports nothing of JAX nor of
+the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import shutil
 import sys
@@ -109,7 +133,7 @@ def phase_device():
 
 # -- 2. build -----------------------------------------------------------------
 
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "lstm_scan")
 
 
 def phase_build():
@@ -189,23 +213,34 @@ def _time_ms(fn, iters=200, warmup=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_us_by_kernel(fn, iters=50) -> dict:
+def _device_us_by_kernel(fn, iters=50, launches=None) -> dict:
     """Device time per call of each CUDA kernel ``fn`` launches, in µs,
-    from the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    from the profiler. A dict passed as ``launches`` receives each
+    kernel's launches per call, as the profiler counted them. The
+    profiler traces one call as warm-up and discards it (tracing that
+    starts with a burst of launches misses the first few), then records
+    ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    averages = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=iters, repeat=1),
+                 on_trace_ready=lambda p: averages.append(
+                     p.key_averages())) as prof:
+        for _ in range(iters + 1):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     out = {}
-    for e in prof.key_averages():
+    for e in averages[0]:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None) or \
                 getattr(e, "self_cuda_time_total", 0.0)
             out[e.key] = out.get(e.key, 0.0) + us / iters
+            if launches is not None:
+                launches[e.key] = launches.get(e.key, 0) + e.count / iters
     return out
 
 
@@ -556,7 +591,9 @@ def phase_slice(dev, smi):
                                reference_attention):
             h_plain = model(_on(dev, batch))
     worst_hidden = float((h_kernel - h_plain).abs().max())
-    breakdown = _forward_breakdown(model, _on(dev, batch))
+    feats = _on(dev, batch)
+    breakdown = _forward_breakdown(lambda: _nsp_softmax(model, feats),
+                                   "flash_fwd")
     log(f"[slice] one bucket-8 forward: {breakdown}")
     log(f"[slice] served NSP probabilities vs plain attention: max_abs_err "
         f"{worst_probs:.3e} (tol {TOL_PROBS:.0e}); hidden [8,128,768]: "
@@ -580,10 +617,9 @@ def phase_slice(dev, smi):
             "card": smi}
 
 
-def _forward_breakdown(model, feats) -> dict:
-    """Where one bucket-8 forward's time goes: host wall time (synchronised,
-    median of 10), device kernel time and the flash kernel's part of it."""
-    fwd = lambda: _nsp_softmax(model, feats)  # noqa: E731
+def _forward_breakdown(fwd, kernel: str) -> dict:
+    """Where one forward's time goes: host wall time (synchronised,
+    median of 10), device kernel time and ``kernel``'s part of it."""
     with torch.inference_mode():
         walls = []
         for _ in range(13):
@@ -594,13 +630,13 @@ def _forward_breakdown(model, feats) -> dict:
         by_kernel = _device_us_by_kernel(fwd, iters=10)
     wall_ms = float(np.median(walls[3:])) * 1e3
     device_ms = sum(by_kernel.values()) / 1e3
-    flash_ms = sum(us for k, us in by_kernel.items()
-                   if "flash_fwd_kernel" in k) / 1e3
+    kernel_ms = sum(us for k, us in by_kernel.items()
+                    if f"{kernel}_" in k) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "flash_fwd_ms": flash_ms,
+            f"{kernel}_ms": kernel_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-            "flash_share_of_device": flash_ms / device_ms,
+            f"{kernel}_share_of_device": kernel_ms / device_ms,
             "top_kernels_us": {k[:60]: round(us, 1) for k, us in top}}
 
 
@@ -636,6 +672,27 @@ def _loss_and_grads(trainer, params, batch, dev, seed):
     return float(loss), dict(flatten_with_names(grads))
 
 
+def _check_grads(tag, loss_k, loss_p, g_kernel, g_plain):
+    """Kernel path vs plain path: the loss to TOL_LOSS_REL and each
+    gradient leaf to TOL_GRAD_FRAC of its floored max; fails the run
+    otherwise. Returns (loss rel, worst leaf, its fraction)."""
+    top = max(float(g.abs().max()) for g in g_plain.values())
+    worst_name, worst = None, 0.0
+    for name, gp in g_plain.items():
+        diff = float((g_kernel[name] - gp).abs().max())
+        ratio = diff / max(float(gp.abs().max()), TOL_GRAD_FLOOR * top)
+        if ratio > worst:
+            worst_name, worst = name, ratio
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[{tag}] kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f} "
+        f"(rel {loss_rel:.2e}, tol {TOL_LOSS_REL:.0e}); worst gradient leaf "
+        f"{worst_name} at {worst:.2e} of its max (tol {TOL_GRAD_FRAC:.0e})")
+    if loss_rel > TOL_LOSS_REL or worst > TOL_GRAD_FRAC:
+        raise SystemExit("chip_smoke: the kernel path's loss or gradients "
+                         "disagree with the plain path")
+    return loss_rel, worst_name, worst
+
+
 def phase_train(dev, smi, batches):
     from deeplearning4j_tpu_torch.kernels import _dispatch
     from deeplearning4j_tpu_torch.kernels.flash_attention import (
@@ -644,33 +701,8 @@ def phase_train(dev, smi, batches):
     from deeplearning4j_tpu_torch.models.bert import bert_base
     from deeplearning4j_tpu_torch.nn import config as nnconfig
     from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
-    from deeplearning4j_tpu_torch.serde.checkpoint import (
-        latest_checkpoint,
-        restore_checkpoint,
-    )
-    from deeplearning4j_tpu_torch.train.listeners import (
-        CheckpointListener,
-        ScoreIterationListener,
-        TrainingListener,
-    )
     from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
     from deeplearning4j_tpu_torch.train.updaters import Adam
-    from deeplearning4j_tpu_torch.utils.pytree import tree_leaves
-
-    class StepEvents(TrainingListener):
-        """Records a CUDA event at every iteration (no host sync) and keeps
-        each step's loss tensor: the steps' spacing on the device timeline
-        and their losses, read after the fit."""
-
-        def __init__(self):
-            self.events, self.losses = [], []
-
-        def on_iteration(self, epoch, step, ts, metrics):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.events.append(ev)
-            self.losses.append(metrics["total_loss"])
-            return False
 
     t0 = time.monotonic()
     model = bert_base(device=dev, net=nnconfig.NeuralNetConfiguration(
@@ -699,81 +731,24 @@ def phase_train(dev, smi, batches):
                            reference_attention):
         loss_p, g_plain = _loss_and_grads(trainer, ts0.params, on_dev[0],
                                           dev, SEED)
-    top = max(float(g.abs().max()) for g in g_plain.values())
-    worst_name, worst = None, 0.0
-    for name, gp in g_plain.items():
-        diff = float((g_kernel[name] - gp).abs().max())
-        ratio = diff / max(float(gp.abs().max()), TOL_GRAD_FLOOR * top)
-        if ratio > worst:
-            worst_name, worst = name, ratio
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"[train] kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f} "
-        f"(rel {loss_rel:.2e}, tol {TOL_LOSS_REL:.0e}); worst gradient leaf "
-        f"{worst_name} at {worst:.2e} of its max (tol {TOL_GRAD_FRAC:.0e})")
-    if loss_rel > TOL_LOSS_REL or worst > TOL_GRAD_FRAC:
-        raise SystemExit("chip_smoke: the kernel path's loss or gradients "
-                         "disagree with the plain path")
+    loss_rel, worst_name, worst = _check_grads("train", loss_k, loss_p,
+                                               g_kernel, g_plain)
     del g_kernel, g_plain
 
-    # 2. Trainer.fit: 30 steps over the fixed batches
-    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
-    try:
-        score = ScoreIterationListener(every=10)
-        steps = StepEvents()
-        ckpts = CheckpointListener(str(ckpt_dir), every_epochs=None,
-                                   every_iters=10, keep_last=2, model=model)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        _dispatch.reset_launch_counts()
-        t0 = time.monotonic()
-        ts = trainer.fit(ts0, on_dev, epochs=FIT_EPOCHS,
-                         listeners=[score, steps, ckpts])
-        torch.cuda.synchronize()
-        fit_s = time.monotonic() - t0
-        counts = fit_counts = _dispatch.launch_counts()
-        n_steps = ts.step
-        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-        losses = [float(x) for x in steps.losses]
-        gaps = [a.elapsed_time(b) for a, b in zip(steps.events,
-                                                  steps.events[1:])]
-        step_ms = float(np.median(gaps[3:]))
-        log(f"[train] fit: {n_steps} steps in {fit_s:.2f} s (3 checkpoints "
-            f"included); launches {counts}; losses first "
-            f"{[round(x, 4) for x in losses[:3]]} last "
-            f"{[round(x, 4) for x in losses[-3:]]}; median step "
-            f"{step_ms:.2f} ms; peak memory {peak_gib:.2f} GiB")
-        want = {k: layers * n_steps for k in want}
-        if n_steps != TRAIN_BATCHES * FIT_EPOCHS or counts != want:
-            raise SystemExit(f"chip_smoke: fit launched {counts} over "
-                             f"{n_steps} steps, want {want}")
-        first, last = np.mean(losses[:TRAIN_BATCHES]), np.mean(
-            losses[-TRAIN_BATCHES:])
-        if not (np.all(np.isfinite(losses)) and last < first):
-            raise SystemExit(f"chip_smoke: the loss did not fall "
-                             f"({first:.4f} -> {last:.4f})")
-
-        # 3. the last checkpoint restores bit-equal, with the same next loss
-        path = latest_checkpoint(ckpt_dir)
-        restored = restore_checkpoint(path, trainer.init_state())
-        same = restored.step == ts.step and all(
-            torch.equal(a, b) for a, b in zip(tree_leaves(restored.params),
-                                              tree_leaves(ts.params)))
-        same_opt = all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(restored.opt_state), tree_leaves(ts.opt_state)))
-        nxt = on_dev[ts.step % TRAIN_BATCHES]
-        _, m_live = trainer.train_step(ts, nxt)
-        _, m_back = trainer.train_step(restored, nxt)
-        next_live, next_back = (float(m_live["total_loss"]),
-                                float(m_back["total_loss"]))
-        log(f"[train] restored {Path(path).name}: params bit-equal={same}, "
-            f"updater state bit-equal={same_opt}; next-step loss "
-            f"{next_live:.6f} live vs {next_back:.6f} restored")
-        if not (same and same_opt and next_live == next_back):
-            raise SystemExit("chip_smoke: the checkpoint did not restore "
-                             "the training state")
-        del restored
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # 2. Trainer.fit: 30 steps over the fixed batches; 3. the last
+    # checkpoint restores bit-equal, with the same next-step loss
+    fit = _fit_and_restore("train", trainer, ts0, on_dev, FIT_EPOCHS, dev)
+    ts, counts, losses = fit["ts"], fit["launches"], fit["losses"]
+    fit_counts, n_steps, step_ms = counts, ts.step, fit["median_step_ms"]
+    want = {k: layers * n_steps for k in want}
+    if n_steps != TRAIN_BATCHES * FIT_EPOCHS or counts != want:
+        raise SystemExit(f"chip_smoke: fit launched {counts} over "
+                         f"{n_steps} steps, want {want}")
+    first, last = np.mean(losses[:TRAIN_BATCHES]), np.mean(
+        losses[-TRAIN_BATCHES:])
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise SystemExit(f"chip_smoke: the loss did not fall "
+                         f"({first:.4f} -> {last:.4f})")
 
     # 4. mixed precision: bf16 compute, float32 master params and state
     mp_model = copy.copy(model)  # shares the parameters, not the config
@@ -798,7 +773,9 @@ def phase_train(dev, smi, batches):
     del mts, mp_trainer
 
     # 5. where one step's time goes
-    breakdown = _step_breakdown(trainer, ts, on_dev[0])
+    breakdown = _step_breakdown(trainer, ts, on_dev[0],
+                                ("flash_fwd", "flash_bwd_dkv",
+                                 "flash_bwd_dq"))
     log(f"[train] one step: {breakdown}")
     tokens = TRAIN_BATCH * TRAIN_T
     real_tokens = int(sum(float(b["features"]["mask"].sum()) for b in batches)
@@ -809,25 +786,117 @@ def phase_train(dev, smi, batches):
         "launches": fit_counts,
         "losses": losses, "loss_first_epoch": float(first),
         "loss_last_epoch": float(last),
-        "median_step_ms": step_ms, "step_ms_gaps": gaps,
+        "median_step_ms": step_ms, "step_ms_gaps": fit["step_ms_gaps"],
         "samples_per_s": TRAIN_BATCH / (step_ms / 1e3),
         "tokens_per_s": tokens / (step_ms / 1e3),
         "real_tokens_per_s": real_tokens / (step_ms / 1e3),
-        "peak_memory_gib": peak_gib, "fit_seconds": fit_s,
+        "peak_memory_gib": fit["peak_memory_gib"],
+        "fit_seconds": fit["fit_seconds"],
         "kernel_vs_plain": {"loss_kernel": loss_k, "loss_plain": loss_p,
                             "loss_rel": loss_rel,
                             "worst_grad_leaf": worst_name,
                             "worst_grad_frac": worst},
-        "checkpoint_next_loss": next_back, "mixed_precision_losses":
+        "checkpoint_next_loss": fit["checkpoint_next_loss"],
+        "mixed_precision_losses":
             mp_losses, "mixed_vs_fp32_rel": mp_rel,
         "step_breakdown": breakdown, "card": smi,
     }
 
 
-def _step_breakdown(trainer, ts, batch) -> dict:
+def _step_events():
+    """A listener that records a CUDA event at every iteration (no host
+    sync) and keeps each step's loss tensor: the steps' spacing on the
+    device timeline and their losses, read after the fit."""
+    from deeplearning4j_tpu_torch.train.listeners import TrainingListener
+
+    class StepEvents(TrainingListener):
+        def __init__(self):
+            self.events, self.losses = [], []
+
+        def on_iteration(self, epoch, step, ts, metrics):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            self.losses.append(metrics["total_loss"])
+            return False
+
+    return StepEvents()
+
+
+def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev) -> dict:
+    """Trainer.fit over ``batches`` for ``epochs`` with a checkpoint every
+    10 iterations (keep 2); the launch counts, losses, median step (CUDA
+    events between steps, after 3), peak memory; then the last checkpoint
+    restored must give bit-equal params and updater state and the same
+    next-step loss as the live state."""
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.serde.checkpoint import (
+        latest_checkpoint,
+        restore_checkpoint,
+    )
+    from deeplearning4j_tpu_torch.train.listeners import (
+        CheckpointListener,
+        ScoreIterationListener,
+    )
+    from deeplearning4j_tpu_torch.utils.pytree import tree_leaves
+
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        steps = _step_events()
+        ckpts = CheckpointListener(str(ckpt_dir), every_epochs=None,
+                                   every_iters=10, keep_last=2,
+                                   model=trainer.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _dispatch.reset_launch_counts()
+        t0 = time.monotonic()
+        ts = trainer.fit(ts0, batches, epochs=epochs, listeners=[
+            ScoreIterationListener(every=10), steps, ckpts])
+        torch.cuda.synchronize()
+        fit_s = time.monotonic() - t0
+        counts = _dispatch.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        losses = [float(x) for x in steps.losses]
+        gaps = [a.elapsed_time(b) for a, b in zip(steps.events,
+                                                  steps.events[1:])]
+        step_ms = float(np.median(gaps[3:]))
+        log(f"[{tag}] fit: {ts.step} steps in {fit_s:.2f} s (checkpoints "
+            f"included); launches {counts}; losses first "
+            f"{[round(x, 4) for x in losses[:3]]} last "
+            f"{[round(x, 4) for x in losses[-3:]]}; median step "
+            f"{step_ms:.2f} ms; peak memory {peak_gib:.2f} GiB")
+
+        path = latest_checkpoint(ckpt_dir)
+        restored = restore_checkpoint(path, trainer.init_state())
+        same = restored.step == ts.step and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(restored.params),
+                                              tree_leaves(ts.params)))
+        same_opt = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(restored.opt_state), tree_leaves(ts.opt_state)))
+        nxt = batches[ts.step % len(batches)]
+        _, m_live = trainer.train_step(ts, nxt)
+        _, m_back = trainer.train_step(restored, nxt)
+        next_live, next_back = (float(m_live["total_loss"]),
+                                float(m_back["total_loss"]))
+        log(f"[{tag}] restored {Path(path).name}: params bit-equal={same}, "
+            f"updater state bit-equal={same_opt}; next-step loss "
+            f"{next_live:.6f} live vs {next_back:.6f} restored")
+        if not (same and same_opt and next_live == next_back):
+            raise SystemExit("chip_smoke: the checkpoint did not restore "
+                             "the training state")
+        del restored
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"ts": ts, "launches": counts, "losses": losses,
+            "median_step_ms": step_ms, "step_ms_gaps": gaps,
+            "peak_memory_gib": peak_gib, "fit_seconds": fit_s,
+            "checkpoint_next_loss": next_back}
+
+
+def _step_breakdown(trainer, ts, batch, kernels) -> dict:
     """One train step: host wall time (synchronised, median of 5 after 2
     warm-up), device kernel time from the profiler, the device's idle
-    share of the wall time, and each flash kernel's share of the device
+    share of the wall time, and each named kernel's share of the device
     time."""
     step = lambda: trainer.train_step(ts, batch)  # noqa: E731
     walls = []
@@ -841,14 +910,14 @@ def _step_breakdown(trainer, ts, batch) -> dict:
     by_kernel = _device_us_by_kernel(step, iters=3)
     device_ms = sum(by_kernel.values()) / 1e3
     shares = {}
-    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+    for kernel in kernels:
         k_ms = sum(us for k, us in by_kernel.items()
-                   if f"{kernel}_kernel" in k) / 1e3
+                   if f"{kernel}_" in k) / 1e3
         shares[kernel] = {"ms": k_ms, "share_of_device": k_ms / device_ms}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-            "flash": shares,
+            "kernels": shares,
             "top_kernels_us": {k[:60]: round(us, 1) for k, us in top}}
 
 
@@ -859,6 +928,602 @@ def _train_batches():
                            mask_frac=0.15, pad_frac=0.1,
                            max_predictions=MAX_PRED)
             for i in range(TRAIN_BATCHES)]
+
+
+# -- 6. kernels (LSTM) --------------------------------------------------------
+
+# The char-RNN of bench.py's bench_lstm: text_generation_lstm at vocab 77,
+# hidden 256, seq 256, two GravesLSTM layers, batch 32.
+CHAR_VOCAB, CHAR_HIDDEN, CHAR_T, CHAR_BATCH = 77, 256, 256, 32
+# lstm_fwd / lstm_bwd vs their plain versions, float32 on both sides,
+# differing in the order of the sums of h·RW over H terms and of dz·RWᵀ
+# over 4H: forward outputs (|h| <= 1, |c| of order 1) to 1e-5 absolute;
+# backward dz and the carries to 1e-5 of max(1, max |plain|).
+TOL_LSTM_FWD = 1e-5
+TOL_LSTM_BWD = 1e-5
+
+# (name, N, T, H, Graves peepholes, forget bias, non-zero initial state,
+#  timed)
+LSTM_CASES = [
+    ("char_rnn_train_graves", CHAR_BATCH, CHAR_T, CHAR_HIDDEN, True, 1.0,
+     False, True),
+    ("char_rnn_train_no_peepholes", CHAR_BATCH, CHAR_T, CHAR_HIDDEN, False,
+     1.0, False, True),
+    ("h200_n3_graves", 3, CHAR_T, 200, True, 1.0, False, False),
+    ("init_state_n8_graves", 8, 64, CHAR_HIDDEN, True, 1.0, True, False),
+]
+
+
+def _lstm_inputs(dev, n, t, h, peep, init, seed):
+    """xp_tm, rw, b, h0, c0, peep, gh_tm, gcT: float32 on the card, RW
+    glorot-normal as the layers draw it."""
+    g = torch.Generator().manual_seed(seed)
+    xp = torch.randn((t, n, 4 * h), generator=g)
+    rw = (2.0 / (5 * h)) ** 0.5 * torch.randn((h, 4 * h), generator=g)
+    b = 0.1 * torch.randn((4 * h,), generator=g)
+    if init:
+        h0 = torch.tanh(torch.randn((n, h), generator=g))
+        c0 = torch.randn((n, h), generator=g)
+    else:
+        h0 = c0 = torch.zeros((n, h))
+    pe = 0.1 * torch.randn((3, h), generator=g) if peep else None
+    gh = torch.randn((t, n, h), generator=g)
+    gc = torch.randn((n, h), generator=g)
+    return [None if a is None else a.to(dev)
+            for a in (xp, rw, b, h0, c0, pe, gh, gc)]
+
+
+def _lstm_bound(kernel, n, t, h, peep, zero_init, workspace=True):
+    """Least time for one sweep. Operations: the recurrent products,
+    2·N·H·4H per product this run needs — forward one per step but the
+    first when h0 is 0, backward the T-1 carries dz·RWᵀ and the one to
+    h0 — at the float32 CUDA-core peak; the gate math (tens of
+    operations per unit and step, under 2% of the products at H=256) is
+    not counted. Bytes, float32, each input read once and each output
+    written once: forward xp, RW, b, the peepholes, h0 and c0 in; hs and,
+    with the workspace, gates and cell states out (without it c_T);
+    backward gates, cell states, dL/dh, dL/dc_T, RW, the peepholes and c0
+    in; dz, dh0 and dc0 out."""
+    prod = 2.0 * n * h * 4 * h
+    nh, nh4 = n * h, 4 * n * h
+    pbytes = 3 * h if peep else 0
+    if kernel == "lstm_fwd":
+        ops = prod * (t - 1 if zero_init else t)
+        out = t * nh4 + t * nh if workspace else nh
+        nbytes = 4 * (t * nh4 + 4 * h * h + 4 * h + pbytes + 2 * nh
+                      + t * nh + out)
+    else:
+        ops = prod * t
+        nbytes = 4 * (t * nh4 + 2 * t * nh + nh + 4 * h * h + pbytes + nh
+                      + t * nh4 + 2 * nh)
+    t_ops = ops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def phase_kernels_lstm(dev):
+    """lstm_fwd and lstm_bwd against reference_lstm_fwd/_bwd on the same
+    inputs (the backward on the kernel's own workspace); then timed at the
+    training shape."""
+    from deeplearning4j_tpu_torch.kernels.lstm_scan import (
+        lstm_bwd_cuda,
+        lstm_fwd_cuda,
+        reference_lstm_bwd,
+        reference_lstm_fwd,
+    )
+
+    results = {}
+    for name, n, t, h, peep, fb, init, timed in LSTM_CASES:
+        xp, rw, b, h0, c0, pe, gh, gc = _lstm_inputs(dev, n, t, h, peep,
+                                                     init, seed=n + t + h)
+        got = lstm_fwd_cuda(xp, rw, b, h0, c0, pe, fb, save_workspace=True)
+        want = reference_lstm_fwd(xp, rw, b, h0, c0, pe, fb,
+                                  save_workspace=True)
+        fwd_err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        gates, cs = got[3], got[4]
+        c_prev = torch.cat([c0[None], cs[:-1]])
+        dgot = lstm_bwd_cuda(gates, cs, c0, gh, gc, rw, pe)
+        dwant = reference_lstm_bwd(gates, cs, c_prev, gh, gc, rw, pe)
+        torch.cuda.synchronize()
+        bwd_abs = max(float((a - w).abs().max()) for a, w in zip(dgot,
+                                                                 dwant))
+        bwd_frac = max(float((a - w).abs().max())
+                       / max(1.0, float(w.abs().max()))
+                       for a, w in zip(dgot, dwant))
+        finite = all(bool(torch.isfinite(a).all()) for a in (*got, *dgot))
+        ok = fwd_err <= TOL_LSTM_FWD and bwd_frac <= TOL_LSTM_BWD and finite
+        log(f"[kernels] lstm {name}: lstm_fwd max_abs_err {fwd_err:.3e} "
+            f"(tol {TOL_LSTM_FWD:.0e}); lstm_bwd max_abs_err {bwd_abs:.3e}, "
+            f"{bwd_frac:.3e} of max(1, |plain|) (tol {TOL_LSTM_BWD:.0e}); "
+            f"finite={finite} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: LSTM kernel case {name} failed")
+        row = {"shape": [n, t, h], "peepholes": peep, "forget_bias": fb,
+               "init_state": init, "lstm_fwd_max_abs_err": fwd_err,
+               "lstm_bwd_max_abs_err": bwd_abs,
+               "lstm_bwd_max_err_frac": bwd_frac}
+        if timed:
+            row.update(_time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc,
+                                  gates, cs))
+            log(f"[kernels] lstm {name}: lstm_fwd {row['lstm_fwd_ms']:.4f} "
+                f"ms (device {row['lstm_fwd_device_ms']:.4f}, bound "
+                f"{row['lstm_fwd_bound_ms']:.4f} {row['lstm_fwd_bound_by']}"
+                f"; serving N=8 without workspace "
+                f"{row['lstm_fwd_n8_ms']:.4f}), plain "
+                f"{row['lstm_fwd_plain_ms']:.4f} ms; lstm_bwd "
+                f"{row['lstm_bwd_ms']:.4f} ms (device "
+                f"{row['lstm_bwd_device_ms']:.4f}, bound "
+                f"{row['lstm_bwd_bound_ms']:.4f} "
+                f"{row['lstm_bwd_bound_by']}), plain "
+                f"{row['lstm_bwd_plain_ms']:.4f} ms")
+            if not peep:
+                row.update(_time_cudnn(dev, rw, b, fb))
+                log(f"[kernels] lstm {name} vs torch.nn.LSTM (cuDNN), input "
+                    f"width {CHAR_HIDDEN}: forward op {row['op_fwd_ms']:.4f}"
+                    f" ms vs cuDNN {row['cudnn_fwd_ms']:.4f} ms; backward "
+                    f"op {row['op_bwd_ms']:.4f} ms vs cuDNN "
+                    f"{row['cudnn_bwd_ms']:.4f} ms; outputs agree to "
+                    f"{row['cudnn_max_abs_err']:.3e}")
+        results[name] = row
+    return results
+
+
+def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs):
+    """Both kernels and both plain versions by CUDA events (one call each
+    in turn, twice: kernel, plain, plain, kernel), the kernels' device
+    time from the profiler, and the forward at the serving bucket N=8
+    without the workspace."""
+    from deeplearning4j_tpu_torch.kernels.lstm_scan import (
+        lstm_bwd_cuda,
+        lstm_fwd_cuda,
+        reference_lstm_bwd,
+        reference_lstm_fwd,
+    )
+
+    t, n, h4 = xp.shape
+    h = h4 // 4
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    xp8, h08, c08 = (a[..., :8, :].contiguous() for a in (xp, h0, c0))
+    fns = {
+        "lstm_fwd": lambda: lstm_fwd_cuda(xp, rw, b, h0, c0, pe, fb,
+                                          save_workspace=True),
+        "lstm_fwd_plain": lambda: reference_lstm_fwd(
+            xp, rw, b, h0, c0, pe, fb, save_workspace=True),
+        "lstm_bwd": lambda: lstm_bwd_cuda(gates, cs, c0, gh, gc, rw, pe),
+        "lstm_bwd_plain": lambda: reference_lstm_bwd(gates, cs, c_prev, gh,
+                                                     gc, rw, pe),
+        "lstm_fwd_n8": lambda: lstm_fwd_cuda(xp8, rw, b, h08, c08, pe, fb),
+    }
+    runs = {k: [] for k in fns}
+    for k in ("lstm_fwd", "lstm_fwd_plain", "lstm_fwd_plain", "lstm_fwd",
+              "lstm_bwd", "lstm_bwd_plain", "lstm_bwd_plain", "lstm_bwd",
+              "lstm_fwd_n8", "lstm_fwd_n8"):
+        runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
+    row = {f"{k}_ms": min(v) for k, v in runs.items()}
+    row.update({f"{k}_ms_runs": v for k, v in runs.items()})
+    peep = pe is not None
+    zero_init = not bool(h0.any())
+    for kernel in ("lstm_fwd", "lstm_bwd"):
+        launches = {}
+        by_kernel = _device_us_by_kernel(fns[kernel], iters=5,
+                                         launches=launches)
+        row[f"{kernel}_device_ms"] = sum(
+            us for k, us in by_kernel.items() if f"{kernel}_" in k) / 1e3
+        # One step kernel per time step (and one more for dh0 backward),
+        # as the profiler counted them on the card.
+        steps = sum(c for k, c in launches.items()
+                    if f"{kernel}_step_kernel" in k)
+        want = t + (kernel == "lstm_bwd")
+        log(f"[kernels] {kernel}: {steps} step launches per call "
+            f"(profiler; expected {want})")
+        if steps != want:
+            raise SystemExit(f"chip_smoke: {kernel} launched {steps} step "
+                             f"kernels per call, expected {want}")
+        row[f"{kernel}_step_launches_per_call"] = steps
+        row[f"{kernel}_device_by_kernel_us"] = {
+            k[:60]: us for k, us in by_kernel.items()}
+        bound_ms, bound_by, ops, nbytes = _lstm_bound(kernel, n, t, h, peep,
+                                                      zero_init)
+        row.update({f"{kernel}_bound_ms": bound_ms,
+                    f"{kernel}_bound_by": bound_by, f"{kernel}_ops": ops,
+                    f"{kernel}_bytes": nbytes})
+    row["lstm_fwd_n8_bound_ms"] = _lstm_bound("lstm_fwd", 8, t, h, peep,
+                                              zero_init, workspace=False)[0]
+    return row
+
+
+def _time_cudnn(dev, rw, b, fb):
+    """torch.nn.LSTM (cuDNN) on an input x [N,T,H] beside the port's op on
+    the same x and weights (forget bias folded into b_ih's f slice, RW
+    transposed to weight_hh, gate order i,f,g,o as the port's), forward
+    without grad and backward to x and every weight: the library
+    yardstick of the case without peepholes. The outputs must agree."""
+    from deeplearning4j_tpu_torch.kernels.lstm_scan import lstm
+
+    h = rw.shape[0]
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((CHAR_BATCH, CHAR_T, h), generator=g).to(dev)
+    w_x = ((2.0 / (5 * h)) ** 0.5 * torch.randn((h, 4 * h), generator=g)
+           ).to(dev)
+    cudnn = torch.nn.LSTM(h, h, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(w_x.t())
+        cudnn.weight_hh_l0.copy_(rw.t())
+        bias = b.clone()
+        bias[h:2 * h] += fb
+        cudnn.bias_ih_l0.copy_(bias)
+        cudnn.bias_hh_l0.zero_()
+        err = float((cudnn(x)[0] - lstm(x, w_x, rw, b, forget_bias=fb)[0]
+                     ).abs().max())
+    if err > 1e-4:
+        raise SystemExit(f"chip_smoke: torch.nn.LSTM disagrees with the "
+                         f"port's op by {err:.3e}: not the same function")
+    leaves = [a.clone().requires_grad_() for a in (x, w_x, rw, b)]
+    out_op = lstm(*leaves, forget_bias=fb)[0]
+    xg = x.clone().requires_grad_()
+    out_lib = cudnn(xg)[0]
+    dout = torch.randn(out_lib.shape, generator=g).to(dev)
+    lib_leaves = [xg, *cudnn.parameters()]
+    fns = {
+        "op_fwd": lambda: lstm(x, w_x, rw, b, forget_bias=fb),
+        "cudnn_fwd": lambda: cudnn(x),
+        "op_bwd": lambda: torch.autograd.grad(out_op, leaves, dout,
+                                              retain_graph=True),
+        "cudnn_bwd": lambda: torch.autograd.grad(out_lib, lib_leaves, dout,
+                                                 retain_graph=True),
+    }
+    runs = {k: [] for k in fns}
+    with torch.no_grad():
+        for k in ("op_fwd", "cudnn_fwd", "cudnn_fwd", "op_fwd"):
+            runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
+    for k in ("op_bwd", "cudnn_bwd", "cudnn_bwd", "op_bwd"):
+        runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
+    row = {f"{k}_ms": min(v) for k, v in runs.items()}
+    row.update({f"{k}_ms_runs": v for k, v in runs.items()})
+    row["cudnn_max_abs_err"] = err
+    return row
+
+
+@contextlib.contextmanager
+def _plain_lstm_guard():
+    """Records every call of the plain ops/rnn.lstm on a CUDA tensor: the
+    LSTM main paths must make none (the kernels carry every recurrence)."""
+    from deeplearning4j_tpu_torch.ops import rnn as opsrnn
+
+    calls = []
+    plain = opsrnn.lstm
+
+    def guarded(x, *args, **kwargs):
+        if x.is_cuda:
+            calls.append(tuple(x.shape))
+        return plain(x, *args, **kwargs)
+
+    with mock.patch.object(opsrnn, "lstm", guarded):
+        yield calls
+
+
+@contextlib.contextmanager
+def _gc_pauses():
+    """Records (start, seconds, generation) of every Python garbage
+    collection."""
+    pauses, began = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            began.append(time.monotonic())
+        elif began:
+            t = began.pop()
+            pauses.append((t, time.monotonic() - t, info["generation"]))
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def _char_rnn(dev, backend, updater=None):
+    from deeplearning4j_tpu_torch.models.zoo.classic import (
+        text_generation_lstm,
+    )
+
+    return text_generation_lstm(device=dev, vocab_size=CHAR_VOCAB,
+                                hidden=CHAR_HIDDEN, seq_len=CHAR_T,
+                                graves=True, backend=backend,
+                                updater=updater, seed=SEED)
+
+
+# -- 7. char-RNN serving ------------------------------------------------------
+
+CHAR_REQUESTS = 400
+# served next-char probabilities vs the same model with plain LSTMs,
+# float32: two layers carry the kernels' ~1e-7 step differences over 256
+# steps into a softmax over 77 characters.
+TOL_CHAR_PROBS = 1e-5
+
+
+def _char_request(i):
+    r = np.random.default_rng(5000 + i)
+    return r.integers(0, CHAR_VOCAB, (1 + i % 4, CHAR_T)).astype(np.int32)
+
+
+def phase_charrnn_serving(dev, smi):
+    from functools import partial
+
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.models.zoo.classic import next_char_probs
+    from deeplearning4j_tpu_torch.serving import (
+        ModelRegistry,
+        ModelServer,
+        ServingClient,
+        spec,
+    )
+
+    model = _char_rnn(dev, "pallas")
+    variables = model.init()
+    log(f"[char_serve] text_generation_lstm: {model.num_params(variables):,}"
+        f" parameters on {dev}, seed {SEED}, layers {model.layer_names}")
+    reg = ModelRegistry()
+    entry = reg.register(
+        "char_rnn", partial(next_char_probs, model), variables,
+        input_spec=spec((CHAR_T,), np.int32, high=CHAR_VOCAB),
+        mode="batched", max_batch_size=8)
+    server = ModelServer(reg, port=0)
+    t0 = time.monotonic()
+    server.start(warm=True)
+    client = ServingClient(server.url, timeout=120)
+    if not client.ready()["ready"]:
+        raise SystemExit("chip_smoke: /readyz not ready after warm start")
+    log(f"[char_serve] server warm and ready in {time.monotonic() - t0:.2f}"
+        f" s (buckets {sorted(entry.batch_stats().items())})")
+
+    requests = [_char_request(i) for i in range(CHAR_REQUESTS)]
+    latencies = [0.0] * CHAR_REQUESTS
+    starts = [0.0] * CHAR_REQUESTS
+
+    def call(i):
+        t_start = time.monotonic()
+        resp = client.predict("char_rnn", requests[i])
+        latencies[i] = time.monotonic() - t_start
+        starts[i] = t_start
+        return resp
+
+    with _plain_lstm_guard() as plain_calls, _gc_pauses() as pauses:
+        _dispatch.reset_launch_counts()
+        before = entry.batch_stats()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(CLIENT_THREADS) as pool:
+            responses = list(pool.map(call, range(CHAR_REQUESTS)))
+        wall = time.monotonic() - t0
+        counts = _dispatch.launch_counts()
+        after = entry.batch_stats()
+    batches = after["batches"] - before["batches"]
+    rows = after["rows"] - before["rows"]
+    drained = server.stop()
+    log(f"[char_serve] {CHAR_REQUESTS} requests ({rows} rows) in "
+        f"{wall:.3f} s over {batches} batches; launches {counts}; plain "
+        f"ops/rnn.lstm calls on the card {len(plain_calls)}; "
+        f"drained={drained}")
+    if batches < 1 or counts != {"lstm_fwd": 2 * batches} or plain_calls:
+        raise SystemExit(f"chip_smoke: {counts} for {batches} batches and "
+                         f"{len(plain_calls)} plain LSTM calls; want 2 "
+                         f"lstm_fwd per batch and none")
+    if not drained:
+        raise SystemExit("chip_smoke: server did not drain on stop")
+
+    # every response against the same model with plain LSTMs, all rows
+    # in one batch
+    got = [np.asarray(r["outputs"], np.float64) for r in responses]
+    for req, out in zip(requests, got):
+        if out.shape != (req.shape[0], CHAR_VOCAB) or not np.all(
+                np.isfinite(out)) or np.abs(out.sum(-1) - 1).max() > 1e-5:
+            raise SystemExit(f"chip_smoke: bad served output {out}")
+    all_ids = torch.from_numpy(np.concatenate(requests)).to(dev)
+    want = next_char_probs(_char_rnn(dev, "xla"), variables,
+                           all_ids).double().cpu().numpy()
+    worst = float(np.abs(np.concatenate(got) - want).max())
+    ids8 = all_ids[:8]
+    breakdown = _forward_breakdown(
+        lambda: next_char_probs(model, variables, ids8), "lstm_fwd")
+    log(f"[char_serve] one bucket-8 forward: {breakdown}")
+    log(f"[char_serve] served next-char probabilities vs plain LSTMs: "
+        f"max_abs_err {worst:.3e} (tol {TOL_CHAR_PROBS:.0e}) over "
+        f"{all_ids.shape[0]} rows")
+    if worst > TOL_CHAR_PROBS:
+        raise SystemExit("chip_smoke: served char-RNN outputs disagree with "
+                         "plain LSTMs")
+    lat_ms = np.asarray(latencies) * 1e3
+    # The tail: which requests were slow, when they started, and the
+    # garbage collections that ran meanwhile.
+    slowest = [{"request": int(i), "start_ms": (starts[i] - t0) * 1e3,
+                "latency_ms": float(lat_ms[i])}
+               for i in np.argsort(lat_ms)[::-1][:6]]
+    gc_long = max(((d * 1e3, g, (st - t0) * 1e3) for st, d, g in pauses),
+                  default=(0.0, None, 0.0))
+    log(f"[char_serve] slowest requests (index, start after t0 ms, "
+        f"latency ms): " + "; ".join(
+            f"{r['request']}, {r['start_ms']:.1f}, {r['latency_ms']:.1f}"
+            for r in slowest)
+        + f"; {len(pauses)} garbage collections, longest {gc_long[0]:.2f} "
+        f"ms (generation {gc_long[1]}, start after t0 {gc_long[2]:.1f} ms)")
+    log(f"[char_serve] {CHAR_REQUESTS / wall:.1f} requests/s "
+        f"({rows / wall:.1f} rows/s), p50 {np.percentile(lat_ms, 50):.2f} "
+        f"ms, p99 {np.percentile(lat_ms, 99):.2f} ms over {CHAR_REQUESTS} "
+        f"requests, {CLIENT_THREADS} clients, on {smi}")
+    return {"model": "text_generation_lstm", "vocab": CHAR_VOCAB,
+            "hidden": CHAR_HIDDEN, "seq_len": CHAR_T,
+            "requests": CHAR_REQUESTS, "rows": rows,
+            "client_threads": CLIENT_THREADS, "batches": batches,
+            "lstm_fwd_launches": counts["lstm_fwd"],
+            "requests_per_s": CHAR_REQUESTS / wall,
+            "rows_per_s": rows / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "max_abs_err_probs": worst, "forward_bucket8": breakdown,
+            "slowest_requests": slowest, "gc_pauses": len(pauses),
+            "gc_longest_ms": gc_long[0], "card": smi}
+
+
+# -- 8. char-RNN training -----------------------------------------------------
+
+CHAR_LR = 1e-3
+CHAR_PERIOD = 16        # the synthetic text repeats a random 16-char string
+CHAR_TRAIN_BATCHES = 10
+CHAR_EPOCHS = 3         # 30 steps
+# The loss starts near ln(77) = 4.34; learning the text's 16 characters
+# alone takes it towards ln(16) = 2.77 (4.34 -> 2.78 over these 30 steps
+# on the CPU's plain path). The mean of the last three steps must lie at
+# least this far below the first three's.
+LOSS_FALL = 1.0
+
+
+def _char_batches():
+    """CHAR_TRAIN_BATCHES batches of CHAR_BATCH rows of one-hot chars:
+    a random string of CHAR_PERIOD chars from the seed, repeated, each row
+    a window shifted by its row and batch; labels the next chars."""
+    r = np.random.default_rng(SEED)
+    base = r.integers(0, CHAR_VOCAB, CHAR_PERIOD)
+    text = np.tile(base, (CHAR_T + 1) // CHAR_PERIOD + 2)
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    out = []
+    for b in range(CHAR_TRAIN_BATCHES):
+        offs = (np.arange(CHAR_BATCH) * 7 + b * 13) % CHAR_PERIOD
+        ids = np.stack([text[o:o + CHAR_T + 1] for o in offs])
+        out.append({"features": eye[ids[:, :-1]], "labels": eye[ids[:, 1:]]})
+    return out
+
+
+def phase_charrnn_train(dev, smi):
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    model = _char_rnn(dev, "pallas", Adam(CHAR_LR))
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    on_dev = [batch_to_device(b, dev) for b in _char_batches()]
+    log(f"[char_train] text_generation_lstm: "
+        f"{model.num_params(trainer.variables(ts0)):,}"
+        f" parameters, Adam({CHAR_LR}), batches {CHAR_BATCH}x{CHAR_T} "
+        f"one-hot of {CHAR_VOCAB}")
+
+    # 1. one loss and gradient, kernels vs plain LSTMs (backend "xla")
+    with _plain_lstm_guard() as plain_calls:
+        _dispatch.reset_launch_counts()
+        loss_k, g_kernel = _loss_and_grads(trainer, ts0.params, on_dev[0],
+                                           dev, SEED)
+        counts = _dispatch.launch_counts()
+    want = {"lstm_fwd": 2, "lstm_bwd": 2}
+    if counts != want or plain_calls:
+        raise SystemExit(f"chip_smoke: one loss+grad launched {counts} and "
+                         f"made {len(plain_calls)} plain LSTM calls; want "
+                         f"{want} and none")
+    plain_trainer = Trainer(_char_rnn(dev, "xla", Adam(CHAR_LR)))
+    loss_p, g_plain = _loss_and_grads(plain_trainer, ts0.params, on_dev[0],
+                                      dev, SEED)
+    loss_rel, worst_name, worst = _check_grads("char_train", loss_k, loss_p,
+                                               g_kernel, g_plain)
+    del g_kernel, g_plain
+
+    # 2. Trainer.fit, 30 steps; 3. checkpoint restore
+    with _plain_lstm_guard() as plain_calls:
+        fit = _fit_and_restore("char_train", trainer, ts0, on_dev,
+                               CHAR_EPOCHS, dev)
+    ts, counts, losses = fit["ts"], fit["launches"], fit["losses"]
+    n_steps = CHAR_TRAIN_BATCHES * CHAR_EPOCHS
+    want = {"lstm_fwd": 2 * n_steps, "lstm_bwd": 2 * n_steps}
+    if ts.step != n_steps or counts != want or plain_calls:
+        raise SystemExit(f"chip_smoke: fit launched {counts} over {ts.step}"
+                         f" steps with {len(plain_calls)} plain LSTM calls; "
+                         f"want {want} and none")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    log(f"[char_train] loss {first:.4f} (first 3 steps) -> {last:.4f} "
+        f"(last 3), fall {first - last:.4f} (must be >= {LOSS_FALL})")
+    if not (np.all(np.isfinite(losses)) and first - last >= LOSS_FALL):
+        raise SystemExit("chip_smoke: the char-RNN's loss did not fall by "
+                         f"{LOSS_FALL}")
+
+    # 4. where one step's time goes
+    breakdown = _step_breakdown(trainer, ts, on_dev[0],
+                                ("lstm_fwd", "lstm_bwd"))
+    log(f"[char_train] one step: {breakdown}")
+    step_ms = fit["median_step_ms"]
+    tokens = CHAR_BATCH * CHAR_T
+    log(f"[char_train] median step {step_ms:.2f} ms, "
+        f"{tokens / (step_ms / 1e3):,.0f} tokens/s, peak memory "
+        f"{fit['peak_memory_gib']:.2f} GiB, on {smi}")
+    return {
+        "model": "text_generation_lstm", "vocab": CHAR_VOCAB,
+        "hidden": CHAR_HIDDEN, "batch": CHAR_BATCH, "seq_len": CHAR_T,
+        "steps": ts.step, "launches": counts, "losses": losses,
+        "loss_first3": first, "loss_last3": last,
+        "median_step_ms": step_ms, "step_ms_gaps": fit["step_ms_gaps"],
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "peak_memory_gib": fit["peak_memory_gib"],
+        "fit_seconds": fit["fit_seconds"],
+        "kernel_vs_plain": {"loss_kernel": loss_k, "loss_plain": loss_p,
+                            "loss_rel": loss_rel,
+                            "worst_grad_leaf": worst_name,
+                            "worst_grad_frac": worst},
+        "checkpoint_next_loss": fit["checkpoint_next_loss"],
+        "step_breakdown": breakdown, "card": smi,
+    }
+
+
+def _lstm_entries(cases, serving, training, smi):
+    """The kernels-line entries of lstm_fwd and lstm_bwd: times at the
+    char-RNN's training shape with Graves peepholes (no library call
+    computes those), the case without peepholes beside torch.nn.LSTM, and
+    the launches of the char-RNN's serving and training runs."""
+    main_row = cases["char_rnn_train_graves"]
+    nopeep = cases["char_rnn_train_no_peepholes"]
+    by_path = {
+        "lstm_fwd": {"serving": serving["lstm_fwd_launches"],
+                     "training": training["launches"]["lstm_fwd"]},
+        "lstm_bwd": {"training": training["launches"]["lstm_bwd"]},
+    }
+    library = {"lstm_fwd": ("cudnn_fwd_ms", "op_fwd_ms"),
+               "lstm_bwd": ("cudnn_bwd_ms", "op_bwd_ms")}
+    entries = []
+    for kernel, line in (("lstm_fwd", 47), ("lstm_bwd", 186)):
+        lib_key, op_key = library[kernel]
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/kernels/csrc/lstm_scan.cu",
+            "replaces": f"deeplearning4j_tpu/kernels/lstm_scan.py:{line}",
+            "launches": sum(by_path[kernel].values()),
+            "launches_by_path": by_path[kernel],
+            "step_launches_per_call": main_row[
+                f"{kernel}_step_launches_per_call"],
+            "max_abs_err": main_row[f"{kernel}_max_abs_err"],
+            "max_abs_err_by_case": {c: r[f"{kernel}_max_abs_err"]
+                                    for c, r in cases.items()},
+            "ms": main_row[f"{kernel}_ms"],
+            "device_ms": main_row[f"{kernel}_device_ms"],
+            "plain_ms": main_row[f"{kernel}_plain_ms"],
+            "bound_ms": main_row[f"{kernel}_bound_ms"],
+            "bound_by": main_row[f"{kernel}_bound_by"],
+            "library_ms": None,
+            "library_note": "no library call computes Graves peepholes; "
+                            "torch.nn.LSTM (cuDNN) times the case without "
+                            "them under no_peepholes",
+            "no_peepholes": {
+                "ms": nopeep[f"{kernel}_ms"],
+                "plain_ms": nopeep[f"{kernel}_plain_ms"],
+                "bound_ms": nopeep[f"{kernel}_bound_ms"],
+                "op_ms": nopeep[op_key], "library_ms": nopeep[lib_key],
+                "library": "torch.nn.LSTM (cuDNN), input width "
+                           f"{CHAR_HIDDEN}; op_ms is the port's lstm op "
+                           "on the same input (x·W product + kernel"
+                           + (", wgrad products" if kernel == "lstm_bwd"
+                              else "") + ")"},
+            "serving_n8_no_workspace_ms": (main_row["lstm_fwd_n8_ms"]
+                                           if kernel == "lstm_fwd"
+                                           else None),
+            "shape": main_row["shape"], "card": smi,
+        })
+    return entries
 
 
 def main() -> int:
@@ -874,6 +1539,9 @@ def main() -> int:
     bwd_cases = phase_kernels_bwd(dev, train_lengths)
     serving = phase_slice(dev, smi)
     training = phase_train(dev, smi, batches)
+    lstm_cases = phase_kernels_lstm(dev)
+    char_serving = phase_charrnn_serving(dev, smi)
+    char_training = phase_charrnn_train(dev, smi)
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
         "name": "flash_fwd", "route": "cuda",
@@ -928,9 +1596,12 @@ def main() -> int:
                                        "backward",
             "shape": main_row["shape"], "card": smi,
         })
+    entries += _lstm_entries(lstm_cases, char_serving, char_training, smi)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"char_rnn_serving": char_serving}), flush=True)
+    print(json.dumps({"char_rnn_training": char_training}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

@@ -1,7 +1,7 @@
 """Activation registry (↔ deeplearning4j_tpu/nn/activations.py).
 
-The names the BERT slice uses; the rest of the JAX registry comes with the
-layers that need it.
+The names the ported models use; the rest of the JAX registry comes with
+the layers that need it. ``softmax`` is over the last axis.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ ACTIVATIONS: dict[str, Callable] = {
     "relu": opsnn.relu,
     "tanh": opsnn.tanh,
     "gelu": opsnn.gelu,
+    "sigmoid": opsnn.sigmoid,
+    "softmax": opsnn.softmax,
 }
 
 

@@ -3,16 +3,19 @@
 Same format as the JAX package: dataclasses registered by class name,
 serialized with an ``"@class"`` discriminator. The ``@class`` names and the
 fields are the JAX package's, so a config JSON written by either package
-loads in the other (``models.bert.BertConfig`` is the one the port has so
-far, with its ``NeuralNetConfiguration`` and ``Adam`` updater).
+loads in the other: ``models.bert.BertConfig``, and ``SequentialConfig``
+with the layer configs of ``nn/layers`` (a layer config is a value with
+``init``/``apply`` methods, as in the JAX package), each with its
+``NeuralNetConfiguration`` and updater. ``GraphVertex``/``GraphConfig``
+come with the graph models.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -97,3 +100,56 @@ class NeuralNetConfiguration:
     rng_impl: Optional[str] = None
     backprop_type: str = "standard"
     tbptt_length: int = 0
+
+
+@dataclass
+class LayerConfig:
+    """Base for all layer configs (↔ org.deeplearning4j.nn.conf.layers.Layer).
+
+    A layer config is a value; its runtime behaviour is
+    ``init(generator, input_shape, dtype) -> (params, state)`` and
+    ``apply(params, state, x, *, train, generator) -> (y, new_state)``
+    over dicts of tensors. Shapes exclude the batch dimension. The
+    keyword-only fields are the JAX package's: per-layer l1/l2 (None
+    inherits the net's), dtype, a train-time ``weight_noise`` transform
+    (``nn/weightnoise.py``) and ``constraints`` (carried for the JSON; the
+    port's Trainer raises on them until it applies them).
+    """
+
+    name: Optional[str] = field(default=None, kw_only=True)
+    l1: Optional[float] = field(default=None, kw_only=True)
+    l2: Optional[float] = field(default=None, kw_only=True)
+    dtype: Optional[str] = field(default=None, kw_only=True)
+    weight_noise: Optional[Any] = field(default=None, kw_only=True)
+    constraints: Optional[Any] = field(default=None, kw_only=True)
+
+    def output_shape(self, input_shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        return tuple(input_shape)
+
+    def init(self, generator, input_shape, dtype):
+        return {}, {}
+
+    def apply(self, params, state, x, *, train: bool = False,
+              generator=None):
+        raise NotImplementedError
+
+
+@register_config
+@dataclass
+class SequentialConfig:
+    """↔ MultiLayerConfiguration: global conf + ordered layer stack + input
+    shape (without the batch dim)."""
+
+    net: NeuralNetConfiguration
+    layers: List[Any]
+    input_shape: Sequence[int]
+
+    def to_json(self) -> str:
+        return config_to_json(self)
+
+    @staticmethod
+    def from_json(s: str) -> "SequentialConfig":
+        cfg = config_from_json(s)
+        if not isinstance(cfg, SequentialConfig):
+            raise TypeError(f"expected SequentialConfig, got {type(cfg)}")
+        return cfg

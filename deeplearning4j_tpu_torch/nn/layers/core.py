@@ -1,0 +1,43 @@
+"""Core feed-forward layers (↔ deeplearning4j_tpu/nn/layers/core.py): ``Dense``.
+
+Param names follow the reference: "W" [in, out] and "b" [out], applied as
+``x @ W + b`` then the activation.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.nn.activations import get_activation
+from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_config
+from deeplearning4j_tpu_torch.nn.initializers import get_initializer
+from deeplearning4j_tpu_torch.ops import nn as opsnn
+
+
+@register_config
+@dataclass
+class Dense(LayerConfig):
+    """Fully connected layer (↔ DenseLayer: x·W + b, then activation)."""
+
+    units: int = 0
+    activation: str = "identity"
+    weight_init: Optional[str] = None  # None → net default
+    use_bias: bool = True
+
+    def output_shape(self, input_shape):
+        return (*input_shape[:-1], self.units)
+
+    def init(self, generator, input_shape, dtype):
+        w_init = get_initializer(self.weight_init or "xavier")
+        params = {"W": w_init((input_shape[-1], self.units), generator,
+                              dtype)}
+        if self.use_bias:
+            params["b"] = torch.zeros((self.units,), dtype=dtype)
+        return params, {}
+
+    def apply(self, params, state, x, *, train=False, generator=None):
+        y = opsnn.linear(x, params["W"], params.get("b"))
+        return get_activation(self.activation)(y), state

@@ -1,0 +1,104 @@
+"""Recurrent layers (↔ deeplearning4j_tpu/nn/layers/recurrent.py): ``LSTM``, ``GravesLSTM``.
+
+Sequence layout [N, T, C] (batch, time, features), as in the JAX package.
+Params: "W" input weights [in, 4H], "RW" recurrent weights [H, 4H], "b"
+[4H], gate order i, f, g, o; ``GravesLSTM`` adds the peepholes "pI",
+"pF", "pO" [H]. ``backend="pallas"`` runs the port's fused sweeps
+(``kernels/lstm_scan.lstm``: the CUDA kernels on the card, their plain
+versions on the CPU); ``backend="xla"`` the plain loop of
+``ops/rnn.lstm``. Both compute the same function. ``unroll`` is kept for
+the config's JSON; the port has no scan to unroll.
+
+Not ported yet: ``init_carry``/``step`` (rnnTimeStep), ``GRU``,
+``SimpleRnn``, ``Bidirectional``, ``LastTimeStep``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.kernels import lstm_scan
+from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_config
+from deeplearning4j_tpu_torch.nn.initializers import get_initializer
+from deeplearning4j_tpu_torch.ops import rnn as opsrnn
+
+
+@register_config
+@dataclass
+class LSTM(LayerConfig):
+    """↔ LSTM layer (no peepholes)."""
+
+    units: int = 0
+    activation: str = "tanh"  # kept for config parity; the cell uses tanh/sigmoid
+    weight_init: Optional[str] = None
+    forget_bias: float = 1.0
+    return_sequences: bool = True
+    # 'pallas': the lstm_fwd/lstm_bwd sweeps (the CUDA kernels on the
+    # card); 'xla': the plain ops/rnn.lstm loop, the reference the tests
+    # and chip_smoke.py compare with. The JAX package defaults to 'xla';
+    # the port defaults to its kernels, and a JSON names its backend.
+    backend: str = "pallas"
+    unroll: int = 1
+
+    def output_shape(self, input_shape):
+        t, _ = input_shape
+        return (t, self.units) if self.return_sequences else (self.units,)
+
+    def init(self, generator, input_shape, dtype):
+        c, h = input_shape[-1], self.units
+        w_init = get_initializer(self.weight_init or "xavier")
+        params = {
+            "W": w_init((c, 4 * h), generator, dtype),
+            "RW": w_init((h, 4 * h), generator, dtype),
+            "b": torch.zeros((4 * h,), dtype=dtype),
+        }
+        return params, {}
+
+    def _peepholes(self, params):
+        return None
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              initial_state=None):
+        y, state, _final = self.apply_window(params, state, x,
+                                             initial_state, train=train,
+                                             generator=generator)
+        return y, state
+
+    def apply_window(self, params, state, x, carry, *, train=False,
+                     generator=None):
+        """Forward from ``carry`` (an ``LSTMState``; None = zeros) →
+        (y, new_state, final_carry)."""
+        if self.backend == "pallas":
+            outputs, final = lstm_scan.lstm(
+                x, params["W"], params["RW"], params["b"],
+                peepholes=self._peepholes(params),
+                forget_bias=self.forget_bias, init_state=carry)
+        elif self.backend == "xla":
+            outputs, final = opsrnn.lstm(
+                x, params["W"], params["RW"], params["b"], init_state=carry,
+                peepholes=self._peepholes(params),
+                forget_bias=self.forget_bias)
+        else:
+            raise ValueError(f"unknown LSTM backend {self.backend!r}; "
+                             "valid: 'pallas', 'xla'")
+        y = outputs if self.return_sequences else outputs[:, -1, :]
+        return y, state, final
+
+
+@register_config
+@dataclass
+class GravesLSTM(LSTM):
+    """↔ GravesLSTM — LSTM with Graves-2013 peepholes (i, f from c_{t-1};
+    o from c_t)."""
+
+    def init(self, generator, input_shape, dtype):
+        params, state = LSTM.init(self, generator, input_shape, dtype)
+        for k in ("pI", "pF", "pO"):
+            params[k] = torch.zeros((self.units,), dtype=dtype)
+        return params, state
+
+    def _peepholes(self, params):
+        return (params["pI"], params["pF"], params["pO"])

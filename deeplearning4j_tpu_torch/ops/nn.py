@@ -1,4 +1,4 @@
-"""NN ops (↔ deeplearning4j_tpu/ops/nn.py) — the ones the BERT slice uses.
+"""NN ops (↔ deeplearning4j_tpu/ops/nn.py) — the ones the ported models use.
 
 Layouts and numerics follow the JAX package:
 
@@ -20,6 +20,12 @@ import torch.nn.functional as F
 
 relu = torch.relu
 tanh = torch.tanh
+sigmoid = torch.sigmoid
+
+
+def softmax(x):
+    """Over the last axis (``jax.nn.softmax``'s default)."""
+    return torch.softmax(x, dim=-1)
 
 
 def gelu(x):

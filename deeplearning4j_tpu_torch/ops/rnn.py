@@ -1,0 +1,86 @@
+"""RNN ops (↔ deeplearning4j_tpu/ops/rnn.py) — the LSTM the char-RNN slice uses.
+
+The plain PyTorch recurrence, gate math in the JAX package's order:
+
+- :func:`lstm_cell` — a standard LSTM step, gate order i, f, g, o;
+- :func:`graves_lstm_cell` — Graves (2013) peepholes: i and f read
+  c_{t-1}, o reads c_t; the forget bias is added inside the sigmoid after
+  the peephole term;
+- :func:`lstm` — a full sequence: the input projection of every step is
+  one product (``x·W``) hoisted out of a Python loop over time, where the
+  JAX package runs ``lax.scan``. Autograd differentiates the loop.
+
+This is the recurrent layers' ``backend="xla"`` path. The fused sweeps of
+``kernels/lstm_scan.py`` (the ``"pallas"`` path) compute the same
+function; their own plain versions live beside them there. GRU and
+``simple_rnn`` come with their layers.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class LSTMState(NamedTuple):
+    h: torch.Tensor  # hidden state [N, H]
+    c: torch.Tensor  # cell state   [N, H]
+
+
+def _gates(x_proj, h, w_h, b):
+    """Input projection + recurrent projection + bias → [N, 4H]."""
+    g = x_proj + torch.matmul(h, w_h)
+    if b is not None:
+        g = g + b
+    return g
+
+
+def lstm_cell(x_proj, state: LSTMState, w_h, b=None, *, forget_bias=0.0):
+    """One LSTM step. x_proj: [N,4H] (precomputed x@w_x), gate order i,f,g,o."""
+    z = _gates(x_proj, state.h, w_h, b)
+    i, f, g, o = torch.chunk(z, 4, dim=-1)
+    i = torch.sigmoid(i)
+    f = torch.sigmoid(f + forget_bias)
+    g = torch.tanh(g)
+    c = f * state.c + i * g
+    o = torch.sigmoid(o)
+    return LSTMState(o * torch.tanh(c), c)
+
+
+def graves_lstm_cell(x_proj, state: LSTMState, w_h, b, peep_i, peep_f,
+                     peep_o, *, forget_bias=0.0):
+    """Graves-2013 peephole LSTM step; peep_*: [H] diagonal weights."""
+    z = _gates(x_proj, state.h, w_h, b)
+    i, f, g, o = torch.chunk(z, 4, dim=-1)
+    i = torch.sigmoid(i + peep_i * state.c)
+    f = torch.sigmoid(f + peep_f * state.c + forget_bias)
+    g = torch.tanh(g)
+    c = f * state.c + i * g
+    o = torch.sigmoid(o + peep_o * c)
+    return LSTMState(o * torch.tanh(c), c)
+
+
+def lstm(x, w_x, w_h, b=None, init_state: Optional[LSTMState] = None, *,
+         peepholes=None, forget_bias: float = 0.0):
+    """Full-sequence LSTM: x [N,T,In] → (outputs [N,T,H], final LSTMState).
+
+    One hoisted input product, then a loop over time. ``peepholes`` is an
+    optional (peep_i, peep_f, peep_o) triple enabling GravesLSTM math;
+    ``init_state`` defaults to zeros."""
+    n, t_len, _ = x.shape
+    h_dim = w_h.shape[0]
+    if init_state is None:
+        zeros = torch.zeros((n, h_dim), dtype=x.dtype, device=x.device)
+        init_state = LSTMState(zeros, zeros)
+    x_proj = torch.matmul(x, w_x)  # [N,T,4H]
+    state, hs = init_state, []
+    for t in range(t_len):
+        if peepholes is not None:
+            state = graves_lstm_cell(x_proj[:, t], state, w_h, b, *peepholes,
+                                     forget_bias=forget_bias)
+        else:
+            state = lstm_cell(x_proj[:, t], state, w_h, b,
+                              forget_bias=forget_bias)
+        hs.append(state.h)
+    return torch.stack(hs, dim=1), state

@@ -244,7 +244,9 @@ def variables_from_numpy(tree: Any, device=None) -> Any:
 
 def load_inference_variables(ckpt_dir, model) -> Dict[str, Any]:
     """Inference variables ``{"params", "state"}`` from a checkpoint of
-    either package, shaped, typed and placed like ``model.variables()``.
+    either package, shaped, typed and placed like the model's own: a
+    module's ``variables()`` (``Bert``), else a template from ``init()``
+    (``SequentialModel``, whose variables live outside it).
 
     Accepts both checkpoint flavours: a bare variables tree
     (``params/...``, ``state/...``) and a TrainState (``params/...``,
@@ -254,4 +256,6 @@ def load_inference_variables(ckpt_dir, model) -> Dict[str, Any]:
             return [name, "model_state/" + name[len("state/"):]]
         return [name]
 
-    return load_state_tree(ckpt_dir, model.variables(), alias=alias)
+    template = (model.variables() if isinstance(model, torch.nn.Module)
+                else model.init())
+    return load_state_tree(ckpt_dir, template, alias=alias)

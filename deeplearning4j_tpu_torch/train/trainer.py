@@ -15,8 +15,8 @@ restores the other's checkpoints. The two packages draw different dropout
 masks from one seed.
 
 Not ported (ROADMAP): meshes and sharding, ``check_nan``,
-``make_chained_step``, truncated BPTT, ``step_flops``, weight constraints,
-and the telemetry, incident, fault-injection, heartbeat, compile-cache and
+``make_chained_step``, truncated BPTT and weight constraints (the Trainer
+raises on a config that sets either), ``step_flops``, and the telemetry, incident, fault-injection, heartbeat, compile-cache and
 auto-prefetch hooks of ``fit``.
 """
 
@@ -137,12 +137,32 @@ def _first_dim(batch) -> int:
     return tree_leaves(batch["features"])[0].shape[0]
 
 
+def _refuse_unported(model) -> None:
+    """Raise on settings the JAX package's Trainer honours and the port
+    does not run yet (ROADMAP queue 1 items 2 and 7), so that a config
+    loaded from the JAX package's JSON never trains a different function
+    without a word."""
+    bt = getattr(model.net, "backprop_type", "standard")
+    if bt != "standard":
+        raise NotImplementedError(
+            f"backprop_type={bt!r}: the port trains with standard backprop "
+            "only; truncated BPTT (Trainer.make_tbptt_step) is not ported "
+            "yet (ROADMAP queue 1 item 7)")
+    named = model.named_layers() if hasattr(model, "named_layers") else []
+    constrained = [n for n, l in named if getattr(l, "constraints", None)]
+    if constrained:
+        raise NotImplementedError(
+            f"layers {constrained} set weight constraints, which the port's "
+            "Trainer does not apply yet (nn/constraints.py, ROADMAP queue 1 "
+            "item 4)")
+
+
 class Trainer:
     """Runs the train step of a model on the model's device.
 
-    model: anything with ``.net``, ``.device`` and
+    model: anything with ``.net``, ``.device``, ``.init(seed)`` and
     ``.loss_fn(params, state, batch, generator) -> (loss, (state, metrics))``
-    (``models.bert.Bert``).
+    (``models.bert.Bert``, ``nn.model.SequentialModel``).
 
     ``frozen_layers``: top-level param-tree keys excluded from training.
     Their gradients are zeroed before the updater (moments stay zero) and
@@ -169,6 +189,7 @@ class Trainer:
     ):
         self.model = model
         self.net: NeuralNetConfiguration = model.net
+        _refuse_unported(model)
         self.device = model.device
         self.frozen_layers = frozenset(frozen_layers or ())
         self._upd_init, self._upd_update = resolve_updater(

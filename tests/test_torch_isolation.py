@@ -36,6 +36,14 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.data.dataset",
     "deeplearning4j_tpu_torch.ops.loss",
     "deeplearning4j_tpu_torch.ops.math",
+    "deeplearning4j_tpu_torch.kernels.lstm_scan",
+    "deeplearning4j_tpu_torch.ops.rnn",
+    "deeplearning4j_tpu_torch.nn.model",
+    "deeplearning4j_tpu_torch.nn.weightnoise",
+    "deeplearning4j_tpu_torch.nn.layers.core",
+    "deeplearning4j_tpu_torch.nn.layers.output",
+    "deeplearning4j_tpu_torch.nn.layers.recurrent",
+    "deeplearning4j_tpu_torch.models.zoo.classic",
 ]
 
 
@@ -64,7 +72,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         "from deeplearning4j_tpu_torch.parallel.inference import "
         "ParallelInference\n"
         "from deeplearning4j_tpu_torch.serving import ModelRegistry, spec\n"
+        "from deeplearning4j_tpu_torch.models.zoo.classic import "
+        "text_generation_lstm\n"
         "calls = [default_device, lambda: bert_tiny(),\n"
+        "         lambda: text_generation_lstm(),\n"
         "         lambda: ParallelInference(lambda v, x: x, {}),\n"
         "         lambda: ModelRegistry().register(\n"
         "             'm', lambda v, x: x, {}, input_spec=spec((2,)))]\n"
@@ -78,7 +89,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         "print('refused', len(calls))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr + out.stdout
-    assert out.stdout.strip() == "refused 4"
+    assert out.stdout.strip() == "refused 5"
 
 
 def test_explicit_cpu_is_honoured():
