@@ -51,13 +51,38 @@ caught:
    next-step loss; step time, tokens/s, peak memory, the device's idle
    share and each LSTM kernel's share of a step.
 
-On the LSTM paths the plain ops/rnn.lstm must never see a CUDA tensor
-(it is the plain path the kernels are held against, run separately).
+9. kernels (GRU) — gru_fwd and gru_bwd against their plain versions at
+   the char-GRU's training shape (N=64, T=100, H=1024) from h0 = 0 and
+   from a non-zero h0, at the serving bucket N=8 without the workspace,
+   and at H=200 with N=3; then timed beside their bounds, the plain
+   versions and torch.nn.GRU (cuDNN), the step launches counted by the
+   profiler.
+10. char-GRU serving — the TensorFlow tutorial's char-GRU (Embedding(66,
+   256) → GRU(1024) → softmax, seq 100, backend "pallas"), weights from a
+   seed, behind ModelServer (batched, max batch 8): int char ids in, the
+   last step's next-char probabilities out; every response held against
+   the same model with the plain GRU on the card; exactly 1 gru_fwd
+   launch per dispatched batch.
+11. char-GRU training — Trainer.fit with Adam(1e-3) on batches of 64 x
+   100 char ids of the synthetic text: loss and every gradient through
+   the kernels against the plain path; 30 steps with 1 gru_fwd + 1
+   gru_bwd launch each and a loss that falls by at least LOSS_FALL; a
+   checkpoint restored bit-equal; step time, tokens/s, peak memory, the
+   device's idle share and each GRU kernel's share of a step.
+12. bitmap — bitmap_encode (the bitmap_pack kernel) against the plain
+   codec of ops/compression, bit for bit, at sizes around a word and a
+   tile and at BERT-base's parameter count, on the char-GRU's gradient
+   leaves and in bfloat16 (against the kernel's plain version); timed at
+   BERT-base's size beside its bound.
+
+On the recurrent paths the plain ops/rnn.lstm and ops/rnn.gru must never
+see a CUDA tensor (they are the plain paths the kernels are held against,
+run separately).
 
 It prints the kernels line ({"kernels": [...]}), the serving, training,
-char-RNN serving and char-RNN training lines, the nvidia-smi line and,
-last, {"ok": true, "device": {...}}. It imports nothing of JAX nor of
-the JAX package.
+char-RNN, char-GRU and bitmap lines, the nvidia-smi line and, last,
+{"ok": true, "device": {...}}. It imports nothing of JAX nor of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -133,7 +158,8 @@ def phase_device():
 
 # -- 2. build -----------------------------------------------------------------
 
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "lstm_scan")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "lstm_scan", "gru_scan",
+                  "bitmap_pack")
 
 
 def phase_build():
@@ -247,6 +273,30 @@ def _device_us_by_kernel(fn, iters=50, launches=None) -> dict:
 def _device_ms(fn) -> float:
     """Device time per call: the sum of its CUDA kernels' time."""
     return sum(_device_us_by_kernel(fn).values()) / 1e3
+
+
+def _step_launches(fn, kernel: str, want: int, attempts: int = 3):
+    """The launches per call of ``kernel``'s step kernel as the profiler
+    counts them, and that trace's device µs by kernel. A trace may lose
+    kernel records (seen on the card: a few to 63 of a call's launches
+    missing, never one too many), so a count under ``want`` is retaken,
+    up to ``attempts`` traces; a count over it, or none that reaches it,
+    fails the run. Returns (count, µs by kernel, every count taken)."""
+    counts = []
+    for _ in range(attempts):
+        launches = {}
+        by_kernel = _device_us_by_kernel(fn, iters=5, launches=launches)
+        steps = sum(c for k, c in launches.items()
+                    if f"{kernel}_step_kernel" in k)
+        counts.append(steps)
+        if steps >= want:
+            break
+    log(f"[kernels] {kernel}: {steps} step launches per call (profiler; "
+        f"expected {want}; traces {counts})")
+    if steps != want:
+        raise SystemExit(f"chip_smoke: {kernel} launched {steps} step "
+                         f"kernels per call, expected {want}")
+    return steps, by_kernel, counts
 
 
 # (name, B, H, T, S, D, dtype, causal, key lengths per batch row, timed)
@@ -606,7 +656,8 @@ def phase_slice(dev, smi):
         f"rows/s), p50 {np.percentile(lat_ms, 50):.2f} ms, p99 "
         f"{np.percentile(lat_ms, 99):.2f} ms over {N_REQUESTS} requests, "
         f"{CLIENT_THREADS} clients, on {smi}")
-    return {"model": "bert_base", "seq_len": T, "requests": N_REQUESTS,
+    return {"model": "bert_base", "num_params": model.num_params(),
+            "seq_len": T, "requests": N_REQUESTS,
             "rows": rows, "client_threads": CLIENT_THREADS,
             "batches": batches, "flash_fwd_launches": launches,
             "requests_per_s": N_REQUESTS / wall, "rows_per_s": rows / wall,
@@ -1105,22 +1156,14 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs):
     peep = pe is not None
     zero_init = not bool(h0.any())
     for kernel in ("lstm_fwd", "lstm_bwd"):
-        launches = {}
-        by_kernel = _device_us_by_kernel(fns[kernel], iters=5,
-                                         launches=launches)
+        # one step kernel per time step (and one more for dh0 backward),
+        # as the profiler counted them on the card
+        steps, by_kernel, traces = _step_launches(
+            fns[kernel], kernel, t + (kernel == "lstm_bwd"))
         row[f"{kernel}_device_ms"] = sum(
             us for k, us in by_kernel.items() if f"{kernel}_" in k) / 1e3
-        # One step kernel per time step (and one more for dh0 backward),
-        # as the profiler counted them on the card.
-        steps = sum(c for k, c in launches.items()
-                    if f"{kernel}_step_kernel" in k)
-        want = t + (kernel == "lstm_bwd")
-        log(f"[kernels] {kernel}: {steps} step launches per call "
-            f"(profiler; expected {want})")
-        if steps != want:
-            raise SystemExit(f"chip_smoke: {kernel} launched {steps} step "
-                             f"kernels per call, expected {want}")
         row[f"{kernel}_step_launches_per_call"] = steps
+        row[f"{kernel}_step_launch_traces"] = traces
         row[f"{kernel}_device_by_kernel_us"] = {
             k[:60]: us for k, us in by_kernel.items()}
         bound_ms, bound_by, ops, nbytes = _lstm_bound(kernel, n, t, h, peep,
@@ -1186,20 +1229,21 @@ def _time_cudnn(dev, rw, b, fb):
 
 
 @contextlib.contextmanager
-def _plain_lstm_guard():
-    """Records every call of the plain ops/rnn.lstm on a CUDA tensor: the
-    LSTM main paths must make none (the kernels carry every recurrence)."""
+def _plain_rnn_guard(op="lstm"):
+    """Records every call of the plain ops/rnn.<op> (lstm or gru) on a CUDA
+    tensor: the recurrent main paths must make none (the kernels carry
+    every recurrence)."""
     from deeplearning4j_tpu_torch.ops import rnn as opsrnn
 
     calls = []
-    plain = opsrnn.lstm
+    plain = getattr(opsrnn, op)
 
     def guarded(x, *args, **kwargs):
         if x.is_cuda:
             calls.append(tuple(x.shape))
         return plain(x, *args, **kwargs)
 
-    with mock.patch.object(opsrnn, "lstm", guarded):
+    with mock.patch.object(opsrnn, op, guarded):
         yield calls
 
 
@@ -1289,7 +1333,7 @@ def phase_charrnn_serving(dev, smi):
         starts[i] = t_start
         return resp
 
-    with _plain_lstm_guard() as plain_calls, _gc_pauses() as pauses:
+    with _plain_rnn_guard() as plain_calls, _gc_pauses() as pauses:
         _dispatch.reset_launch_counts()
         before = entry.batch_stats()
         t0 = time.monotonic()
@@ -1378,20 +1422,26 @@ CHAR_EPOCHS = 3         # 30 steps
 LOSS_FALL = 1.0
 
 
-def _char_batches():
-    """CHAR_TRAIN_BATCHES batches of CHAR_BATCH rows of one-hot chars:
-    a random string of CHAR_PERIOD chars from the seed, repeated, each row
-    a window shifted by its row and batch; labels the next chars."""
+def _text_windows(vocab, batch, t_len):
+    """CHAR_TRAIN_BATCHES arrays of char ids [batch, t_len + 1]: a random
+    string of CHAR_PERIOD chars from the seed, repeated, each row a window
+    shifted by its row and batch."""
     r = np.random.default_rng(SEED)
-    base = r.integers(0, CHAR_VOCAB, CHAR_PERIOD)
-    text = np.tile(base, (CHAR_T + 1) // CHAR_PERIOD + 2)
-    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    base = r.integers(0, vocab, CHAR_PERIOD)
+    text = np.tile(base, (t_len + 1) // CHAR_PERIOD + 2)
     out = []
     for b in range(CHAR_TRAIN_BATCHES):
-        offs = (np.arange(CHAR_BATCH) * 7 + b * 13) % CHAR_PERIOD
-        ids = np.stack([text[o:o + CHAR_T + 1] for o in offs])
-        out.append({"features": eye[ids[:, :-1]], "labels": eye[ids[:, 1:]]})
+        offs = (np.arange(batch) * 7 + b * 13) % CHAR_PERIOD
+        out.append(np.stack([text[o:o + t_len + 1] for o in offs]))
     return out
+
+
+def _char_batches():
+    """The char-RNN's batches: one-hot chars of the synthetic text, labels
+    the next chars."""
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    return [{"features": eye[ids[:, :-1]], "labels": eye[ids[:, 1:]]}
+            for ids in _text_windows(CHAR_VOCAB, CHAR_BATCH, CHAR_T)]
 
 
 def phase_charrnn_train(dev, smi):
@@ -1409,7 +1459,7 @@ def phase_charrnn_train(dev, smi):
         f"one-hot of {CHAR_VOCAB}")
 
     # 1. one loss and gradient, kernels vs plain LSTMs (backend "xla")
-    with _plain_lstm_guard() as plain_calls:
+    with _plain_rnn_guard() as plain_calls:
         _dispatch.reset_launch_counts()
         loss_k, g_kernel = _loss_and_grads(trainer, ts0.params, on_dev[0],
                                            dev, SEED)
@@ -1427,7 +1477,7 @@ def phase_charrnn_train(dev, smi):
     del g_kernel, g_plain
 
     # 2. Trainer.fit, 30 steps; 3. checkpoint restore
-    with _plain_lstm_guard() as plain_calls:
+    with _plain_rnn_guard() as plain_calls:
         fit = _fit_and_restore("char_train", trainer, ts0, on_dev,
                                CHAR_EPOCHS, dev)
     ts, counts, losses = fit["ts"], fit["launches"], fit["losses"]
@@ -1526,6 +1576,658 @@ def _lstm_entries(cases, serving, training, smi):
     return entries
 
 
+# -- 9. kernels (GRU) ---------------------------------------------------------
+
+# The char-GRU of the TensorFlow tutorial "Text generation with an RNN":
+# Embedding(66, 256) -> GRU(1024) -> softmax over 66, seq 100, batch 64.
+GRU_VOCAB, GRU_EMBED, GRU_HIDDEN, GRU_T, GRU_BATCH = 66, 256, 1024, 100, 64
+# gru_fwd / gru_bwd vs their plain versions, float32 on both sides,
+# differing in the order of the sums of h·RW over H terms and of the
+# carry's product over 3H: hs (|h| <= 1), the workspace, dz̃ and dh0 to
+# 1e-5 of max(1, max |plain|).
+TOL_GRU = 1e-5
+
+# (name, N, T, H, non-zero initial state, workspace, timed)
+GRU_CASES = [
+    ("char_gru_train", GRU_BATCH, GRU_T, GRU_HIDDEN, False, True, True),
+    ("char_gru_train_init", GRU_BATCH, GRU_T, GRU_HIDDEN, True, True, False),
+    ("serving_n8_no_workspace", 8, GRU_T, GRU_HIDDEN, False, False, False),
+    ("untiled_n3_h200", 3, GRU_T, 200, False, True, False),
+]
+
+
+def _gru_inputs(dev, n, t, h, init, seed):
+    """xp_tm, rw, b, h0, gh_tm: float32 on the card, RW glorot-normal as
+    the layer draws it."""
+    g = torch.Generator().manual_seed(seed)
+    xp = torch.randn((t, n, 3 * h), generator=g)
+    rw = (2.0 / (4 * h)) ** 0.5 * torch.randn((h, 3 * h), generator=g)
+    b = 0.1 * torch.randn((3 * h,), generator=g)
+    h0 = (torch.tanh(torch.randn((n, h), generator=g)) if init
+          else torch.zeros((n, h)))
+    gh = torch.randn((t, n, h), generator=g)
+    return [a.to(dev) for a in (xp, rw, b, h0, gh)]
+
+
+def _gru_bound(kernel, n, t, h, zero_init, workspace=True):
+    """Least time for one sweep. Operations: the recurrent products,
+    2·N·H·3H per product this run needs — forward one per step but the
+    first when h0 is 0, backward the T-1 carries and the one to h0 — at
+    the float32 CUDA-core peak; the gate math (tens of operations per unit
+    and step, under 1% of the products at H=1024) is not counted. Bytes,
+    float32, each input read once and each output written once: forward
+    xp, RW, b and h0 in; hs and, with the workspace, the gates and h·RW_n
+    out; backward the gates, h·RW_n, hs, h0, dL/dh and RW in; dz̃ and dh0
+    out."""
+    prod = 2.0 * n * h * 3 * h
+    nh, nh3 = n * h, 3 * n * h
+    if kernel == "gru_fwd":
+        ops = prod * (t - 1 if zero_init else t)
+        out = t * nh3 + t * nh if workspace else 0
+        nbytes = 4 * (t * nh3 + 3 * h * h + 3 * h + nh + t * nh + out)
+    else:
+        ops = prod * t
+        nbytes = 4 * (t * nh3 + 3 * t * nh + nh + 3 * h * h + t * nh3 + nh)
+    t_ops = ops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def _frac(a, w):
+    """max |a - w| as a fraction of max(1, max |w|)."""
+    return float((a - w).abs().max()) / max(1.0, float(w.abs().max()))
+
+
+def phase_kernels_gru(dev):
+    """gru_fwd and gru_bwd against reference_gru_fwd/_bwd on the same
+    inputs (the backward on the kernel's own workspace); then timed at the
+    training shape, beside cuDNN's torch.nn.GRU."""
+    from deeplearning4j_tpu_torch.kernels.gru_scan import (
+        gru_bwd_cuda,
+        gru_fwd_cuda,
+        reference_gru_bwd,
+        reference_gru_fwd,
+    )
+
+    results = {}
+    for name, n, t, h, init, workspace, timed in GRU_CASES:
+        xp, rw, b, h0, gh = _gru_inputs(dev, n, t, h, init, seed=n + t + h)
+        got = gru_fwd_cuda(xp, rw, b, h0, save_workspace=workspace)
+        want = reference_gru_fwd(xp, rw, b, h0, save_workspace=workspace)
+        fwd_err = max(_frac(a, w) for a, w in zip(got, want))
+        fwd_abs = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        bwd_err = bwd_abs = None
+        dgot = ()
+        if workspace:
+            hs, _, gates, hpn = got
+            h_prev = torch.cat([h0[None], hs[:-1]])
+            dgot = gru_bwd_cuda(gates, hpn, hs, h0, gh, rw)
+            dwant = reference_gru_bwd(gates, hpn, h_prev, gh, rw)
+            bwd_err = max(_frac(a, w) for a, w in zip(dgot, dwant))
+            bwd_abs = max(float((a - w).abs().max())
+                          for a, w in zip(dgot, dwant))
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(a).all()) for a in (*got, *dgot))
+        ok = fwd_err <= TOL_GRU and (bwd_err or 0.0) <= TOL_GRU and finite
+        log(f"[kernels] gru {name}: gru_fwd max_abs_err {fwd_abs:.3e}, "
+            f"{fwd_err:.3e} of max(1, |plain|)"
+            + (f"; gru_bwd max_abs_err {bwd_abs:.3e}, {bwd_err:.3e} of "
+               f"max(1, |plain|)" if workspace else
+               " (no workspace, forward only)")
+            + f" (tol {TOL_GRU:.0e}); finite={finite} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: GRU kernel case {name} failed")
+        row = {"shape": [n, t, h], "init_state": init,
+               "workspace": workspace, "gru_fwd_max_abs_err": fwd_abs,
+               "gru_fwd_max_err_frac": fwd_err, "gru_bwd_max_abs_err": bwd_abs,
+               "gru_bwd_max_err_frac": bwd_err}
+        if timed:
+            hs, _, gates, hpn = got
+            row.update(_time_gru(dev, xp, rw, b, h0, gh, hs, gates, hpn))
+            log(f"[kernels] gru {name}: gru_fwd {row['gru_fwd_ms']:.4f} ms "
+                f"(device {row['gru_fwd_device_ms']:.4f}, bound "
+                f"{row['gru_fwd_bound_ms']:.4f} {row['gru_fwd_bound_by']}; "
+                f"serving N=8 without workspace {row['gru_fwd_n8_ms']:.4f}, "
+                f"bound {row['gru_fwd_n8_bound_ms']:.4f}), plain "
+                f"{row['gru_fwd_plain_ms']:.4f} ms; gru_bwd "
+                f"{row['gru_bwd_ms']:.4f} ms (device "
+                f"{row['gru_bwd_device_ms']:.4f}, bound "
+                f"{row['gru_bwd_bound_ms']:.4f} {row['gru_bwd_bound_by']}),"
+                f" plain {row['gru_bwd_plain_ms']:.4f} ms")
+            row.update(_time_cudnn_gru(dev, rw, b))
+            log(f"[kernels] gru {name} vs torch.nn.GRU (cuDNN), input width "
+                f"{GRU_EMBED}: forward op {row['op_fwd_ms']:.4f} ms vs cuDNN "
+                f"{row['cudnn_fwd_ms']:.4f} ms; backward op "
+                f"{row['op_bwd_ms']:.4f} ms vs cuDNN "
+                f"{row['cudnn_bwd_ms']:.4f} ms; outputs agree to "
+                f"{row['cudnn_max_abs_err']:.3e}")
+        results[name] = row
+    return results
+
+
+def _time_gru(dev, xp, rw, b, h0, gh, hs, gates, hpn):
+    """Both kernels and both plain versions by CUDA events (one call each
+    in turn, twice: kernel, plain, plain, kernel), the kernels' device
+    time and step launches from the profiler (T forward, T + 1 backward,
+    or the run fails), and the forward at the serving bucket N=8 without
+    the workspace."""
+    from deeplearning4j_tpu_torch.kernels.gru_scan import (
+        gru_bwd_cuda,
+        gru_fwd_cuda,
+        reference_gru_bwd,
+        reference_gru_fwd,
+    )
+
+    t, n, h3 = xp.shape
+    h = h3 // 3
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    xp8, h08 = xp[:, :8].contiguous(), h0[:8].contiguous()
+    fns = {
+        "gru_fwd": lambda: gru_fwd_cuda(xp, rw, b, h0, save_workspace=True),
+        "gru_fwd_plain": lambda: reference_gru_fwd(xp, rw, b, h0,
+                                                   save_workspace=True),
+        "gru_bwd": lambda: gru_bwd_cuda(gates, hpn, hs, h0, gh, rw),
+        "gru_bwd_plain": lambda: reference_gru_bwd(gates, hpn, h_prev, gh,
+                                                   rw),
+        "gru_fwd_n8": lambda: gru_fwd_cuda(xp8, rw, b, h08),
+    }
+    runs = {k: [] for k in fns}
+    for k in ("gru_fwd", "gru_fwd_plain", "gru_fwd_plain", "gru_fwd",
+              "gru_bwd", "gru_bwd_plain", "gru_bwd_plain", "gru_bwd",
+              "gru_fwd_n8", "gru_fwd_n8"):
+        runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
+    row = {f"{k}_ms": min(v) for k, v in runs.items()}
+    row.update({f"{k}_ms_runs": v for k, v in runs.items()})
+    zero_init = not bool(h0.any())
+    for key, kernel in (("gru_fwd", "gru_fwd"), ("gru_bwd", "gru_bwd"),
+                        ("gru_fwd_n8", "gru_fwd")):
+        # one step kernel per time step (and one more for dh0 backward),
+        # as the profiler counted them on the card
+        steps, by_kernel, traces = _step_launches(
+            fns[key], kernel, t + (kernel == "gru_bwd"))
+        row[f"{key}_device_ms"] = sum(
+            us for k, us in by_kernel.items() if f"{kernel}_" in k) / 1e3
+        row[f"{key}_step_launches_per_call"] = steps
+        row[f"{key}_step_launch_traces"] = traces
+        row[f"{key}_device_by_kernel_us"] = {
+            k[:60]: us for k, us in by_kernel.items()}
+    for kernel in ("gru_fwd", "gru_bwd"):
+        bound_ms, bound_by, ops, nbytes = _gru_bound(kernel, n, t, h,
+                                                     zero_init)
+        row.update({f"{kernel}_bound_ms": bound_ms,
+                    f"{kernel}_bound_by": bound_by, f"{kernel}_ops": ops,
+                    f"{kernel}_bytes": nbytes})
+    row["gru_fwd_n8_bound_ms"] = _gru_bound("gru_fwd", 8, t, h, zero_init,
+                                            workspace=False)[0]
+    return row
+
+
+def _time_cudnn_gru(dev, rw, b):
+    """torch.nn.GRU (cuDNN) on an input x [N,T,E] beside the port's op on
+    the same x and weights (W and RW transposed to weight_ih/weight_hh,
+    b to bias_ih, bias_hh zero; gate order r,z,n and the reset applied
+    after the recurrent product, as the port's), forward without grad and
+    backward to x and every weight: the library yardstick. The outputs
+    must agree."""
+    from deeplearning4j_tpu_torch.kernels.gru_scan import gru
+
+    h = rw.shape[0]
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((GRU_BATCH, GRU_T, GRU_EMBED), generator=g).to(dev)
+    w_x = ((2.0 / (GRU_EMBED + 3 * h)) ** 0.5
+           * torch.randn((GRU_EMBED, 3 * h), generator=g)).to(dev)
+    cudnn = torch.nn.GRU(GRU_EMBED, h, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(w_x.t())
+        cudnn.weight_hh_l0.copy_(rw.t())
+        cudnn.bias_ih_l0.copy_(b)
+        cudnn.bias_hh_l0.zero_()
+        err = float((cudnn(x)[0] - gru(x, w_x, rw, b)[0]).abs().max())
+    if err > 1e-4:
+        raise SystemExit(f"chip_smoke: torch.nn.GRU disagrees with the "
+                         f"port's op by {err:.3e}: not the same function")
+    leaves = [a.clone().requires_grad_() for a in (x, w_x, rw, b)]
+    out_op = gru(*leaves)[0]
+    xg = x.clone().requires_grad_()
+    out_lib = cudnn(xg)[0]
+    dout = torch.randn(out_lib.shape, generator=g).to(dev)
+    lib_leaves = [xg, *cudnn.parameters()]
+    fns = {
+        "op_fwd": lambda: gru(x, w_x, rw, b),
+        "cudnn_fwd": lambda: cudnn(x),
+        "op_bwd": lambda: torch.autograd.grad(out_op, leaves, dout,
+                                              retain_graph=True),
+        "cudnn_bwd": lambda: torch.autograd.grad(out_lib, lib_leaves, dout,
+                                                 retain_graph=True),
+    }
+    runs = {k: [] for k in fns}
+    with torch.no_grad():
+        for k in ("op_fwd", "cudnn_fwd", "cudnn_fwd", "op_fwd"):
+            runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
+    for k in ("op_bwd", "cudnn_bwd", "cudnn_bwd", "op_bwd"):
+        runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
+    row = {f"{k}_ms": min(v) for k, v in runs.items()}
+    row.update({f"{k}_ms_runs": v for k, v in runs.items()})
+    row["cudnn_max_abs_err"] = err
+    return row
+
+
+def _char_gru(dev, backend, updater=None):
+    """The char-GRU: Embedding(66, 256) → GRU(1024) → softmax
+    RnnOutputLayer (mcxent), seq 100, weights from SEED (the tutorial's
+    Dense head with sparse cross-entropy from logits is the same
+    function)."""
+    from deeplearning4j_tpu_torch.nn.config import (
+        NeuralNetConfiguration,
+        SequentialConfig,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        GRU,
+        Embedding,
+        RnnOutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.model import SequentialModel
+
+    cfg = SequentialConfig(
+        net=NeuralNetConfiguration(seed=SEED, updater=updater,
+                                   weight_init="xavier"),
+        layers=[Embedding(vocab_size=GRU_VOCAB, units=GRU_EMBED),
+                GRU(units=GRU_HIDDEN, backend=backend),
+                RnnOutputLayer(units=GRU_VOCAB, activation="softmax",
+                               loss="mcxent")],
+        input_shape=(GRU_T,))
+    return SequentialModel(cfg, device=dev)
+
+
+def _next_char_gru_probs(model, variables, ids):
+    """The char-GRU's serving forward: int char ids [rows, T] → the
+    next-char probabilities after the last step [rows, vocab]."""
+    return model.output(variables, ids)[:, -1, :]
+
+
+# -- 10. char-GRU serving -----------------------------------------------------
+
+GRU_REQUESTS = 400
+# served next-char probabilities vs the same model with the plain GRU,
+# float32: the kernels' ~1e-7 step differences over 100 steps into a
+# softmax over 66 characters.
+TOL_GRU_PROBS = 1e-5
+
+
+def _gru_request(i):
+    r = np.random.default_rng(7000 + i)
+    return r.integers(0, GRU_VOCAB, (1 + i % 4, GRU_T)).astype(np.int32)
+
+
+def phase_chargru_serving(dev, smi):
+    from functools import partial
+
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.serving import (
+        ModelRegistry,
+        ModelServer,
+        ServingClient,
+        spec,
+    )
+
+    model = _char_gru(dev, "pallas")
+    variables = model.init()
+    log(f"[gru_serve] char-GRU: {model.num_params(variables):,} parameters "
+        f"on {dev}, seed {SEED}, layers {model.layer_names}")
+    reg = ModelRegistry()
+    entry = reg.register(
+        "char_gru", partial(_next_char_gru_probs, model), variables,
+        input_spec=spec((GRU_T,), np.int32, high=GRU_VOCAB),
+        mode="batched", max_batch_size=8)
+    server = ModelServer(reg, port=0)
+    t0 = time.monotonic()
+    server.start(warm=True)
+    client = ServingClient(server.url, timeout=120)
+    if not client.ready()["ready"]:
+        raise SystemExit("chip_smoke: /readyz not ready after warm start")
+    log(f"[gru_serve] server warm and ready in {time.monotonic() - t0:.2f} "
+        f"s (buckets {sorted(entry.batch_stats().items())})")
+
+    requests = [_gru_request(i) for i in range(GRU_REQUESTS)]
+    latencies = [0.0] * GRU_REQUESTS
+
+    def call(i):
+        t_start = time.monotonic()
+        resp = client.predict("char_gru", requests[i])
+        latencies[i] = time.monotonic() - t_start
+        return resp
+
+    with _plain_rnn_guard("gru") as plain_calls:
+        _dispatch.reset_launch_counts()
+        before = entry.batch_stats()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(CLIENT_THREADS) as pool:
+            responses = list(pool.map(call, range(GRU_REQUESTS)))
+        wall = time.monotonic() - t0
+        counts = _dispatch.launch_counts()
+        after = entry.batch_stats()
+    batches = after["batches"] - before["batches"]
+    rows = after["rows"] - before["rows"]
+    drained = server.stop()
+    log(f"[gru_serve] {GRU_REQUESTS} requests ({rows} rows) in {wall:.3f} s "
+        f"over {batches} batches; launches {counts}; plain ops/rnn.gru "
+        f"calls on the card {len(plain_calls)}; drained={drained}")
+    if batches < 1 or counts != {"gru_fwd": batches} or plain_calls:
+        raise SystemExit(f"chip_smoke: {counts} for {batches} batches and "
+                         f"{len(plain_calls)} plain GRU calls; want 1 "
+                         f"gru_fwd per batch and none")
+    if not drained:
+        raise SystemExit("chip_smoke: server did not drain on stop")
+
+    # every response against the same model with the plain GRU, all rows
+    # in one batch
+    got = [np.asarray(r["outputs"], np.float64) for r in responses]
+    for req, out in zip(requests, got):
+        if out.shape != (req.shape[0], GRU_VOCAB) or not np.all(
+                np.isfinite(out)) or np.abs(out.sum(-1) - 1).max() > 1e-5:
+            raise SystemExit(f"chip_smoke: bad served output {out}")
+    all_ids = torch.from_numpy(np.concatenate(requests)).to(dev)
+    want = _next_char_gru_probs(_char_gru(dev, "xla"), variables,
+                                all_ids).double().cpu().numpy()
+    worst = float(np.abs(np.concatenate(got) - want).max())
+    ids8 = all_ids[:8]
+    breakdown = _forward_breakdown(
+        lambda: _next_char_gru_probs(model, variables, ids8), "gru_fwd")
+    log(f"[gru_serve] one bucket-8 forward: {breakdown}")
+    log(f"[gru_serve] served next-char probabilities vs the plain GRU: "
+        f"max_abs_err {worst:.3e} (tol {TOL_GRU_PROBS:.0e}) over "
+        f"{all_ids.shape[0]} rows")
+    if worst > TOL_GRU_PROBS:
+        raise SystemExit("chip_smoke: served char-GRU outputs disagree with "
+                         "the plain GRU")
+    lat_ms = np.asarray(latencies) * 1e3
+    log(f"[gru_serve] {GRU_REQUESTS / wall:.1f} requests/s ({rows / wall:.1f}"
+        f" rows/s), p50 {np.percentile(lat_ms, 50):.2f} ms, p99 "
+        f"{np.percentile(lat_ms, 99):.2f} ms over {GRU_REQUESTS} requests, "
+        f"{CLIENT_THREADS} clients, on {smi}")
+    return {"model": "char_gru", "vocab": GRU_VOCAB, "embed": GRU_EMBED,
+            "hidden": GRU_HIDDEN, "seq_len": GRU_T,
+            "requests": GRU_REQUESTS, "rows": rows,
+            "client_threads": CLIENT_THREADS, "batches": batches,
+            "gru_fwd_launches": counts["gru_fwd"],
+            "gru_fwd_launches_per_batch": counts["gru_fwd"] / batches,
+            "requests_per_s": GRU_REQUESTS / wall, "rows_per_s": rows / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "max_abs_err_probs": worst, "forward_bucket8": breakdown,
+            "card": smi}
+
+
+# -- 11. char-GRU training ----------------------------------------------------
+
+GRU_LR = 1e-3
+
+
+def _gru_batches():
+    """The char-GRU's batches: GRU_BATCH rows of GRU_T char ids of the
+    synthetic text, labels the next chars one-hot."""
+    eye = np.eye(GRU_VOCAB, dtype=np.float32)
+    return [{"features": ids[:, :-1].astype(np.int32),
+             "labels": eye[ids[:, 1:]]}
+            for ids in _text_windows(GRU_VOCAB, GRU_BATCH, GRU_T)]
+
+
+def phase_chargru_train(dev, smi):
+    """Returns the phase's line and one step's gradient leaves (the
+    bitmap phase encodes them)."""
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    model = _char_gru(dev, "pallas", Adam(GRU_LR))
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    on_dev = [batch_to_device(b, dev) for b in _gru_batches()]
+    log(f"[gru_train] char-GRU: {model.num_params(trainer.variables(ts0)):,}"
+        f" parameters, Adam({GRU_LR}), batches {GRU_BATCH}x{GRU_T} char ids "
+        f"of {GRU_VOCAB}")
+
+    # 1. one loss and gradient, kernels vs the plain GRU (backend "xla")
+    with _plain_rnn_guard("gru") as plain_calls:
+        _dispatch.reset_launch_counts()
+        loss_k, g_kernel = _loss_and_grads(trainer, ts0.params, on_dev[0],
+                                           dev, SEED)
+        counts = _dispatch.launch_counts()
+    want = {"gru_fwd": 1, "gru_bwd": 1}
+    if counts != want or plain_calls:
+        raise SystemExit(f"chip_smoke: one loss+grad launched {counts} and "
+                         f"made {len(plain_calls)} plain GRU calls; want "
+                         f"{want} and none")
+    plain_trainer = Trainer(_char_gru(dev, "xla", Adam(GRU_LR)))
+    loss_p, g_plain = _loss_and_grads(plain_trainer, ts0.params, on_dev[0],
+                                      dev, SEED)
+    loss_rel, worst_name, worst = _check_grads("gru_train", loss_k, loss_p,
+                                               g_kernel, g_plain)
+    del g_plain
+
+    # 2. Trainer.fit, 30 steps; 3. checkpoint restore
+    with _plain_rnn_guard("gru") as plain_calls:
+        fit = _fit_and_restore("gru_train", trainer, ts0, on_dev,
+                               CHAR_EPOCHS, dev)
+    ts, counts, losses = fit["ts"], fit["launches"], fit["losses"]
+    n_steps = CHAR_TRAIN_BATCHES * CHAR_EPOCHS
+    want = {"gru_fwd": n_steps, "gru_bwd": n_steps}
+    if ts.step != n_steps or counts != want or plain_calls:
+        raise SystemExit(f"chip_smoke: fit launched {counts} over {ts.step}"
+                         f" steps with {len(plain_calls)} plain GRU calls; "
+                         f"want {want} and none")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    log(f"[gru_train] loss {first:.4f} (first 3 steps) -> {last:.4f} "
+        f"(last 3), fall {first - last:.4f} (must be >= {LOSS_FALL})")
+    if not (np.all(np.isfinite(losses)) and first - last >= LOSS_FALL):
+        raise SystemExit("chip_smoke: the char-GRU's loss did not fall by "
+                         f"{LOSS_FALL}")
+
+    # 4. where one step's time goes
+    breakdown = _step_breakdown(trainer, ts, on_dev[0],
+                                ("gru_fwd", "gru_bwd"))
+    log(f"[gru_train] one step: {breakdown}")
+    step_ms = fit["median_step_ms"]
+    tokens = GRU_BATCH * GRU_T
+    log(f"[gru_train] median step {step_ms:.2f} ms, "
+        f"{tokens / (step_ms / 1e3):,.0f} tokens/s, peak memory "
+        f"{fit['peak_memory_gib']:.2f} GiB, on {smi}")
+    return {
+        "model": "char_gru", "vocab": GRU_VOCAB, "embed": GRU_EMBED,
+        "hidden": GRU_HIDDEN, "batch": GRU_BATCH, "seq_len": GRU_T,
+        "steps": ts.step, "launches": counts,
+        "launches_per_step": {k: v / ts.step for k, v in counts.items()},
+        "losses": losses, "loss_first3": first, "loss_last3": last,
+        "median_step_ms": step_ms, "step_ms_gaps": fit["step_ms_gaps"],
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "peak_memory_gib": fit["peak_memory_gib"],
+        "fit_seconds": fit["fit_seconds"],
+        "kernel_vs_plain": {"loss_kernel": loss_k, "loss_plain": loss_p,
+                            "loss_rel": loss_rel,
+                            "worst_grad_leaf": worst_name,
+                            "worst_grad_frac": worst},
+        "checkpoint_next_loss": fit["checkpoint_next_loss"],
+        "step_breakdown": breakdown, "card": smi,
+    }, g_kernel
+
+
+# -- 12. bitmap gradient codec ------------------------------------------------
+
+BITMAP_THR = 0.7  # leaves all three codes populated in N(0, 1) data
+BITMAP_SIZES = (1, 15, 16, 2047, 2048, 2049)  # and BERT-base's parameters
+
+
+def _bitmap_grad(dev, n, seed):
+    """n float32 N(0, 1) values on the card, with code 2 in slot 15 of the
+    first word (bit 31 set: a negative packed word)."""
+    g = torch.randn((n,), generator=torch.Generator(dev).manual_seed(seed),
+                    device=dev)
+    if n >= 16:
+        g[15] = -2.0
+    return g
+
+
+def _bitmap_check(tag, g, thr, packed, resid):
+    """The kernel's words and residual against the plain codec
+    (ops/compression, bit for bit), and decode + residual against g (1
+    ulp); fails the run otherwise."""
+    from deeplearning4j_tpu_torch.ops import compression
+
+    want_p, want_r = compression.bitmap_encode(g, thr)
+    same = (torch.equal(packed, want_p)
+            and torch.equal(resid.view(torch.int32), want_r.view(torch.int32)))
+    back = compression.bitmap_decode(packed, thr, g.shape) + resid
+    ulp_ok = bool(((back - g).abs() <= 2 ** -23 * g.abs()).all())
+    dec = compression.bitmap_decode(packed, thr, g.shape)
+    codes = sorted({c for c, present in ((0, (dec == 0).any()),
+                                         (1, (dec > 0).any()),
+                                         (2, (dec < 0).any())) if present})
+    if not (same and ulp_ok):
+        raise SystemExit(f"chip_smoke: bitmap_pack {tag}: bit-identical="
+                         f"{same}, decode + residual within 1 ulp={ulp_ok}")
+    return codes
+
+
+def phase_bitmap(dev, smi, n_bert, grads):
+    """bitmap_encode on the card (the kernel) against the plain codec: the
+    sizes around a word and a 2048-element tile, BERT-base's parameter
+    count, the char-GRU's gradient leaves of one step, and bfloat16 against
+    the kernel's plain version; then timed at BERT-base's size."""
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.kernels.bitmap_pack import (
+        bitmap_encode,
+        reference_bitmap_encode,
+    )
+
+    sizes = BITMAP_SIZES + (n_bert,)
+    rows = {}
+    _dispatch.reset_launch_counts()
+    main_calls = 0
+    for n in sizes:
+        g = _bitmap_grad(dev, n, seed=n)
+        packed, resid = bitmap_encode(g, BITMAP_THR)
+        main_calls += 1
+        codes = _bitmap_check(f"n={n}", g, BITMAP_THR, packed, resid)
+        negative = bool(packed[0] < 0) if n >= 16 else None
+        if n >= 16 and (codes != [0, 1, 2] or not negative):
+            raise SystemExit(f"chip_smoke: bitmap n={n}: codes {codes}, "
+                             f"first word negative {negative}")
+        rows[f"n={n}"] = {"codes": codes, "first_word_negative": negative}
+        log(f"[bitmap] n={n}: {packed.numel()} words, bit-identical to the "
+            f"codec, decode + residual within 1 ulp; codes {codes}")
+    del g, packed, resid
+    # one char-GRU training step's gradient leaves, each against its own
+    # threshold: its mean |g| (all three codes populated)
+    for name, leaf in grads.items():
+        thr = float(leaf.abs().mean())
+        packed, resid = bitmap_encode(leaf, thr)
+        main_calls += 1
+        rows[f"grad {name}"] = {
+            "n": leaf.numel(), "threshold": thr,
+            "codes": _bitmap_check(name, leaf, thr, packed, resid)}
+    log(f"[bitmap] {len(grads)} char-GRU gradient leaves, each at its mean "
+        f"|g|: bit-identical to the codec: "
+        + "; ".join(f"{k[5:]} codes {v['codes']}" for k, v in rows.items()
+                    if k.startswith("grad ")))
+    # bfloat16: the kernel's rule (float32 compare and subtract, residual
+    # rounded once), bit for bit against its plain version
+    for n in (2049, 1 << 20):
+        g16 = _bitmap_grad(dev, n, seed=n + 1).to(torch.bfloat16)
+        packed, resid = bitmap_encode(g16, BITMAP_THR)
+        main_calls += 1
+        want_p, want_r = reference_bitmap_encode(g16, BITMAP_THR)
+        if not (torch.equal(packed, want_p) and torch.equal(
+                resid.view(torch.int16), want_r.view(torch.int16))):
+            raise SystemExit(f"chip_smoke: bitmap_pack bf16 n={n} differs "
+                             "from its plain version")
+        rows[f"bf16 n={n}"] = "bit-identical to reference_bitmap_encode"
+    counts = _dispatch.launch_counts()
+    log(f"[bitmap] bfloat16: bit-identical to reference_bitmap_encode; "
+        f"launches {counts} for {main_calls} calls")
+    if counts != {"bitmap_pack": main_calls}:
+        raise SystemExit(f"chip_smoke: bitmap launches {counts}, want "
+                         f"{main_calls}")
+
+    # timed at BERT-base's size
+    g = _bitmap_grad(dev, n_bert, seed=1)
+    kernel = lambda: bitmap_encode(g, BITMAP_THR)  # noqa: E731
+    plain = lambda: bitmap_encode(g, BITMAP_THR, backend="xla")  # noqa
+    ms = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        ms[which].append(_time_ms(kernel if which == "kernel" else plain,
+                                  iters=10, warmup=2))
+    nbytes = 4 * n_bert + 4 * n_bert + 4 * ((n_bert + 15) // 16)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    row = {"n": n_bert, "kernel_ms": min(ms["kernel"]),
+           "plain_ms": min(ms["plain"]), "kernel_ms_runs": ms["kernel"],
+           "plain_ms_runs": ms["plain"],
+           "kernel_device_ms": _device_ms(kernel), "bound_ms": bound_ms,
+           "bound_by": "bytes", "bytes": nbytes, "launches": main_calls,
+           "cases": rows, "card": smi}
+    log(f"[bitmap] n={n_bert} (BERT-base): kernel {row['kernel_ms']:.4f} ms "
+        f"(device {row['kernel_device_ms']:.4f}), plain codec "
+        f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms (bytes), on "
+        f"{smi}")
+    return row
+
+
+def _gru_entries(cases, serving, training, bitmap, smi):
+    """The kernels-line entries of gru_fwd, gru_bwd and bitmap_pack."""
+    main_row = cases["char_gru_train"]
+    by_path = {
+        "gru_fwd": {"serving": serving["gru_fwd_launches"],
+                    "training": training["launches"]["gru_fwd"]},
+        "gru_bwd": {"training": training["launches"]["gru_bwd"]},
+    }
+    library = {"gru_fwd": ("cudnn_fwd_ms", "op_fwd_ms"),
+               "gru_bwd": ("cudnn_bwd_ms", "op_bwd_ms")}
+    entries = []
+    for kernel, line in (("gru_fwd", 52), ("gru_bwd", 152)):
+        lib_key, op_key = library[kernel]
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/kernels/csrc/gru_scan.cu",
+            "replaces": f"deeplearning4j_tpu/kernels/gru_scan.py:{line}",
+            "launches": sum(by_path[kernel].values()),
+            "launches_by_path": by_path[kernel],
+            "step_launches_per_call": main_row[
+                f"{kernel}_step_launches_per_call"],
+            "max_abs_err": main_row[f"{kernel}_max_abs_err"],
+            "max_err_frac_by_case": {c: r[f"{kernel}_max_err_frac"]
+                                     for c, r in cases.items()},
+            "ms": main_row[f"{kernel}_ms"],
+            "device_ms": main_row[f"{kernel}_device_ms"],
+            "plain_ms": main_row[f"{kernel}_plain_ms"],
+            "bound_ms": main_row[f"{kernel}_bound_ms"],
+            "bound_by": main_row[f"{kernel}_bound_by"],
+            "library_ms": main_row[lib_key],
+            "library": "torch.nn.GRU (cuDNN), input width "
+                       f"{GRU_EMBED}, bias_hh 0; op_ms is the port's gru op "
+                       "on the same input (x·W product + kernel"
+                       + (", wgrad products" if kernel == "gru_bwd" else "")
+                       + ")",
+            "op_ms": main_row[op_key],
+            "serving_n8_no_workspace_ms": (main_row["gru_fwd_n8_ms"]
+                                           if kernel == "gru_fwd" else None),
+            "shape": main_row["shape"], "card": smi,
+        })
+    entries.append({
+        "name": "bitmap_pack", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/kernels/csrc/bitmap_pack.cu",
+        "replaces": "deeplearning4j_tpu/kernels/bitmap_pack.py:36",
+        "launches": bitmap["launches"], "max_abs_err": 0.0,
+        "max_abs_err_is": "bit-identical to ops/compression.bitmap_encode",
+        "ms": bitmap["kernel_ms"], "device_ms": bitmap["kernel_device_ms"],
+        "plain_ms": bitmap["plain_ms"], "bound_ms": bitmap["bound_ms"],
+        "bound_by": bitmap["bound_by"], "library_ms": None,
+        "library": "no PyTorch call computes the codec",
+        "shape": [bitmap["n"]], "card": smi,
+    })
+    return entries
+
+
 def main() -> int:
     t_start = time.monotonic()
     dev, smi = phase_device()
@@ -1542,6 +2244,11 @@ def main() -> int:
     lstm_cases = phase_kernels_lstm(dev)
     char_serving = phase_charrnn_serving(dev, smi)
     char_training = phase_charrnn_train(dev, smi)
+    gru_cases = phase_kernels_gru(dev)
+    gru_serving = phase_chargru_serving(dev, smi)
+    gru_training, gru_grads = phase_chargru_train(dev, smi)
+    bitmap = phase_bitmap(dev, smi, serving["num_params"], gru_grads)
+    del gru_grads
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
         "name": "flash_fwd", "route": "cuda",
@@ -1597,11 +2304,16 @@ def main() -> int:
             "shape": main_row["shape"], "card": smi,
         })
     entries += _lstm_entries(lstm_cases, char_serving, char_training, smi)
+    entries += _gru_entries(gru_cases, gru_serving, gru_training, bitmap,
+                            smi)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"char_rnn_serving": char_serving}), flush=True)
     print(json.dumps({"char_rnn_training": char_training}), flush=True)
+    print(json.dumps({"char_gru_serving": gru_serving}), flush=True)
+    print(json.dumps({"char_gru_training": gru_training}), flush=True)
+    print(json.dumps({"bitmap": bitmap}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

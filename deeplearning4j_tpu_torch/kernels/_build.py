@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 at the root of the checkout, then loaded with ``ctypes``. The digest covers
 the source and the flags, so an edited source is rebuilt and a stale
 library is never loaded. Nothing is compiled or loaded at import time:
-the CPU tests import this module on a host without ``nvcc``.
+the CPU tests import this module on a host without ``nvcc``. The
+helpers at the end are the checks every ctypes wrapper makes.
 
 ``nvcc`` is looked up as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then
 under ``/usr/local/cuda``. Each source has its own lock, so several
@@ -24,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, NamedTuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -99,3 +102,33 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
+
+
+# -- what every ctypes wrapper checks -----------------------------------------
+
+def check_f32(device, **tensors):
+    """Each tensor (None allowed) a contiguous float32 CUDA tensor on
+    ``device`` of the given shape: ``name=(tensor, shape)``."""
+    for name, (t, shape) in tensors.items():
+        if t is None:
+            continue
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {device}, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(lib, name, rc):
+    """Raise unless the C entry point returned 0 (its cudaError_t)."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({lib.dl4j_cuda_error_string(rc).decode()})")
+
+
+def ptr(t):
+    """The device pointer of ``t``, or None (NULL) for None."""
+    return None if t is None else t.data_ptr()

@@ -126,32 +126,6 @@ def _lib():
     return lib
 
 
-def _check_f32(device, **tensors):
-    """Each tensor (None allowed) a contiguous float32 CUDA tensor on
-    ``device`` of the given shape: ``name=(tensor, shape)``."""
-    for name, (t, shape) in tensors.items():
-        if t is None:
-            continue
-        if t.device != device or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 on {device}, got "
-                             f"{t.dtype} on {t.device}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} must be {tuple(shape)}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(lib, name, rc):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
-                           f"({lib.dl4j_cuda_error_string(rc).decode()})")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def lstm_fwd_cuda(xp_tm, rw, b, h0, c0, peep, forget_bias,
                   save_workspace=False):
     """Launch ``lstm_fwd`` (T step launches from one C call) on the
@@ -165,9 +139,9 @@ def lstm_fwd_cuda(xp_tm, rw, b, h0, c0, peep, forget_bias,
         raise ValueError(f"xp_tm must be [T>=1, N>=1, 4H], got "
                          f"{tuple(xp_tm.shape)}")
     dev = xp_tm.device
-    _check_f32(dev, xp_tm=(xp_tm, (t_len, n, h4)), rw=(rw, (h_dim, h4)),
-               b=(b, (h4,)), h0=(h0, (n, h_dim)), c0=(c0, (n, h_dim)),
-               peep=(peep, (3, h_dim)))
+    _build.check_f32(dev, xp_tm=(xp_tm, (t_len, n, h4)),
+                     rw=(rw, (h_dim, h4)), b=(b, (h4,)), h0=(h0, (n, h_dim)),
+                     c0=(c0, (n, h_dim)), peep=(peep, (3, h_dim)))
     hs = torch.empty((t_len, n, h_dim), dtype=torch.float32, device=dev)
     if save_workspace:
         gates = torch.empty((t_len, n, h4), dtype=torch.float32, device=dev)
@@ -179,10 +153,10 @@ def lstm_fwd_cuda(xp_tm, rw, b, h0, c0, peep, forget_bias,
     lib = _lib()
     rc = lib.dl4j_lstm_fwd(
         dev.index, xp_tm.data_ptr(), rw.data_ptr(), b.data_ptr(),
-        _ptr(peep), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-        _ptr(c_state), _ptr(gates), _ptr(cs), t_len, n, h_dim,
-        float(forget_bias), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, "lstm_fwd", rc)
+        _build.ptr(peep), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+        _build.ptr(c_state), _build.ptr(gates), _build.ptr(cs), t_len, n,
+        h_dim, float(forget_bias), torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on(lib, "lstm_fwd", rc)
     _dispatch.count_launch("lstm_fwd")
     if save_workspace:
         return hs, hs[-1], cs[-1], gates, cs
@@ -199,10 +173,11 @@ def lstm_bwd_cuda(gates_tm, cs_tm, c0, gh_tm, gcT, rw, peep):
     t_len, n, h4 = gates_tm.shape
     h_dim = h4 // 4
     dev = gates_tm.device
-    _check_f32(dev, gates_tm=(gates_tm, (t_len, n, h4)),
-               cs_tm=(cs_tm, (t_len, n, h_dim)), c0=(c0, (n, h_dim)),
-               gh_tm=(gh_tm, (t_len, n, h_dim)), gcT=(gcT, (n, h_dim)),
-               rw=(rw, (h_dim, h4)), peep=(peep, (3, h_dim)))
+    _build.check_f32(dev, gates_tm=(gates_tm, (t_len, n, h4)),
+                     cs_tm=(cs_tm, (t_len, n, h_dim)), c0=(c0, (n, h_dim)),
+                     gh_tm=(gh_tm, (t_len, n, h_dim)),
+                     gcT=(gcT, (n, h_dim)), rw=(rw, (h_dim, h4)),
+                     peep=(peep, (3, h_dim)))
     if rw.data_ptr() % 16:
         raise ValueError("rw must be 16-byte aligned (float4 loads)")
     dxp = torch.empty_like(gates_tm)
@@ -211,10 +186,10 @@ def lstm_bwd_cuda(gates_tm, cs_tm, c0, gh_tm, gcT, rw, peep):
     lib = _lib()
     rc = lib.dl4j_lstm_bwd(
         dev.index, gates_tm.data_ptr(), cs_tm.data_ptr(), c0.data_ptr(),
-        gh_tm.data_ptr(), rw.data_ptr(), _ptr(peep), dxp.data_ptr(),
+        gh_tm.data_ptr(), rw.data_ptr(), _build.ptr(peep), dxp.data_ptr(),
         dh0.data_ptr(), dc.data_ptr(), t_len, n, h_dim,
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, "lstm_bwd", rc)
+    _build.raise_on(lib, "lstm_bwd", rc)
     _dispatch.count_launch("lstm_bwd")
     return dxp, dh0, dc
 
@@ -234,10 +209,11 @@ def _sweep_fwd(xp_tm, rw, b, h0, c0, peep, forget_bias, save_workspace):
 
 
 def _project(x, w_x):
-    """x [N,T,I] · W [I,4H] → xp [T,N,4H] float32, contiguous: the input
-    projection of every step as one product outside the sweep. Time-major
-    by multiplying x's transposed view, which is already contiguous when
-    x is the previous LSTM layer's output."""
+    """x [N,T,I] · W [I,G·H] → xp [T,N,G·H] float32, contiguous: the
+    input projection of every step as one product outside the sweep (G =
+    4 gates for the LSTM, 3 for the GRU). Time-major by multiplying x's
+    transposed view, which is already contiguous when x is the previous
+    recurrent layer's output."""
     return torch.matmul(x.transpose(0, 1), w_x).float().contiguous()
 
 

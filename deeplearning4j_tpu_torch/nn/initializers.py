@@ -42,9 +42,19 @@ def truncated_normal(shape, generator: torch.Generator, std=1.0,
     return std * out
 
 
+def normal(stddev=1.0, mean=0.0):
+    """``mean + stddev * N(0, 1)``."""
+    def init(shape, generator: torch.Generator, dtype=torch.float32):
+        return mean + stddev * torch.randn(shape, generator=generator,
+                                           dtype=dtype)
+
+    return init
+
+
 INITIALIZERS: dict[str, Callable] = {
     "xavier": xavier,
     "glorot_normal": xavier,
+    "normal": normal(0.01),
 }
 
 

@@ -1,7 +1,8 @@
-"""Core feed-forward layers (↔ deeplearning4j_tpu/nn/layers/core.py): ``Dense``.
+"""Core feed-forward layers (↔ deeplearning4j_tpu/nn/layers/core.py): ``Dense``, ``Embedding``.
 
-Param names follow the reference: "W" [in, out] and "b" [out], applied as
-``x @ W + b`` then the activation.
+Param names follow the reference: ``Dense`` "W" [in, out] and "b" [out],
+applied as ``x @ W + b`` then the activation; ``Embedding`` "W" [vocab,
+units], a gather of rows by integer id.
 """
 
 from __future__ import annotations
@@ -41,3 +42,26 @@ class Dense(LayerConfig):
     def apply(self, params, state, x, *, train=False, generator=None):
         y = opsnn.linear(x, params["W"], params.get("b"))
         return get_activation(self.activation)(y), state
+
+
+@register_config
+@dataclass
+class Embedding(LayerConfig):
+    """↔ EmbeddingLayer / EmbeddingSequenceLayer: integer ids of any shape
+    → their rows of "W" [vocab_size, units] (``ops/nn.embedding_lookup``,
+    which raises on an id out of range)."""
+
+    vocab_size: int = 0
+    units: int = 0
+    weight_init: Optional[str] = None
+
+    def output_shape(self, input_shape):
+        return (*input_shape, self.units)
+
+    def init(self, generator, input_shape, dtype):
+        w_init = get_initializer(self.weight_init or "normal")
+        return {"W": w_init((self.vocab_size, self.units), generator,
+                            dtype)}, {}
+
+    def apply(self, params, state, x, *, train=False, generator=None):
+        return opsnn.embedding_lookup(params["W"], x), state

@@ -1,16 +1,18 @@
-"""Recurrent layers (↔ deeplearning4j_tpu/nn/layers/recurrent.py): ``LSTM``, ``GravesLSTM``.
+"""Recurrent layers (↔ deeplearning4j_tpu/nn/layers/recurrent.py): ``LSTM``, ``GravesLSTM``, ``GRU``.
 
 Sequence layout [N, T, C] (batch, time, features), as in the JAX package.
-Params: "W" input weights [in, 4H], "RW" recurrent weights [H, 4H], "b"
-[4H], gate order i, f, g, o; ``GravesLSTM`` adds the peepholes "pI",
-"pF", "pO" [H]. ``backend="pallas"`` runs the port's fused sweeps
-(``kernels/lstm_scan.lstm``: the CUDA kernels on the card, their plain
-versions on the CPU); ``backend="xla"`` the plain loop of
-``ops/rnn.lstm``. Both compute the same function. ``unroll`` is kept for
-the config's JSON; the port has no scan to unroll.
+LSTM params: "W" input weights [in, 4H], "RW" recurrent weights [H, 4H],
+"b" [4H], gate order i, f, g, o; ``GravesLSTM`` adds the peepholes "pI",
+"pF", "pO" [H]. GRU params: "W" [in, 3H], "RW" [H, 3H], "b" [3H], gate
+order r, z, n. ``backend="pallas"`` runs the port's fused sweeps
+(``kernels/lstm_scan.lstm``, ``kernels/gru_scan.gru``: the CUDA kernels
+on the card, their plain versions on the CPU); ``backend="xla"`` the
+plain loops of ``ops/rnn.lstm`` and ``ops/rnn.gru``. Both compute the
+same function. ``unroll`` is kept for the config's JSON; the port has no
+scan to unroll.
 
-Not ported yet: ``init_carry``/``step`` (rnnTimeStep), ``GRU``,
-``SimpleRnn``, ``Bidirectional``, ``LastTimeStep``.
+Not ported yet: ``init_carry``/``step`` (rnnTimeStep), ``SimpleRnn``,
+``Bidirectional``, ``LastTimeStep``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from deeplearning4j_tpu_torch.kernels import lstm_scan
+from deeplearning4j_tpu_torch.kernels import gru_scan, lstm_scan
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_config
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
 from deeplearning4j_tpu_torch.ops import rnn as opsrnn
@@ -102,3 +104,56 @@ class GravesLSTM(LSTM):
 
     def _peepholes(self, params):
         return (params["pI"], params["pF"], params["pO"])
+
+
+@register_config
+@dataclass
+class GRU(LayerConfig):
+    """↔ GRU layer (the libnd4j gruCell math: the reset gate applied after
+    the recurrent product)."""
+
+    units: int = 0
+    weight_init: Optional[str] = None
+    return_sequences: bool = True
+    # 'pallas': the gru_fwd/gru_bwd sweeps (the CUDA kernels on the card);
+    # 'xla': the plain ops/rnn.gru loop, the reference path. The JAX
+    # package defaults to 'xla'; the port to its kernels, as for LSTM.
+    backend: str = "pallas"
+    unroll: int = 1
+
+    def output_shape(self, input_shape):
+        t, _ = input_shape
+        return (t, self.units) if self.return_sequences else (self.units,)
+
+    def init(self, generator, input_shape, dtype):
+        c, h = input_shape[-1], self.units
+        w_init = get_initializer(self.weight_init or "xavier")
+        params = {
+            "W": w_init((c, 3 * h), generator, dtype),
+            "RW": w_init((h, 3 * h), generator, dtype),
+            "b": torch.zeros((3 * h,), dtype=dtype),
+        }
+        return params, {}
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              initial_state=None):
+        y, state, _final = self.apply_window(params, state, x,
+                                             initial_state, train=train,
+                                             generator=generator)
+        return y, state
+
+    def apply_window(self, params, state, x, carry, *, train=False,
+                     generator=None):
+        """Forward from hidden state ``carry`` [N, H] (None = zeros) →
+        (y, new_state, final h)."""
+        if self.backend == "pallas":
+            outputs, final = gru_scan.gru(x, params["W"], params["RW"],
+                                          params["b"], init_h=carry)
+        elif self.backend == "xla":
+            outputs, final = opsrnn.gru(x, params["W"], params["RW"],
+                                        params["b"], init_h=carry)
+        else:
+            raise ValueError(f"unknown GRU backend {self.backend!r}; "
+                             "valid: 'pallas', 'xla'")
+        y = outputs if self.return_sequences else outputs[:, -1, :]
+        return y, state, final

@@ -1,4 +1,4 @@
-"""RNN ops (↔ deeplearning4j_tpu/ops/rnn.py) — the LSTM the char-RNN slice uses.
+"""RNN ops (↔ deeplearning4j_tpu/ops/rnn.py) — the LSTM and GRU of the char-RNN slices.
 
 The plain PyTorch recurrence, gate math in the JAX package's order:
 
@@ -10,10 +10,16 @@ The plain PyTorch recurrence, gate math in the JAX package's order:
   one product (``x·W``) hoisted out of a Python loop over time, where the
   JAX package runs ``lax.scan``. Autograd differentiates the loop.
 
+- :func:`gru_cell` — one GRU step, gate order r, z, n; the candidate
+  reads r ⊙ (h·RW_n), the reset applied after the recurrent product
+  (cuDNN's and nd4j gruCell's variant);
+- :func:`gru` — a full sequence, from an optional initial state, forwards
+  or reversed in time.
+
 This is the recurrent layers' ``backend="xla"`` path. The fused sweeps of
-``kernels/lstm_scan.py`` (the ``"pallas"`` path) compute the same
-function; their own plain versions live beside them there. GRU and
-``simple_rnn`` come with their layers.
+``kernels/lstm_scan.py`` and ``kernels/gru_scan.py`` (the ``"pallas"``
+path) compute the same functions; their own plain versions live beside
+them there. ``simple_rnn`` comes with its layer.
 """
 
 from __future__ import annotations
@@ -84,3 +90,38 @@ def lstm(x, w_x, w_h, b=None, init_state: Optional[LSTMState] = None, *,
                               forget_bias=forget_bias)
         hs.append(state.h)
     return torch.stack(hs, dim=1), state
+
+
+def gru_cell(x_proj, h, w_h, b=None):
+    """One GRU step. x_proj: [N,3H] (precomputed x@w_x), gate order r,z,n;
+    the candidate uses r ⊙ (h @ w_hn)."""
+    h_dim = h.shape[-1]
+    w_rz, w_n = w_h[:, :2 * h_dim], w_h[:, 2 * h_dim:]
+    rz = x_proj[:, :2 * h_dim] + torch.matmul(h, w_rz)
+    if b is not None:
+        rz = rz + b[:2 * h_dim]
+    r, z = torch.chunk(torch.sigmoid(rz), 2, dim=-1)
+    nx = x_proj[:, 2 * h_dim:] + r * torch.matmul(h, w_n)
+    if b is not None:
+        nx = nx + b[2 * h_dim:]
+    n = torch.tanh(nx)
+    return (1.0 - z) * n + z * h
+
+
+def gru(x, w_x, w_h, b=None, init_h=None, *, reverse: bool = False):
+    """Full-sequence GRU: x [N,T,In] → (outputs [N,T,H], final h [N,H]).
+
+    One hoisted input product, then a loop over time (from the last step
+    back with ``reverse``, outputs kept at their own time index, as
+    ``lax.scan(reverse=True)``); ``init_h`` defaults to zeros."""
+    n, t_len, _ = x.shape
+    h_dim = w_h.shape[0]
+    h = (torch.zeros((n, h_dim), dtype=x.dtype, device=x.device)
+         if init_h is None else init_h)
+    x_proj = torch.matmul(x, w_x)  # [N,T,3H]
+    hs = [None] * t_len
+    steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
+    for t in steps:
+        h = gru_cell(x_proj[:, t], h, w_h, b)
+        hs[t] = h
+    return torch.stack(hs, dim=1), h

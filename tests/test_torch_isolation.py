@@ -44,6 +44,9 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.nn.layers.output",
     "deeplearning4j_tpu_torch.nn.layers.recurrent",
     "deeplearning4j_tpu_torch.models.zoo.classic",
+    "deeplearning4j_tpu_torch.kernels.gru_scan",
+    "deeplearning4j_tpu_torch.kernels.bitmap_pack",
+    "deeplearning4j_tpu_torch.ops.compression",
 ]
 
 
