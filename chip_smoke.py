@@ -17,7 +17,10 @@ caught:
    and dtypes the kernel takes), with the tolerance stated per dtype; then
    the kernel, the plain version and one PyTorch library call timed,
    beside the least time the card could take (``bound_ms``). The forward
-   at the serving shape, the two backward kernels at the training shape.
+   at the serving shape, the two backward kernels at the training shape
+   (bf16 on the tensor cores, float32 on the CUDA cores); for bf16 the
+   error of SDPA's backward against the same plain version is logged
+   beside the kernels'.
 4. slice — BERT-base at full width (12 layers, width 768, 12 heads, vocab
    30522), weights drawn from a seed on the card, served by the port's
    ModelServer → ModelRegistry → ParallelInference (batched, max batch 8)
@@ -31,7 +34,8 @@ caught:
    with 12 launches per step of each flash kernel and a falling loss; a
    checkpoint restored bit-equal with the same next-step loss; three
    mixed-precision (bf16) steps; step time, throughput, peak memory, the
-   device's idle share and each flash kernel's share of a step.
+   device's idle share and each flash kernel's share of a step, of a
+   float32 step and of a mixed-precision one.
 6. kernels (LSTM) — lstm_fwd and lstm_bwd against their plain versions at
    the char-RNN's training shape (N=32, T=256, H=256, Graves peepholes,
    forget bias 1), without peepholes, at H=200 with N=3 and from a
@@ -239,13 +243,22 @@ def _time_ms(fn, iters=200, warmup=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Idle host time between the edges of a profiler's recording window and
+# the first and last kernel it records: kernels that ran close to an edge
+# were sometimes left out of the trace (seen on the card: up to 4 of 5
+# recorded calls of a sweep; 4 of 174 short traces without a margin, none
+# of 348 with 0.05 or 0.25 s).
+TRACE_EDGE_S = 0.1
+
+
 def _device_us_by_kernel(fn, iters=50, launches=None) -> dict:
     """Device time per call of each CUDA kernel ``fn`` launches, in µs,
     from the profiler. A dict passed as ``launches`` receives each
     kernel's launches per call, as the profiler counted them. The
     profiler traces one call as warm-up and discards it (tracing that
     starts with a burst of launches misses the first few), then records
-    ``iters`` calls."""
+    ``iters`` calls, TRACE_EDGE_S after its window opens and before it
+    closes."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -255,9 +268,13 @@ def _device_us_by_kernel(fn, iters=50, launches=None) -> dict:
                  schedule=schedule(wait=0, warmup=1, active=iters, repeat=1),
                  on_trace_ready=lambda p: averages.append(
                      p.key_averages())) as prof:
-        for _ in range(iters + 1):
+        for i in range(iters + 1):
+            if i == 1:
+                time.sleep(TRACE_EDGE_S)
             fn()
             torch.cuda.synchronize()
+            if i == iters:
+                time.sleep(TRACE_EDGE_S)
             prof.step()
     out = {}
     for e in averages[0]:
@@ -456,15 +473,20 @@ def phase_kernels_bwd(dev, train_lengths):
                 else torch.zeros(b, dtype=torch.bool)).to(dev)
         dead_zero = all(bool((a[dead] == 0).all()) for a in got)
         ok &= dead_zero
+        sdpa = (_sdpa_bwd_err(q, k, v, mask, dout, causal, want)
+                if dtype == torch.bfloat16 else None)
         log(f"[kernels] bwd {name}: max_abs_err dq {errs['dq']:.3e} dk "
             f"{errs['dk']:.3e} dv {errs['dv']:.3e} (tol "
             f"{TOL_BWD[dtype]:.0e} x max(1, |plain|)) zero_on_masked_rows="
-            f"{dead_zero} -> {'ok' if ok else 'FAIL'}")
+            f"{dead_zero} -> {'ok' if ok else 'FAIL'}"
+            + ("" if sdpa is None else
+               f"; sdpa backward vs the same plain: dq {sdpa['dq']:.3e} dk "
+               f"{sdpa['dk']:.3e} dv {sdpa['dv']:.3e}"))
         if not ok:
             raise SystemExit(f"chip_smoke: backward kernel case {name} "
                              "failed")
         row = {"shape": [b, h, t, s, d], "dtype": str(dtype)[6:],
-               "max_abs_err": errs}
+               "max_abs_err": errs, "sdpa_max_abs_err": sdpa}
         if timed:
             row.update(_time_bwd(q, k, v, mask, out, lse, dout, lengths))
             log(f"[kernels] bwd {name}: dkv {row['flash_bwd_dkv_ms']:.4f} ms "
@@ -477,6 +499,30 @@ def phase_kernels_bwd(dev, train_lengths):
                 f"sdpa backward {row['library_ms']:.4f} ms")
         results[name] = row
     return results
+
+
+def _sdpa_bwd_err(q, k, v, mask, dout, causal, want):
+    """SDPA's backward (its own forward, the same key mask and
+    bottom-right causal mask) against the plain backward ``want``: max
+    |difference| of dq over the rows that see a key, of dk and dv over
+    the keys some row sees (SDPA gives NaN on rows that see none)."""
+    b, h, t, d = q.shape
+    s = k.shape[2]
+    keep = torch.ones((b, 1, t, s), dtype=torch.bool, device=q.device)
+    if mask is not None:
+        keep = keep & (mask[:, None, None, :] > 0)
+    if causal:
+        keep = keep & (torch.arange(t, device=q.device)[:, None] + (s - t)
+                       >= torch.arange(s, device=q.device)[None, :])
+    rows = keep.any(-1, keepdim=True)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=keep | ~rows)
+    grads = torch.autograd.grad(out, leaves, dout * rows)
+    live = {"dq": rows.expand(-1, h, -1, d),
+            "dk": keep.any(-2)[..., None].expand(-1, h, -1, d)}
+    live["dv"] = live["dk"]
+    return {n: float((g.float() - w.float())[live[n]].abs().max())
+            for n, g, w in zip(("dq", "dk", "dv"), grads, want)}
 
 
 def _time_bwd(q, k, v, mask, out, lse, dout, lengths):
@@ -821,6 +867,12 @@ def phase_train(dev, smi, batches):
     if (not np.all(np.isfinite(mp_losses)) or mp_rel > TOL_MIXED_REL
             or counts != want_mp):
         raise SystemExit("chip_smoke: the mixed-precision steps failed")
+    # where a mixed-precision step's time goes (the configuration of
+    # bench.py's bench_bert, mixed_precision=True)
+    mp_breakdown = _step_breakdown(mp_trainer, mts, on_dev[0],
+                                   ("flash_fwd", "flash_bwd_dkv",
+                                    "flash_bwd_dq"))
+    log(f"[train] one mixed-precision step: {mp_breakdown}")
     del mts, mp_trainer
 
     # 5. where one step's time goes
@@ -850,6 +902,7 @@ def phase_train(dev, smi, batches):
         "checkpoint_next_loss": fit["checkpoint_next_loss"],
         "mixed_precision_losses":
             mp_losses, "mixed_vs_fp32_rel": mp_rel,
+        "mixed_precision_step_breakdown": mp_breakdown,
         "step_breakdown": breakdown, "card": smi,
     }
 
@@ -1364,7 +1417,7 @@ def phase_charrnn_serving(dev, smi):
                 np.isfinite(out)) or np.abs(out.sum(-1) - 1).max() > 1e-5:
             raise SystemExit(f"chip_smoke: bad served output {out}")
     all_ids = torch.from_numpy(np.concatenate(requests)).to(dev)
-    want = next_char_probs(_char_rnn(dev, "xla"), variables,
+    want = next_char_probs(_char_rnn(dev, "plain"), variables,
                            all_ids).double().cpu().numpy()
     worst = float(np.abs(np.concatenate(got) - want).max())
     ids8 = all_ids[:8]
@@ -1458,7 +1511,7 @@ def phase_charrnn_train(dev, smi):
         f" parameters, Adam({CHAR_LR}), batches {CHAR_BATCH}x{CHAR_T} "
         f"one-hot of {CHAR_VOCAB}")
 
-    # 1. one loss and gradient, kernels vs plain LSTMs (backend "xla")
+    # 1. one loss and gradient, kernels vs plain LSTMs (backend "plain")
     with _plain_rnn_guard() as plain_calls:
         _dispatch.reset_launch_counts()
         loss_k, g_kernel = _loss_and_grads(trainer, ts0.params, on_dev[0],
@@ -1469,7 +1522,7 @@ def phase_charrnn_train(dev, smi):
         raise SystemExit(f"chip_smoke: one loss+grad launched {counts} and "
                          f"made {len(plain_calls)} plain LSTM calls; want "
                          f"{want} and none")
-    plain_trainer = Trainer(_char_rnn(dev, "xla", Adam(CHAR_LR)))
+    plain_trainer = Trainer(_char_rnn(dev, "plain", Adam(CHAR_LR)))
     loss_p, g_plain = _loss_and_grads(plain_trainer, ts0.params, on_dev[0],
                                       dev, SEED)
     loss_rel, worst_name, worst = _check_grads("char_train", loss_k, loss_p,
@@ -1929,7 +1982,7 @@ def phase_chargru_serving(dev, smi):
                 np.isfinite(out)) or np.abs(out.sum(-1) - 1).max() > 1e-5:
             raise SystemExit(f"chip_smoke: bad served output {out}")
     all_ids = torch.from_numpy(np.concatenate(requests)).to(dev)
-    want = _next_char_gru_probs(_char_gru(dev, "xla"), variables,
+    want = _next_char_gru_probs(_char_gru(dev, "plain"), variables,
                                 all_ids).double().cpu().numpy()
     worst = float(np.abs(np.concatenate(got) - want).max())
     ids8 = all_ids[:8]
@@ -1989,7 +2042,7 @@ def phase_chargru_train(dev, smi):
         f" parameters, Adam({GRU_LR}), batches {GRU_BATCH}x{GRU_T} char ids "
         f"of {GRU_VOCAB}")
 
-    # 1. one loss and gradient, kernels vs the plain GRU (backend "xla")
+    # 1. one loss and gradient, kernels vs the plain GRU (backend "plain")
     with _plain_rnn_guard("gru") as plain_calls:
         _dispatch.reset_launch_counts()
         loss_k, g_kernel = _loss_and_grads(trainer, ts0.params, on_dev[0],
@@ -2000,7 +2053,7 @@ def phase_chargru_train(dev, smi):
         raise SystemExit(f"chip_smoke: one loss+grad launched {counts} and "
                          f"made {len(plain_calls)} plain GRU calls; want "
                          f"{want} and none")
-    plain_trainer = Trainer(_char_gru(dev, "xla", Adam(GRU_LR)))
+    plain_trainer = Trainer(_char_gru(dev, "plain", Adam(GRU_LR)))
     loss_p, g_plain = _loss_and_grads(plain_trainer, ts0.params, on_dev[0],
                                       dev, SEED)
     loss_rel, worst_name, worst = _check_grads("gru_train", loss_k, loss_p,
@@ -2295,7 +2348,10 @@ def main() -> int:
                 "ms": r[f"{kernel}_ms"], "pair_ms": r["pair_ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                 "bound_ms": r[f"{kernel}_bound_ms"],
-                "bound_by": r[f"{kernel}_bound_by"]} for r in timed.values()},
+                "bound_by": r[f"{kernel}_bound_by"],
+                "max_abs_err": err(r),
+                "library_max_abs_err": r["sdpa_max_abs_err"]}
+                for r in timed.values()},
             "ms_is": "device time per launch (torch.profiler)",
             "plain_and_library_cover": "dq, dk and dv together: "
                                        "reference_attention_bwd, and "

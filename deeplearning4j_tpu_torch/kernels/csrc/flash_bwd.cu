@@ -1,10 +1,10 @@
 // Flash-attention backward for NVIDIA Hopper (sm_90a), plain C interface.
 //
 // Replaces: deeplearning4j_tpu/kernels/flash_attention.py::
-// _flash_bwd_dkv_kernel and ::_flash_bwd_dq_kernel, the two Pallas TPU
-// kernels launched by _flash_bwd_impl (the custom VJP of flash_attention).
-// They compute the FlashAttention-2 backward from the forward's row
-// log-sum-exp, in the math of _bwd_recompute:
+// _flash_bwd_dkv_kernel (:321) and ::_flash_bwd_dq_kernel (:352), the two
+// Pallas TPU kernels launched by _flash_bwd_impl (the custom VJP of
+// flash_attention). They compute the FlashAttention-2 backward from the
+// forward's row log-sum-exp, in the math of _bwd_recompute:
 //   p  = exp(scale * q.k - max(lse, -1e20))   (0 where masked)
 //   dp = dO . v,  dS = p * (dp - delta) * scale,  delta = rowsum(dO * O)
 //   dV = P^T dO,  dK = dS^T Q,  dQ = dS K
@@ -12,41 +12,59 @@
 // causal mask (query i sees key j iff i + (S - T) >= j). delta is computed
 // by the caller (a torch op, as the JAX package computes it outside its
 // kernels). Two kernels, as in the JAX package, so that every gradient
-// element has exactly one writer: deterministic, no atomics.
+// element has exactly one writer: deterministic, no atomics. Masked and
+// ragged keys get dK = dV = 0; fully masked query rows (whose LSE the
+// forward writes as about -7e29) get dQ = 0, never NaN: every masked
+// pair's probability is set to 0 explicitly, and the LSE is clamped at
+// -1e20 as _bwd_recompute does. A key tile whose keys are all masked, and
+// a tile pair wholly above the causal diagonal (_causal_block_live), does
+// no work. Each dtype has its own pair of kernels.
 //
-// - flash_bwd_dkv: one block per (batch*head, 32-key tile). K and V of the
-//   tile sit in shared memory in float32; the block sweeps the query tiles
-//   (Q, dO, LSE, delta) and accumulates dK and dV in float32 registers. A
-//   query tile that lies wholly above the causal diagonal for the key tile
-//   is never loaded (_causal_block_live), and a tile of masked keys does
-//   no work at all.
-// - flash_bwd_dq: one block per (batch*head, 32-query tile). Q, dO and the
-//   row statistics sit in shared memory; the block sweeps the key tiles,
-//   skips tiles whose keys are all masked (as flash_fwd does) and tiles
-//   past the causal diagonal, and accumulates dQ.
+// float32 (flash_bwd_dkv_kernel, flash_bwd_dq_kernel): on the CUDA cores.
+// Per (batch, head) the work is 8*T*S*D operations for dK/dV (two score
+// products and two accumulating products) and 6*T*S*D for dQ, over the
+// visible query-key pairs. At the BERT-base training shape (B=32, H=12,
+// T=S=128, D=64) unpadded that is 3.2 and 2.4 GFLOP: 48 and 36 us at 67
+// TFLOP/s on the float32 CUDA cores, against about 15 us and 12 us for
+// their bytes. So the operations bound both kernels. Design: one block
+// per (batch*head, 32-key tile) for dK/dV, (batch*head, 32-query tile) for
+// dQ; the [T, S] score and probability tiles never leave the SM. Phase 1
+// of each tile pair has four threads per query row, each computing the
+// score and dP of eight keys from float4 reads of shared memory (row
+// stride D + 4 floats, so four different rows fall in different banks);
+// phase 2 has four threads per output row (a key for dK/dV, a query for
+// dQ), each owning D/4 of its dimensions in float32 registers.
 //
-// Masked and ragged keys get dK = dV = 0; fully masked query rows (whose
-// LSE the forward writes as about -7e29) get dQ = 0, never NaN: every
-// masked pair's probability is set to 0 explicitly, and the LSE is clamped
-// at -1e20 as _bwd_recompute does.
-//
-// What bounds it on the card: per (batch, head) the work is 8*T*S*D
-// operations for dK/dV (two score products and two accumulating products)
-// and 6*T*S*D for dQ, over the visible query-key pairs. At the BERT-base
-// training shape (B=32, H=12, T=S=128, D=64) unpadded that is 3.2 and 2.4
-// GFLOP: 48 and 36 us at 67 TFLOP/s on the float32 CUDA cores, against
-// about 15 us and 12 us for their bytes (q, k, v, dO once and the two
-// outputs, float32, at 3.35 TB/s). So the operations bound both kernels.
-//
-// What the design does about it: the [T, S] score and probability tiles
-// never leave the SM. Phase 1 of each tile pair has four threads per query
-// row, each computing the score and dP of eight keys from float4 reads of
-// shared memory (row stride D + 4 floats, so four different rows fall in
-// different banks); phase 2 has four threads per output row (a key for
-// dK/dV, a query for dQ), each owning D/4 of its dimensions in float32
-// registers. All arithmetic runs in float32 on the CUDA cores, also for
-// bfloat16 inputs: simple and right first. Tensor cores (wgmma fed by TMA)
-// are later work.
+// bfloat16 (flash_bwd_dkv_kernel_wgmma, flash_bwd_dq_kernel_wgmma): every
+// product on the tensor cores (wgmma m64nNk16, bf16 operands, float32
+// accumulators). At the training shape the same 3.2 and 2.4 GFLOP take
+// 3.3 and 2.5 us at 989 TFLOP/s, so the bytes bound them: q, k, v, dO and
+// the outputs once in bf16, the LSE and delta in float32 (0.0112 and
+// 0.0093 ms at 3.35 TB/s, as chip_smoke.py counts them). What the design
+// does about it: each operand tile is read from device memory once per
+// block and the [T, S] tiles (S, dP, P, dS) live only in registers.
+// - flash_bwd_dkv: one warpgroup (128 threads) owns a 64-key tile of one
+//   (batch*head); grid (B*H, ceil(S/64)). K and V are loaded once; the
+//   64-row query tiles (Q, dO, LSE, delta) stream through a two-stage
+//   cp.async ring, the next tile's load in flight under this tile's
+//   products. Per tile: S^T = K Q^T and dP^T = V dO^T (A and B K-major in
+//   shared memory); P^T and dS^T formed and masked in the accumulator
+//   registers, rounded to bf16 in place, and fed as the register A
+//   operand of dV += P^T dO and dK += dS^T Q (B = dO or Q, MN-major). A
+//   64 x 64 float32 accumulator read as four k16 slices has the layout of
+//   the A fragment, so no shuffle is needed (the FlashAttention-3
+//   arrangement).
+// - flash_bwd_dq: one warpgroup owns a 64-row query tile; grid (B*H,
+//   ceil(T/64)). Q, dO, LSE and delta are loaded once; the 64-key tiles
+//   (K, V) stream through the ring, tiles of masked keys and tiles past
+//   the causal diagonal skipped. Per tile: S = Q K^T, dP = dO V^T, dS in
+//   registers as bf16, dQ += dS K (B = K, MN-major).
+// Shared tiles sit in wgmma's swizzled layouts (128-byte swizzle for
+// D = 64 and 128, 64-byte for D = 32, whose bf16 row is 64 bytes); rows
+// past T or S and masked keys are zero-filled by the copy (source size 0),
+// so no stale value ever meets a 0. Rounding as the JAX kernels do it: P
+// and dS in bf16 into their products, float32 accumulation, each gradient
+// rounded once to bf16 at the store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,27 +86,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  *reinterpret_cast<uint32_t*>(&lo) = raw.x;
-  *reinterpret_cast<uint32_t*>(&hi) = raw.y;
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -432,15 +431,615 @@ cudaError_t launch_d(int d, const Args& a, cudaStream_t stream) {
   }
 }
 
+// -- bfloat16: the products on the tensor cores (wgmma) -----------------------
+
+namespace wg {
+
+constexpr int kRows = 64;      // query rows and keys per tile: wgmma's M
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kSlices = kRows / 16;  // k16 slices of a tile's 64 rows
+
+// A [kRows][D] bf16 tile in shared memory, in wgmma's canonical swizzled
+// layout. D = 64 and 128: column blocks of 64 values (rows of 128 bytes,
+// 128-byte swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8));
+// D = 32: rows of 64 bytes, 64-byte swizzle (chunk c ^ ((r / 2) % 4)).
+// Every tile starts on a 1024-byte boundary, where the pattern repeats.
+template <int D>
+struct Tile {
+  static constexpr int kRowBytes = D >= 64 ? 128 : 64;
+  static constexpr int kBlockBytes = kRows * kRowBytes;  // one column block
+  static constexpr int kBytes = kRows * D * 2;
+  static constexpr int kGroupBytes = 8 * kRowBytes;  // 8 rows: the SBO
+  static constexpr uint64_t kLayout = D >= 64 ? 1 : 2;  // 128B / 64B swizzle
+  // wgmma's N for the accumulating products: column blocks of kN values
+  static constexpr int kN = D >= 64 ? 64 : 32;
+  static constexpr int kNB = D / kN;
+
+  __device__ static uint32_t offset(int r, int c) {  // 16-byte chunk c
+    constexpr int kChunks = kRowBytes / 16;
+    const int sw = D >= 64 ? (r & 7) : ((r >> 1) & 3);
+    return (c / kChunks) * kBlockBytes + r * kRowBytes +
+           (((c % kChunks) ^ sw) << 4);
+  }
+};
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+// The tile as a K-major operand (its rows are wgmma's M or N, its D
+// columns the reduction): k16 slice s starts 32 bytes further along the
+// row, in column block s / (kRowBytes / 32).
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int s) {
+  using L = Tile<D>;
+  constexpr int kPerBlock = L::kRowBytes / 32;
+  return make_desc(tile + (s / kPerBlock) * L::kBlockBytes +
+                       (s % kPerBlock) * 32,
+                   16, L::kGroupBytes, L::kLayout);
+}
+
+// The tile as an MN-major operand (its rows are the reduction, its columns
+// wgmma's N): k16 slice s starts 16 rows down; nb picks the column block.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int s, int nb) {
+  using L = Tile<D>;
+  return make_desc(tile + nb * L::kBlockBytes + s * 16 * L::kRowBytes,
+                   L::kBlockBytes, L::kGroupBytes, L::kLayout);
+}
+
+#define DL4J_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define DL4J_ACC16(i) \
+  DL4J_ACC4(i), DL4J_ACC4(i + 4), DL4J_ACC4(i + 8), DL4J_ACC4(i + 12)
+#define DL4J_ACC32(i) DL4J_ACC16(i), DL4J_ACC16(i + 16)
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory,
+// both K-major; ``accumulate`` 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DL4J_ACC32(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (the fragment
+// layout of an accumulator's k16 slice), B from shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : DL4J_ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] . B[16 x 32], A from registers (the fragment
+// layout of an accumulator's k16 slice), B from shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : DL4J_ACC16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// The accumulating products: wgmma's N is the tile's column block.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n64(d, a, b);
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n32(d, a, b);
+}
+
+#undef DL4J_ACC32
+#undef DL4J_ACC16
+#undef DL4J_ACC4
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes from global to shared memory; with ok false the
+// destination is zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, kRows) of a tile whose row 0 is at src ([rows][D] contiguous)
+// into shared memory at dst. Rows at or past ``rows``, and rows whose
+// valid[r] is 0 (when valid is given), are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src, int rows,
+                                          const float* valid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool ok = r < rows && (valid == nullptr || valid[r] > 0.f);
+    cp_async16(dst + Tile<D>::offset(r, c), ok ? src + r * D + c * 8 : src,
+               ok);
+  }
+}
+
+// The LSE and delta of query rows [0, kRows) of a tile (row 0 at lse /
+// delta) into lse_dst[kRows], dlt_dst[kRows]; rows at or past ``rows``
+// read as 0 (and are masked).
+__device__ __forceinline__ void load_stats(float* lse_dst, float* dlt_dst,
+                                           const float* lse,
+                                           const float* delta, int rows) {
+  const int r = threadIdx.x % kRows;
+  const bool ok = r < rows;
+  if (threadIdx.x < kRows)
+    cp_async4(smem_addr(lse_dst + r), ok ? lse + r : lse, ok);
+  else
+    cp_async4(smem_addr(dlt_dst + r), ok ? delta + r : delta, ok);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A 64 x 64 accumulator as four k16 A fragments, rounded to bf16. Thread
+// (warp w, lane l) holds d[4j + e] at row 16w + l/4 + 8(e/2), column
+// 8j + 2(l%4) + e%2; fragment register i of slice s holds rows l/4 (+8
+// for odd i), columns 16s + 2(l%4) (+8 for i >= 2): the same values.
+__device__ __forceinline__ void to_frags(const float (&d)[32],
+                                         uint32_t (&a)[kSlices][4]) {
+#pragma unroll
+  for (int s = 0; s < kSlices; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[s][i] = pack_bf16(d[8 * s + 2 * i], d[8 * s + 2 * i + 1]);
+}
+
+// Rows row0 (+8) of an accumulator of column block nb into a [*, D] bf16
+// matrix at out (row 0 of the tile); rows at or past ``rows`` are skipped.
+template <int D, int N>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out,
+                                          const float (&d)[N], int nb,
+                                          int row0, int col0, int rows) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      *reinterpret_cast<uint32_t*>(
+          out + static_cast<size_t>(r) * D + nb * Tile<D>::kN + 8 * j +
+          col0) = pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  }
+}
+
+// Shared memory of either kernel: six tiles on 1024-byte boundaries, up
+// to 1280 bytes of row statistics and key flags, and the slack that
+// aligns them.
+template <int D>
+constexpr size_t smem_bytes() {
+  return 6 * Tile<D>::kBytes + 1280 + 1024;
+}
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + (((a + 1023) & ~1023u) - a);
+}
+
+// q/dO [BH, T, D], k/v [BH, S, D], dk/dv [BH, S, D] contiguous bf16;
+// key_mask [B, S] float (nullptr = none); lse/delta [BH, T] float.
+// Grid: x = batch*head, y = 64-key tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const float* __restrict__ key_mask,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int heads,
+                           int t_len, int s_len, float scale, int causal) {
+  using L = Tile<D>;
+  constexpr int kNB = L::kNB, kAcc = L::kN / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t ks = smem_addr(smem), vs = ks + L::kBytes;
+  const uint32_t qs0 = vs + L::kBytes;  // stage st: Q at qs0 + 2 st kBytes,
+                                        // dO one tile after it
+  float* stats = reinterpret_cast<float*>(smem + 6 * L::kBytes);  // [2][2][64]
+  float* kvalid = stats + 4 * kRows;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x, b = bh / heads, k0 = blockIdx.y * kRows;
+  const int offset = s_len - t_len;  // bottom-right causal alignment
+  const size_t bh_t = static_cast<size_t>(bh) * t_len;
+  const size_t bh_s = static_cast<size_t>(bh) * s_len;
+
+  bool key_ok = false;
+  if (tid < kRows) {
+    const int key = k0 + tid;
+    key_ok = key < s_len &&
+             (key_mask == nullptr ||
+              key_mask[static_cast<size_t>(b) * s_len + key] > 0.f);
+    kvalid[tid] = key_ok ? 1.f : 0.f;
+  }
+  const bool any_key = __syncthreads_or(key_ok);
+
+  // Accumulator rows (keys of the tile) row0 and row0 + 8, columns
+  // col0 + 8j (+1).
+  const int row0 = warp * 16 + lane / 4, col0 = (lane % 4) * 2;
+  float dk_acc[kNB][kAcc], dv_acc[kNB][kAcc];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) dk_acc[nb][i] = dv_acc[nb][i] = 0.f;
+
+  if (any_key) {  // a tile of masked keys has dK = dV = 0 and reads nothing
+    load_tile<D>(ks, k + (bh_s + k0) * D, s_len - k0, kvalid);
+    load_tile<D>(vs, v + (bh_s + k0) * D, s_len - k0, kvalid);
+    cp_async_commit();
+    auto load_q = [&](int q0, int st) {
+      const uint32_t qs = qs0 + 2 * st * L::kBytes;
+      load_tile<D>(qs, q + (bh_t + q0) * D, t_len - q0, nullptr);
+      load_tile<D>(qs + L::kBytes, dout + (bh_t + q0) * D, t_len - q0,
+                   nullptr);
+      load_stats(stats + 2 * st * kRows, stats + (2 * st + 1) * kRows,
+                 lse + bh_t + q0, delta + bh_t + q0, t_len - q0);
+    };
+    // Causal: query row i sees key k0 first when i + offset >= k0, so the
+    // query tiles wholly above the diagonal are never loaded.
+    const int q_begin = causal ? (max(0, k0 - offset) / kRows) * kRows : 0;
+    if (q_begin < t_len) load_q(q_begin, 0);
+    cp_async_commit();
+    const bool kv0 = kvalid[row0] > 0.f, kv1 = kvalid[row0 + 8] > 0.f;
+    const float scale_log2 = scale * kLog2e;
+    int st = 0;
+    for (int q0 = q_begin; q0 < t_len; q0 += kRows, st ^= 1) {
+      if (q0 + kRows < t_len) load_q(q0 + kRows, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // K/V and this query tile have landed
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      const uint32_t qs = qs0 + 2 * st * L::kBytes, dos = qs + L::kBytes;
+
+      // S^T = K Q^T and dP^T = V dO^T: [key][query]
+      float sacc[32], dpacc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sacc[i] = dpacc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < D / 16; ++s)
+        wgmma_ss_n64(sacc, desc_k<D>(ks, s), desc_k<D>(qs, s), s > 0);
+#pragma unroll
+      for (int s = 0; s < D / 16; ++s)
+        wgmma_ss_n64(dpacc, desc_k<D>(vs, s), desc_k<D>(dos, s), s > 0);
+      wgmma_commit_and_wait();
+      fence_regs(sacc);
+      fence_regs(dpacc);
+
+      // P^T and dS^T in place, masked pairs exactly 0
+      const float* lse_t = stats + 2 * st * kRows;
+      const float* dlt_t = lse_t + kRows;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + col0;  // query columns c, c + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dlt_t + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const int qi = q0 + c + (e & 1);
+          const int key = k0 + row0 + 8 * (e >> 1);
+          const bool ok = ((e >> 1) ? kv1 : kv0) && qi < t_len &&
+                          (!causal || qi + offset >= key);
+          const float lse2 = fmaxf((e & 1) ? l2.y : l2.x, kLseFloor) * kLog2e;
+          const float p =
+              ok ? exp2f(fmaf(sacc[i], scale_log2, -lse2)) : 0.f;
+          dpacc[i] = p * (dpacc[i] - ((e & 1) ? d2.y : d2.x)) * scale;
+          sacc[i] = p;
+        }
+      }
+      uint32_t pf[kSlices][4], dsf[kSlices][4];
+      to_frags(sacc, pf);
+      to_frags(dpacc, dsf);
+
+      // dV += P^T dO, dK += dS^T Q, over the tile's 64 query rows
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kSlices; ++s)
+#pragma unroll
+        for (int nb = 0; nb < kNB; ++nb) {
+          wgmma_rs(dv_acc[nb], pf[s], desc_mn<D>(dos, s, nb));
+          wgmma_rs(dk_acc[nb], dsf[s], desc_mn<D>(qs, s, nb));
+        }
+      wgmma_commit_and_wait();
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb) {
+        fence_regs(dv_acc[nb]);
+        fence_regs(dk_acc[nb]);
+      }
+      __syncthreads();  // this stage is read: the next load may reuse it
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) {
+    store_acc<D>(dk + (bh_s + k0) * D, dk_acc[nb], nb, row0, col0,
+                 s_len - k0);
+    store_acc<D>(dv + (bh_s + k0) * D, dv_acc[nb], nb, row0, col0,
+                 s_len - k0);
+  }
+}
+
+// Same layouts; dq [BH, T, D]. Grid: x = batch*head, y = 64-query tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const float* __restrict__ key_mask,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int heads,
+                          int t_len, int s_len, float scale, int causal) {
+  using L = Tile<D>;
+  constexpr int kNB = L::kNB, kAcc = L::kN / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t qs = smem_addr(smem), dos = qs + L::kBytes;
+  const uint32_t ks0 = dos + L::kBytes;  // stage st: K at ks0 + 2 st kBytes,
+                                         // V one tile after it
+  float* lse_q = reinterpret_cast<float*>(smem + 6 * L::kBytes);
+  float* dlt_q = lse_q + kRows;
+  float* kvalid = dlt_q + kRows;  // [2][kRows]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x, b = bh / heads, q0 = blockIdx.y * kRows;
+  const int offset = s_len - t_len;
+  const size_t bh_t = static_cast<size_t>(bh) * t_len;
+  const size_t bh_s = static_cast<size_t>(bh) * s_len;
+
+  load_tile<D>(qs, q + (bh_t + q0) * D, t_len - q0, nullptr);
+  load_tile<D>(dos, dout + (bh_t + q0) * D, t_len - q0, nullptr);
+  load_stats(lse_q, dlt_q, lse + bh_t + q0, delta + bh_t + q0, t_len - q0);
+  cp_async_commit();
+
+  // Causal: keys past the tile's last row are masked for every row.
+  const int k_end =
+      causal ? min(s_len, min(q0 + kRows, t_len) + offset) : s_len;
+  // The first key tile at or after k_from with a key that is not masked
+  // (k_end if none), its key flags written to valid[kRows]. The decision
+  // is the same for every thread of the block.
+  auto next_live = [&](int k_from, float* valid) {
+    for (int kt = k_from; kt < k_end; kt += kRows) {
+      bool ok = false;
+      if (tid < kRows) {
+        const int key = kt + tid;
+        ok = key < k_end &&
+             (key_mask == nullptr ||
+              key_mask[static_cast<size_t>(b) * s_len + key] > 0.f);
+        valid[tid] = ok ? 1.f : 0.f;
+      }
+      if (__syncthreads_or(ok)) return kt;
+    }
+    return k_end;
+  };
+  auto load_kv = [&](int kt, int st) {
+    const uint32_t ks = ks0 + 2 * st * L::kBytes;
+    const float* valid = kvalid + st * kRows;
+    load_tile<D>(ks, k + (bh_s + kt) * D, s_len - kt, valid);
+    load_tile<D>(ks + L::kBytes, v + (bh_s + kt) * D, s_len - kt, valid);
+  };
+
+  // Accumulator rows (queries of the tile) row0 and row0 + 8, columns
+  // col0 + 8j (+1).
+  const int row0 = warp * 16 + lane / 4, col0 = (lane % 4) * 2;
+  float dq_acc[kNB][kAcc];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) dq_acc[nb][i] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+
+  int k0 = next_live(0, kvalid);
+  if (k0 < k_end) load_kv(k0, 0);
+  cp_async_commit();
+  for (int st = 0; k0 < k_end; st ^= 1) {
+    const int k_next = next_live(k0 + kRows, kvalid + (st ^ 1) * kRows);
+    if (k_next < k_end) load_kv(k_next, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q/dO and this key tile have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint32_t ks = ks0 + 2 * st * L::kBytes, vs = ks + L::kBytes;
+
+    // S = Q K^T and dP = dO V^T: [query][key]
+    float sacc[32], dpacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = dpacc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < D / 16; ++s)
+      wgmma_ss_n64(sacc, desc_k<D>(qs, s), desc_k<D>(ks, s), s > 0);
+#pragma unroll
+    for (int s = 0; s < D / 16; ++s)
+      wgmma_ss_n64(dpacc, desc_k<D>(dos, s), desc_k<D>(vs, s), s > 0);
+    wgmma_commit_and_wait();
+    fence_regs(sacc);
+    fence_regs(dpacc);
+
+    // dS in place, masked pairs exactly 0
+    const float* valid = kvalid + st * kRows;
+    float lse2[2], dlt[2];
+    bool live[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      live[h] = q0 + r < t_len;
+      lse2[h] = fmaxf(lse_q[r], kLseFloor) * kLog2e;
+      dlt[h] = dlt_q[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + col0;  // key columns c, c + 1
+      const float2 kv = *reinterpret_cast<const float2*>(valid + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, h = e >> 1;
+        const int key = k0 + c + (e & 1);
+        const bool ok = live[h] && ((e & 1) ? kv.y : kv.x) > 0.f &&
+                        (!causal || q0 + row0 + 8 * h + offset >= key);
+        const float p = ok ? exp2f(fmaf(sacc[i], scale_log2, -lse2[h])) : 0.f;
+        dpacc[i] = p * (dpacc[i] - dlt[h]) * scale;
+      }
+    }
+    uint32_t dsf[kSlices][4];
+    to_frags(dpacc, dsf);
+
+    // dQ += dS K, over the tile's 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kSlices; ++s)
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+        wgmma_rs(dq_acc[nb], dsf[s], desc_mn<D>(ks, s, nb));
+    wgmma_commit_and_wait();
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) fence_regs(dq_acc[nb]);
+    __syncthreads();  // this stage is read: the next load may reuse it
+    k0 = k_next;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+    store_acc<D>(dq + (bh_t + q0) * D, dq_acc[nb], nb, row0, col0,
+                 t_len - q0);
+}
+
+template <bool kDkv, int D>
+cudaError_t launch_one(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  const int tiles = ((kDkv ? a.s_len : a.t_len) + kRows - 1) / kRows;
+  const dim3 grid(a.batch * a.heads, tiles);
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* g = static_cast<const bf16*>(a.dout);
+  if constexpr (kDkv) {
+    auto kernel = flash_bwd_dkv_kernel_wgmma<D>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        q, k, v, a.key_mask, g, a.lse, a.delta, static_cast<bf16*>(a.out0),
+        static_cast<bf16*>(a.out1), a.heads, a.t_len, a.s_len, a.scale,
+        a.causal);
+  } else {
+    auto kernel = flash_bwd_dq_kernel_wgmma<D>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        q, k, v, a.key_mask, g, a.lse, a.delta, static_cast<bf16*>(a.out0),
+        a.heads, a.t_len, a.s_len, a.scale, a.causal);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kDkv>
+cudaError_t launch(int d, const Args& a, cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch_one<kDkv, 32>(a, stream);
+    case 64:
+      return launch_one<kDkv, 64>(a, stream);
+    case 128:
+      return launch_one<kDkv, 128>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+
 template <bool kDkv>
 int launch(int device, const Args& a, int d, int dtype, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    e = launch_d<kDkv, float>(d, a, st);
+    e = launch_d<kDkv, float>(d, a, st);  // the CUDA cores
   else if (dtype == 1)
-    e = launch_d<kDkv, __nv_bfloat16>(d, a, st);
+    e = wg::launch<kDkv>(d, a, st);  // the tensor cores
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

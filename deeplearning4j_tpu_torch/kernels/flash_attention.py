@@ -95,8 +95,11 @@ def reference_attention_bwd(q, k, v, key_mask, out, lse, g, *, causal=False,
     in float32, over the whole [T, S] score matrix at once:
     delta = rowsum(dO·O); p = exp(s − max(lse, −1e20)), 0 where masked;
     dp = dO·Vᵀ; dS = p·(dp − delta)·scale; dV = pᵀ·dO, dK = dSᵀ·Q,
-    dQ = dS·K. Causal is aligned to the bottom right. Rows whose keys are
-    all masked get 0 gradients. Gradients come out in the inputs' dtypes."""
+    dQ = dS·K. As ``_bwd_recompute`` hands p and dS to its products in
+    the inputs' dtype, they are rounded to it (bf16; nothing changes for
+    float32) before the last three products, which sum in float32.
+    Causal is aligned to the bottom right. Rows whose keys are all masked
+    get 0 gradients. Gradients come out in the inputs' dtypes."""
     d = q.shape[-1]
     scale = (d ** -0.5) if scale is None else scale
     b, h, t, _ = q.shape
@@ -114,6 +117,7 @@ def reference_attention_bwd(q, k, v, key_mask, out, lse, g, *, causal=False,
     delta = torch.sum(out.float() * gf, dim=-1, keepdim=True)
     dp = torch.einsum("bhtd,bhsd->bhts", gf, vf)
     ds = p * (dp - delta) * scale
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     dv = torch.einsum("bhts,bhtd->bhsd", p, gf)
     dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
     dq = torch.einsum("bhts,bhsd->bhtd", ds, kf)

@@ -25,9 +25,9 @@ def text_generation_lstm_config(*, vocab_size: int = 77, hidden: int = 256,
                                 backend: str = "pallas") -> SequentialConfig:
     """Char-RNN config. Input: one-hot chars [N, T, vocab]; output: the
     next-char softmax at every step. ``backend="pallas"`` (the port's
-    default; the JAX package's is "xla") runs the LSTM layers through the
-    fused sweeps (the CUDA kernels on the card); ``"xla"`` through the
-    plain ``ops/rnn.lstm`` loop, the reference path."""
+    default) and ``"xla"`` (the JAX package's) run the LSTM layers through
+    the fused sweeps (the CUDA kernels on the card); ``"plain"`` through
+    the eager ``ops/rnn.lstm`` loop, the reference path."""
     net = NeuralNetConfiguration(seed=seed, updater=updater,
                                  weight_init="xavier")
     lstm_cls = GravesLSTM if graves else LSTM

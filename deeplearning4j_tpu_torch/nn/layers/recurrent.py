@@ -4,12 +4,15 @@ Sequence layout [N, T, C] (batch, time, features), as in the JAX package.
 LSTM params: "W" input weights [in, 4H], "RW" recurrent weights [H, 4H],
 "b" [4H], gate order i, f, g, o; ``GravesLSTM`` adds the peepholes "pI",
 "pF", "pO" [H]. GRU params: "W" [in, 3H], "RW" [H, 3H], "b" [3H], gate
-order r, z, n. ``backend="pallas"`` runs the port's fused sweeps
-(``kernels/lstm_scan.lstm``, ``kernels/gru_scan.gru``: the CUDA kernels
-on the card, their plain versions on the CPU); ``backend="xla"`` the
-plain loops of ``ops/rnn.lstm`` and ``ops/rnn.gru``. Both compute the
-same function. ``unroll`` is kept for the config's JSON; the port has no
-scan to unroll.
+order r, z, n. ``backend="pallas"`` and ``backend="xla"`` (the JAX
+package's two names, its default the latter) both run the port's fused
+sweeps (``kernels/lstm_scan.lstm``, ``kernels/gru_scan.gru``: the CUDA
+kernels on the card, their plain versions on the CPU), so a config JSON
+written by the JAX package reaches the kernels. ``backend="plain"``, a
+name of the port only, runs the eager loops of ``ops/rnn.lstm`` and
+``ops/rnn.gru``: the reference path the tests and ``chip_smoke.py``
+compare with. All compute the same function. ``unroll`` is kept for the
+config's JSON; the port has no scan to unroll.
 
 Not ported yet: ``init_carry``/``step`` (rnnTimeStep), ``SimpleRnn``,
 ``Bidirectional``, ``LastTimeStep``.
@@ -27,6 +30,9 @@ from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_config
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
 from deeplearning4j_tpu_torch.ops import rnn as opsrnn
 
+# The backend names that run the fused sweeps: the JAX package's two.
+_SWEEPS = ("pallas", "xla")
+
 
 @register_config
 @dataclass
@@ -38,10 +44,10 @@ class LSTM(LayerConfig):
     weight_init: Optional[str] = None
     forget_bias: float = 1.0
     return_sequences: bool = True
-    # 'pallas': the lstm_fwd/lstm_bwd sweeps (the CUDA kernels on the
-    # card); 'xla': the plain ops/rnn.lstm loop, the reference the tests
-    # and chip_smoke.py compare with. The JAX package defaults to 'xla';
-    # the port defaults to its kernels, and a JSON names its backend.
+    # 'pallas' and 'xla' (the JAX package's default, its compiled scan):
+    # the lstm_fwd/lstm_bwd sweeps (the CUDA kernels on the card); 'plain':
+    # the eager ops/rnn.lstm loop, the reference the tests and
+    # chip_smoke.py compare with.
     backend: str = "pallas"
     unroll: int = 1
 
@@ -73,19 +79,19 @@ class LSTM(LayerConfig):
                      generator=None):
         """Forward from ``carry`` (an ``LSTMState``; None = zeros) →
         (y, new_state, final_carry)."""
-        if self.backend == "pallas":
+        if self.backend in _SWEEPS:
             outputs, final = lstm_scan.lstm(
                 x, params["W"], params["RW"], params["b"],
                 peepholes=self._peepholes(params),
                 forget_bias=self.forget_bias, init_state=carry)
-        elif self.backend == "xla":
+        elif self.backend == "plain":
             outputs, final = opsrnn.lstm(
                 x, params["W"], params["RW"], params["b"], init_state=carry,
                 peepholes=self._peepholes(params),
                 forget_bias=self.forget_bias)
         else:
             raise ValueError(f"unknown LSTM backend {self.backend!r}; "
-                             "valid: 'pallas', 'xla'")
+                             "valid: 'pallas', 'xla', 'plain'")
         y = outputs if self.return_sequences else outputs[:, -1, :]
         return y, state, final
 
@@ -115,9 +121,8 @@ class GRU(LayerConfig):
     units: int = 0
     weight_init: Optional[str] = None
     return_sequences: bool = True
-    # 'pallas': the gru_fwd/gru_bwd sweeps (the CUDA kernels on the card);
-    # 'xla': the plain ops/rnn.gru loop, the reference path. The JAX
-    # package defaults to 'xla'; the port to its kernels, as for LSTM.
+    # 'pallas' and 'xla': the gru_fwd/gru_bwd sweeps (the CUDA kernels on
+    # the card); 'plain': the eager ops/rnn.gru loop, the reference path.
     backend: str = "pallas"
     unroll: int = 1
 
@@ -146,14 +151,14 @@ class GRU(LayerConfig):
                      generator=None):
         """Forward from hidden state ``carry`` [N, H] (None = zeros) →
         (y, new_state, final h)."""
-        if self.backend == "pallas":
+        if self.backend in _SWEEPS:
             outputs, final = gru_scan.gru(x, params["W"], params["RW"],
                                           params["b"], init_h=carry)
-        elif self.backend == "xla":
+        elif self.backend == "plain":
             outputs, final = opsrnn.gru(x, params["W"], params["RW"],
                                         params["b"], init_h=carry)
         else:
             raise ValueError(f"unknown GRU backend {self.backend!r}; "
-                             "valid: 'pallas', 'xla'")
+                             "valid: 'pallas', 'xla', 'plain'")
         y = outputs if self.return_sequences else outputs[:, -1, :]
         return y, state, final

@@ -16,10 +16,10 @@ The plain PyTorch recurrence, gate math in the JAX package's order:
 - :func:`gru` — a full sequence, from an optional initial state, forwards
   or reversed in time.
 
-This is the recurrent layers' ``backend="xla"`` path. The fused sweeps of
-``kernels/lstm_scan.py`` and ``kernels/gru_scan.py`` (the ``"pallas"``
-path) compute the same functions; their own plain versions live beside
-them there. ``simple_rnn`` comes with its layer.
+This is the recurrent layers' ``backend="plain"`` path. The fused sweeps
+of ``kernels/lstm_scan.py`` and ``kernels/gru_scan.py`` (the ``"pallas"``
+and ``"xla"`` path) compute the same functions; their own plain versions
+live beside them there. ``simple_rnn`` comes with its layer.
 """
 
 from __future__ import annotations

@@ -31,6 +31,7 @@ from deeplearning4j_tpu_torch.kernels import gru_scan
 from deeplearning4j_tpu_torch.nn import config as nnconfig
 from deeplearning4j_tpu_torch.nn import layers
 from deeplearning4j_tpu_torch.nn.model import SequentialModel
+from deeplearning4j_tpu_torch.ops import rnn as opsrnn
 from deeplearning4j_tpu_torch.serde import checkpoint as ckpt
 from deeplearning4j_tpu_torch.serving import (
     ModelRegistry,
@@ -64,14 +65,16 @@ def _env():
 
 
 def _config(pkg, backend="pallas"):
-    """The char-GRU's SequentialConfig from either package's classes."""
+    """The char-GRU's SequentialConfig from either package's classes;
+    ``backend=None`` leaves the GRU at its package's default."""
     cfg, ly, upd = ((jax_config, jax_layers, JaxAdam) if pkg == "jax"
                     else (nnconfig, layers, Adam))
+    named = {} if backend is None else {"backend": backend}
     return cfg.SequentialConfig(
         net=cfg.NeuralNetConfiguration(seed=0, updater=upd(LR),
                                        weight_init="xavier"),
         layers=[ly.Embedding(vocab_size=V, units=E),
-                ly.GRU(units=HID, backend=backend),
+                ly.GRU(units=HID, **named),
                 ly.RnnOutputLayer(units=V, activation="softmax",
                                   loss="mcxent")],
         input_shape=(T,))
@@ -264,9 +267,9 @@ def test_checkpoints_cross_both_ways(jax_model, variables, jax_two_steps,
 
 
 def test_output_backends_and_score_match_jax(jax_model, variables):
-    """``output`` through the sweeps and through the plain loop
-    (``backend="xla"``) against the JAX package's; ``score`` is the
-    loss."""
+    """``output`` through the sweeps (``backend="pallas"`` and ``"xla"``)
+    and through the plain loop (``backend="plain"``) against the JAX
+    package's; ``score`` is the loss."""
     batch = _batch(8)
     want = np.asarray(jax_model.output(variables, batch["features"]))
     feats = torch.from_numpy(batch["features"])
@@ -275,7 +278,7 @@ def test_output_backends_and_score_match_jax(jax_model, variables):
     assert {n for n, _ in flatten_with_names(params["params"])} == {
         "0_embedding/W", "1_gru/W", "1_gru/RW", "1_gru/b",
         "2_rnnoutputlayer/W", "2_rnnoutputlayer/b"}
-    for backend in ("pallas", "xla"):
+    for backend in ("pallas", "xla", "plain"):
         model = _port_model(backend)
         got = model.output(params, feats)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6,

@@ -33,7 +33,9 @@ from deeplearning4j_tpu_torch.models.zoo.classic import (
     text_generation_lstm,
 )
 from deeplearning4j_tpu_torch.nn import config as nnconfig
+from deeplearning4j_tpu_torch.nn.model import SequentialModel
 from deeplearning4j_tpu_torch.nn.weightnoise import DropConnect
+from deeplearning4j_tpu_torch.ops import rnn as opsrnn
 from deeplearning4j_tpu_torch.serde import checkpoint as ckpt
 from deeplearning4j_tpu_torch.serving import (
     ModelRegistry,
@@ -275,14 +277,14 @@ def test_checkpoints_cross_both_ways(jax_model, variables, jax_two_steps,
 
 
 def test_output_backends_and_score_match_jax(jax_model, variables):
-    """``output`` through the sweeps and through the plain loop
-    (``backend="xla"``) against the JAX package's; ``score`` is the
-    loss."""
+    """``output`` through the sweeps (``backend="pallas"`` and ``"xla"``)
+    and through the plain loop (``backend="plain"``) against the JAX
+    package's; ``score`` is the loss."""
     batch = _batch(8)
     want = np.asarray(jax_model.output(variables, batch["features"]))
     feats = torch.from_numpy(batch["features"])
     params = batch_to_device(variables, "cpu")
-    for backend in ("pallas", "xla"):
+    for backend in ("pallas", "xla", "plain"):
         model = text_generation_lstm(device="cpu", **{**KW,
                                                       "backend": backend})
         got = model.output(params, feats)
@@ -293,6 +295,37 @@ def test_output_backends_and_score_match_jax(jax_model, variables):
             (N, T, V), (N, T, HID), (N, T, HID), (N, T, V)]
     assert _port_model().score(params, batch) == pytest.approx(
         float(jax_model.score(variables, batch)), rel=TOL_LOSS)
+
+
+@pytest.mark.parametrize("graves", [True, False], ids=["graves", "lstm"])
+def test_jax_default_backend_config_runs_the_sweeps(graves, monkeypatch):
+    """A char-RNN config built by the JAX package with its default backend
+    ("xla") loads in the port and runs both LSTM layers through
+    ``lstm_scan.lstm`` (the kernels on the card), never ``ops/rnn.lstm``;
+    its output matches the JAX package's."""
+    jmodel = jax_char_rnn(vocab_size=V, hidden=HID, seq_len=T,
+                          graves=graves)
+    cfg = nnconfig.SequentialConfig.from_json(jmodel.config.to_json())
+    assert [l.backend for l in cfg.layers[:2]] == ["xla", "xla"]
+    variables = jax.tree_util.tree_map(np.array, jmodel.init(seed=6))
+    feats = _batch(9)["features"]
+    want = np.asarray(jmodel.output(variables, feats))
+    calls = []
+    sweep = lstm_scan.lstm
+
+    def spy(x, *args, **kwargs):
+        calls.append(tuple(x.shape))
+        return sweep(x, *args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("ops/rnn.lstm called for an 'xla' layer")
+
+    monkeypatch.setattr(lstm_scan, "lstm", spy)
+    monkeypatch.setattr(opsrnn, "lstm", refused)
+    got = SequentialModel(cfg, device="cpu").output(
+        batch_to_device(variables, "cpu"), torch.from_numpy(feats))
+    assert calls == [(N, T, V), (N, T, HID)]
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
 def test_served_char_rnn_answers_like_output(variables):

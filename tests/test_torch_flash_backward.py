@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu.kernels import flash_attention as jax_fa
 from deeplearning4j_tpu.kernels.flash_attention import (
     flash_attention as jax_flash_attention,
 )
@@ -136,6 +137,53 @@ def test_backward_matches_autograd_of_reference(case):
     for which, a, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a[live], w.numpy()[live], atol=ATOL,
                                    err_msg=which)
+
+
+# bf16 inputs: (name, B, H, T, S, D, causal, key lengths per batch row)
+BF16_CASES = [
+    ("padded_keys", 2, 2, 32, 48, 64, False, [48, 20]),
+    ("causal_padded", 2, 2, 40, 40, 64, True, [33, 40]),
+    ("zero_mask_row_d32", 3, 2, 24, 24, 32, False, [24, 0, 11]),
+]
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=[c[0] for c in BF16_CASES])
+def test_bf16_backward_rounds_p_and_ds_as_the_pallas_kernels(case,
+                                                            monkeypatch):
+    """bf16 inputs: the JAX package's Pallas backward (interpret mode; off
+    the TPU ``_matmul_dtype`` keeps bf16, so P and dS enter their products
+    in bf16) against the port's plain backward, both from the JAX
+    forward's output and LSE. Each gradient is within 1 bf16 ulp of its
+    largest magnitude (2^-7 of it) everywhere, and at most 0.1% of its
+    elements differ by more than 1/64 of that ulp: the two sum in float32
+    in another order, which may flip a final rounding. Feeding P and dS
+    to the products in float32 instead (the plain backward before it
+    rounded them) puts 17-26% of the elements beyond that."""
+    monkeypatch.setenv("DL4J_TPU_FORCE_PALLAS", "1")
+    name, b, h, t, s, d, causal, lengths = case
+    q, k, v, g, mask = _inputs(b, h, t, s, d, lengths, len(name))
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+    jm = jnp.asarray(mask)
+    scale = d ** -0.5
+    out, lse = jax_fa._flash_fwd(jq, jk, jv, jm, causal=causal, scale=scale,
+                                 block_q=8, block_k=16, save_lse=True)
+    want = jax_fa._flash_bwd_impl(jq, jk, jv, jm, out, lse, jg,
+                                  causal=causal, scale=scale, block_q=8,
+                                  block_k=16)
+
+    def bf16(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+    got = reference_attention_bwd(
+        bf16(jq), bf16(jk), bf16(jv), torch.from_numpy(mask), bf16(out),
+        torch.from_numpy(np.array(lse[:, :t, 0])), bf16(jg), causal=causal)
+    for which, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16, which
+        a, w = a.float().numpy(), np.asarray(w, np.float32)
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
+        err = np.abs(a - w)
+        assert err.max() <= ulp, (which, err.max(), ulp)
+        assert np.mean(err > ulp / 64) <= 1e-3, (which, np.mean(err > 0))
 
 
 def test_fully_masked_rows_get_zero_grads():

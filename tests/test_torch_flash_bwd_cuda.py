@@ -32,7 +32,10 @@ pytestmark = pytest.mark.cuda
 # kernel vs plain backward, max |difference| / max(1, max |plain|): both
 # compute in float32 from the same inputs and LSE and differ only in the
 # order of their sums (float32: a few ulp), and in bfloat16 by the final
-# rounding of the gradient to bf16 (eps 2^-8, one ulp either way).
+# rounding of the gradient to bf16 (eps 2^-8, one ulp either way); the
+# bf16 kernels (tensor cores) and the plain version both round P and dS
+# to bf16 before their products, which may round differently where the
+# two float32 values straddle a rounding boundary.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 # (B, H, T, S, D, dtype, causal, key lengths per batch row)
@@ -46,7 +49,21 @@ CASES = {
     "ragged_d128": (2, 2, 70, 90, 128, torch.float32, False, [90, 41]),
     "causal_ragged_d128_bf16": (2, 2, 100, 100, 128, torch.bfloat16, True,
                                 [100, 61]),
+    # the bf16 kernels' branches: each head size, ragged T and S (not
+    # multiples of 64), causal with T < S, a batch row with every key
+    # masked, and 64-key tiles whose keys are all masked (row 1: keys
+    # 60-199 of 200)
+    "ragged_d32_dead_row_bf16": (2, 3, 70, 100, 32, torch.bfloat16, False,
+                                 [100, 0]),
+    "causal_t_lt_s_bf16": (2, 3, 64, 130, 64, torch.bfloat16, True, None),
+    "causal_t_lt_s_d128_bf16": (1, 2, 70, 200, 128, torch.bfloat16, True,
+                                [200]),
+    "ragged_d128_bf16": (2, 2, 130, 100, 128, torch.bfloat16, False,
+                         [100, 37]),
+    "masked_key_tiles_bf16": (2, 2, 100, 200, 64, torch.bfloat16, False,
+                              [200, 60]),
 }
+BF16_CASES = sorted(c for c in CASES if CASES[c][5] == torch.bfloat16)
 
 
 @pytest.fixture(scope="module")
@@ -100,6 +117,45 @@ def test_bwd_kernels_match_plain_version(dev, case):
         keep = mask[:, None, :, None] > 0
         for a in got[1:]:  # masked keys get dK = dV = 0
             assert (a.masked_fill(keep, 0) == 0).all()
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_kernel_error_is_of_the_order_of_sdpa(dev, case):
+    """The bf16 kernels' error against the plain backward beside that of
+    PyTorch's own bf16 attention backward (``scaled_dot_product_attention``
+    with the same key and bottom-right causal mask) against the same plain
+    version, over the rows that see a key: at most 4x SDPA's, or one bf16
+    ulp (2^-7) of max(1, max |plain|)."""
+    b, h, t, s, d, dtype, causal, lengths = CASES[case]
+    q, k, v, mask, dout = _inputs(dev, b, h, t, s, d, dtype, lengths,
+                                  seed=b * t + s + d)
+    out, lse = flash_attention_cuda(q, k, v, mask, causal=causal,
+                                    return_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout,
+                                   causal=causal)
+    want = reference_attention_bwd(q, k, v, mask, out, lse, dout,
+                                   causal=causal)
+    keep = torch.ones((b, 1, t, s), dtype=torch.bool, device=dev)
+    if mask is not None:
+        keep = keep & (mask[:, None, None, :] > 0)
+    if causal:
+        keep = keep & (torch.arange(t, device=dev)[:, None] + (s - t)
+                       >= torch.arange(s, device=dev)[None, :])
+    rows = keep.any(-1, keepdim=True)  # [b, 1, t, 1]: rows that see a key
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    # rows that see no key would be NaN in SDPA: let them see everything
+    # and drop them below (their gradients are 0 in both backwards)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=keep | ~rows)
+    sdpa_grads = torch.autograd.grad(sdpa, leaves, dout * rows)
+    torch.cuda.synchronize()
+    for name, a, lib, w in zip(("dq", "dk", "dv"), got, sdpa_grads, want):
+        live = rows.expand(-1, h, -1, d) if name == "dq" else (
+            keep.any(-2)[..., None].expand(-1, h, -1, d))
+        err = (a.float() - w.float())[live].abs().max().item()
+        lib_err = (lib.float() - w.float())[live].abs().max().item()
+        ref = max(1.0, w.float().abs().max().item())
+        assert err <= max(4 * lib_err, 2 ** -7 * ref), (name, err, lib_err)
 
 
 def test_autograd_goes_through_the_three_kernels(dev):

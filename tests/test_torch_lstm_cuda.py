@@ -191,14 +191,14 @@ def test_full_width_char_rnn_train_step_matches_the_plain_path(dev):
     """bench_lstm's char-RNN (vocab 77, hidden 256, seq 256, two
     GravesLSTM layers, batch 32): the loss and every gradient through
     lstm_fwd/lstm_bwd against the same model with plain LSTMs (backend
-    "xla") on the card — loss to 1e-5 relative, each leaf to 1e-3 of its
+    "plain") on the card — loss to 1e-5 relative, each leaf to 1e-3 of its
     max floored at 1e-4 of the largest, as for BERT — then one Adam step
     of each, params to 2·lr (Adam maps a rounding-level gradient to ±lr)."""
     lr = 1e-3
     models = {b: text_generation_lstm(device=dev, vocab_size=77, hidden=256,
                                       seq_len=256, backend=b, seed=0,
                                       updater=Adam(lr))
-              for b in ("pallas", "xla")}
+              for b in ("pallas", "plain")}
     r = np.random.default_rng(0)
     ids = r.integers(0, 77, (32, 257))
     eye = np.eye(77, dtype=np.float32)
@@ -215,7 +215,7 @@ def test_full_width_char_rnn_train_step_matches_the_plain_path(dev):
         out[backend] = (loss.item(), dict(flatten_with_names(grads)),
                         dict(flatten_with_names(ts.params)), counts)
     (loss_k, g_k, p_k, counts_k), (loss_p, g_p, p_p, counts_p) = (
-        out["pallas"], out["xla"])
+        out["pallas"], out["plain"])
     assert counts_k == {"lstm_fwd": 2, "lstm_bwd": 2} and counts_p == {}
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     top = max(g.abs().max().item() for g in g_p.values())
