@@ -17,9 +17,10 @@ caught:
    and dtypes the kernel takes), with the tolerance stated per dtype; then
    the kernel, the plain version and one PyTorch library call timed,
    beside the least time the card could take (``bound_ms``). The forward
-   at the serving shape, the two backward kernels at the training shape
-   (bf16 on the tensor cores, float32 on the CUDA cores); for bf16 the
-   error of SDPA's backward against the same plain version is logged
+   at the serving shape and, in bf16, at the training shape, its row LSE
+   held against the plain one; the two backward kernels at the training
+   shape (bf16 on the tensor cores, float32 on the CUDA cores); for bf16
+   the error of SDPA's backward against the same plain version is logged
    beside the kernels'.
 4. slice — BERT-base at full width (12 layers, width 768, 12 heads, vocab
    30522), weights drawn from a seed on the card, served by the port's
@@ -35,7 +36,8 @@ caught:
    checkpoint restored bit-equal with the same next-step loss; three
    mixed-precision (bf16) steps; step time, throughput, peak memory, the
    device's idle share and each flash kernel's share of a step, of a
-   float32 step and of a mixed-precision one.
+   float32 step and of a mixed-precision one (a flash kernel that reads
+   no device time there fails the run).
 6. kernels (LSTM) — lstm_fwd and lstm_bwd against their plain versions at
    the char-RNN's training shape (N=32, T=256, H=256, Graves peepholes,
    forget bias 1), without peepholes, at H=200 with N=3 and from a
@@ -119,10 +121,19 @@ PEAK_BYTES_PER_S = 3.35e12
 # kernel vs plain version, max |difference| over rows that see a key:
 # float32 — both sides float32; the kernel sums scores and outputs blockwise
 #   in another order (and uses exp2): a few ulp of O(1) values.
-# bfloat16 — the plain version rounds the scores and the probabilities to
-#   bf16 before its second matmul, the kernel keeps them in float32; both
-#   round the output to bf16 (eps 2^-8): a few bf16 ulp of O(1) values.
+# bfloat16 — both round the probabilities to bf16 before the second
+#   matmul, at another point: the plain version the normalised p (and its
+#   scores to bf16 first), the kernel (tensor cores) the unnormalised p as
+#   the Pallas kernel does; both round the output to bf16 (eps 2^-8): a few
+#   bf16 ulp of O(1) values.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the forward's row LSE vs the plain one of the inputs in float32, over
+# rows that see a key, as a fraction of max(1, |plain|): float32 sums in
+# another order; the bf16 kernel's bf16 x bf16 products are exact in
+# float32. Rows that see no key must read at most -1e20 (the backward's
+# clamp).
+TOL_LSE = 1e-4
+LSE_DEAD = -1e20
 # backward kernels vs the plain backward, max |difference| over dq, dk, dv
 # as a fraction of max(1, max |plain|): both compute in float32 from the
 # same inputs and LSE; float32 differs by the order of the sums, bfloat16
@@ -195,15 +206,20 @@ def _attention_inputs(dev, b, h, t, s, d, dtype, lengths, seed):
     return q, k, v, mask
 
 
-def _visible(b, t, s, causal, lengths):
-    """What this run's masks leave visible, per head: query-key pairs,
-    query rows that see at least one key, and keys that some row sees."""
+def _visible_pairs(b, t, s, causal, lengths):
+    """[b, t, s] bool: the query-key pairs this run's masks leave visible."""
     qi = torch.arange(t)[:, None]
     kj = torch.arange(s)[None, :]
     vis = (qi + (s - t) >= kj) if causal else torch.ones(t, s,
                                                          dtype=torch.bool)
     n = torch.full((b,), s) if lengths is None else torch.tensor(lengths)
-    vis = vis[None] & (kj[None] < n[:, None, None])  # [b, t, s]
+    return vis[None] & (kj[None] < n[:, None, None])
+
+
+def _visible(b, t, s, causal, lengths):
+    """What this run's masks leave visible, per head: query-key pairs,
+    query rows that see at least one key, and keys that some row sees."""
+    vis = _visible_pairs(b, t, s, causal, lengths)
     return (int(vis.sum()), int(vis.any(-1).sum()), int(vis.any(-2).sum()))
 
 
@@ -316,13 +332,16 @@ def _step_launches(fn, kernel: str, want: int, attempts: int = 3):
     return steps, by_kernel, counts
 
 
-# (name, B, H, T, S, D, dtype, causal, key lengths per batch row, timed)
+# (name, B, H, T, S, D, dtype, causal, key lengths per batch row, timed);
+# "train": the first training batch's key lengths
 BERT_LENGTHS = [128, 97, 64, 33, 128, 5, 77, 0]  # one all-zero-mask row
 KERNEL_CASES = [
     ("bert_base_serving_fp32", 8, 12, 128, 128, 64, torch.float32, False,
      BERT_LENGTHS, True),
     ("bert_base_serving_bf16", 8, 12, 128, 128, 64, torch.bfloat16, False,
      BERT_LENGTHS, True),
+    ("bert_base_train_bf16", 32, 12, 128, 128, 64, torch.bfloat16, False,
+     "train", True),
     ("causal_t64_s128_fp32", 2, 12, 64, 128, 64, torch.float32, True,
      None, False),
     ("causal_t64_s128_bf16", 2, 12, 64, 128, 64, torch.bfloat16, True,
@@ -333,10 +352,34 @@ KERNEL_CASES = [
      [300, 129], False),
     ("d128_causal_bf16", 2, 4, 160, 160, 128, torch.bfloat16, True,
      [160, 90], False),
+    ("d32_ragged_dead_row_bf16", 3, 4, 100, 130, 32, torch.bfloat16, False,
+     [130, 61, 0], False),
+    ("d128_padded_s300_bf16", 2, 4, 200, 300, 128, torch.bfloat16, False,
+     [300, 129], False),
 ]
 
 
-def phase_kernels(dev):
+def _lse_err(q, k, v, mask, causal, lse, lengths):
+    """The kernel's row LSE against ``reference_attention_lse`` of the
+    inputs in float32: the worst |difference| / max(1, |plain|) over rows
+    that see a key, and whether every row that sees none reads at most
+    LSE_DEAD."""
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        reference_attention_lse,
+    )
+
+    b, h, t, _ = q.shape
+    s = k.shape[2]
+    _, want = reference_attention_lse(q.float(), k.float(), v.float(),
+                                      causal=causal, key_mask=mask)
+    rows = _visible_pairs(b, t, s, causal, lengths).any(-1)  # [b, t]
+    rows = rows[:, None, :].expand(b, h, t).reshape(b * h, t).to(q.device)
+    frac = float(((lse - want).abs() / want.abs().clamp(min=1.0))[rows].max())
+    dead_ok = bool((lse[~rows] <= LSE_DEAD).all())
+    return frac, dead_ok
+
+
+def phase_kernels(dev, train_lengths):
     from deeplearning4j_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda,
         reference_attention,
@@ -345,6 +388,8 @@ def phase_kernels(dev):
     results = {}
     for (name, b, h, t, s, d, dtype, causal, lengths,
          timed) in KERNEL_CASES:
+        if lengths == "train":
+            lengths = train_lengths
         q, k, v, mask = _attention_inputs(dev, b, h, t, s, d, dtype, lengths,
                                           seed=len(name))
         got, lse = flash_attention_cuda(q, k, v, mask, causal=causal,
@@ -357,10 +402,14 @@ def phase_kernels(dev):
         finite = bool(torch.isfinite(got).all())
         dead_zero = bool((got[~live] == 0).all())
         lse_ok = bool(torch.isfinite(lse).all())
-        ok = err <= TOL[dtype] and finite and dead_zero and lse_ok
+        lse_frac, lse_dead = _lse_err(q, k, v, mask, causal, lse, lengths)
+        ok = (err <= TOL[dtype] and finite and dead_zero and lse_ok
+              and lse_frac <= TOL_LSE and lse_dead)
         log(f"[kernels] {name}: max_abs_err {err:.3e} (tol {TOL[dtype]:.0e})"
             f" finite={finite} zero_on_masked_rows={dead_zero} "
-            f"lse_finite={lse_ok} -> {'ok' if ok else 'FAIL'}")
+            f"lse_finite={lse_ok} lse_err {lse_frac:.2e} x max(1, |plain|) "
+            f"(tol {TOL_LSE:.0e}) lse_dead<={LSE_DEAD:.0e}={lse_dead} -> "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"chip_smoke: kernel case {name} failed")
         if not timed:
@@ -373,7 +422,8 @@ def phase_kernels(dev):
         bound_ms, bound_by, ops, nbytes = _bound(b, h, t, s, d, dtype,
                                                  causal, lengths)
         row = {"shape": [b, h, t, s, d], "dtype": str(dtype)[6:],
-               "max_abs_err": err, "bound_ms": bound_ms,
+               "max_abs_err": err, "lse_err_frac": lse_frac,
+               "bound_ms": bound_ms,
                "bound_by": bound_by, "ops": ops, "bytes": nbytes}
         # one call each in turn, twice (kernel, plain, library, library,
         # plain, kernel): the spread between the two shows the noise
@@ -873,6 +923,7 @@ def phase_train(dev, smi, batches):
                                    ("flash_fwd", "flash_bwd_dkv",
                                     "flash_bwd_dq"))
     log(f"[train] one mixed-precision step: {mp_breakdown}")
+    _require_kernel_time("mixed-precision step", mp_breakdown)
     del mts, mp_trainer
 
     # 5. where one step's time goes
@@ -880,6 +931,7 @@ def phase_train(dev, smi, batches):
                                 ("flash_fwd", "flash_bwd_dkv",
                                  "flash_bwd_dq"))
     log(f"[train] one step: {breakdown}")
+    _require_kernel_time("float32 step", breakdown)
     tokens = TRAIN_BATCH * TRAIN_T
     real_tokens = int(sum(float(b["features"]["mask"].sum()) for b in batches)
                       / len(batches))
@@ -905,6 +957,15 @@ def phase_train(dev, smi, batches):
         "mixed_precision_step_breakdown": mp_breakdown,
         "step_breakdown": breakdown, "card": smi,
     }
+
+
+def _require_kernel_time(tag, breakdown):
+    """Fail unless each named kernel of a step breakdown read device time:
+    0 ms means no profiled kernel name contained the kernel's."""
+    for kernel, row in breakdown["kernels"].items():
+        if not row["ms"] > 0:
+            raise SystemExit(f"chip_smoke: the {tag} read no device time "
+                             f"for {kernel}")
 
 
 def _step_events():
@@ -2290,7 +2351,7 @@ def main() -> int:
     batches = _train_batches()
     train_lengths = [int(n) for n in
                      batches[0]["features"]["mask"].sum(axis=1)]
-    cases = phase_kernels(dev)
+    cases = phase_kernels(dev, train_lengths)
     bwd_cases = phase_kernels_bwd(dev, train_lengths)
     serving = phase_slice(dev, smi)
     training = phase_train(dev, smi, batches)

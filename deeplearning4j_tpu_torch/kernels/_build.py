@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>-<digest>.so``
 at the root of the checkout, then loaded with ``ctypes``. The digest covers
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing is compiled or loaded at import time:
+the source, every header in ``csrc/`` (``*.cuh``, which the sources
+include) and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded. Nothing is compiled or loaded at import time:
 the CPU tests import this module on a host without ``nvcc``. The
 helpers at the end are the checks every ctypes wrapper makes.
 
@@ -61,6 +62,17 @@ def nvcc_path() -> str:
         "the port's CUDA kernels are compiled from source at first use")
 
 
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: ``lib<name>-<digest>.so``, the
+    digest over the source, every ``*.cuh`` beside it (by name and
+    content) and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
     with _lock:
@@ -69,9 +81,7 @@ def build(name: str) -> Built:
         if name in _built:
             return _built[name]
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        out = library_path(name)
         if out.exists():
             _built[name] = Built(out, 0.0, "")
             return _built[name]

@@ -1,12 +1,14 @@
 // Flash-attention forward for NVIDIA Hopper (sm_90a), plain C interface.
 //
-// Replaces: deeplearning4j_tpu/kernels/flash_attention.py::_flash_kernel,
+// Replaces: deeplearning4j_tpu/kernels/flash_attention.py:115 _flash_kernel,
 // the Pallas TPU kernel launched by _flash_fwd (public flash_attention).
 // It computes the same function, O = softmax(scale * Q K^T + masks) V, with
 // the key-padding mask, the ragged key tail and the bottom-right-aligned
 // causal mask (query i sees key j iff i + (S - T) >= j) applied inside the
-// kernel, and optionally the row log-sum-exp for a backward pass.
-// Fully-masked rows give 0 (never NaN), as the Pallas kernel does.
+// kernel, and optionally the row log-sum-exp for a backward pass ([B*H, T]
+// float32, natural log, about -6.9e29 on fully-masked rows). Fully-masked
+// rows give 0 (never NaN), as the Pallas kernel does. Each dtype has its
+// own kernel.
 //
 // What bounds it on the card: at the BERT-base serving shape (B=8, H=12,
 // T=S=128, D=64) with no key masked, the work is 4*B*H*T*S*D = 0.403 GFLOP
@@ -15,29 +17,53 @@
 // the CUDA cores = 6.0 us against 3.8 us for the bytes); in bfloat16 the
 // bytes do (1.9 us at 3.35 TB/s against 0.4 us on the bf16 tensor cores).
 // Masked keys cost neither: with padding, both counts shrink to the
-// query-key pairs, query rows and keys that the masks leave visible.
+// query-key pairs, query rows and keys that the masks leave visible
+// (chip_smoke.py _bound: 0.0014 ms at the serving shape with its key
+// lengths; about 0.007 ms for the ~24 MB of the training shape, B=32, with
+// the first training batch's key lengths).
 //
-// What the design does about it: the [T, S] score matrix never reaches
-// device memory. One thread block takes one (batch*head, 32-query-row)
-// tile and walks the key/value sequence in 64-key tiles staged in shared
-// memory (converted to float32 once, shared by the block's 32 rows), so
-// q, k and v are read from device memory once per tile. Masked keys are
-// never read, and a tile whose keys are all masked is skipped whole. The
-// loop inside the block replaces the TPU grid's sequential innermost kv
-// dimension.
+// float32 (flash_fwd_kernel): on the CUDA cores. The [T, S] score matrix
+// never reaches device memory. One thread block takes one (batch*head,
+// 32-query-row) tile and walks the key/value sequence in 64-key tiles
+// staged in shared memory, shared by the block's 32 rows, so q, k and v
+// are read from device memory once per tile. Masked keys are never read,
+// and a tile whose keys are all masked is skipped whole. The loop inside
+// the block replaces the TPU grid's sequential innermost kv dimension.
 // Four threads share one query row, each owning D/4 of its dimensions: a
 // score is four partial dot products and two warp shuffles, and the
 // running max, denominator and output accumulator stay in float32
 // registers (online softmax, rescaled once per 16-key chunk). Causal key
-// tiles entirely above the diagonal are never loaded. All arithmetic runs
-// in float32 on the CUDA cores, also for bfloat16 inputs: simple and right
-// first. The bf16 tensor-core path (wgmma fed by TMA) is later work, and
-// until then bfloat16 runs at the float32 operation rate, well above its
-// byte bound.
+// tiles entirely above the diagonal are never loaded.
+//
+// bfloat16 (flash_fwd_kernel_wgmma): both products on the tensor cores
+// (wgmma m64nNk16, bf16 operands, float32 accumulators), so the bytes
+// bound it. What the design does about them: q, k and v are read from
+// device memory once per block and the [T, S] tiles live only in
+// registers. One warpgroup (128 threads) owns a 64-row query tile; grid
+// (B*H, ceil(T/64)). Q is loaded once into shared memory in wgmma's
+// swizzled layout; the 64-key K/V tiles stream through a two-stage
+// cp.async ring, the next live tile's load in flight under this tile's
+// products. Per tile: S = Q K^T (A and B K-major in shared memory), the
+// masks and the online softmax on the accumulator registers (scores in
+// log2 units; a row's 64 scores are spread over the 4 threads of a quad,
+// so its max takes two shuffles; each thread keeps a partial row sum,
+// reduced across the quad once at the end), the running output rescaled
+// after the previous product has been waited for, and O += P V with P
+// packed to bf16 straight from the accumulator as the register A operand
+// (B = V, MN-major). Rows past T, keys past S and masked keys are
+// zero-filled by the copy (source size 0), a masked pair's p is set to 0
+// explicitly, tiles of masked keys and tiles past the causal diagonal are
+// never loaded. Rounding as _flash_kernel does it: the unnormalised p
+// rounded to bf16 into P V, the row sum from the float32 p, float32
+// accumulation, O scaled by 1 / max(row sum, 1e-30) and rounded once to
+// bf16 at the store. The tile helpers are shared with flash_bwd.cu
+// (wgmma_sm90.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -58,27 +84,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  *reinterpret_cast<uint32_t*>(&lo) = raw.x;
-  *reinterpret_cast<uint32_t*>(&hi) = raw.y;
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // q [BH, T, D], k/v [BH, S, D], o [BH, T, D] contiguous; key_mask [B, S]
@@ -272,6 +279,239 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
   }
 }
 
+// -- bfloat16: the products on the tensor cores (wgmma) -----------------------
+
+namespace wg {
+
+// Shared memory: the Q tile and two stages of K and V, on 1024-byte
+// boundaries, two stages of key flags, and the slack that aligns them.
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return 5 * Tile<D>::kBytes + 2 * kRows * sizeof(float) + 1024;
+}
+
+// q [BH, T, D], k/v [BH, S, D], o [BH, T, D] contiguous bf16; key_mask
+// [B, S] float (nullptr = none); lse [BH, T] float (nullptr = not wanted).
+// Grid: x = batch*head, y = 64-query tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const float* __restrict__ key_mask,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int heads, int t_len, int s_len, float scale_log2,
+                       int causal) {
+  using L = Tile<D>;
+  constexpr int kNB = L::kNB, kAcc = L::kN / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t qs = smem_addr(smem);
+  const uint32_t ks0 = qs + L::kBytes;  // stage st: K at ks0 + 2 st kBytes,
+                                        // V one tile after it
+  float* kvalid = reinterpret_cast<float*>(smem + 5 * L::kBytes);  // [2][64]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x, b = bh / heads, q0 = blockIdx.y * kRows;
+  const int offset = s_len - t_len;  // bottom-right causal alignment
+  const size_t bh_t = static_cast<size_t>(bh) * t_len;
+  const size_t bh_s = static_cast<size_t>(bh) * s_len;
+
+  load_tile<D>(qs, q + (bh_t + q0) * D, t_len - q0, nullptr);
+  cp_async_commit();
+
+  // Causal: keys past the tile's last row are masked for every row.
+  const int k_end =
+      causal ? min(s_len, min(q0 + kRows, t_len) + offset) : s_len;
+  // The first key tile at or after k_from with a key that is not masked
+  // (k_end if none), its key flags written to valid[kRows]. The decision
+  // is the same for every thread of the block.
+  auto next_live = [&](int k_from, float* valid) {
+    for (int kt = k_from; kt < k_end; kt += kRows) {
+      bool ok = false;
+      if (tid < kRows) {
+        const int key = kt + tid;
+        ok = key < k_end &&
+             (key_mask == nullptr ||
+              key_mask[static_cast<size_t>(b) * s_len + key] > 0.f);
+        valid[tid] = ok ? 1.f : 0.f;
+      }
+      if (__syncthreads_or(ok)) return kt;
+    }
+    return k_end;
+  };
+  auto load_kv = [&](int kt, int st) {
+    const uint32_t ks = ks0 + 2 * st * L::kBytes;
+    const float* valid = kvalid + st * kRows;
+    load_tile<D>(ks, k + (bh_s + kt) * D, s_len - kt, valid);
+    load_tile<D>(ks + L::kBytes, v + (bh_s + kt) * D, s_len - kt, valid);
+  };
+
+  // Accumulator rows (queries of the tile) row0 and row0 + 8, columns
+  // col0 + 8j (+1). m: the rows' running max (log2 units); l: this
+  // thread's part of their running sums (its 16 of each tile's 64 keys).
+  const int row0 = warp * 16 + lane / 4, col0 = (lane % 4) * 2;
+  float o_acc[kNB][kAcc];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) o_acc[nb][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  int k0 = next_live(0, kvalid);
+  if (k0 < k_end) load_kv(k0, 0);
+  cp_async_commit();
+  for (int st = 0; k0 < k_end; st ^= 1) {
+    const int k_next = next_live(k0 + kRows, kvalid + (st ^ 1) * kRows);
+    if (k_next < k_end) load_kv(k_next, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and this key tile have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint32_t ks = ks0 + 2 * st * L::kBytes, vs = ks + L::kBytes;
+
+    // S = Q K^T: [query][key]
+    float sacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < D / 16; ++s)
+      wgmma_ss_n64(sacc, desc_k<D>(qs, s), desc_k<D>(ks, s), s > 0);
+    wgmma_commit_and_wait();
+    fence_regs(sacc);
+
+    // Scores in log2 units, masked pairs flagged; the rows' new max over
+    // the quad that holds them.
+    const float* valid = kvalid + st * kRows;
+    uint32_t ok_bits = 0;
+    float m_new[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + col0;  // key columns c, c + 1
+      const float2 kv = *reinterpret_cast<const float2*>(valid + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, h = e >> 1;
+        const int key = k0 + c + (e & 1);
+        const bool ok = ((e & 1) ? kv.y : kv.x) > 0.f &&
+                        (!causal || q0 + row0 + 8 * h + offset >= key);
+        sacc[i] *= scale_log2;
+        ok_bits |= static_cast<uint32_t>(ok) << i;
+        if (ok) m_new[h] = fmaxf(m_new[h], sacc[i]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      // m == m_new == kNegInf (no usable key yet) gives alpha = 1 on a
+      // zero accumulator
+      alpha[h] = exp2f(m[h] - m_new[h]);
+      l[h] *= alpha[h];
+      m[h] = m_new[h];
+    }
+    // p in place; exactly 0 where masked, since exp2(kNegInf - kNegInf)
+    // would be 1. The row sums take the float32 p.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      sacc[i] = ((ok_bits >> i) & 1u) ? exp2f(sacc[i] - m_new[h]) : 0.f;
+      l[h] += sacc[i];
+    }
+    uint32_t pf[kSlices][4];
+    to_frags(sacc, pf);  // the unnormalised p, rounded to bf16
+
+    // The previous tile's O += P V was waited for: rescale, then add
+    // this tile's, over its 64 keys
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) o_acc[nb][i] *= alpha[(i >> 1) & 1];
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kSlices; ++s)
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+        wgmma_rs(o_acc[nb], pf[s], desc_mn<D>(vs, s, nb));
+    wgmma_commit_and_wait();
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) fence_regs(o_acc[nb]);
+    __syncthreads();  // this stage is read: the next load may reuse it
+    k0 = k_next;
+  }
+  cp_async_wait<0>();
+
+  // The row sums over the quad; a fully-masked row has l == 0 and o == 0,
+  // so its output is 0.
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) o_acc[nb][i] *= inv[(i >> 1) & 1];
+    store_acc<D>(o + (bh_t + q0) * D, o_acc[nb], nb, row0, col0,
+                 t_len - q0);
+  }
+  if (lse != nullptr && col0 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + row0 + 8 * h;
+      if (qi < t_len)
+        lse[bh_t + qi] = (m[h] + log2f(fmaxf(l[h], 1e-30f))) * kLn2;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_one(const void* q, const void* k, const void* v,
+                       const float* key_mask, void* o, float* lse, int batch,
+                       int heads, int t_len, int s_len, float scale,
+                       int causal, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem_bytes<D>();
+  using bf16 = __nv_bfloat16;
+  auto kernel = flash_fwd_kernel_wgmma<D>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(batch * heads, (t_len + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), key_mask, static_cast<bf16*>(o), lse,
+      heads, t_len, s_len, scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+// No fallback: a head size without a kernel is refused, never sent to the
+// float32 kernel.
+cudaError_t launch(int d, const void* q, const void* k, const void* v,
+                   const float* key_mask, void* o, float* lse, int batch,
+                   int heads, int t_len, int s_len, float scale, int causal,
+                   cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch_one<32>(q, k, v, key_mask, o, lse, batch, heads, t_len,
+                            s_len, scale, causal, stream);
+    case 64:
+      return launch_one<64>(q, k, v, key_mask, o, lse, batch, heads, t_len,
+                            s_len, scale, causal, stream);
+    case 128:
+      return launch_one<128>(q, k, v, key_mask, o, lse, batch, heads, t_len,
+                             s_len, scale, causal, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" {
@@ -287,12 +527,12 @@ int dl4j_flash_fwd(int device, const void* q, const void* k, const void* v,
   const float* km = static_cast<const float*>(key_mask);
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0)  // the CUDA cores
     e = launch_d<float>(d, q, k, v, km, o, lse_f, batch, heads, t_len, s_len,
                         scale, causal, st);
-  else if (dtype == 1)
-    e = launch_d<__nv_bfloat16>(d, q, k, v, km, o, lse_f, batch, heads,
-                                t_len, s_len, scale, causal, st);
+  else if (dtype == 1)  // the tensor cores
+    e = wg::launch(d, q, k, v, km, o, lse_f, batch, heads, t_len, s_len,
+                   scale, causal, st);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

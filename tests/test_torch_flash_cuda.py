@@ -1,4 +1,4 @@
-"""The port's CUDA flash-attention kernel on the card.
+"""The port's CUDA flash-attention forward kernels on the card.
 
 Marked ``cuda``: each test needs an NVIDIA Hopper card and skips without
 one (the kernel has no CPU or interpret mode; its CPU-side twin, the plain
@@ -14,9 +14,12 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.kernels import _dispatch
+from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 from deeplearning4j_tpu_torch.kernels.flash_attention import (
     flash_attention,
+    flash_attention_cuda,
     reference_attention,
+    reference_attention_lse,
 )
 from deeplearning4j_tpu_torch.models.bert import bert_tiny
 from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
@@ -24,9 +27,19 @@ from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
 pytestmark = pytest.mark.cuda
 
 # kernel vs plain version on the card: float32 sums blockwise in another
-# order (a few ulp of O(1) values); bfloat16 — the plain version rounds the
-# probabilities to bf16 before its second matmul, the kernel does not.
+# order (a few ulp of O(1) values); bfloat16 — both round the
+# probabilities to bf16 before the second matmul, but at another point:
+# the plain version the normalised p, the kernel (tensor cores) the
+# unnormalised p as the Pallas kernel does; the plain version also rounds
+# the scores to bf16, and both round the output (eps 2^-8).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the row LSE against the plain one of the inputs in float32, rows that
+# see a key: the bf16 kernel's bf16 x bf16 products are exact in float32
+TOL_LSE = 1e-4
+# bf16 gradients through the three kernels vs the float32 plain path, max
+# |difference| / max(1, max |plain|): P, dS, O and each gradient rounded
+# to bf16 (chip_smoke.py TOL_BWD)
+TOL_BWD = 1e-2
 
 # (B, H, T, S, D, dtype, causal, key lengths per batch row)
 CASES = {
@@ -34,7 +47,23 @@ CASES = {
     "padded_bf16": (3, 4, 128, 128, 64, torch.bfloat16, False, [128, 37, 0]),
     "causal_t_lt_s_d32": (2, 2, 50, 130, 32, torch.float32, True, None),
     "ragged_d128": (2, 2, 70, 90, 128, torch.bfloat16, True, [90, 41]),
+    # the bf16 kernel's branches: each head size, ragged T and S (not
+    # multiples of 64), causal with T < S, a batch row with every key
+    # masked, 64-key tiles whose keys are all masked (row 1: keys 40-199
+    # of 200), and five key tiles in one row (S = 300)
+    "ragged_d32_dead_row_bf16": (2, 3, 70, 100, 32, torch.bfloat16, False,
+                                 [100, 0]),
+    "causal_t_lt_s_bf16": (2, 3, 64, 130, 64, torch.bfloat16, True, None),
+    "causal_t_lt_s_d128_bf16": (1, 2, 70, 200, 128, torch.bfloat16, True,
+                                [200]),
+    "ragged_d128_bf16": (2, 2, 130, 100, 128, torch.bfloat16, False,
+                         [100, 37]),
+    "masked_key_tiles_bf16": (2, 2, 100, 200, 64, torch.bfloat16, False,
+                              [200, 40]),
+    "five_key_tiles_d128_bf16": (2, 2, 130, 300, 128, torch.bfloat16, False,
+                                 [300, 129]),
 }
+BF16_CASES = sorted(c for c in CASES if CASES[c][5] == torch.bfloat16)
 
 
 @pytest.fixture(scope="module")
@@ -74,6 +103,103 @@ def test_kernel_matches_plain_version(dev, case):
     err = (got.float() - want.float())[live].abs().max().item()
     assert err <= TOL[dtype], err
     assert (got[~live] == 0).all()  # fully-masked rows: 0, never NaN
+
+
+def _keep(dev, b, t, s, causal, mask):
+    """[B, 1, T, S] bool: the pairs the masks leave visible."""
+    keep = torch.ones((b, 1, t, s), dtype=torch.bool, device=dev)
+    if mask is not None:
+        keep = keep & (mask[:, None, None, :] > 0)
+    if causal:
+        keep = keep & (torch.arange(t, device=dev)[:, None] + (s - t)
+                       >= torch.arange(s, device=dev)[None, :])
+    return keep
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_lse_matches_plain_lse(dev, case):
+    """The row LSE the backward reads, against the plain version's of the
+    inputs in float32; rows that see no key at about -7e29 (the backward
+    clamps at -1e20). The output is the one written without the LSE."""
+    b, h, t, s, d, dtype, causal, lengths = CASES[case]
+    q, k, v, mask = _inputs(dev, b, h, t, s, d, dtype, lengths)
+    out, lse = flash_attention_cuda(q, k, v, mask, causal=causal,
+                                    return_lse=True)
+    _, want = reference_attention_lse(q.float(), k.float(), v.float(),
+                                      causal=causal, key_mask=mask)
+    torch.cuda.synchronize()
+    assert lse.shape == (b * h, t) and lse.dtype == torch.float32
+    rows = _keep(dev, b, t, s, causal, mask).any(-1).expand(b, h, t)
+    rows = rows.reshape(b * h, t)
+    err = (lse - want)[rows].abs()
+    assert bool((err <= TOL_LSE * want[rows].abs().clamp(min=1.0)).all()), \
+        err.max().item()
+    assert bool((lse[~rows] <= -1e20).all())
+    assert torch.equal(out, flash_attention_cuda(q, k, v, mask,
+                                                 causal=causal))
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_kernel_error_is_of_the_order_of_sdpa(dev, case):
+    """The bf16 kernel's error against the plain version of the inputs in
+    float32, beside that of PyTorch's own bf16 attention
+    (``scaled_dot_product_attention`` with the same key and bottom-right
+    causal mask), over the rows that see a key: at most 4x SDPA's, or one
+    bf16 ulp (2^-7) of max(1, max |plain|)."""
+    b, h, t, s, d, dtype, causal, lengths = CASES[case]
+    q, k, v, mask = _inputs(dev, b, h, t, s, d, dtype, lengths)
+    got = flash_attention_cuda(q, k, v, mask, causal=causal)
+    want = reference_attention(q.float(), k.float(), v.float(),
+                               causal=causal, key_mask=mask)
+    keep = _keep(dev, b, t, s, causal, mask)
+    rows = keep.any(-1, keepdim=True)  # [b, 1, t, 1]
+    # rows that see no key would be NaN in SDPA: let them see everything
+    # and drop them below
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=keep | ~rows)
+    torch.cuda.synchronize()
+    live = rows.expand(-1, h, -1, d)
+    err = (got.float() - want)[live].abs().max().item()
+    lib_err = (sdpa.float() - want)[live].abs().max().item()
+    ref = max(1.0, want.abs().max().item())
+    assert err <= max(4 * lib_err, 2 ** -7 * ref), (err, lib_err)
+
+
+def test_bf16_autograd_goes_through_the_three_kernels(dev):
+    """bf16 attention with grad: the tensor-core forward's LSE feeds the
+    tensor-core backward pair; gradients against autograd of the plain
+    version of the inputs in float32."""
+    q, k, v, mask = _inputs(dev, 2, 3, 100, 100, 64, torch.bfloat16,
+                            [100, 37])
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)
+                       ).to(dev, torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    _dispatch.reset_launch_counts()
+    out = flash_attention(*leaves, key_mask=mask)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert _dispatch.launch_counts() == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    plain = [x.float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        reference_attention(*plain, key_mask=mask), plain, dout.float())
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        ref = max(1.0, w.abs().max().item())
+        err = (a.float() - w).abs().max().item()
+        assert err <= TOL_BWD * ref, (name, err, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_a_call_the_kernel_refuses_raises(dev, dtype, monkeypatch):
+    """Past the wrapper's checks, a head size without a kernel is refused
+    by the C entry point and raises: never another kernel, never the plain
+    version."""
+    monkeypatch.setattr(fa, "HEAD_DIMS", fa.HEAD_DIMS + (48,))
+    q, k, v, mask = _inputs(dev, 1, 2, 16, 16, 48, dtype, [16])
+    _dispatch.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="flash_fwd launch failed"):
+        flash_attention(q, k, v, key_mask=mask)
+    assert _dispatch.launch_counts() == {}
 
 
 @pytest.mark.parametrize("bad", ["bias", "head_size_48", "cpu_mask"])
