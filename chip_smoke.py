@@ -17,11 +17,12 @@ caught:
    and dtypes the kernel takes), with the tolerance stated per dtype; then
    the kernel, the plain version and one PyTorch library call timed,
    beside the least time the card could take (``bound_ms``). The forward
-   at the serving shape and, in bf16, at the training shape, its row LSE
-   held against the plain one; the two backward kernels at the training
-   shape (bf16 on the tensor cores, float32 on the CUDA cores); for bf16
-   the error of SDPA's backward against the same plain version is logged
-   beside the kernels'.
+   at the serving shape and at the training shape (both dtypes), its row
+   LSE held against the plain one; the two backward kernels at the
+   training shape (both dtypes on the tensor cores: bf16 on wgmma,
+   float32 in 3xTF32 on mma.sync, whose bound is also given on the CUDA
+   cores); the error of SDPA's backward against the same plain version is
+   logged beside the kernels'.
 4. slice — BERT-base at full width (12 layers, width 768, 12 heads, vocab
    30522), weights drawn from a seed on the card, served by the port's
    ModelServer → ModelRegistry → ParallelInference (batched, max batch 8)
@@ -114,8 +115,11 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 
 # H100 SXM published peaks (NVIDIA data sheet; dense): float32 on the CUDA
-# cores, bf16 on the tensor cores, HBM3 bandwidth.
+# cores, bf16 on the tensor cores, HBM3 bandwidth; TF32 on the tensor
+# cores, where a float32-grade product (3xTF32) takes three passes.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12
+TF32_PASSES = 3
 PEAK_BYTES_PER_S = 3.35e12
 
 # kernel vs plain version, max |difference| over rows that see a key:
@@ -136,8 +140,9 @@ TOL_LSE = 1e-4
 LSE_DEAD = -1e20
 # backward kernels vs the plain backward, max |difference| over dq, dk, dv
 # as a fraction of max(1, max |plain|): both compute in float32 from the
-# same inputs and LSE; float32 differs by the order of the sums, bfloat16
-# also by the final rounding of each gradient to bf16 (eps 2^-8).
+# same inputs and LSE; float32 differs by the order of the sums and by the
+# kernels' 3xTF32 products (about 21 bits of each operand), bfloat16 also
+# by the final rounding of each gradient to bf16 (eps 2^-8).
 TOL_BWD = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # served BERT-base vs the same model with plain attention, float32: 12
 # layers pass the kernel's ~1e-6 differences on through LayerNorms.
@@ -342,6 +347,8 @@ KERNEL_CASES = [
      BERT_LENGTHS, True),
     ("bert_base_train_bf16", 32, 12, 128, 128, 64, torch.bfloat16, False,
      "train", True),
+    ("bert_base_train_fp32", 32, 12, 128, 128, 64, torch.float32, False,
+     "train", True),
     ("causal_t64_s128_fp32", 2, 12, 64, 128, 64, torch.float32, True,
      None, False),
     ("causal_t64_s128_bf16", 2, 12, 64, 128, 64, torch.bfloat16, True,
@@ -452,16 +459,27 @@ def _bound_bwd(kernel, b, h, t, s, d, dtype, causal, lengths):
     flash_bwd_dq (scores, dP, dQ). Bytes: Q and dO of the rows that see a
     key, K and V of the keys some row sees, the float32 LSE and delta of
     those rows and the mask; the outputs written in full (dK and dV, or
-    dQ)."""
+    dQ). Both dtypes' kernels run their products on the tensor cores:
+    bf16 at its peak, float32 as 3xTF32 (TF32_PASSES passes at PEAK_TF32).
+    Returns (ms, bound by, operations, bytes, ms on the float32 CUDA
+    cores): the last, max(bytes, operations at 67 TFLOP/s), is the bound
+    of a float32 kernel on the CUDA cores (None for bf16)."""
     es = torch.finfo(dtype).bits // 8
     pairs, rows, keys = _visible(b, t, s, causal, lengths)
     ops = (8.0 if kernel == "flash_bwd_dkv" else 6.0) * d * h * pairs
     outputs = 2 * b * s if kernel == "flash_bwd_dkv" else b * t
     nbytes = (es * h * d * (2 * rows + 2 * keys + outputs) + 8 * h * rows
               + (4 * b * s if lengths is not None else 0))
-    t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    cuda_cores_ms = None
+    if dtype == torch.float32:
+        t_ops = TF32_PASSES * ops / PEAK_TF32
+        cuda_cores_ms = max(ops / PEAK_FLOPS[dtype], t_bytes) * 1e3
+    else:
+        t_ops = ops / PEAK_FLOPS[dtype]
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes,
+            cuda_cores_ms)
 
 
 # (name, B, H, T, S, D, dtype, causal, key lengths per batch row, timed);
@@ -483,13 +501,27 @@ BWD_CASES = [
      [300, 129], False),
     ("d128_causal_bf16", 2, 4, 160, 160, 128, torch.bfloat16, True,
      [160, 90], False),
+    # the float32 kernels' 64-row tile edges: T and S not multiples of 64,
+    # 64-key tiles whose keys are all masked, a dead row at D = 32, causal
+    # with T < S at D = 64 and D = 128
+    ("t130_s100_d128_fp32", 2, 2, 130, 100, 128, torch.float32, False,
+     [100, 37], False),
+    ("masked_key_tiles_fp32", 2, 2, 100, 200, 64, torch.float32, False,
+     [200, 40], False),
+    ("d32_dead_row_fp32", 2, 3, 70, 100, 32, torch.float32, False,
+     [100, 0], False),
+    ("causal_t64_s130_fp32", 2, 3, 64, 130, 64, torch.float32, True,
+     None, False),
+    ("causal_t70_s200_d128_fp32", 1, 2, 70, 200, 128, torch.float32, True,
+     [200], False),
 ]
 
 
 def phase_kernels_bwd(dev, train_lengths):
     """Both backward kernels against ``reference_attention_bwd`` on the
-    same inputs, forward output and LSE; then timed at the training shape
-    beside SDPA's backward."""
+    same inputs, forward output and LSE, SDPA's backward's error against
+    the same plain version logged beside theirs; then timed at the
+    training shape beside SDPA's backward."""
     from deeplearning4j_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda,
         flash_attention_cuda,
@@ -523,15 +555,13 @@ def phase_kernels_bwd(dev, train_lengths):
                 else torch.zeros(b, dtype=torch.bool)).to(dev)
         dead_zero = all(bool((a[dead] == 0).all()) for a in got)
         ok &= dead_zero
-        sdpa = (_sdpa_bwd_err(q, k, v, mask, dout, causal, want)
-                if dtype == torch.bfloat16 else None)
+        sdpa = _sdpa_bwd_err(q, k, v, mask, dout, causal, want)
         log(f"[kernels] bwd {name}: max_abs_err dq {errs['dq']:.3e} dk "
             f"{errs['dk']:.3e} dv {errs['dv']:.3e} (tol "
             f"{TOL_BWD[dtype]:.0e} x max(1, |plain|)) zero_on_masked_rows="
-            f"{dead_zero} -> {'ok' if ok else 'FAIL'}"
-            + ("" if sdpa is None else
-               f"; sdpa backward vs the same plain: dq {sdpa['dq']:.3e} dk "
-               f"{sdpa['dk']:.3e} dv {sdpa['dv']:.3e}"))
+            f"{dead_zero} -> {'ok' if ok else 'FAIL'}; sdpa backward vs "
+            f"the same plain: dq {sdpa['dq']:.3e} dk {sdpa['dk']:.3e} dv "
+            f"{sdpa['dv']:.3e}")
         if not ok:
             raise SystemExit(f"chip_smoke: backward kernel case {name} "
                              "failed")
@@ -539,14 +569,19 @@ def phase_kernels_bwd(dev, train_lengths):
                "max_abs_err": errs, "sdpa_max_abs_err": sdpa}
         if timed:
             row.update(_time_bwd(q, k, v, mask, out, lse, dout, lengths))
+            cores = "".join(
+                f", {kn[10:]} {row[f'{kn}_bound_cuda_cores_ms']:.4f} on the"
+                " CUDA cores" for kn in ("flash_bwd_dkv", "flash_bwd_dq")
+                if row[f"{kn}_bound_cuda_cores_ms"] is not None)
             log(f"[kernels] bwd {name}: dkv {row['flash_bwd_dkv_ms']:.4f} ms "
                 f"(bound {row['flash_bwd_dkv_bound_ms']:.4f}, "
                 f"{row['flash_bwd_dkv_bound_by']}), dq "
                 f"{row['flash_bwd_dq_ms']:.4f} ms (bound "
                 f"{row['flash_bwd_dq_bound_ms']:.4f}, "
-                f"{row['flash_bwd_dq_bound_by']}); pair with delta "
+                f"{row['flash_bwd_dq_bound_by']}{cores}); pair with delta "
                 f"{row['pair_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"sdpa backward {row['library_ms']:.4f} ms")
+                f"sdpa backward {row['library_ms']:.4f} ms; sdpa's kernels "
+                f"{sorted(row['library_device_us_by_kernel'])}")
         results[name] = row
     return results
 
@@ -578,7 +613,8 @@ def _sdpa_bwd_err(q, k, v, mask, dout, causal, want):
 def _time_bwd(q, k, v, mask, out, lse, dout, lengths):
     """Times at one shape: each backward kernel's device time per launch
     (profiler), the wrapper's pair of launches with its delta reduction,
-    the plain backward and SDPA's backward (CUDA events)."""
+    the plain backward and SDPA's backward (CUDA events), and the device
+    time of each kernel SDPA's backward launches (profiler)."""
     from deeplearning4j_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda,
         reference_attention_bwd,
@@ -604,13 +640,17 @@ def _time_bwd(q, k, v, mask, out, lse, dout, lengths):
     by_kernel = _device_us_by_kernel(pair, iters=20)
     row["pair_device_us_by_kernel"] = {k[:60]: us
                                        for k, us in by_kernel.items()}
+    row["library_device_us_by_kernel"] = {
+        k[:80]: us for k, us in _device_us_by_kernel(library,
+                                                      iters=20).items()}
     for kernel in ("flash_bwd_dkv", "flash_bwd_dq"):
         row[f"{kernel}_ms"] = sum(us for name, us in by_kernel.items()
                                   if f"{kernel}_kernel" in name) / 1e3
-        bound_ms, bound_by, ops, nbytes = _bound_bwd(
+        bound_ms, bound_by, ops, nbytes, cores_ms = _bound_bwd(
             kernel, b, h, t, s, d, q.dtype, False, lengths)
         row.update({f"{kernel}_bound_ms": bound_ms,
                     f"{kernel}_bound_by": bound_by,
+                    f"{kernel}_bound_cuda_cores_ms": cores_ms,
                     f"{kernel}_ops": ops, f"{kernel}_bytes": nbytes})
     return row
 
@@ -2405,11 +2445,17 @@ def main() -> int:
             "library_ms": main_row["library_ms"],
             "bound_ms": main_row[f"{kernel}_bound_ms"],
             "bound_by": main_row[f"{kernel}_bound_by"],
+            "bound_cuda_cores_ms": main_row[
+                f"{kernel}_bound_cuda_cores_ms"],
+            "bound_is": "the floor on the tensor cores: max(bytes, "
+                        "operations at the dtype's tensor-core rate, "
+                        "float32 as three TF32 passes)",
             "by_dtype": {r["dtype"]: {
                 "ms": r[f"{kernel}_ms"], "pair_ms": r["pair_ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                 "bound_ms": r[f"{kernel}_bound_ms"],
                 "bound_by": r[f"{kernel}_bound_by"],
+                "bound_cuda_cores_ms": r[f"{kernel}_bound_cuda_cores_ms"],
                 "max_abs_err": err(r),
                 "library_max_abs_err": r["sdpa_max_abs_err"]}
                 for r in timed.values()},

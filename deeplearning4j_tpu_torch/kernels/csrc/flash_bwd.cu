@@ -20,20 +20,57 @@
 // a tile pair wholly above the causal diagonal (_causal_block_live), does
 // no work. Each dtype has its own pair of kernels.
 //
-// float32 (flash_bwd_dkv_kernel, flash_bwd_dq_kernel): on the CUDA cores.
-// Per (batch, head) the work is 8*T*S*D operations for dK/dV (two score
-// products and two accumulating products) and 6*T*S*D for dQ, over the
-// visible query-key pairs. At the BERT-base training shape (B=32, H=12,
-// T=S=128, D=64) unpadded that is 3.2 and 2.4 GFLOP: 48 and 36 us at 67
-// TFLOP/s on the float32 CUDA cores, against about 15 us and 12 us for
-// their bytes. So the operations bound both kernels. Design: one block
-// per (batch*head, 32-key tile) for dK/dV, (batch*head, 32-query tile) for
-// dQ; the [T, S] score and probability tiles never leave the SM. Phase 1
-// of each tile pair has four threads per query row, each computing the
-// score and dP of eight keys from float4 reads of shared memory (row
-// stride D + 4 floats, so four different rows fall in different banks);
-// phase 2 has four threads per output row (a key for dK/dV, a query for
-// dQ), each owning D/4 of its dimensions in float32 registers.
+// float32 (tf32::flash_bwd_dkv_kernel, tf32::flash_bwd_dq_kernel): every
+// product on the tensor cores in 3xTF32 (mma.sync m16n8k8, TF32 operands,
+// float32 accumulators). Per (batch, head) the work is 8*T*S*D operations
+// for dK/dV (two score products and two accumulating products) and 6*T*S*D
+// for dQ, over the visible query-key pairs: at the BERT-base training
+// shape (B=32, H=12, T=S=128, D=64) unpadded 3.2 and 2.4 GFLOP, 48 and 36
+// us at 67 TFLOP/s on the float32 CUDA cores. Three TF32 passes at 495
+// TFLOP/s take 19 and 15 us, under the bytes of the float32 operands (22
+// and 18 us at 3.35 TB/s, as chip_smoke.py counts them), so on the tensor
+// cores the bytes bound both kernels; mma.sync reaches only part of that
+// rate, and each value an MMA reads is first split in registers on the
+// CUDA cores. What the design does about it:
+// - Tiles and grid as in the bf16 kernels: one block of 4 warps owns a
+//   64-key tile (dK/dV, grid (B*H, ceil(S/64))) or a 64-query tile (dQ,
+//   grid (B*H, ceil(T/64))); each warp owns 16 of the 64 rows. The
+//   streamed tiles (Q, dO, LSE and delta for dK/dV; K and V for dQ) go
+//   through a two-stage cp.async ring, the next tile's copy in flight under
+//   this tile's products; each operand tile is read from device memory
+//   once per block, and the [T, S] tiles (S, dP, P, dS) live only in
+//   registers.
+// - Shared tiles are float32 [64][D + 4]. The score products read their
+//   operands K-major with ldmatrix (four 8 x 4 float32 quarters a load;
+//   rows 16 bytes apart in bank groups, conflict-free); the accumulating
+//   products (dV += P^T dO, dK += dS^T Q, dQ += dS K) read B MN-major one
+//   value at a time, a warp hitting 32 different banks (8t + g, g = lane
+//   / 4, t = lane % 4). wgmma cannot read TF32 MN-major without a
+//   transposed copy.
+// - P^T and dS^T (dS for dQ) never leave registers: an m16n8 accumulator
+//   holds columns (2t, 2t + 1) of its 8, the m16k8 A fragment wants
+//   columns (t, t + 4); the accumulator is fed as A as it is, and the
+//   matching B rows are read in the same permuted k order (rows 8j + 2t
+//   and 8j + 2t + 1 in place of 8j + t and 8j + t + 4). A sum over k does
+//   not depend on its order.
+// - Precision: each float32 operand x is split in registers into big, x
+//   rounded to TF32, and small = x - big (three integer and float
+//   instructions; the tensor core reads small's top 11 bits), together
+//   about 21 bits of x; a product is small*big + big*small + big*big (the
+//   small*small term, 2^-22 of it, is dropped), as CUTLASS's
+//   OpMultiplyAddFastF32 does it. The tensor cores' float32 sums lose up
+//   to about an ulp of the running sum per instruction, so the error grew
+//   with the number of instructions summed into one accumulator (on an
+//   H100, with one running sum per gradient, T = 512 reached 8e-6 of max
+//   |dK|). So every sum is kept short: the score products sum their
+//   cross terms apart from big*big, and each chunk's contribution to dK,
+//   dV and dQ is summed in fresh registers and added to the total with a
+//   rounded float32 add. scale multiplies dK and dQ once, at the store;
+//   p = 2^x with ex2.approx.
+// - Chunks: dK/dV forms the scores of a 64-query tile in two chunks of 32
+//   queries, dQ of a 64-key tile in one chunk (two of 32 at D = 128), so
+//   that the gradient, score and partial-sum accumulators fit in
+//   registers; at D = 128 the partial sums cover half of D at a time.
 //
 // bfloat16 (flash_bwd_dkv_kernel_wgmma, flash_bwd_dq_kernel_wgmma): every
 // product on the tensor cores (wgmma m64nNk16, bf16 operands, float32
@@ -75,295 +112,8 @@
 
 namespace {
 
-constexpr int kTile = 32;     // query rows and keys per tile
-constexpr int kParts = 4;     // threads sharing one row
-constexpr int kThreads = kTile * kParts;  // 128
-constexpr int kKeysPerThread = kTile / kParts;  // phase 1: 8 keys a thread
-constexpr int kPStride = kTile + 1;  // [row][key] tiles of p and dS
 constexpr float kLseFloor = -1e20f;  // _bwd_recompute's clamp
 constexpr float kLog2e = 1.4426950408889634f;
-
-static_assert(kTile <= kThreads, "one thread per row/key for the stats");
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
-  y.x = fmaf(a, x.x, y.x);
-  y.y = fmaf(a, x.y, y.y);
-  y.z = fmaf(a, x.z, y.z);
-  y.w = fmaf(a, x.w, y.w);
-}
-
-// Rows [row0, row0 + kTile) of a contiguous [n, D] matrix into shared
-// memory as float32, row stride D + 4. Rows past n, and rows whose
-// valid[r] is 0 (when valid is given), are written as 0 and never read.
-template <typename T, int D>
-__device__ void load_tile(float* dst, const T* __restrict__ src, int row0,
-                          int n, const float* valid) {
-  constexpr int kRowVec = D / 4;
-  for (int idx = threadIdx.x; idx < kTile * kRowVec; idx += kThreads) {
-    const int r = idx / kRowVec;
-    const int c = (idx % kRowVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n && (valid == nullptr || valid[r] > 0.f))
-      x = load4(src + static_cast<size_t>(row0 + r) * D + c);
-    store4(dst + r * (D + 4) + c, x);
-  }
-}
-
-// The per-row statistics of query rows [q0, q0 + kTile): the LSE clamped
-// and in log2 units, and delta. Threads 0..kTile-1 write one row each.
-__device__ __forceinline__ void load_row_stats(
-    float* lse2, float* dlt, const float* __restrict__ lse,
-    const float* __restrict__ delta, size_t bh_t, int q0, int t_len) {
-  if (threadIdx.x < kTile) {
-    const int qi = q0 + threadIdx.x;
-    const bool live = qi < t_len;
-    lse2[threadIdx.x] = live ? fmaxf(lse[bh_t + qi], kLseFloor) * kLog2e : 0.f;
-    dlt[threadIdx.x] = live ? delta[bh_t + qi] : 0.f;
-  }
-}
-
-// Phase 1 for the tile pair (query rows q0.., keys k0..): p and dS of all
-// kTile x kTile pairs into ps / dss ([row][key], stride kPStride). Thread
-// (r, part) takes query row r and keys part + kParts * j. A pair counts
-// only if its row exists, its key is valid (kvalid: in range and not
-// masked) and, under causal, the key is not above the diagonal; every
-// other pair gets p = dS = 0.
-template <int D, bool kWriteP>
-__device__ void score_tile(const float* qs, const float* dos, const float* ks,
-                           const float* vs, const float* lse2,
-                           const float* dlt, const float* kvalid, int q0,
-                           int k0, int t_len, int offset, int causal,
-                           float scale, float scale_log2, float* ps,
-                           float* dss) {
-  const int r = threadIdx.x / kParts;
-  const int part = threadIdx.x % kParts;
-  float s[kKeysPerThread], dp[kKeysPerThread];
-#pragma unroll
-  for (int j = 0; j < kKeysPerThread; ++j) s[j] = dp[j] = 0.f;
-  const float* qr = qs + r * (D + 4);
-  const float* gr = dos + r * (D + 4);
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    const float4 q4 = *reinterpret_cast<const float4*>(qr + d);
-    const float4 g4 = *reinterpret_cast<const float4*>(gr + d);
-#pragma unroll
-    for (int j = 0; j < kKeysPerThread; ++j) {
-      const int c = part + kParts * j;
-      s[j] = dot4(q4, *reinterpret_cast<const float4*>(ks + c * (D + 4) + d),
-                  s[j]);
-      dp[j] = dot4(g4, *reinterpret_cast<const float4*>(vs + c * (D + 4) + d),
-                   dp[j]);
-    }
-  }
-  const int qi = q0 + r;
-  const float lse_r = lse2[r];
-  const float delta_r = dlt[r];
-#pragma unroll
-  for (int j = 0; j < kKeysPerThread; ++j) {
-    const int c = part + kParts * j;
-    const bool ok = qi < t_len && kvalid[c] > 0.f &&
-                    (!causal || qi + offset >= k0 + c);
-    const float p = ok ? exp2f(fmaf(s[j], scale_log2, -lse_r)) : 0.f;
-    if (kWriteP) ps[r * kPStride + c] = p;
-    dss[r * kPStride + c] = p * (dp[j] - delta_r) * scale;
-  }
-}
-
-// Shared memory of either kernel: four [kTile][D+4] float tiles, the p and
-// dS tiles, and three [kTile] vectors (LSE, delta, key validity).
-template <int D>
-constexpr size_t smem_bytes() {
-  return (4 * kTile * (D + 4) + 2 * kTile * kPStride + 3 * kTile) *
-         sizeof(float);
-}
-
-// q/dO [BH, T, D], k/v [BH, S, D], dk/dv [BH, S, D] contiguous; key_mask
-// [B, S] float (nullptr = none); lse/delta [BH, T] float.
-// Grid: x = batch*head, y = key tile.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
-                     const float* __restrict__ key_mask,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int heads, int t_len, int s_len,
-                     float scale, int causal) {
-  constexpr int kVec = D / (4 * kParts);  // float4 slices a thread owns
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kTile * (D + 4);
-  float* qs = vs + kTile * (D + 4);
-  float* dos = qs + kTile * (D + 4);
-  float* ps = dos + kTile * (D + 4);
-  float* dss = ps + kTile * kPStride;
-  float* lse2 = dss + kTile * kPStride;
-  float* dlt = lse2 + kTile;
-  float* kvalid = dlt + kTile;
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int k0 = blockIdx.y * kTile;
-  const int offset = s_len - t_len;  // bottom-right causal alignment
-  const size_t bh_t = static_cast<size_t>(bh) * t_len;
-  const size_t bh_s = static_cast<size_t>(bh) * s_len;
-
-  bool key_ok = false;
-  if (threadIdx.x < kTile) {
-    const int key = k0 + threadIdx.x;
-    key_ok = key < s_len &&
-             (key_mask == nullptr ||
-              key_mask[static_cast<size_t>(b) * s_len + key] > 0.f);
-    kvalid[threadIdx.x] = key_ok ? 1.f : 0.f;
-  }
-  const bool any_key = __syncthreads_or(key_ok);
-
-  // Phase 2 ownership: key c of the tile, dimensions {i*16 + part*4 + 0..3}.
-  const int c = threadIdx.x / kParts;
-  const int part = threadIdx.x % kParts;
-  float4 dk_acc[kVec], dv_acc[kVec];
-#pragma unroll
-  for (int i = 0; i < kVec; ++i)
-    dk_acc[i] = dv_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  if (any_key) {  // a tile of masked keys has dK = dV = 0 and reads nothing
-    load_tile<T, D>(ks, k + bh_s * D, k0, s_len, kvalid);
-    load_tile<T, D>(vs, v + bh_s * D, k0, s_len, kvalid);
-    // Causal: query row i sees key k0 first when i + offset >= k0, so the
-    // query tiles wholly above the diagonal are never loaded.
-    const int q_begin =
-        causal ? (max(0, k0 - offset) / kTile) * kTile : 0;
-    const float scale_log2 = scale * kLog2e;
-    for (int q0 = q_begin; q0 < t_len; q0 += kTile) {
-      __syncthreads();  // the previous query tile is consumed
-      load_tile<T, D>(qs, q + bh_t * D, q0, t_len, nullptr);
-      load_tile<T, D>(dos, dout + bh_t * D, q0, t_len, nullptr);
-      load_row_stats(lse2, dlt, lse, delta, bh_t, q0, t_len);
-      __syncthreads();
-      score_tile<D, true>(qs, dos, ks, vs, lse2, dlt, kvalid, q0, k0, t_len,
-                          offset, causal, scale, scale_log2, ps, dss);
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        const float p = ps[r * kPStride + c];
-        const float ds = dss[r * kPStride + c];
-        const float* gr = dos + r * (D + 4) + part * 4;
-        const float* qr = qs + r * (D + 4) + part * 4;
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) {
-          axpy4(p, *reinterpret_cast<const float4*>(gr + i * 16), dv_acc[i]);
-          axpy4(ds, *reinterpret_cast<const float4*>(qr + i * 16), dk_acc[i]);
-        }
-      }
-    }
-  }
-
-  const int key = k0 + c;
-  if (key >= s_len) return;
-  const size_t out = (bh_s + key) * D + part * 4;
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    store4(dk + out + i * 16, dk_acc[i]);
-    store4(dv + out + i * 16, dv_acc[i]);
-  }
-}
-
-// Same layouts; dq [BH, T, D]. Grid: x = batch*head, y = query tile.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
-                    const float* __restrict__ key_mask,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int heads, int t_len, int s_len, float scale,
-                    int causal) {
-  constexpr int kVec = D / (4 * kParts);
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kTile * (D + 4);
-  float* ks = dos + kTile * (D + 4);
-  float* vs = ks + kTile * (D + 4);
-  float* dss = vs + kTile * (D + 4);  // p is not needed for dQ
-  float* lse2 = dss + 2 * kTile * kPStride;
-  float* dlt = lse2 + kTile;
-  float* kvalid = dlt + kTile;
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int q0 = blockIdx.y * kTile;
-  const int offset = s_len - t_len;
-  const size_t bh_t = static_cast<size_t>(bh) * t_len;
-  const size_t bh_s = static_cast<size_t>(bh) * s_len;
-
-  load_tile<T, D>(qs, q + bh_t * D, q0, t_len, nullptr);
-  load_tile<T, D>(dos, dout + bh_t * D, q0, t_len, nullptr);
-  load_row_stats(lse2, dlt, lse, delta, bh_t, q0, t_len);
-
-  // Causal: keys past the tile's last row are masked for every row.
-  int k_end = s_len;
-  if (causal)
-    k_end = min(s_len, min(q0 + kTile, t_len) - 1 + offset + 1);
-
-  // Phase 2 ownership: query row r of the tile, dimensions as in dK/dV.
-  const int r = threadIdx.x / kParts;
-  const int part = threadIdx.x % kParts;
-  float4 dq_acc[kVec];
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) dq_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float scale_log2 = scale * kLog2e;
-
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous key tile is consumed
-    bool key_ok = false;
-    if (threadIdx.x < kTile) {
-      const int key = k0 + threadIdx.x;
-      key_ok = key < k_end &&
-               (key_mask == nullptr ||
-                key_mask[static_cast<size_t>(b) * s_len + key] > 0.f);
-      kvalid[threadIdx.x] = key_ok ? 1.f : 0.f;
-    }
-    // A tile whose keys are all masked adds nothing: skip it whole (the
-    // decision is the same for every thread of the block).
-    if (!__syncthreads_or(key_ok)) continue;
-    load_tile<T, D>(ks, k + bh_s * D, k0, s_len, kvalid);
-    load_tile<T, D>(vs, v + bh_s * D, k0, s_len, kvalid);
-    __syncthreads();
-    score_tile<D, false>(qs, dos, ks, vs, lse2, dlt, kvalid, q0, k0, t_len,
-                         offset, causal, scale, scale_log2, nullptr, dss);
-    __syncthreads();
-    const float* dsr = dss + r * kPStride;
-#pragma unroll 4
-    for (int cc = 0; cc < kTile; ++cc) {
-      const float ds = dsr[cc];
-      const float* kr = ks + cc * (D + 4) + part * 4;
-#pragma unroll
-      for (int i = 0; i < kVec; ++i)
-        axpy4(ds, *reinterpret_cast<const float4*>(kr + i * 16), dq_acc[i]);
-    }
-  }
-
-  const int qi = q0 + r;
-  if (qi >= t_len) return;
-  const size_t out = (bh_t + qi) * D + part * 4;
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) store4(dq + out + i * 16, dq_acc[i]);
-}
 
 struct Args {
   const void* q;
@@ -379,60 +129,6 @@ struct Args {
   float scale;
   int causal;
 };
-
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    // Above 48 KB a block's shared memory must be opted into.
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid(a.batch * a.heads, (a.s_len + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.key_mask, static_cast<const T*>(a.dout),
-      a.lse, a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1),
-      a.heads, a.t_len, a.s_len, a.scale, a.causal);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid(a.batch * a.heads, (a.t_len + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.key_mask, static_cast<const T*>(a.dout),
-      a.lse, a.delta, static_cast<T*>(a.out0), a.heads, a.t_len, a.s_len,
-      a.scale, a.causal);
-  return cudaGetLastError();
-}
-
-template <bool kDkv, typename T>
-cudaError_t launch_d(int d, const Args& a, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return kDkv ? launch_dkv<T, 32>(a, stream) : launch_dq<T, 32>(a, stream);
-    case 64:
-      return kDkv ? launch_dkv<T, 64>(a, stream) : launch_dq<T, 64>(a, stream);
-    case 128:
-      return kDkv ? launch_dkv<T, 128>(a, stream)
-                  : launch_dq<T, 128>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 // -- bfloat16: the products on the tensor cores (wgmma) -----------------------
 
@@ -755,66 +451,594 @@ flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
                  t_len - q0);
 }
 
-template <bool kDkv, int D>
-cudaError_t launch_one(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  const int tiles = ((kDkv ? a.s_len : a.t_len) + kRows - 1) / kRows;
+}  // namespace wg
+
+// -- float32: the products on the tensor cores in 3xTF32 (mma.sync) ----------
+
+namespace tf32 {
+
+using wg::cp_async16;
+using wg::cp_async_commit;
+using wg::cp_async_wait;
+using wg::kRows;
+using wg::kThreads;
+using wg::load_stats;
+using wg::smem_addr;
+
+// A [kRows][D] float32 tile in shared memory, row stride D + 4 floats.
+template <int D>
+struct Tile {
+  static constexpr int kStride = D + 4;
+  static constexpr int kFloats = kRows * kStride;
+};
+
+// Shared memory of either kernel: six tiles and up to five [kRows] vectors
+// of row statistics and key flags.
+template <int D>
+constexpr size_t smem_bytes() {
+  return (6 * Tile<D>::kFloats + 5 * kRows) * sizeof(float);
+}
+
+// Rows [0, kRows) of a tile whose row 0 is at src ([rows][D] contiguous)
+// into shared memory at dst. Rows at or past ``rows``, and rows whose
+// valid[r] is 0 (when valid is given), are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int rows, const float* valid) {
+  constexpr int kChunks = D / 4;
+#pragma unroll
+  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool ok = r < rows && (valid == nullptr || valid[r] > 0.f);
+    cp_async16(smem_addr(dst + r * Tile<D>::kStride + 4 * c),
+               ok ? src + r * D + 4 * c : src, ok);
+  }
+}
+
+// An operand fragment as two TF32 parts, big + small = x to about 21 bits.
+template <int N>
+struct Frag {
+  uint32_t big[N], small[N];
+};
+
+// big: x rounded to TF32 (half a TF32 ulp added to the magnitude, the low
+// 13 bits cut); small: x - big, exact in float32, which the tensor core
+// reads as TF32 by ignoring its low 13 bits (CUTLASS's
+// round_half_ulp_truncate and round_toward_zero). Three instructions.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// Four 8 x 4 float32 matrices from shared memory (ldmatrix of 8 x 8 b16):
+// lanes 8m..8m+7 give the addresses of matrix m's rows, and register m of
+// lane l receives row l / 4, column l % 4 of matrix m.
+__device__ __forceinline__ void ldmatrix_x4(float (&r)[4], uint32_t addr) {
+  uint32_t u[4];
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(u[0]), "=r"(u[1]), "=r"(u[2]), "=r"(u[3])
+      : "r"(addr));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = __uint_as_float(u[i]);
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[16 x 8] += a[16 x 8] . b[8 x 8] in float32 grade: the cross terms
+// first, then big x big.
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a,
+                                     const Frag<2>& b) {
+  mma(d, a.small, b.big);
+  mma(d, a.big, b.small);
+  mma(d, a.big, b.big);
+}
+
+// The same product with the cross terms (about 2^-11 of it) summed apart,
+// in cor, which the caller adds to d once the sum over k is complete: d
+// takes one instruction a k step in place of three, and the two chains
+// run side by side.
+__device__ __forceinline__ void mma3(float (&d)[4], float (&cor)[4],
+                                     const Frag<4>& a, const Frag<2>& b) {
+  mma(cor, a.small, b.big);
+  mma(cor, a.big, b.small);
+  mma(d, a.big, b.big);
+}
+
+// 2^x with ex2.approx (2 ulp; results below 2^-126 flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Fragment coordinates of a lane: g = lane / 4 (A rows g, g + 8; B column
+// g), t = lane % 4.
+__device__ __forceinline__ int lane_g() { return (threadIdx.x % 32) / 4; }
+__device__ __forceinline__ int lane_t() { return threadIdx.x % 4; }
+
+// A = rows r0..r0+15, columns c0..c0+7 of a tile (row-major [row][k]):
+// one ldmatrix, the four 8 x 4 quarters (rows +0/+8, columns +0/+4) in
+// the order of a0..a3.
+template <int D>
+__device__ __forceinline__ Frag<4> frag_a(const float* tile, int r0,
+                                         int c0) {
+  const int l = threadIdx.x % 32, m = l / 8;
+  float x[4];
+  ldmatrix_x4(x, smem_addr(tile + (r0 + l % 8 + 8 * (m & 1)) *
+                                      Tile<D>::kStride +
+                           c0 + 4 * (m >> 1)));
+  Frag<4> f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], f.big[i], f.small[i]);
+  return f;
+}
+
+// B of the n8 tiles n0 and n0 + 8, B[k][n] = tile[n0 + n][c0 + k]: the
+// tile's rows are B's columns (the tile K-major: Q and dO in S^T and
+// dP^T, K and V in S and dP). One ldmatrix: b0, b1 of tile n0, then of
+// tile n0 + 8.
+template <int D>
+__device__ __forceinline__ void frag_b_k2(Frag<2> (&f)[2], const float* tile,
+                                          int n0, int c0) {
+  const int l = threadIdx.x % 32, m = l / 8;
+  float x[4];
+  ldmatrix_x4(x, smem_addr(tile + (n0 + l % 8 + 8 * (m >> 1)) *
+                                      Tile<D>::kStride +
+                           c0 + 4 * (m & 1)));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], f[i / 2].big[i % 2],
+                                    f[i / 2].small[i % 2]);
+}
+
+// B[k][n] = tile[k0 + k'][n0 + n] in the permuted k order of an
+// accumulator fed as A (frag_acc): k = t reads row k0 + 2t, k = t + 4 row
+// k0 + 2t + 1 (the tile MN-major).
+template <int D>
+__device__ __forceinline__ Frag<2> frag_b_mn(const float* tile, int k0,
+                                            int n0) {
+  constexpr int kS = Tile<D>::kStride;
+  const float* p = tile + (k0 + 2 * lane_t()) * kS + n0 + lane_g();
+  Frag<2> f;
+  split(p[0], f.big[0], f.small[0]);
+  split(p[kS], f.big[1], f.small[1]);
+  return f;
+}
+
+// An m16n8 accumulator (rows g, g + 8; columns 2t, 2t + 1) as the A
+// fragment of one k8 step, in the permuted k order of frag_b_mn.
+__device__ __forceinline__ Frag<4> frag_acc(const float (&c)[4]) {
+  Frag<4> f;
+  split(c[0], f.big[0], f.small[0]);
+  split(c[2], f.big[1], f.small[1]);
+  split(c[1], f.big[2], f.small[2]);
+  split(c[3], f.big[3], f.small[3]);
+  return f;
+}
+
+// Rows r0 + g (+8) of the kNT accumulators of a [16][D] gradient tile,
+// times mul, into a [*, D] float32 matrix at out (row 0 of the tile); rows
+// at or past ``rows`` are skipped.
+template <int D>
+__device__ __forceinline__ void store_acc(float* out,
+                                          const float (&d)[D / 8][4], int r0,
+                                          int rows, float mul) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + lane_g() + 8 * h;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * D + 8 * n +
+                                 2 * lane_t()) =
+          make_float2(d[n][2 * h] * mul, d[n][2 * h + 1] * mul);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[n][i] = 0.f;
+}
+
+// acc[n0 + n] += part[n], rounded as float32 adds round.
+template <int N, int M>
+__device__ __forceinline__ void add_to(float (&acc)[N][4],
+                                       const float (&part)[M][4], int n0) {
+#pragma unroll
+  for (int n = 0; n < M; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n0 + n][i] += part[n][i];
+}
+
+// q/dO [BH, T, D], k/v [BH, S, D], dk/dv [BH, S, D] contiguous float32;
+// key_mask [B, S] float (nullptr = none); lse/delta [BH, T] float.
+// Grid: x = batch*head, y = 64-key tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ key_mask,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int heads, int t_len, int s_len,
+                     float scale, int causal) {
+  constexpr int kF = Tile<D>::kFloats;
+  constexpr int kNT = D / 8;  // n8 tiles of a gradient row
+  constexpr int kQC = 32;     // queries per chunk
+  // gradient n8 tiles summed per pass over a chunk
+  constexpr int kNG = D >= 128 ? kNT / 2 : kNT;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + kF;
+  float* qs0 = vs + kF;  // stage st: Q at qs0 + 2 st kF, dO one tile after
+  float* stats = qs0 + 4 * kF;  // [2 stages][LSE, delta][kRows]
+  float* kvalid = stats + 4 * kRows;
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int bh = blockIdx.x, b = bh / heads, k0 = blockIdx.y * kRows;
+  const int offset = s_len - t_len;  // bottom-right causal alignment
+  const size_t bh_t = static_cast<size_t>(bh) * t_len;
+  const size_t bh_s = static_cast<size_t>(bh) * s_len;
+
+  bool key_ok = false;
+  if (tid < kRows) {
+    const int key = k0 + tid;
+    key_ok = key < s_len &&
+             (key_mask == nullptr ||
+              key_mask[static_cast<size_t>(b) * s_len + key] > 0.f);
+    kvalid[tid] = key_ok ? 1.f : 0.f;
+  }
+  const bool any_key = __syncthreads_or(key_ok);
+
+  // The warp's keys r0..r0+15; accumulator rows (keys) row0 and row0 + 8,
+  // columns 8n + col0 (+1).
+  const int r0 = warp * 16, row0 = r0 + lane_g(), col0 = 2 * lane_t();
+  float dk_acc[kNT][4], dv_acc[kNT][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  if (any_key) {  // a tile of masked keys has dK = dV = 0 and reads nothing
+    load_tile<D>(ks, k + (bh_s + k0) * D, s_len - k0, kvalid);
+    load_tile<D>(vs, v + (bh_s + k0) * D, s_len - k0, kvalid);
+    cp_async_commit();
+    auto load_q = [&](int q0, int st) {
+      float* qs = qs0 + 2 * st * kF;
+      load_tile<D>(qs, q + (bh_t + q0) * D, t_len - q0, nullptr);
+      load_tile<D>(qs + kF, dout + (bh_t + q0) * D, t_len - q0, nullptr);
+      load_stats(stats + 2 * st * kRows, stats + (2 * st + 1) * kRows,
+                 lse + bh_t + q0, delta + bh_t + q0, t_len - q0);
+    };
+    // Causal: query row i sees key k0 first when i + offset >= k0, so the
+    // query tiles wholly above the diagonal are never loaded.
+    const int q_begin = causal ? (max(0, k0 - offset) / kRows) * kRows : 0;
+    if (q_begin < t_len) load_q(q_begin, 0);
+    cp_async_commit();
+    const bool kv0 = kvalid[row0] > 0.f, kv1 = kvalid[row0 + 8] > 0.f;
+    const float scale_log2 = scale * kLog2e;
+    int st = 0;
+    for (int q0 = q_begin; q0 < t_len; q0 += kRows, st ^= 1) {
+      if (q0 + kRows < t_len) load_q(q0 + kRows, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // K/V and this query tile have landed
+      __syncthreads();
+      const float* qs = qs0 + 2 * st * kF;
+      const float* dos = qs + kF;
+      const float* lse_t = stats + 2 * st * kRows;
+      const float* dlt_t = lse_t + kRows;
+#pragma unroll 1
+      for (int qc = 0; qc < kRows; qc += kQC) {
+        // S^T = K Q^T and dP^T = V dO^T: [key][query], kQC queries
+        float sacc[kQC / 8][4], dpacc[kQC / 8][4];
+        float scor[kQC / 8][4], dpcor[kQC / 8][4];
+        zero(sacc);
+        zero(dpacc);
+        zero(scor);
+        zero(dpcor);
+#pragma unroll
+        for (int c = 0; c < D; c += 8) {
+          const Frag<4> ka = frag_a<D>(ks, r0, c), va = frag_a<D>(vs, r0, c);
+#pragma unroll
+          for (int n = 0; n < kQC / 8; n += 2) {
+            Frag<2> qb[2], gb[2];
+            frag_b_k2<D>(qb, qs, qc + 8 * n, c);
+            frag_b_k2<D>(gb, dos, qc + 8 * n, c);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              mma3(sacc[n + i], scor[n + i], ka, qb[i]);
+              mma3(dpacc[n + i], dpcor[n + i], va, gb[i]);
+            }
+          }
+        }
+        add_to(sacc, scor, 0);
+        add_to(dpacc, dpcor, 0);
+
+        // P^T and dS^T / scale in place, masked pairs exactly 0
+#pragma unroll
+        for (int n = 0; n < kQC / 8; ++n) {
+          const int c = qc + 8 * n + col0;  // query columns c, c + 1
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+          const float2 d2 = *reinterpret_cast<const float2*>(dlt_t + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + c + (e & 1);
+            const int key = k0 + row0 + 8 * (e >> 1);
+            const bool ok = ((e >> 1) ? kv1 : kv0) && qi < t_len &&
+                            (!causal || qi + offset >= key);
+            const float lse2 =
+                fmaxf((e & 1) ? l2.y : l2.x, kLseFloor) * kLog2e;
+            const float p =
+                ok ? ex2(fmaf(sacc[n][e], scale_log2, -lse2)) : 0.f;
+            dpacc[n][e] = p * (dpacc[n][e] - ((e & 1) ? d2.y : d2.x));
+            sacc[n][e] = p;
+          }
+        }
+
+        // dV += P^T dO, dK += dS^T Q over the chunk's queries, summed in
+        // fresh registers and added to the totals
+#pragma unroll
+        for (int ng = 0; ng < kNT; ng += kNG) {
+          float dv_part[kNG][4], dk_part[kNG][4];
+          zero(dv_part);
+          zero(dk_part);
+#pragma unroll
+          for (int j = 0; j < kQC / 8; ++j) {
+            const Frag<4> pa = frag_acc(sacc[j]), dsa = frag_acc(dpacc[j]);
+#pragma unroll
+            for (int n = 0; n < kNG; ++n) {
+              const int col = 8 * (ng + n);
+              mma3(dv_part[n], pa, frag_b_mn<D>(dos, qc + 8 * j, col));
+              mma3(dk_part[n], dsa, frag_b_mn<D>(qs, qc + 8 * j, col));
+            }
+          }
+          add_to(dv_acc, dv_part, ng);
+          add_to(dk_acc, dk_part, ng);
+        }
+      }
+      __syncthreads();  // this stage is read: the next load may reuse it
+    }
+  }
+  cp_async_wait<0>();
+
+  store_acc<D>(dk + (bh_s + k0) * D, dk_acc, r0, s_len - k0, scale);
+  store_acc<D>(dv + (bh_s + k0) * D, dv_acc, r0, s_len - k0, 1.f);
+}
+
+// Same layouts; dq [BH, T, D]. Grid: x = batch*head, y = 64-query tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ key_mask,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int heads, int t_len, int s_len, float scale,
+                    int causal) {
+  constexpr int kF = Tile<D>::kFloats;
+  constexpr int kNT = D / 8;
+  constexpr int kKC = D >= 128 ? 32 : 64;  // keys per chunk
+  constexpr int kNG = D >= 128 ? kNT / 2 : kNT;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* dos = qs + kF;
+  float* ks0 = dos + kF;  // stage st: K at ks0 + 2 st kF, V one tile after
+  float* lse_q = ks0 + 4 * kF;
+  float* dlt_q = lse_q + kRows;
+  float* kvalid = dlt_q + kRows;  // [2][kRows]
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int bh = blockIdx.x, b = bh / heads, q0 = blockIdx.y * kRows;
+  const int offset = s_len - t_len;
+  const size_t bh_t = static_cast<size_t>(bh) * t_len;
+  const size_t bh_s = static_cast<size_t>(bh) * s_len;
+
+  load_tile<D>(qs, q + (bh_t + q0) * D, t_len - q0, nullptr);
+  load_tile<D>(dos, dout + (bh_t + q0) * D, t_len - q0, nullptr);
+  load_stats(lse_q, dlt_q, lse + bh_t + q0, delta + bh_t + q0, t_len - q0);
+  cp_async_commit();
+
+  // Causal: keys past the tile's last row are masked for every row.
+  const int k_end =
+      causal ? min(s_len, min(q0 + kRows, t_len) + offset) : s_len;
+  // The first key tile at or after k_from with a key that is not masked
+  // (k_end if none), its key flags written to valid[kRows]. The decision
+  // is the same for every thread of the block.
+  auto next_live = [&](int k_from, float* valid) {
+    for (int kt = k_from; kt < k_end; kt += kRows) {
+      bool ok = false;
+      if (tid < kRows) {
+        const int key = kt + tid;
+        ok = key < k_end &&
+             (key_mask == nullptr ||
+              key_mask[static_cast<size_t>(b) * s_len + key] > 0.f);
+        valid[tid] = ok ? 1.f : 0.f;
+      }
+      if (__syncthreads_or(ok)) return kt;
+    }
+    return k_end;
+  };
+  auto load_kv = [&](int kt, int st) {
+    float* ks = ks0 + 2 * st * kF;
+    const float* valid = kvalid + st * kRows;
+    load_tile<D>(ks, k + (bh_s + kt) * D, s_len - kt, valid);
+    load_tile<D>(ks + kF, v + (bh_s + kt) * D, s_len - kt, valid);
+  };
+
+  // The warp's queries r0..r0+15; accumulator rows (queries) row0 and
+  // row0 + 8, columns 8n + col0 (+1).
+  const int r0 = warp * 16, row0 = r0 + lane_g(), col0 = 2 * lane_t();
+  float dq_acc[kNT][4];
+  zero(dq_acc);
+  const float scale_log2 = scale * kLog2e;
+
+  int k0 = next_live(0, kvalid);
+  if (k0 < k_end) load_kv(k0, 0);
+  cp_async_commit();
+  for (int st = 0; k0 < k_end; st ^= 1) {
+    const int k_next = next_live(k0 + kRows, kvalid + (st ^ 1) * kRows);
+    if (k_next < k_end) load_kv(k_next, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q/dO and this key tile have landed
+    __syncthreads();
+    const float* ks = ks0 + 2 * st * kF;
+    const float* vs = ks + kF;
+
+    const float* valid = kvalid + st * kRows;
+    float lse2[2], dlt[2];
+    bool live[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      live[h] = q0 + r < t_len;
+      lse2[h] = fmaxf(lse_q[r], kLseFloor) * kLog2e;
+      dlt[h] = dlt_q[r];
+    }
+#pragma unroll 1
+    for (int kc = 0; kc < kRows; kc += kKC) {
+      // S = Q K^T and dP = dO V^T: [query][key], kKC keys
+      float sacc[kKC / 8][4], dpacc[kKC / 8][4];
+      float scor[kKC / 8][4], dpcor[kKC / 8][4];
+      zero(sacc);
+      zero(dpacc);
+      zero(scor);
+      zero(dpcor);
+#pragma unroll
+      for (int c = 0; c < D; c += 8) {
+        const Frag<4> qa = frag_a<D>(qs, r0, c), ga = frag_a<D>(dos, r0, c);
+#pragma unroll
+        for (int n = 0; n < kKC / 8; n += 2) {
+          Frag<2> kb[2], vb[2];
+          frag_b_k2<D>(kb, ks, kc + 8 * n, c);
+          frag_b_k2<D>(vb, vs, kc + 8 * n, c);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma3(sacc[n + i], scor[n + i], qa, kb[i]);
+            mma3(dpacc[n + i], dpcor[n + i], ga, vb[i]);
+          }
+        }
+      }
+      add_to(sacc, scor, 0);
+      add_to(dpacc, dpcor, 0);
+
+      // dS / scale in place, masked pairs exactly 0
+#pragma unroll
+      for (int n = 0; n < kKC / 8; ++n) {
+        const int c = kc + 8 * n + col0;  // key columns c, c + 1
+        const float2 kv = *reinterpret_cast<const float2*>(valid + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int key = k0 + c + (e & 1);
+          const bool ok = live[h] && ((e & 1) ? kv.y : kv.x) > 0.f &&
+                          (!causal || q0 + row0 + 8 * h + offset >= key);
+          const float p =
+              ok ? ex2(fmaf(sacc[n][e], scale_log2, -lse2[h])) : 0.f;
+          dpacc[n][e] = p * (dpacc[n][e] - dlt[h]);
+        }
+      }
+
+      // dQ += dS K over the chunk's keys, summed in fresh registers and
+      // added to the total
+#pragma unroll
+      for (int ng = 0; ng < kNT; ng += kNG) {
+        float dq_part[kNG][4];
+        zero(dq_part);
+#pragma unroll
+        for (int j = 0; j < kKC / 8; ++j) {
+          const Frag<4> dsa = frag_acc(dpacc[j]);
+#pragma unroll
+          for (int n = 0; n < kNG; ++n)
+            mma3(dq_part[n], dsa,
+                 frag_b_mn<D>(ks, kc + 8 * j, 8 * (ng + n)));
+        }
+        add_to(dq_acc, dq_part, ng);
+      }
+    }
+    __syncthreads();  // this stage is read: the next load may reuse it
+    k0 = k_next;
+  }
+  cp_async_wait<0>();
+
+  store_acc<D>(dq + (bh_t + q0) * D, dq_acc, r0, t_len - q0, scale);
+}
+
+}  // namespace tf32
+
+// One kernel of a dtype's pair (dkv or dq, as kDkv says) on grid (B*H,
+// ceil(S/64)) or (B*H, ceil(T/64)) with smem bytes of shared memory.
+template <bool kDkv, typename T, typename DkvKernel, typename DqKernel>
+cudaError_t launch_one(DkvKernel dkv, DqKernel dq, size_t smem,
+                       const Args& a, cudaStream_t stream) {
+  const int tiles = ((kDkv ? a.s_len : a.t_len) + wg::kRows - 1) / wg::kRows;
   const dim3 grid(a.batch * a.heads, tiles);
-  using bf16 = __nv_bfloat16;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* g = static_cast<const bf16*>(a.dout);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* g = static_cast<const T*>(a.dout);
+  cudaError_t e;
   if constexpr (kDkv) {
-    auto kernel = flash_bwd_dkv_kernel_wgmma<D>;
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return e;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        q, k, v, a.key_mask, g, a.lse, a.delta, static_cast<bf16*>(a.out0),
-        static_cast<bf16*>(a.out1), a.heads, a.t_len, a.s_len, a.scale,
+    dkv<<<grid, wg::kThreads, smem, stream>>>(
+        q, k, v, a.key_mask, g, a.lse, a.delta, static_cast<T*>(a.out0),
+        static_cast<T*>(a.out1), a.heads, a.t_len, a.s_len, a.scale,
         a.causal);
   } else {
-    auto kernel = flash_bwd_dq_kernel_wgmma<D>;
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    e = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return e;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        q, k, v, a.key_mask, g, a.lse, a.delta, static_cast<bf16*>(a.out0),
+    dq<<<grid, wg::kThreads, smem, stream>>>(
+        q, k, v, a.key_mask, g, a.lse, a.delta, static_cast<T*>(a.out0),
         a.heads, a.t_len, a.s_len, a.scale, a.causal);
   }
   return cudaGetLastError();
 }
 
-template <bool kDkv>
-cudaError_t launch(int d, const Args& a, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch_one<kDkv, 32>(a, stream);
-    case 64:
-      return launch_one<kDkv, 64>(a, stream);
-    case 128:
-      return launch_one<kDkv, 128>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+// dtype 0: float32 on the tensor cores in 3xTF32; 1: bfloat16 on wgmma.
+template <bool kDkv, int D>
+cudaError_t launch_d(int dtype, const Args& a, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_one<kDkv, float>(tf32::flash_bwd_dkv_kernel<D>,
+                                   tf32::flash_bwd_dq_kernel<D>,
+                                   tf32::smem_bytes<D>(), a, stream);
+  if (dtype == 1)
+    return launch_one<kDkv, __nv_bfloat16>(wg::flash_bwd_dkv_kernel_wgmma<D>,
+                                           wg::flash_bwd_dq_kernel_wgmma<D>,
+                                           wg::smem_bytes<D>(), a, stream);
+  return cudaErrorInvalidValue;
 }
-
-}  // namespace wg
 
 template <bool kDkv>
 int launch(int device, const Args& a, int d, int dtype, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    e = launch_d<kDkv, float>(d, a, st);  // the CUDA cores
-  else if (dtype == 1)
-    e = wg::launch<kDkv>(d, a, st);  // the tensor cores
-  else
-    e = cudaErrorInvalidValue;
+  switch (d) {
+    case 32:
+      e = launch_d<kDkv, 32>(dtype, a, st);
+      break;
+    case 64:
+      e = launch_d<kDkv, 64>(dtype, a, st);
+      break;
+    case 128:
+      e = launch_d<kDkv, 128>(dtype, a, st);
+      break;
+    default:
+      e = cudaErrorInvalidValue;
+  }
   return static_cast<int>(e);
 }
 

@@ -10,22 +10,29 @@ are compiled beside this checkout's, with the same flags, and the port's
 wrappers are pointed at one library pair or the other in turn. On the
 same inputs it then
 
-1. checks that the outputs the change must not move are bit-identical
-   (``torch.equal``): the float32 forward's output and LSE, and dq, dk
-   and dv of both backward kernels in float32 and bfloat16, fed the same
-   forward output and LSE, at BERT-base's training shape (B=32, H=12,
-   T=S=128, D=64, the first training batch's key lengths) and at one
-   D = 32 and one D = 128 case;
+1. checks, at BERT-base's training shape (B=32, H=12, T=S=128, D=64, the
+   first training batch's key lengths) and at one D = 32 and one D = 128
+   case: that the forward's output and LSE (both dtypes) and the bf16
+   backward's dq, dk and dv, fed the same forward output and LSE, are
+   bit-identical (``torch.equal``); and that the float32 backward's dq,
+   dk and dv, old against new and each against the plain
+   ``reference_attention_bwd``, agree within ``chip_smoke.TOL_BWD`` of
+   max(1, max |reference|);
 2. times the bf16 and float32 forward, old and new in turns (old, new,
    new, old), at the training and the serving shape (CUDA events over
    back-to-back calls, as ``chip_smoke.py`` times kernels, and the
    profiler's device time), beside SDPA and the bound;
-3. breaks down one mixed-precision BERT-base train step (``bench.py``
-   ``bench_bert``'s configuration) with each library pair, in turns: wall
-   time, device time, idle share and each flash kernel's device time.
+3. times the backward at the training shape in both dtypes, old and new
+   in turns: each kernel's device time per launch (profiler) and the
+   wrapper's pair with its delta reduction (CUDA events), beside SDPA's
+   backward and the bounds;
+4. breaks down one float32 and one mixed-precision BERT-base train step
+   (``bench.py`` ``bench_bert``'s configuration) with each library pair,
+   in turns: wall time, device time, idle share and each flash kernel's
+   device time.
 
 It prints one JSON object as its last line and writes it to ``--out``.
-Exit code 1 if an output that must be bit-identical is not.
+Exit code 1 if a check of step 1 fails.
 """
 
 from __future__ import annotations
@@ -100,10 +107,19 @@ def _lengths(lengths, train_lengths):
     return train_lengths if lengths == "train" else lengths
 
 
+def _close(a, want, dtype) -> dict:
+    """max |a - want| and whether it is within TOL_BWD[dtype] of
+    max(1, max |want|)."""
+    err = float((a.float() - want.float()).abs().max())
+    ref = max(1.0, float(want.float().abs().max()))
+    return {"max_abs_err": err, "ok": err <= cs.TOL_BWD[dtype] * ref}
+
+
 def check_same(dev, pairs, train_lengths) -> dict:
     from deeplearning4j_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda,
         flash_attention_cuda,
+        reference_attention_bwd,
     )
 
     rows = {}
@@ -127,14 +143,24 @@ def check_same(dev, pairs, train_lengths) -> dict:
                 grads[which] = flash_attention_bwd_cuda(
                     q, k, v, mask, out, lse, dout, causal=causal)
             torch.cuda.synchronize()
-            same = {n: torch.equal(a, c) for n, a, c in zip(
-                ("dq", "dk", "dv"), grads["old"], grads["new"])}
-            if dtype == torch.float32:
-                same["fwd_out"] = torch.equal(got["old"][0], got["new"][0])
-                same["fwd_lse"] = torch.equal(got["old"][1], got["new"][1])
-            else:  # the bf16 forward is the changed kernel: how far it moved
-                same["fwd_out_max_abs_diff"] = float(
-                    (got["old"][0].float() - out.float()).abs().max())
+            same = {"fwd_out": torch.equal(got["old"][0], got["new"][0]),
+                    "fwd_lse": torch.equal(got["old"][1], got["new"][1])}
+            names = ("dq", "dk", "dv")
+            if dtype == torch.bfloat16:
+                same.update({n: torch.equal(a, c) for n, a, c in zip(
+                    names, grads["old"], grads["new"])})
+            else:  # the changed kernels: within TOL_BWD, not bit for bit
+                plain = reference_attention_bwd(q, k, v, mask, out, lse,
+                                                dout, causal=causal)
+                for n, old, new, w in zip(names, grads["old"], grads["new"],
+                                          plain):
+                    close = {"old_vs_new": _close(new, old, dtype),
+                             "old_vs_plain": _close(old, w, dtype),
+                             "new_vs_plain": _close(new, w, dtype)}
+                    same.update({f"{n}_{c}": r["ok"]
+                                 for c, r in close.items()})
+                    same.update({f"{n}_{c}_max_abs_err": r["max_abs_err"]
+                                 for c, r in close.items()})
             key = f"{name}_{str(dtype)[6:]}"
             rows[key] = same
             cs.log(f"[same] {key}: {same}")
@@ -181,16 +207,67 @@ def time_forward(dev, pairs, train_lengths) -> dict:
     return rows
 
 
-def mixed_step(dev, pairs, batch) -> dict:
-    """One mixed-precision BERT-base train step with each library pair,
-    in turns (old, new, new, old)."""
+def time_backward(dev, pairs, train_lengths) -> dict:
+    """The backward at the training shape in both dtypes, timed by
+    ``chip_smoke._time_bwd`` with each library pair in turns (old, new,
+    new, old): each kernel's device time per launch (profiler), the
+    wrapper's pair with its delta reduction, the plain backward and
+    SDPA's backward (CUDA events), and the bounds."""
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+    )
+
+    name, b, h, t, s, d, lengths = TIMED_CASES[0]
+    lengths = _lengths(lengths, train_lengths)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, mask = cs._attention_inputs(dev, b, h, t, s, d, dtype,
+                                             lengths, seed=len(name))
+        dout = torch.randn((b, h, t, d), generator=torch.Generator()
+                           .manual_seed(len(name) + 1)).to(dev, dtype)
+        use(pairs["new"])
+        out, lse = flash_attention_cuda(q, k, v, mask, return_lse=True)
+        runs = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            use(pairs[which])
+            runs[which].append(cs._time_bwd(q, k, v, mask, out, lse, dout,
+                                            lengths))
+        row = {"shape": [b, h, t, s, d], "runs": runs,
+               "sdpa_ms": min(r["library_ms"] for rs in runs.values()
+                              for r in rs)}
+        row.update({k: x for k, x in runs["new"][0].items() if "bound" in k})
+        for key in ("pair_ms", "flash_bwd_dkv_ms", "flash_bwd_dq_ms"):
+            for which in ("old", "new"):
+                row[f"{which}_{key}"] = min(r[key] for r in runs[which])
+            row[f"speedup_{key}"] = row[f"old_{key}"] / row[f"new_{key}"]
+        row["new_kernels_ms"] = (row["new_flash_bwd_dkv_ms"]
+                                 + row["new_flash_bwd_dq_ms"])
+        key = f"{name}_{str(dtype)[6:]}"
+        rows[key] = row
+        cs.log(f"[bwd] {key}: dkv {row['old_flash_bwd_dkv_ms']:.4f} -> "
+               f"{row['new_flash_bwd_dkv_ms']:.4f} ms "
+               f"({row['speedup_flash_bwd_dkv_ms']:.2f}x), dq "
+               f"{row['old_flash_bwd_dq_ms']:.4f} -> "
+               f"{row['new_flash_bwd_dq_ms']:.4f} ms "
+               f"({row['speedup_flash_bwd_dq_ms']:.2f}x); both kernels "
+               f"{row['new_kernels_ms']:.4f} ms; pair with delta "
+               f"{row['old_pair_ms']:.4f} -> {row['new_pair_ms']:.4f} ms; "
+               f"sdpa backward {row['sdpa_ms']:.4f} ms; bounds dkv "
+               f"{row['flash_bwd_dkv_bound_ms']:.4f} dq "
+               f"{row['flash_bwd_dq_bound_ms']:.4f} ms")
+    return rows
+
+
+def train_step(dev, pairs, batch, mixed_precision) -> dict:
+    """One BERT-base train step, float32 or mixed precision, with each
+    library pair, in turns (old, new, new, old)."""
     from deeplearning4j_tpu_torch.models.bert import bert_base
     from deeplearning4j_tpu_torch.nn import config as nnconfig
     from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
     from deeplearning4j_tpu_torch.train.updaters import Adam
 
     model = bert_base(device=dev, net=nnconfig.NeuralNetConfiguration(
-        seed=cs.SEED, updater=Adam(1e-4), mixed_precision=True))
+        seed=cs.SEED, updater=Adam(1e-4), mixed_precision=mixed_precision))
     trainer = Trainer(model)
     ts = trainer.init_state()
     on_dev = batch_to_device(batch, dev)
@@ -200,10 +277,15 @@ def mixed_step(dev, pairs, batch) -> dict:
         bd = cs._step_breakdown(trainer, ts, on_dev, (
             "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
         runs[which].append(bd)
-        cs.log(f"[step] {which}: wall {bd['wall_ms']:.2f} ms, device "
-               f"{bd['device_ms']:.3f} ms, idle {bd['device_idle_share']:.3f}"
-               f", flash_fwd {bd['kernels']['flash_fwd']['ms']:.4f} ms "
-               f"({bd['kernels']['flash_fwd']['share_of_device']:.4f})")
+        flash = ", ".join(
+            f"{kn} {r['ms']:.4f} ms ({r['share_of_device']:.4f})"
+            for kn, r in bd["kernels"].items())
+        cs.log(f"[step] {'mixed' if mixed_precision else 'float32'} "
+               f"{which}: wall {bd['wall_ms']:.2f} ms, device "
+               f"{bd['device_ms']:.3f} ms, idle "
+               f"{bd['device_idle_share']:.3f}, {flash}")
+    del model, trainer, ts
+    torch.cuda.empty_cache()
     return runs
 
 
@@ -220,20 +302,27 @@ def main() -> int:
                      batches[0]["features"]["mask"].sum(axis=1)]
     same = check_same(dev, pairs, train_lengths)
     timed = time_forward(dev, pairs, train_lengths)
-    step = mixed_step(dev, pairs, batches[0])
+    bwd = time_backward(dev, pairs, train_lengths)
+    steps = {"float32_step": train_step(dev, pairs, batches[0], False),
+             "mixed_precision_step": train_step(dev, pairs, batches[0],
+                                                True)}
     use(pairs["new"])
     bad = [f"{case}.{k}" for case, row in same.items()
            for k, ok in row.items() if ok is False]
     result = {"card": smi, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "bit_identical": not bad,
-              "not_identical": bad, "same": same, "forward": timed,
-              "mixed_precision_step": step}
+              "cuda": torch.version.cuda, "checks_pass": not bad,
+              "failed": bad, "same": same, "forward": timed,
+              "backward": bwd, **steps}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     print(smi, flush=True)
-    print(json.dumps({"bit_identical": not bad, "not_identical": bad,
-                      "speedup": {k: r["speedup"] for k, r in timed.items()},
-                      "out": str(args.out)}), flush=True)
+    print(json.dumps({
+        "checks_pass": not bad, "failed": bad,
+        "speedup_forward": {k: r["speedup"] for k, r in timed.items()},
+        "speedup_backward": {k: {kn: r[f"speedup_{kn}_ms"] for kn in (
+            "flash_bwd_dkv", "flash_bwd_dq", "pair")}
+            for k, r in bwd.items()},
+        "out": str(args.out)}), flush=True)
     return 1 if bad else 0
 
 

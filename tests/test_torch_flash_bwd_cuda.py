@@ -30,11 +30,13 @@ from deeplearning4j_tpu_torch.utils.pytree import flatten_with_names, unflatten
 pytestmark = pytest.mark.cuda
 
 # kernel vs plain backward, max |difference| / max(1, max |plain|): both
-# compute in float32 from the same inputs and LSE and differ only in the
-# order of their sums (float32: a few ulp), and in bfloat16 by the final
-# rounding of the gradient to bf16 (eps 2^-8, one ulp either way); the
-# bf16 kernels (tensor cores) and the plain version both round P and dS
-# to bf16 before their products, which may round differently where the
+# compute in float32 from the same inputs and LSE. float32: the kernels'
+# products are 3xTF32 (each operand split into two TF32 parts that keep
+# about 21 of its 24 bits, three tensor-core passes summed in float32) and
+# their sums run in another order: a few float32 ulp. bfloat16: also the
+# final rounding of the gradient to bf16 (eps 2^-8, one ulp either way);
+# the bf16 kernels (tensor cores) and the plain version both round P and
+# dS to bf16 before their products, which may round differently where the
 # two float32 values straddle a rounding boundary.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -62,8 +64,25 @@ CASES = {
                          [100, 37]),
     "masked_key_tiles_bf16": (2, 2, 100, 200, 64, torch.bfloat16, False,
                               [200, 60]),
+    # the same edges of the float32 kernels' 64-row tiles: T and S not
+    # multiples of 64, 64-key tiles whose keys are all masked (row 1: keys
+    # 40-199 of 200), a batch row with every key masked at D = 32, causal
+    # with T < S at D = 64 and D = 128
+    "ragged_t130_d128_fp32": (2, 2, 130, 100, 128, torch.float32, False,
+                              [100, 37]),
+    "masked_key_tiles_fp32": (2, 2, 100, 200, 64, torch.float32, False,
+                              [200, 40]),
+    "ragged_d32_dead_row_fp32": (2, 3, 70, 100, 32, torch.float32, False,
+                                 [100, 0]),
+    "causal_t_lt_s_fp32": (2, 3, 64, 130, 64, torch.float32, True, None),
+    "causal_t_lt_s_d128_fp32": (1, 2, 70, 200, 128, torch.float32, True,
+                                [200]),
+    # BERT's longest sequences (phase 2, T = 512): eight query tiles summed
+    # into each key's dK and dV, eight key tiles into each dQ
+    "long_t512_fp32": (2, 2, 512, 512, 64, torch.float32, False, [512, 300]),
 }
 BF16_CASES = sorted(c for c in CASES if CASES[c][5] == torch.bfloat16)
+FP32_CASES = sorted(c for c in CASES if CASES[c][5] == torch.float32)
 
 
 @pytest.fixture(scope="module")
@@ -119,6 +138,31 @@ def test_bwd_kernels_match_plain_version(dev, case):
             assert (a.masked_fill(keep, 0) == 0).all()
 
 
+def _sdpa_grads(q, k, v, mask, dout, causal):
+    """PyTorch's own attention backward (``scaled_dot_product_attention``
+    with the same key and bottom-right causal mask, its own forward) →
+    (dq, dk, dv) and, for each, the bool mask of the entries that count:
+    dq on rows that see a key, dk and dv on keys some row sees. Rows that
+    see no key would be NaN in SDPA: they see everything there and are
+    left out (their gradients are 0 in the kernels and the plain
+    backward)."""
+    b, h, t, d = q.shape
+    s = k.shape[2]
+    keep = torch.ones((b, 1, t, s), dtype=torch.bool, device=q.device)
+    if mask is not None:
+        keep = keep & (mask[:, None, None, :] > 0)
+    if causal:
+        keep = keep & (torch.arange(t, device=q.device)[:, None] + (s - t)
+                       >= torch.arange(s, device=q.device)[None, :])
+    rows = keep.any(-1, keepdim=True)  # [b, 1, t, 1]: rows that see a key
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=keep | ~rows)
+    grads = torch.autograd.grad(sdpa, leaves, dout * rows)
+    keys = keep.any(-2)[..., None].expand(-1, h, -1, d)
+    return grads, (rows.expand(-1, h, -1, d), keys, keys)
+
+
 @pytest.mark.parametrize("case", BF16_CASES)
 def test_bf16_kernel_error_is_of_the_order_of_sdpa(dev, case):
     """The bf16 kernels' error against the plain backward beside that of
@@ -135,27 +179,87 @@ def test_bf16_kernel_error_is_of_the_order_of_sdpa(dev, case):
                                    causal=causal)
     want = reference_attention_bwd(q, k, v, mask, out, lse, dout,
                                    causal=causal)
-    keep = torch.ones((b, 1, t, s), dtype=torch.bool, device=dev)
-    if mask is not None:
-        keep = keep & (mask[:, None, None, :] > 0)
-    if causal:
-        keep = keep & (torch.arange(t, device=dev)[:, None] + (s - t)
-                       >= torch.arange(s, device=dev)[None, :])
-    rows = keep.any(-1, keepdim=True)  # [b, 1, t, 1]: rows that see a key
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    # rows that see no key would be NaN in SDPA: let them see everything
-    # and drop them below (their gradients are 0 in both backwards)
-    sdpa = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, attn_mask=keep | ~rows)
-    sdpa_grads = torch.autograd.grad(sdpa, leaves, dout * rows)
+    sdpa_grads, lives = _sdpa_grads(q, k, v, mask, dout, causal)
     torch.cuda.synchronize()
-    for name, a, lib, w in zip(("dq", "dk", "dv"), got, sdpa_grads, want):
-        live = rows.expand(-1, h, -1, d) if name == "dq" else (
-            keep.any(-2)[..., None].expand(-1, h, -1, d))
+    for name, a, lib, w, live in zip(("dq", "dk", "dv"), got, sdpa_grads,
+                                     want, lives):
         err = (a.float() - w.float())[live].abs().max().item()
         lib_err = (lib.float() - w.float())[live].abs().max().item()
         ref = max(1.0, w.float().abs().max().item())
         assert err <= max(4 * lib_err, 2 ** -7 * ref), (name, err, lib_err)
+
+
+def _bwd_float64(q, k, v, key_mask, out, lse, g, causal):
+    """The backward of ``reference_attention_bwd`` written out again in
+    float64, from the same inputs, forward output and LSE: p = exp(s -
+    max(lse, -1e20)) (0 where masked), delta = rowsum(dO O), dS = p (dP -
+    delta) scale, dV = P^T dO, dK = dS^T Q, dQ = dS K."""
+    b, h, t, d = q.shape
+    s_len = k.shape[2]
+    qd, kd, vd, od, gd = (x.double() for x in (q, k, v, out, g))
+    s = torch.einsum("bhtd,bhsd->bhts", qd, kd) * d ** -0.5
+    keep = torch.ones((b, 1, t, s_len), dtype=torch.bool, device=q.device)
+    if key_mask is not None:
+        keep = keep & (key_mask[:, None, None, :] > 0)
+    if causal:
+        keep = keep & (torch.arange(t, device=q.device)[:, None]
+                       + (s_len - t)
+                       >= torch.arange(s_len, device=q.device)[None, :])
+    lse = torch.clamp(lse.double().reshape(b, h, t, 1), min=-1e20)
+    p = torch.where(keep, torch.exp(s - lse), 0.0)
+    delta = (od * gd).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhtd,bhsd->bhts", gd, vd) - delta) * d ** -0.5
+    return (torch.einsum("bhts,bhsd->bhtd", ds, kd),
+            torch.einsum("bhts,bhtd->bhsd", ds, qd),
+            torch.einsum("bhts,bhtd->bhsd", p, gd))
+
+
+@pytest.mark.parametrize("case", FP32_CASES)
+def test_fp32_kernels_are_float32_grade(dev, case, record_property):
+    """The float32 kernels (3xTF32 products on the tensor cores) against a
+    float64 evaluation of the same formula on the same inputs, forward
+    output and LSE: within TOL[float32] of max(1, max |float64|). SDPA's
+    own float32 backward against the same float64 values (its own
+    forward, over the rows and keys that see one another) is recorded
+    beside theirs."""
+    b, h, t, s, d, dtype, causal, lengths = CASES[case]
+    q, k, v, mask, dout = _inputs(dev, b, h, t, s, d, dtype, lengths,
+                                  seed=b * t + s + d)
+    out, lse = flash_attention_cuda(q, k, v, mask, causal=causal,
+                                    return_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout,
+                                   causal=causal)
+    want = _bwd_float64(q, k, v, mask, out, lse, dout, causal)
+    sdpa_grads, lives = _sdpa_grads(q, k, v, mask, dout, causal)
+    torch.cuda.synchronize()
+    for name, a, lib, w, live in zip(("dq", "dk", "dv"), got, sdpa_grads,
+                                     want, lives):
+        err = (a.double() - w).abs().max().item()
+        lib_err = (lib.double() - w)[live].abs().max().item()
+        ref = max(1.0, w.abs().max().item())
+        record_property(f"{name}_err", err)
+        record_property(f"{name}_sdpa_err", lib_err)
+        print(f"{case} {name}: kernel {err:.3e}, sdpa {lib_err:.3e}, "
+              f"max(1, |float64|) {ref:.3f}")
+        assert err <= TOL[dtype] * ref, (name, err, ref, lib_err)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bwd_kernels_are_deterministic(dev, case):
+    """One writer per gradient element and no atomics: two runs on the
+    same inputs give the same bits."""
+    b, h, t, s, d, dtype, causal, lengths = CASES[case]
+    q, k, v, mask, dout = _inputs(dev, b, h, t, s, d, dtype, lengths,
+                                  seed=b * t + s + d)
+    out, lse = flash_attention_cuda(q, k, v, mask, causal=causal,
+                                    return_lse=True)
+    first = flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout,
+                                     causal=causal)
+    second = flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout,
+                                      causal=causal)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, c), name
 
 
 def test_autograd_goes_through_the_three_kernels(dev):
