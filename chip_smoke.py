@@ -16,13 +16,14 @@ caught:
    the shapes the main paths give it (and at the other head sizes, masks
    and dtypes the kernel takes), with the tolerance stated per dtype; then
    the kernel, the plain version and one PyTorch library call timed,
-   beside the least time the card could take (``bound_ms``). The forward
-   at the serving shape and at the training shape (both dtypes), its row
-   LSE held against the plain one; the two backward kernels at the
-   training shape (both dtypes on the tensor cores: bf16 on wgmma,
-   float32 in 3xTF32 on mma.sync, whose bound is also given on the CUDA
-   cores); the error of SDPA's backward against the same plain version is
-   logged beside the kernels'.
+   beside the least time the card could take (``bound_ms``). Every flash
+   kernel runs its products on the tensor cores (bf16 on wgmma, float32
+   in 3xTF32 on mma.sync, whose bound is also given on the CUDA cores).
+   The forward at the serving shape and at the training shape (both
+   dtypes), its row LSE held against the plain one; the two backward
+   kernels at the training shape (both dtypes); the error of SDPA's
+   backward against the same plain version is logged beside the
+   kernels'.
 4. slice — BERT-base at full width (12 layers, width 768, 12 heads, vocab
    30522), weights drawn from a seed on the card, served by the port's
    ModelServer → ModelRegistry → ParallelInference (batched, max batch 8)
@@ -123,8 +124,9 @@ TF32_PASSES = 3
 PEAK_BYTES_PER_S = 3.35e12
 
 # kernel vs plain version, max |difference| over rows that see a key:
-# float32 — both sides float32; the kernel sums scores and outputs blockwise
-#   in another order (and uses exp2): a few ulp of O(1) values.
+# float32 — both sides float32; the kernel's products are 3xTF32 (about 21
+#   bits of each operand), it sums scores and outputs blockwise in another
+#   order (and uses exp2): a few ulp of O(1) values.
 # bfloat16 — both round the probabilities to bf16 before the second
 #   matmul, at another point: the plain version the normalised p (and its
 #   scores to bf16 first), the kernel (tensor cores) the unnormalised p as
@@ -228,19 +230,37 @@ def _visible(b, t, s, causal, lengths):
     return (int(vis.sum()), int(vis.any(-1).sum()), int(vis.any(-2).sum()))
 
 
+def _floor(ops, nbytes, dtype):
+    """The least time for ``ops`` operations and ``nbytes`` bytes on the
+    card: the larger of the bytes at PEAK_BYTES_PER_S and the operations
+    on the tensor cores, bf16 at its peak and float32 as 3xTF32
+    (TF32_PASSES passes at PEAK_TF32). Returns (ms, bound by, ms on the
+    float32 CUDA cores): the last, max(bytes, operations at 67 TFLOP/s),
+    is the bound of a float32 kernel on the CUDA cores (None for bf16)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    cuda_cores_ms = None
+    if dtype == torch.float32:
+        t_ops = TF32_PASSES * ops / PEAK_TF32
+        cuda_cores_ms = max(ops / PEAK_FLOPS[dtype], t_bytes) * 1e3
+    else:
+        t_ops = ops / PEAK_FLOPS[dtype]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", cuda_cores_ms)
+
+
 def _bound(b, h, t, s, d, dtype, causal, lengths):
-    """Least time for this run's work, operations and bytes counted on one
-    rule: only what the masks leave visible. Operations: 4·D per visible
-    query-key pair. Bytes: O in full, Q of the rows that see a key, K and
-    V of the keys some row sees, and the float32 mask."""
+    """Least time for the forward's work (``_floor``), operations and bytes
+    counted on one rule: only what the masks leave visible. Operations:
+    4·D per visible query-key pair. Bytes: O in full, Q of the rows that
+    see a key, K and V of the keys some row sees, and the float32 mask.
+    Returns (ms, bound by, operations, bytes, ms on the CUDA cores)."""
     es = torch.finfo(dtype).bits // 8
     pairs, rows, keys = _visible(b, t, s, causal, lengths)
     ops = 4.0 * d * h * pairs
     nbytes = es * h * d * (b * t + rows + 2 * keys) + (
         4 * b * s if lengths is not None else 0)
-    t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+    ms, by, cores_ms = _floor(ops, nbytes, dtype)
+    return ms, by, ops, nbytes, cores_ms
 
 
 def _time_ms(fn, iters=200, warmup=20) -> float:
@@ -363,6 +383,19 @@ KERNEL_CASES = [
      [130, 61, 0], False),
     ("d128_padded_s300_bf16", 2, 4, 200, 300, 128, torch.bfloat16, False,
      [300, 129], False),
+    # the float32 kernel's 64-row tile edges: T and S not multiples of 64,
+    # 64-key tiles whose keys are all masked, a dead row at D = 32, causal
+    # with T < S at D = 64 and D = 128
+    ("t130_s100_d128_fp32", 2, 2, 130, 100, 128, torch.float32, False,
+     [100, 37], False),
+    ("masked_key_tiles_fp32", 2, 2, 100, 200, 64, torch.float32, False,
+     [200, 40], False),
+    ("d32_dead_row_fp32", 2, 3, 70, 100, 32, torch.float32, False,
+     [100, 0], False),
+    ("causal_t64_s130_fp32", 2, 3, 64, 130, 64, torch.float32, True,
+     None, False),
+    ("causal_t70_s200_d128_fp32", 1, 2, 70, 200, 128, torch.float32, True,
+     [200], False),
 ]
 
 
@@ -426,12 +459,12 @@ def phase_kernels(dev, train_lengths):
         plain = lambda: reference_attention(q, k, v, key_mask=mask)  # noqa
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=bool_mask)
-        bound_ms, bound_by, ops, nbytes = _bound(b, h, t, s, d, dtype,
-                                                 causal, lengths)
+        bound_ms, bound_by, ops, nbytes, cores_ms = _bound(
+            b, h, t, s, d, dtype, causal, lengths)
         row = {"shape": [b, h, t, s, d], "dtype": str(dtype)[6:],
                "max_abs_err": err, "lse_err_frac": lse_frac,
-               "bound_ms": bound_ms,
-               "bound_by": bound_by, "ops": ops, "bytes": nbytes}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_cuda_cores_ms": cores_ms, "ops": ops, "bytes": nbytes}
         # one call each in turn, twice (kernel, plain, library, library,
         # plain, kernel): the spread between the two shows the noise
         ms = {"kernel": [], "plain": [], "library": []}
@@ -443,43 +476,38 @@ def phase_kernels(dev, train_lengths):
         row.update({f"{w}_ms_runs": v for w, v in ms.items()})
         row["kernel_device_ms"] = _device_ms(kernel)
         row["plain_device_ms"] = _device_ms(plain)
-        row["library_device_ms"] = _device_ms(library)
+        by_kernel = _device_us_by_kernel(library)
+        row["library_device_ms"] = sum(by_kernel.values()) / 1e3
+        row["library_device_us_by_kernel"] = {kn[:80]: us for kn, us in
+                                              by_kernel.items()}
+        cores = ("" if cores_ms is None
+                 else f", {cores_ms:.4f} ms on the CUDA cores")
         log(f"[kernels] {name}: kernel {row['kernel_ms']:.4f} ms "
             f"(device {row['kernel_device_ms']:.4f}), plain "
             f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"bound {bound_ms:.4f} ms ({bound_by}, tensor cores{cores}); "
+            f"sdpa's kernels {sorted(row['library_device_us_by_kernel'])}")
         results[name] = row
     return results
 
 
 def _bound_bwd(kernel, b, h, t, s, d, dtype, causal, lengths):
-    """Least time for one backward kernel's work, on the forward's rule:
-    only what the masks leave visible. Operations per visible query-key
-    pair: 8·D for flash_bwd_dkv (scores, dP, dV and dK products), 6·D for
-    flash_bwd_dq (scores, dP, dQ). Bytes: Q and dO of the rows that see a
-    key, K and V of the keys some row sees, the float32 LSE and delta of
-    those rows and the mask; the outputs written in full (dK and dV, or
-    dQ). Both dtypes' kernels run their products on the tensor cores:
-    bf16 at its peak, float32 as 3xTF32 (TF32_PASSES passes at PEAK_TF32).
-    Returns (ms, bound by, operations, bytes, ms on the float32 CUDA
-    cores): the last, max(bytes, operations at 67 TFLOP/s), is the bound
-    of a float32 kernel on the CUDA cores (None for bf16)."""
+    """Least time for one backward kernel's work (``_floor``), on the
+    forward's rule: only what the masks leave visible. Operations per
+    visible query-key pair: 8·D for flash_bwd_dkv (scores, dP, dV and dK
+    products), 6·D for flash_bwd_dq (scores, dP, dQ). Bytes: Q and dO of
+    the rows that see a key, K and V of the keys some row sees, the
+    float32 LSE and delta of those rows and the mask; the outputs written
+    in full (dK and dV, or dQ). Returns (ms, bound by, operations, bytes,
+    ms on the CUDA cores)."""
     es = torch.finfo(dtype).bits // 8
     pairs, rows, keys = _visible(b, t, s, causal, lengths)
     ops = (8.0 if kernel == "flash_bwd_dkv" else 6.0) * d * h * pairs
     outputs = 2 * b * s if kernel == "flash_bwd_dkv" else b * t
     nbytes = (es * h * d * (2 * rows + 2 * keys + outputs) + 8 * h * rows
               + (4 * b * s if lengths is not None else 0))
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    cuda_cores_ms = None
-    if dtype == torch.float32:
-        t_ops = TF32_PASSES * ops / PEAK_TF32
-        cuda_cores_ms = max(ops / PEAK_FLOPS[dtype], t_bytes) * 1e3
-    else:
-        t_ops = ops / PEAK_FLOPS[dtype]
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes,
-            cuda_cores_ms)
+    ms, by, cores_ms = _floor(ops, nbytes, dtype)
+    return ms, by, ops, nbytes, cores_ms
 
 
 # (name, B, H, T, S, D, dtype, causal, key lengths per batch row, timed);
@@ -2418,6 +2446,10 @@ def main() -> int:
         "plain_ms": main_case["plain_ms"],
         "library_ms": main_case["library_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "bound_cuda_cores_ms": main_case["bound_cuda_cores_ms"],
+        "bound_is": "the floor on the tensor cores: max(bytes, operations "
+                    "at the dtype's tensor-core rate, float32 as three TF32 "
+                    "passes)",
         "cases": cases, "card": smi,
     }
     entries = [fwd]

@@ -22,11 +22,14 @@ def csrc(tmp_path):
 
 
 def test_the_sources_include_a_shared_header():
+    """Both flash sources include the bf16 (wgmma) and the float32 (3xTF32
+    mma.sync) tile helpers."""
     headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
-    assert "wgmma_sm90.cuh" in headers
+    assert "wgmma_sm90.cuh" in headers and "mma_tf32.cuh" in headers
     for name in ("flash_fwd", "flash_bwd"):
-        assert '#include "wgmma_sm90.cuh"' in (
-            _build.CSRC / f"{name}.cu").read_text()
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "wgmma_sm90.cuh"' in text
+        assert '#include "mma_tf32.cuh"' in text
 
 
 def test_an_identical_copy_builds_to_the_same_library(csrc):

@@ -26,8 +26,10 @@ from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
 
 pytestmark = pytest.mark.cuda
 
-# kernel vs plain version on the card: float32 sums blockwise in another
-# order (a few ulp of O(1) values); bfloat16 — both round the
+# kernel vs plain version on the card: float32 — the kernel's products are
+# 3xTF32 (each operand split into two TF32 parts that keep about 21 of its
+# 24 bits) and it sums blockwise in another order (a few ulp of O(1)
+# values); bfloat16 — both round the
 # probabilities to bf16 before the second matmul, but at another point:
 # the plain version the normalised p, the kernel (tensor cores) the
 # unnormalised p as the Pallas kernel does; the plain version also rounds
@@ -36,6 +38,11 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # the row LSE against the plain one of the inputs in float32, rows that
 # see a key: the bf16 kernel's bf16 x bf16 products are exact in float32
 TOL_LSE = 1e-4
+# the float32 kernel against a float64 evaluation of the same inputs,
+# entry by entry, as a fraction of max(1, |float64|): float32-grade, the
+# gate of the float32 backward (test_torch_flash_bwd_cuda.py); a single
+# TF32 pass (about 1e-3) would not pass
+TOL_FP32_GRADE = 1e-5
 # bf16 gradients through the three kernels vs the float32 plain path, max
 # |difference| / max(1, max |plain|): P, dS, O and each gradient rounded
 # to bf16 (chip_smoke.py TOL_BWD)
@@ -62,8 +69,25 @@ CASES = {
                               [200, 40]),
     "five_key_tiles_d128_bf16": (2, 2, 130, 300, 128, torch.bfloat16, False,
                                  [300, 129]),
+    # the same edges of the float32 kernel's 64-row tiles: T and S not
+    # multiples of 64, 64-key tiles whose keys are all masked (row 1: keys
+    # 40-199 of 200), a batch row with every key masked at D = 32, causal
+    # with T < S at D = 64 and D = 128
+    "ragged_t130_d128_fp32": (2, 2, 130, 100, 128, torch.float32, False,
+                              [100, 37]),
+    "masked_key_tiles_fp32": (2, 2, 100, 200, 64, torch.float32, False,
+                              [200, 40]),
+    "ragged_d32_dead_row_fp32": (2, 3, 70, 100, 32, torch.float32, False,
+                                 [100, 0]),
+    "causal_t_lt_s_fp32": (2, 3, 64, 130, 64, torch.float32, True, None),
+    "causal_t_lt_s_d128_fp32": (1, 2, 70, 200, 128, torch.float32, True,
+                                [200]),
+    # BERT's longest sequences (phase 2, T = 512): eight key tiles summed
+    # into each output row
+    "long_t512_fp32": (2, 2, 512, 512, 64, torch.float32, False, [512, 300]),
 }
 BF16_CASES = sorted(c for c in CASES if CASES[c][5] == torch.bfloat16)
+FP32_CASES = sorted(c for c in CASES if CASES[c][5] == torch.float32)
 
 
 @pytest.fixture(scope="module")
@@ -163,6 +187,73 @@ def test_bf16_kernel_error_is_of_the_order_of_sdpa(dev, case):
     lib_err = (sdpa.float() - want)[live].abs().max().item()
     ref = max(1.0, want.abs().max().item())
     assert err <= max(4 * lib_err, 2 ** -7 * ref), (err, lib_err)
+
+
+def _fwd_float64(q, k, v, mask, causal):
+    """The forward written out again in float64 from the same inputs →
+    (O, LSE [B·H, T] in natural log, the [B, 1, T, 1] bool of the rows
+    that see a key). Rows that see no key get uniform attention here and
+    are left out by the callers."""
+    b, h, t, d = q.shape
+    s = k.shape[2]
+    keep = _keep(q.device, b, t, s, causal, mask)
+    rows = keep.any(-1, keepdim=True)
+    scores = torch.einsum("bhtd,bhsd->bhts", q.double(), k.double())
+    scores = (scores * d ** -0.5).masked_fill(~(keep | ~rows),
+                                              float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)
+    out = torch.einsum("bhts,bhsd->bhtd", torch.exp(scores - lse[..., None]),
+                       v.double())
+    return out, lse.reshape(b * h, t), rows
+
+
+@pytest.mark.parametrize("case", FP32_CASES)
+def test_fp32_forward_is_float32_grade(dev, case, record_property):
+    """The float32 kernel (3xTF32 products on the tensor cores) against a
+    float64 evaluation of the same inputs: O and the row LSE within
+    TOL_FP32_GRADE of max(1, |float64|), entry by entry, over the rows that
+    see a key; rows that see none give 0 and an LSE of at most -1e20.
+    SDPA's float32 forward (the same key and bottom-right causal mask)
+    against the same float64 values is recorded beside the kernel's."""
+    b, h, t, s, d, dtype, causal, lengths = CASES[case]
+    q, k, v, mask = _inputs(dev, b, h, t, s, d, dtype, lengths)
+    got, lse = flash_attention_cuda(q, k, v, mask, causal=causal,
+                                    return_lse=True)
+    want, want_lse, rows = _fwd_float64(q, k, v, mask, causal)
+    keep = _keep(dev, b, t, s, causal, mask)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=keep | ~rows)
+    torch.cuda.synchronize()
+    live = rows.expand(-1, h, -1, d)
+    live_lse = rows[..., 0].expand(b, h, t).reshape(b * h, t)
+    errs = {}
+    for name, a, w, m in (("out", got, want, live),
+                          ("lse", lse, want_lse, live_lse),
+                          ("sdpa_out", sdpa, want, live)):
+        diff = (a.double() - w)[m].abs()
+        errs[name] = (diff / w[m].abs().clamp(min=1.0)).max().item()
+        record_property(f"{name}_err", errs[name])
+    print(f"{case}: kernel out {errs['out']:.3e} lse {errs['lse']:.3e}, "
+          f"sdpa out {errs['sdpa_out']:.3e} (x max(1, |float64|))")
+    assert errs["out"] <= TOL_FP32_GRADE, errs
+    assert errs["lse"] <= TOL_FP32_GRADE, errs
+    assert (got[~live] == 0).all()
+    assert bool((lse[~live_lse] <= -1e20).all())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fwd_kernel_is_deterministic(dev, case):
+    """One writer per output element and no atomics: two runs on the same
+    inputs give the same bits, output and LSE."""
+    b, h, t, s, d, dtype, causal, lengths = CASES[case]
+    q, k, v, mask = _inputs(dev, b, h, t, s, d, dtype, lengths)
+    first = flash_attention_cuda(q, k, v, mask, causal=causal,
+                                 return_lse=True)
+    second = flash_attention_cuda(q, k, v, mask, causal=causal,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("out", "lse"), first, second):
+        assert torch.equal(a, c), name
 
 
 def test_bf16_autograd_goes_through_the_three_kernels(dev):
