@@ -62,9 +62,10 @@ caught:
 9. kernels (GRU) — gru_fwd and gru_bwd against their plain versions at
    the char-GRU's training shape (N=64, T=100, H=1024) from h0 = 0 and
    from a non-zero h0, at the serving bucket N=8 without the workspace,
-   and at H=200 with N=3; then timed beside their bounds, the plain
-   versions and torch.nn.GRU (cuDNN), the step launches counted by the
-   profiler.
+   and at H=200 with N=3; then timed beside their bounds (3xTF32 on the
+   tensor cores, and on the CUDA cores), the plain versions and
+   torch.nn.GRU (cuDNN), the step launches counted by the profiler, the
+   launch plan (clusters, grid, shared memory) logged.
 10. char-GRU serving — the TensorFlow tutorial's char-GRU (Embedding(66,
    256) → GRU(1024) → softmax, seq 100, backend "pallas"), weights from a
    seed, behind ModelServer (batched, max batch 8): int char ids in, the
@@ -292,10 +293,26 @@ def _time_ms(fn, iters=200, warmup=20) -> float:
 TRACE_EDGE_S = 0.1
 
 
-def _device_us_by_kernel(fn, iters=50, launches=None) -> dict:
+def _busy_us(spans, match="", calls=1) -> float:
+    """The device's busy time per call, in µs: the length of the union of
+    the (start, end, name) kernel intervals whose name contains ``match``,
+    over ``calls``. Where kernels overlap (a GRU step starts while the one
+    before it ends) it is less than the sum of their durations."""
+    total, end = 0.0, None
+    for a, b, _ in sorted(x for x in spans if match in x[2]):
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total / calls
+
+
+def _device_us_by_kernel(fn, iters=50, launches=None, spans=None) -> dict:
     """Device time per call of each CUDA kernel ``fn`` launches, in µs,
     from the profiler. A dict passed as ``launches`` receives each
-    kernel's launches per call, as the profiler counted them. The
+    kernel's launches per call, as the profiler counted them; a list
+    passed as ``spans`` the (start, end, name) of every kernel of the
+    ``iters`` recorded calls (for ``_busy_us``). The
     profiler traces one call as warm-up and discards it (tracing that
     starts with a burst of launches misses the first few), then records
     ``iters`` calls, TRACE_EDGE_S after its window opens and before it
@@ -304,11 +321,17 @@ def _device_us_by_kernel(fn, iters=50, launches=None) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    averages = []
+    averages, recorded = [], []
+
+    def ready(p):
+        averages.append(p.key_averages())
+        recorded.extend(
+            (e.time_range.start, e.time_range.end, e.name) for e in p.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=iters, repeat=1),
-                 on_trace_ready=lambda p: averages.append(
-                     p.key_averages())) as prof:
+                 on_trace_ready=ready) as prof:
         for i in range(iters + 1):
             if i == 1:
                 time.sleep(TRACE_EDGE_S)
@@ -325,6 +348,8 @@ def _device_us_by_kernel(fn, iters=50, launches=None) -> dict:
             out[e.key] = out.get(e.key, 0.0) + us / iters
             if launches is not None:
                 launches[e.key] = launches.get(e.key, 0) + e.count / iters
+    if spans is not None:
+        spans.extend(recorded)
     return out
 
 
@@ -333,17 +358,20 @@ def _device_ms(fn) -> float:
     return sum(_device_us_by_kernel(fn).values()) / 1e3
 
 
-def _step_launches(fn, kernel: str, want: int, attempts: int = 3):
+def _step_launches(fn, kernel: str, want: int, attempts: int = 3,
+                   spans=None):
     """The launches per call of ``kernel``'s step kernel as the profiler
-    counts them, and that trace's device µs by kernel. A trace may lose
+    counts them, and that trace's device µs by kernel (a list passed as
+    ``spans`` receives its kernel intervals, 5 calls). A trace may lose
     kernel records (seen on the card: a few to 63 of a call's launches
     missing, never one too many), so a count under ``want`` is retaken,
     up to ``attempts`` traces; a count over it, or none that reaches it,
     fails the run. Returns (count, µs by kernel, every count taken)."""
     counts = []
     for _ in range(attempts):
-        launches = {}
-        by_kernel = _device_us_by_kernel(fn, iters=5, launches=launches)
+        launches, recorded = {}, []
+        by_kernel = _device_us_by_kernel(fn, iters=5, launches=launches,
+                                         spans=recorded)
         steps = sum(c for k, c in launches.items()
                     if f"{kernel}_step_kernel" in k)
         counts.append(steps)
@@ -354,6 +382,8 @@ def _step_launches(fn, kernel: str, want: int, attempts: int = 3):
     if steps != want:
         raise SystemExit(f"chip_smoke: {kernel} launched {steps} step "
                          f"kernels per call, expected {want}")
+    if spans is not None:
+        spans.extend(recorded)
     return steps, by_kernel, counts
 
 
@@ -834,7 +864,8 @@ def phase_slice(dev, smi):
 
 def _forward_breakdown(fwd, kernel: str) -> dict:
     """Where one forward's time goes: host wall time (synchronised,
-    median of 10), device kernel time and ``kernel``'s part of it."""
+    median of 10), device busy time (the union of its kernels' intervals)
+    and ``kernel``'s part of it."""
     with torch.inference_mode():
         walls = []
         for _ in range(13):
@@ -842,11 +873,12 @@ def _forward_breakdown(fwd, kernel: str) -> dict:
             fwd()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        by_kernel = _device_us_by_kernel(fwd, iters=10)
+        spans = []
+        by_kernel = _device_us_by_kernel(fwd, iters=10, spans=spans)
     wall_ms = float(np.median(walls[3:])) * 1e3
-    device_ms = sum(by_kernel.values()) / 1e3
-    kernel_ms = sum(us for k, us in by_kernel.items()
-                    if f"{kernel}_" in k) / 1e3
+    # busy time: kernels that overlap (dependent launches) count once
+    device_ms = _busy_us(spans, "", 10) / 1e3
+    kernel_ms = _busy_us(spans, f"{kernel}_", 10) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             f"{kernel}_ms": kernel_ms,
@@ -1128,9 +1160,9 @@ def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev) -> dict:
 
 def _step_breakdown(trainer, ts, batch, kernels) -> dict:
     """One train step: host wall time (synchronised, median of 5 after 2
-    warm-up), device kernel time from the profiler, the device's idle
-    share of the wall time, and each named kernel's share of the device
-    time."""
+    warm-up), device busy time from the profiler (the union of its
+    kernels' intervals), the device's idle share of the wall time, and
+    each named kernel's share of the device time."""
     step = lambda: trainer.train_step(ts, batch)  # noqa: E731
     walls = []
     for _ in range(7):
@@ -1140,12 +1172,13 @@ def _step_breakdown(trainer, ts, batch, kernels) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall_ms = float(np.median(walls[2:])) * 1e3
-    by_kernel = _device_us_by_kernel(step, iters=3)
-    device_ms = sum(by_kernel.values()) / 1e3
+    spans = []
+    by_kernel = _device_us_by_kernel(step, iters=3, spans=spans)
+    # busy time: kernels that overlap (dependent launches) count once
+    device_ms = _busy_us(spans, "", 3) / 1e3
     shares = {}
     for kernel in kernels:
-        k_ms = sum(us for k, us in by_kernel.items()
-                   if f"{kernel}_" in k) / 1e3
+        k_ms = _busy_us(spans, f"{kernel}_", 3) / 1e3
         shares[kernel] = {"ms": k_ms, "share_of_device": k_ms / device_ms}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -1765,8 +1798,9 @@ def _lstm_entries(cases, serving, training, smi):
 GRU_VOCAB, GRU_EMBED, GRU_HIDDEN, GRU_T, GRU_BATCH = 66, 256, 1024, 100, 64
 # gru_fwd / gru_bwd vs their plain versions, float32 on both sides,
 # differing in the order of the sums of h·RW over H terms and of the
-# carry's product over 3H: hs (|h| <= 1), the workspace, dz̃ and dh0 to
-# 1e-5 of max(1, max |plain|).
+# carry's product over 3H, and in the kernels' 3xTF32 products (about 21
+# bits of each operand): hs (|h| <= 1), the workspace, dz̃ and dh0 to 1e-5
+# of max(1, max |plain|).
 TOL_GRU = 1e-5
 
 # (name, N, T, H, non-zero initial state, workspace, timed)
@@ -1792,15 +1826,17 @@ def _gru_inputs(dev, n, t, h, init, seed):
 
 
 def _gru_bound(kernel, n, t, h, zero_init, workspace=True):
-    """Least time for one sweep. Operations: the recurrent products,
+    """Least time for one sweep (``_floor``): the products in float32
+    grade on the tensor cores, three TF32 passes, and beside it the bound
+    on the float32 CUDA cores. Operations: the recurrent products,
     2·N·H·3H per product this run needs — forward one per step but the
-    first when h0 is 0, backward the T-1 carries and the one to h0 — at
-    the float32 CUDA-core peak; the gate math (tens of operations per unit
-    and step, under 1% of the products at H=1024) is not counted. Bytes,
-    float32, each input read once and each output written once: forward
-    xp, RW, b and h0 in; hs and, with the workspace, the gates and h·RW_n
-    out; backward the gates, h·RW_n, hs, h0, dL/dh and RW in; dz̃ and dh0
-    out."""
+    first when h0 is 0, backward the T-1 carries and the one to h0; the
+    gate math (tens of operations per unit and step, under 1% of the
+    products at H=1024) is not counted. Bytes, float32, each input read
+    once and each output written once: forward xp, RW, b and h0 in; hs
+    and, with the workspace, the gates and h·RW_n out; backward the gates,
+    h·RW_n, hs, h0, dL/dh and RW in; dz̃ and dh0 out. Returns (ms, bound
+    by, operations, bytes, ms on the CUDA cores)."""
     prod = 2.0 * n * h * 3 * h
     nh, nh3 = n * h, 3 * n * h
     if kernel == "gru_fwd":
@@ -1810,10 +1846,8 @@ def _gru_bound(kernel, n, t, h, zero_init, workspace=True):
     else:
         ops = prod * t
         nbytes = 4 * (t * nh3 + 3 * t * nh + nh + 3 * h * h + t * nh3 + nh)
-    t_ops = ops / PEAK_FLOPS[torch.float32]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+    ms, by, cores_ms = _floor(ops, nbytes, torch.float32)
+    return ms, by, ops, nbytes, cores_ms
 
 
 def _frac(a, w):
@@ -1832,8 +1866,11 @@ def phase_kernels_gru(dev):
         reference_gru_fwd,
     )
 
+    from deeplearning4j_tpu_torch.kernels.gru_scan import launch_plan
+
     results = {}
     for name, n, t, h, init, workspace, timed in GRU_CASES:
+        log(f"[kernels] gru {name}: launch plan {launch_plan(n, h, dev)}")
         xp, rw, b, h0, gh = _gru_inputs(dev, n, t, h, init, seed=n + t + h)
         got = gru_fwd_cuda(xp, rw, b, h0, save_workspace=workspace)
         want = reference_gru_fwd(xp, rw, b, h0, save_workspace=workspace)
@@ -1870,14 +1907,20 @@ def phase_kernels_gru(dev):
             row.update(_time_gru(dev, xp, rw, b, h0, gh, hs, gates, hpn))
             log(f"[kernels] gru {name}: gru_fwd {row['gru_fwd_ms']:.4f} ms "
                 f"(device {row['gru_fwd_device_ms']:.4f}, bound "
-                f"{row['gru_fwd_bound_ms']:.4f} {row['gru_fwd_bound_by']}; "
-                f"serving N=8 without workspace {row['gru_fwd_n8_ms']:.4f}, "
-                f"bound {row['gru_fwd_n8_bound_ms']:.4f}), plain "
+                f"{row['gru_fwd_bound_ms']:.4f} {row['gru_fwd_bound_by']} "
+                f"on the tensor cores, "
+                f"{row['gru_fwd_bound_cuda_cores_ms']:.4f} on the CUDA "
+                f"cores; serving N=8 without workspace "
+                f"{row['gru_fwd_n8_ms']:.4f}, bound "
+                f"{row['gru_fwd_n8_bound_ms']:.4f} / "
+                f"{row['gru_fwd_n8_bound_cuda_cores_ms']:.4f}), plain "
                 f"{row['gru_fwd_plain_ms']:.4f} ms; gru_bwd "
                 f"{row['gru_bwd_ms']:.4f} ms (device "
                 f"{row['gru_bwd_device_ms']:.4f}, bound "
-                f"{row['gru_bwd_bound_ms']:.4f} {row['gru_bwd_bound_by']}),"
-                f" plain {row['gru_bwd_plain_ms']:.4f} ms")
+                f"{row['gru_bwd_bound_ms']:.4f} {row['gru_bwd_bound_by']} "
+                f"on the tensor cores, "
+                f"{row['gru_bwd_bound_cuda_cores_ms']:.4f} on the CUDA "
+                f"cores), plain {row['gru_bwd_plain_ms']:.4f} ms")
             row.update(_time_cudnn_gru(dev, rw, b))
             log(f"[kernels] gru {name} vs torch.nn.GRU (cuDNN), input width "
                 f"{GRU_EMBED}: forward op {row['op_fwd_ms']:.4f} ms vs cuDNN "
@@ -1894,7 +1937,9 @@ def _time_gru(dev, xp, rw, b, h0, gh, hs, gates, hpn):
     in turn, twice: kernel, plain, plain, kernel), the kernels' device
     time and step launches from the profiler (T forward, T + 1 backward,
     or the run fails), and the forward at the serving bucket N=8 without
-    the workspace."""
+    the workspace. A step may start while the one before it ends
+    (dependent launches), so the device time is the steps' busy time, the
+    union of their intervals."""
     from deeplearning4j_tpu_torch.kernels.gru_scan import (
         gru_bwd_cuda,
         gru_fwd_cuda,
@@ -1927,22 +1972,25 @@ def _time_gru(dev, xp, rw, b, h0, gh, hs, gates, hpn):
                         ("gru_fwd_n8", "gru_fwd")):
         # one step kernel per time step (and one more for dh0 backward),
         # as the profiler counted them on the card
+        spans = []
         steps, by_kernel, traces = _step_launches(
-            fns[key], kernel, t + (kernel == "gru_bwd"))
-        row[f"{key}_device_ms"] = sum(
-            us for k, us in by_kernel.items() if f"{kernel}_" in k) / 1e3
+            fns[key], kernel, t + (kernel == "gru_bwd"), spans=spans)
+        row[f"{key}_device_ms"] = _busy_us(spans, f"{kernel}_step_kernel",
+                                           5) / 1e3
         row[f"{key}_step_launches_per_call"] = steps
         row[f"{key}_step_launch_traces"] = traces
         row[f"{key}_device_by_kernel_us"] = {
             k[:60]: us for k, us in by_kernel.items()}
     for kernel in ("gru_fwd", "gru_bwd"):
-        bound_ms, bound_by, ops, nbytes = _gru_bound(kernel, n, t, h,
-                                                     zero_init)
+        bound_ms, bound_by, ops, nbytes, cores_ms = _gru_bound(
+            kernel, n, t, h, zero_init)
         row.update({f"{kernel}_bound_ms": bound_ms,
-                    f"{kernel}_bound_by": bound_by, f"{kernel}_ops": ops,
-                    f"{kernel}_bytes": nbytes})
-    row["gru_fwd_n8_bound_ms"] = _gru_bound("gru_fwd", 8, t, h, zero_init,
-                                            workspace=False)[0]
+                    f"{kernel}_bound_by": bound_by,
+                    f"{kernel}_bound_cuda_cores_ms": cores_ms,
+                    f"{kernel}_ops": ops, f"{kernel}_bytes": nbytes})
+    n8 = _gru_bound("gru_fwd", 8, t, h, zero_init, workspace=False)
+    row["gru_fwd_n8_bound_ms"] = n8[0]
+    row["gru_fwd_n8_bound_cuda_cores_ms"] = n8[4]
     return row
 
 
@@ -2384,6 +2432,12 @@ def _gru_entries(cases, serving, training, bitmap, smi):
             "plain_ms": main_row[f"{kernel}_plain_ms"],
             "bound_ms": main_row[f"{kernel}_bound_ms"],
             "bound_by": main_row[f"{kernel}_bound_by"],
+            "bound_cuda_cores_ms": main_row[
+                f"{kernel}_bound_cuda_cores_ms"],
+            "bound_is": "the floor on the tensor cores: max(bytes, "
+                        "operations as three TF32 passes)",
+            "device_ms_is": "busy time of the step kernels (steps overlap "
+                            "by dependent launch)",
             "library_ms": main_row[lib_key],
             "library": "torch.nn.GRU (cuDNN), input width "
                        f"{GRU_EMBED}, bias_hh 0; op_ms is the port's gru op "

@@ -7,7 +7,10 @@
   (the gradient of the initial state);
 - :func:`gru_fwd_cuda` / :func:`gru_bwd_cuda` — the wrappers of the
   hand-written Hopper kernels of ``csrc/gru_scan.cu``, ``gru_fwd`` and
-  ``gru_bwd`` (which replace ``_make_fwd_kernel`` and ``_make_bwd_kernel``);
+  ``gru_bwd`` (which replace ``_make_fwd_kernel`` and ``_make_bwd_kernel``:
+  3xTF32 products on ``mma.sync``, the reduction split across a
+  thread-block cluster, one dependent launch a step);
+  :func:`launch_plan` says how they launch for a shape;
 - :func:`gru` — the entry point the GRU layer calls. A CUDA tensor
   launches the kernels, a CPU tensor runs the plain versions. With grad
   enabled it goes through ``_GRU`` (a ``torch.autograd.Function``, the JAX
@@ -178,6 +181,28 @@ def gru_bwd_cuda(gates_tm, hpn_tm, hs_tm, h0, gh_tm, rw):
     _build.raise_on(lib, "gru_bwd", rc)
     _dispatch.count_launch("gru_bwd")
     return dxp, dh0
+
+
+def launch_plan(n_rows, hidden, device=None):
+    """How the sweeps launch on the card for N rows and H units (the C
+    entry point ``dl4j_gru_plan``): the cluster size, the grid, the row
+    tile, and each sweep's dynamic shared memory with the number of its
+    clusters the card holds at once. Raises where the card cannot hold
+    one cluster."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    lib = _lib()
+    if lib.dl4j_gru_plan.argtypes is None:
+        lib.dl4j_gru_plan.restype = ctypes.c_int
+        lib.dl4j_gru_plan.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 10)()
+    _build.raise_on(lib, "gru_plan",
+                    lib.dl4j_gru_plan(dev.index, n_rows, hidden, out))
+    keys = ["row_tile", "grid_y"] + [
+        f"{sweep}_{k}" for sweep in ("fwd", "bwd")
+        for k in ("cluster", "grid_x", "smem_bytes", "active_clusters")]
+    return dict(zip(keys, out))
 
 
 # -- dispatch and autograd ----------------------------------------------------

@@ -21,15 +21,20 @@ def csrc(tmp_path):
     return copy
 
 
-def test_the_sources_include_a_shared_header():
+@pytest.mark.parametrize("name, includes", [
+    ("flash_fwd", ("wgmma_sm90.cuh", "mma_tf32.cuh")),
+    ("flash_bwd", ("wgmma_sm90.cuh", "mma_tf32.cuh")),
+    ("gru_scan", ("mma_tf32.cuh",)),
+])
+def test_the_sources_include_a_shared_header(name, includes):
     """Both flash sources include the bf16 (wgmma) and the float32 (3xTF32
-    mma.sync) tile helpers."""
+    mma.sync) tile helpers; the GRU sweeps the float32 ones (which bring
+    in the bf16 header's cp.async copies)."""
     headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
     assert "wgmma_sm90.cuh" in headers and "mma_tf32.cuh" in headers
-    for name in ("flash_fwd", "flash_bwd"):
-        text = (_build.CSRC / f"{name}.cu").read_text()
-        assert '#include "wgmma_sm90.cuh"' in text
-        assert '#include "mma_tf32.cuh"' in text
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    for header in includes:
+        assert f'#include "{header}"' in text
 
 
 def test_an_identical_copy_builds_to_the_same_library(csrc):

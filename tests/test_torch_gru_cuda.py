@@ -26,14 +26,20 @@ from deeplearning4j_tpu_torch.ops import rnn as opsrnn
 
 pytestmark = pytest.mark.cuda
 
-# kernel vs plain version, float32 on both sides, differing only in the
-# order of the sums of h·RW (over H terms) and of the carry's product
-# (over 3H): forward outputs (|h| <= 1) and backward dz̃ and dh0 to 1e-5
-# of max(1, max |plain|).
+# kernel vs plain version, float32 on both sides, differing in the order
+# of the sums of h·RW (over H terms) and of the carry's product (over 3H)
+# and in the kernels' 3xTF32 products (about 21 bits of each operand):
+# forward outputs (|h| <= 1) and backward dz̃ and dh0 to 1e-5 of max(1,
+# max |plain|); against float64, entry by entry, to 1e-5 of max(1,
+# |float64|).
 TOL = 1e-5
 
 # (N, T, H, non-zero initial state): chip_smoke.py's four cases at a
-# reduced T, and the row tiles 8, 16, 32 and 64 with a ragged N
+# reduced T, and the row tiles 8, 16, 32 and 64 with a ragged N; then the
+# edges of the clustered kernels: one row, a ragged m16 tile (17 rows),
+# three row tiles (130), H short of a cluster's 64 units (40) or a
+# multiple of them (200, the last cluster ragged), and H % 4 != 0 (13, 30:
+# rows that 16-byte copies cannot read, the 4-byte edge)
 CASES = {
     "train_shape": (64, 20, 1024, False),
     "train_shape_init": (64, 12, 1024, True),
@@ -42,6 +48,13 @@ CASES = {
     "n13_h40_init": (13, 9, 40, True),
     "n29_h72": (29, 7, 72, False),
     "n70_h136_init": (70, 5, 136, True),
+    "n1_h40": (1, 11, 40, False),
+    "n1_h1024_init": (1, 6, 1024, True),
+    "n17_h200_init": (17, 9, 200, True),
+    "n130_h40": (130, 6, 40, False),
+    "n130_h1024_init": (130, 4, 1024, True),
+    "n5_h30_init": (5, 7, 30, True),
+    "n70_h13": (70, 5, 13, False),
 }
 
 
@@ -97,6 +110,69 @@ def test_kernels_match_plain_versions(dev, case):
     for name, a, w in (("dxp", dxp, wdxp), ("dh0", dh0, wdh0)):
         assert bool(torch.isfinite(a).all()), name
         assert _frac_err(a, w) <= TOL, (name, _frac_err(a, w))
+
+
+def _fwd_float64(xp, rw, b, h0):
+    """The forward sweep written out again in float64 from the same
+    inputs → hs, gates, h·RW_n."""
+    xp, rw, b, h = (a.double() for a in (xp, rw, b, h0))
+    hd = h.shape[1]
+    hs, gates, hpns = [], [], []
+    for t in range(xp.shape[0]):
+        p = h @ rw
+        rz = torch.sigmoid(xp[t, :, :2 * hd] + p[:, :2 * hd] + b[:2 * hd])
+        r, z = rz[:, :hd], rz[:, hd:]
+        n = torch.tanh(xp[t, :, 2 * hd:] + r * p[:, 2 * hd:] + b[2 * hd:])
+        h = (1.0 - z) * n + z * h
+        hs.append(h)
+        gates.append(torch.cat([r, z, n], dim=1))
+        hpns.append(p[:, 2 * hd:])
+    return torch.stack(hs), torch.stack(gates), torch.stack(hpns)
+
+
+def _bwd_float64(gates, hpn, h_prev, gh, rw):
+    """The reversed dgrad sweep written out again in float64 from the same
+    workspace → dz̃, dh0."""
+    gates, hpn, h_prev, gh, rw = (a.double()
+                                  for a in (gates, hpn, h_prev, gh, rw))
+    hd = rw.shape[0]
+    dh = torch.zeros_like(gh[0])
+    dxp = torch.empty_like(gates)
+    for t in range(gates.shape[0] - 1, -1, -1):
+        r, z, n = (gates[t, :, :hd], gates[t, :, hd:2 * hd],
+                   gates[t, :, 2 * hd:])
+        dh_total = gh[t] + dh
+        dn_pre = dh_total * (1.0 - z) * (1.0 - n * n)
+        dr_pre = dn_pre * hpn[t] * r * (1.0 - r)
+        dz_pre = dh_total * (h_prev[t] - n) * z * (1.0 - z)
+        dxp[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=1)
+        dh = dh_total * z + torch.cat([dr_pre, dz_pre, r * dn_pre],
+                                      dim=1) @ rw.t()
+    return dxp, dh
+
+
+def _entry_err(a, w):
+    """max over entries of |a - w| / max(1, |w|), w float64."""
+    return ((a.double() - w).abs() / w.abs().clamp(min=1.0)).max().item()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sweeps_match_float64(dev, case):
+    """Both sweeps against a float64 evaluation of the same inputs (the
+    backward fed the kernel's own workspace), entry by entry: float32-grade
+    3xTF32 products within TOL of max(1, |float64|)."""
+    n, t, h, init = CASES[case]
+    xp, rw, b, h0, gh = _inputs(dev, n, t, h, init, seed=n * t + h + 1)
+    hs, _, gates, hpn = gru_fwd_cuda(xp, rw, b, h0, save_workspace=True)
+    dxp, dh0 = gru_bwd_cuda(gates, hpn, hs, h0, gh, rw)
+    whs, wgates, whpn = _fwd_float64(xp, rw, b, h0)
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    wdxp, wdh0 = _bwd_float64(gates, hpn, h_prev, gh, rw)
+    torch.cuda.synchronize()
+    for name, a, w in (("hs", hs, whs), ("gates", gates, wgates),
+                       ("hpn", hpn, whpn), ("dxp", dxp, wdxp),
+                       ("dh0", dh0, wdh0)):
+        assert _entry_err(a, w) <= TOL, (name, _entry_err(a, w))
 
 
 def test_sweeps_are_bit_identical_over_two_runs(dev):
