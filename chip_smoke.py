@@ -42,9 +42,14 @@ caught:
    no device time there fails the run).
 6. kernels (LSTM) — lstm_fwd and lstm_bwd against their plain versions at
    the char-RNN's training shape (N=32, T=256, H=256, Graves peepholes,
-   forget bias 1), without peepholes, at H=200 with N=3 and from a
-   non-zero initial state; then timed beside their bounds, the plain
-   versions and torch.nn.LSTM (cuDNN, the case without peepholes).
+   forget bias 1), without peepholes, at H=200 with N=3, from a non-zero
+   initial state and at H=1024 (the step route: RW too large to stay in
+   a cluster's shared memory); the launch plan of each logged; then
+   timed beside their bounds (3xTF32 on the tensor cores, and on the
+   CUDA cores), the plain versions and torch.nn.LSTM (cuDNN, the case
+   without peepholes), the kernel launches a call counted by the
+   profiler (one persistent kernel on the resident route). It runs right
+   after phase 3, before phases 4 and 5.
 7. char-RNN serving — text_generation_lstm (vocab 77, hidden 256, seq
    256, GravesLSTM, backend "pallas"), weights from a seed, behind
    ModelServer (batched, max batch 8): int char ids in, the last step's
@@ -359,29 +364,32 @@ def _device_ms(fn) -> float:
 
 
 def _step_launches(fn, kernel: str, want: int, attempts: int = 3,
-                   spans=None):
-    """The launches per call of ``kernel``'s step kernel as the profiler
-    counts them, and that trace's device µs by kernel (a list passed as
-    ``spans`` receives its kernel intervals, 5 calls). A trace may lose
-    kernel records (seen on the card: a few to 63 of a call's launches
-    missing, never one too many), so a count under ``want`` is retaken,
-    up to ``attempts`` traces; a count over it, or none that reaches it,
-    fails the run. Returns (count, µs by kernel, every count taken)."""
+                   spans=None, name=None):
+    """The launches per call of ``kernel``'s step kernel (or of the CUDA
+    kernel whose name contains ``name``) as the profiler counts them, and
+    that trace's device µs by kernel (a list passed as ``spans`` receives
+    its kernel intervals, 5 calls). A trace may lose kernel records (seen
+    on the card: a few to 63 of a call's launches missing, never one too
+    many), so a count under ``want`` is retaken, up to ``attempts``
+    traces; a count over it, or none that reaches it, fails the run.
+    Returns (count, µs by kernel, every count taken)."""
+    name = name or f"{kernel}_step_kernel"
     counts = []
     for _ in range(attempts):
         launches, recorded = {}, []
         by_kernel = _device_us_by_kernel(fn, iters=5, launches=launches,
                                          spans=recorded)
-        steps = sum(c for k, c in launches.items()
-                    if f"{kernel}_step_kernel" in k)
+        steps = sum(c for k, c in launches.items() if name in k)
         counts.append(steps)
         if steps >= want:
             break
-    log(f"[kernels] {kernel}: {steps} step launches per call (profiler; "
-        f"expected {want}; traces {counts})")
+    log(f"[kernels] {kernel}: {steps} launches of {name} per call "
+        f"(profiler; expected {want}; traces {counts})")
     if steps != want:
-        raise SystemExit(f"chip_smoke: {kernel} launched {steps} step "
-                         f"kernels per call, expected {want}")
+        log(f"[kernels] {kernel}: the last trace's launches per call by "
+            f"kernel: {launches}")
+        raise SystemExit(f"chip_smoke: {kernel} launched {steps} {name} "
+                         f"per call, expected {want}")
     if spans is not None:
         spans.extend(recorded)
     return steps, by_kernel, counts
@@ -1203,13 +1211,16 @@ def _train_batches():
 CHAR_VOCAB, CHAR_HIDDEN, CHAR_T, CHAR_BATCH = 77, 256, 256, 32
 # lstm_fwd / lstm_bwd vs their plain versions, float32 on both sides,
 # differing in the order of the sums of h·RW over H terms and of dz·RWᵀ
-# over 4H: forward outputs (|h| <= 1, |c| of order 1) to 1e-5 absolute;
-# backward dz and the carries to 1e-5 of max(1, max |plain|).
+# over 4H (and, on the resident route, in its 3xTF32 products, about 21
+# bits of each operand): forward outputs (|h| <= 1, |c| of order 1) to
+# 1e-5 absolute; backward dz and the carries to 1e-5 of max(1, max
+# |plain|).
 TOL_LSTM_FWD = 1e-5
 TOL_LSTM_BWD = 1e-5
 
 # (name, N, T, H, Graves peepholes, forget bias, non-zero initial state,
-#  timed)
+#  timed); every H <= 320 takes the resident route (one persistent launch
+#  a call), H=1024 the step route (one launch a step)
 LSTM_CASES = [
     ("char_rnn_train_graves", CHAR_BATCH, CHAR_T, CHAR_HIDDEN, True, 1.0,
      False, True),
@@ -1217,6 +1228,7 @@ LSTM_CASES = [
      1.0, False, True),
     ("h200_n3_graves", 3, CHAR_T, 200, True, 1.0, False, False),
     ("init_state_n8_graves", 8, 64, CHAR_HIDDEN, True, 1.0, True, False),
+    ("h1024_n8_graves_step_route", 8, 32, 1024, True, 1.0, False, False),
 ]
 
 
@@ -1240,16 +1252,18 @@ def _lstm_inputs(dev, n, t, h, peep, init, seed):
 
 
 def _lstm_bound(kernel, n, t, h, peep, zero_init, workspace=True):
-    """Least time for one sweep. Operations: the recurrent products,
+    """Least time for one sweep (``_floor``): the products in float32
+    grade on the tensor cores, three TF32 passes, and beside it the bound
+    on the float32 CUDA cores. Operations: the recurrent products,
     2·N·H·4H per product this run needs — forward one per step but the
     first when h0 is 0, backward the T-1 carries dz·RWᵀ and the one to
-    h0 — at the float32 CUDA-core peak; the gate math (tens of
-    operations per unit and step, under 2% of the products at H=256) is
-    not counted. Bytes, float32, each input read once and each output
-    written once: forward xp, RW, b, the peepholes, h0 and c0 in; hs and,
-    with the workspace, gates and cell states out (without it c_T);
-    backward gates, cell states, dL/dh, dL/dc_T, RW, the peepholes and c0
-    in; dz, dh0 and dc0 out."""
+    h0; the gate math (tens of operations per unit and step, under 2% of
+    the products at H=256) is not counted. Bytes, float32, each input read
+    once and each output written once: forward xp, RW, b, the peepholes,
+    h0 and c0 in; hs and, with the workspace, gates and cell states out
+    (without it c_T); backward gates, cell states, dL/dh, dL/dc_T, RW, the
+    peepholes and c0 in; dz, dh0 and dc0 out. Returns (ms, bound by,
+    operations, bytes, ms on the CUDA cores)."""
     prod = 2.0 * n * h * 4 * h
     nh, nh4 = n * h, 4 * n * h
     pbytes = 3 * h if peep else 0
@@ -1262,10 +1276,8 @@ def _lstm_bound(kernel, n, t, h, peep, zero_init, workspace=True):
         ops = prod * t
         nbytes = 4 * (t * nh4 + 2 * t * nh + nh + 4 * h * h + pbytes + nh
                       + t * nh4 + 2 * nh)
-    t_ops = ops / PEAK_FLOPS[torch.float32]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+    ms, by, cores_ms = _floor(ops, nbytes, torch.float32)
+    return ms, by, ops, nbytes, cores_ms
 
 
 def phase_kernels_lstm(dev):
@@ -1273,6 +1285,7 @@ def phase_kernels_lstm(dev):
     inputs (the backward on the kernel's own workspace); then timed at the
     training shape."""
     from deeplearning4j_tpu_torch.kernels.lstm_scan import (
+        launch_plan,
         lstm_bwd_cuda,
         lstm_fwd_cuda,
         reference_lstm_bwd,
@@ -1281,6 +1294,8 @@ def phase_kernels_lstm(dev):
 
     results = {}
     for name, n, t, h, peep, fb, init, timed in LSTM_CASES:
+        plan = launch_plan(n, h, dev)
+        log(f"[kernels] lstm {name}: launch plan {plan}")
         xp, rw, b, h0, c0, pe, gh, gc = _lstm_inputs(dev, n, t, h, peep,
                                                      init, seed=n + t + h)
         got = lstm_fwd_cuda(xp, rw, b, h0, c0, pe, fb, save_workspace=True)
@@ -1306,23 +1321,28 @@ def phase_kernels_lstm(dev):
         if not ok:
             raise SystemExit(f"chip_smoke: LSTM kernel case {name} failed")
         row = {"shape": [n, t, h], "peepholes": peep, "forget_bias": fb,
-               "init_state": init, "lstm_fwd_max_abs_err": fwd_err,
+               "init_state": init, "launch_plan": plan,
+               "lstm_fwd_max_abs_err": fwd_err,
                "lstm_bwd_max_abs_err": bwd_abs,
                "lstm_bwd_max_err_frac": bwd_frac}
         if timed:
             row.update(_time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc,
-                                  gates, cs))
-            log(f"[kernels] lstm {name}: lstm_fwd {row['lstm_fwd_ms']:.4f} "
-                f"ms (device {row['lstm_fwd_device_ms']:.4f}, bound "
+                                  gates, cs, plan["route"]))
+            log(f"[kernels] lstm {name} ({plan['route']} route): lstm_fwd "
+                f"{row['lstm_fwd_ms']:.4f} ms (device "
+                f"{row['lstm_fwd_device_ms']:.4f}, bound "
                 f"{row['lstm_fwd_bound_ms']:.4f} {row['lstm_fwd_bound_by']}"
-                f"; serving N=8 without workspace "
+                f" on the tensor cores, "
+                f"{row['lstm_fwd_bound_cuda_cores_ms']:.4f} on the CUDA "
+                f"cores; serving N=8 without workspace "
                 f"{row['lstm_fwd_n8_ms']:.4f}), plain "
                 f"{row['lstm_fwd_plain_ms']:.4f} ms; lstm_bwd "
                 f"{row['lstm_bwd_ms']:.4f} ms (device "
                 f"{row['lstm_bwd_device_ms']:.4f}, bound "
                 f"{row['lstm_bwd_bound_ms']:.4f} "
-                f"{row['lstm_bwd_bound_by']}), plain "
-                f"{row['lstm_bwd_plain_ms']:.4f} ms")
+                f"{row['lstm_bwd_bound_by']} on the tensor cores, "
+                f"{row['lstm_bwd_bound_cuda_cores_ms']:.4f} on the CUDA "
+                f"cores), plain {row['lstm_bwd_plain_ms']:.4f} ms")
             if not peep:
                 row.update(_time_cudnn(dev, rw, b, fb))
                 log(f"[kernels] lstm {name} vs torch.nn.LSTM (cuDNN), input "
@@ -1335,11 +1355,13 @@ def phase_kernels_lstm(dev):
     return results
 
 
-def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs):
+def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
     """Both kernels and both plain versions by CUDA events (one call each
     in turn, twice: kernel, plain, plain, kernel), the kernels' device
-    time from the profiler, and the forward at the serving bucket N=8
-    without the workspace."""
+    time (busy time) and launches a call from the profiler — on the
+    resident route one persistent kernel a call, on the step route T
+    forward and T + 1 backward, or the run fails — and the forward at the
+    serving bucket N=8 without the workspace."""
     from deeplearning4j_tpu_torch.kernels.lstm_scan import (
         lstm_bwd_cuda,
         lstm_fwd_cuda,
@@ -1371,23 +1393,31 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs):
     peep = pe is not None
     zero_init = not bool(h0.any())
     for kernel in ("lstm_fwd", "lstm_bwd"):
-        # one step kernel per time step (and one more for dh0 backward),
-        # as the profiler counted them on the card
-        steps, by_kernel, traces = _step_launches(
-            fns[kernel], kernel, t + (kernel == "lstm_bwd"))
-        row[f"{kernel}_device_ms"] = sum(
-            us for k, us in by_kernel.items() if f"{kernel}_" in k) / 1e3
-        row[f"{kernel}_step_launches_per_call"] = steps
-        row[f"{kernel}_step_launch_traces"] = traces
+        # as the profiler counted them on the card: one persistent kernel
+        # a call, or one step kernel per time step (and one more for dh0
+        # backward)
+        if route == "resident":
+            name, want = f"{kernel}_persistent_kernel", 1
+        else:
+            name, want = f"{kernel}_step_kernel", t + (kernel == "lstm_bwd")
+        spans = []
+        launches, by_kernel, traces = _step_launches(
+            fns[kernel], kernel, want, spans=spans, name=name)
+        row[f"{kernel}_device_ms"] = _busy_us(spans, f"{kernel}_", 5) / 1e3
+        row[f"{kernel}_route"] = route
+        row[f"{kernel}_launches_per_call"] = launches
+        row[f"{kernel}_launch_traces"] = traces
         row[f"{kernel}_device_by_kernel_us"] = {
             k[:60]: us for k, us in by_kernel.items()}
-        bound_ms, bound_by, ops, nbytes = _lstm_bound(kernel, n, t, h, peep,
-                                                      zero_init)
+        bound_ms, bound_by, ops, nbytes, cores_ms = _lstm_bound(
+            kernel, n, t, h, peep, zero_init)
         row.update({f"{kernel}_bound_ms": bound_ms,
-                    f"{kernel}_bound_by": bound_by, f"{kernel}_ops": ops,
-                    f"{kernel}_bytes": nbytes})
-    row["lstm_fwd_n8_bound_ms"] = _lstm_bound("lstm_fwd", 8, t, h, peep,
-                                              zero_init, workspace=False)[0]
+                    f"{kernel}_bound_by": bound_by,
+                    f"{kernel}_bound_cuda_cores_ms": cores_ms,
+                    f"{kernel}_ops": ops, f"{kernel}_bytes": nbytes})
+    n8 = _lstm_bound("lstm_fwd", 8, t, h, peep, zero_init, workspace=False)
+    row["lstm_fwd_n8_bound_ms"] = n8[0]
+    row["lstm_fwd_n8_bound_cuda_cores_ms"] = n8[4]
     return row
 
 
@@ -1759,8 +1789,9 @@ def _lstm_entries(cases, serving, training, smi):
             "replaces": f"deeplearning4j_tpu/kernels/lstm_scan.py:{line}",
             "launches": sum(by_path[kernel].values()),
             "launches_by_path": by_path[kernel],
-            "step_launches_per_call": main_row[
-                f"{kernel}_step_launches_per_call"],
+            "route": main_row[f"{kernel}_route"],
+            "kernel_launches_per_call": main_row[
+                f"{kernel}_launches_per_call"],
             "max_abs_err": main_row[f"{kernel}_max_abs_err"],
             "max_abs_err_by_case": {c: r[f"{kernel}_max_abs_err"]
                                     for c, r in cases.items()},
@@ -1769,6 +1800,10 @@ def _lstm_entries(cases, serving, training, smi):
             "plain_ms": main_row[f"{kernel}_plain_ms"],
             "bound_ms": main_row[f"{kernel}_bound_ms"],
             "bound_by": main_row[f"{kernel}_bound_by"],
+            "bound_cuda_cores_ms": main_row[
+                f"{kernel}_bound_cuda_cores_ms"],
+            "bound_is": "the floor on the tensor cores: max(bytes, "
+                        "operations as three TF32 passes)",
             "library_ms": None,
             "library_note": "no library call computes Graves peepholes; "
                             "torch.nn.LSTM (cuDNN) times the case without "
@@ -2475,9 +2510,11 @@ def main() -> int:
                      batches[0]["features"]["mask"].sum(axis=1)]
     cases = phase_kernels(dev, train_lengths)
     bwd_cases = phase_kernels_bwd(dev, train_lengths)
+    # before BERT's long profiled phases: after them the profiler kept 2 of
+    # 5 records of a persistent LSTM sweep (seen on the card), all 5 before
+    lstm_cases = phase_kernels_lstm(dev)
     serving = phase_slice(dev, smi)
     training = phase_train(dev, smi, batches)
-    lstm_cases = phase_kernels_lstm(dev)
     char_serving = phase_charrnn_serving(dev, smi)
     char_training = phase_charrnn_train(dev, smi)
     gru_cases = phase_kernels_gru(dev)

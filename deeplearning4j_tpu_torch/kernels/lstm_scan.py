@@ -8,6 +8,9 @@
 - :func:`lstm_fwd_cuda` / :func:`lstm_bwd_cuda` — the wrappers of the
   hand-written Hopper kernels of ``csrc/lstm_scan.cu``, ``lstm_fwd`` and
   ``lstm_bwd`` (which replace ``_make_fwd_kernel`` and ``_make_bwd_kernel``);
+  :func:`route` and :func:`launch_plan` say how they launch: one
+  persistent launch a call while a cluster's shared memory holds RW
+  (:func:`route`, the C entry points' rule), one launch a step above;
 - :func:`lstm` — the entry point the recurrent layers call. A CUDA tensor
   launches the kernels, a CPU tensor runs the plain versions. With grad
   enabled it goes through ``_LSTM`` (a ``torch.autograd.Function``, the
@@ -36,6 +39,48 @@ from deeplearning4j_tpu_torch.kernels import _build, _dispatch
 from deeplearning4j_tpu_torch.ops.rnn import LSTMState
 
 KERNEL = "lstm_scan"  # one source, two kernels: lstm_fwd, lstm_bwd
+
+# The resident route of csrc/lstm_scan.cu (its struct Resident): clusters
+# of CLUSTER blocks of THREADS threads, ROW_TILE batch rows a cluster,
+# ceil(H / CLUSTER) units a block, whose slice of RW (split into two TF32
+# halves) stays in the block's shared memory, at most SMEM_LIMIT bytes
+# (an H100's or H200's 227 KB).
+CLUSTER, ROW_TILE, THREADS = 16, 8, 256
+SMEM_LIMIT = 232448
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def resident_smem_bytes(hidden):
+    """(forward, backward) shared bytes of a block on the resident route
+    for ``hidden`` units, each of the 16 blocks owning U = ceil(H / 16)
+    unit slots: two mbarriers (16 bytes), the split RW slice in m16k8
+    fragments (256 floats each), and forward the two h receive buffers
+    (16U rows) and the two slabs of partial sums,
+    backward the split dz operand and the two buffers of received partial
+    sums. The k8 steps are padded to groups of 4 forward, 2 backward."""
+    units = _cdiv(hidden, CLUSTER)
+    fwd_mt, fwd_ks = _cdiv(4 * units, 16), 4 * _cdiv(2 * units, 4)
+    bwd_mt, bwd_ks = _cdiv(hidden, 16), 2 * _cdiv(4 * units, 16)
+    fwd = (4 + fwd_mt * fwd_ks * 256 + 2 * 64 * fwd_ks
+           + 2 * ROW_TILE * (16 * fwd_mt + 4))
+    bwd = (4 + bwd_mt * bwd_ks * 256 + 128 * bwd_ks
+           + 2 * CLUSTER * ROW_TILE * units)
+    return 4 * fwd, 4 * bwd
+
+
+def route(hidden):
+    """``"resident"`` (one persistent launch a call) when both sweeps'
+    shared memory fits a block and a block's (row, unit) pairs fit its
+    threads, else ``"step"`` (one launch a step): the rule of
+    ``Resident::fits`` in csrc/lstm_scan.cu, by shape alone. H <= 320."""
+    units = _cdiv(hidden, CLUSTER)
+    fits = (max(resident_smem_bytes(hidden)) <= SMEM_LIMIT
+            and ROW_TILE * units <= THREADS
+            and _cdiv(4 * units, 16) <= 8 and _cdiv(hidden, 16) <= 24)
+    return "resident" if fits else "step"
 
 
 def _split4(z):
@@ -128,8 +173,8 @@ def _lib():
 
 def lstm_fwd_cuda(xp_tm, rw, b, h0, c0, peep, forget_bias,
                   save_workspace=False):
-    """Launch ``lstm_fwd`` (T step launches from one C call) on the
-    current stream; the arguments and results of
+    """Launch ``lstm_fwd`` (one launch, or T on the step route, from one
+    C call) on the current stream; the arguments and results of
     :func:`reference_lstm_fwd`, as contiguous float32 CUDA tensors."""
     if not xp_tm.is_cuda:
         raise ValueError("lstm_fwd_cuda takes CUDA tensors")
@@ -164,8 +209,8 @@ def lstm_fwd_cuda(xp_tm, rw, b, h0, c0, peep, forget_bias,
 
 
 def lstm_bwd_cuda(gates_tm, cs_tm, c0, gh_tm, gcT, rw, peep):
-    """Launch ``lstm_bwd`` (T + 1 step launches from one C call) on the
-    current stream → (dxp_tm, dh0, dc0). Takes c0 [N,H] where
+    """Launch ``lstm_bwd`` (one launch, or T + 1 on the step route, from
+    one C call) on the current stream → (dxp_tm, dh0, dc0). Takes c0 [N,H] where
     :func:`reference_lstm_bwd` takes c_prev_tm: the kernel reads c_{t-1}
     from ``cs_tm`` itself."""
     if not gates_tm.is_cuda:
@@ -192,6 +237,31 @@ def lstm_bwd_cuda(gates_tm, cs_tm, c0, gh_tm, gcT, rw, peep):
     _build.raise_on(lib, "lstm_bwd", rc)
     _dispatch.count_launch("lstm_bwd")
     return dxp, dh0, dc
+
+
+def launch_plan(n_rows, hidden, device=None):
+    """How the sweeps launch on the card for N rows and H units (the C
+    entry point ``dl4j_lstm_plan``): the route, the cluster size, the row
+    tile, the units a block owns, the blocks of a launch, and each
+    sweep's dynamic shared memory with the number of its clusters the
+    card holds at once (0 on the step route). Raises where the card
+    cannot hold the resident route's clusters."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    lib = _lib()
+    if lib.dl4j_lstm_plan.argtypes is None:
+        lib.dl4j_lstm_plan.restype = ctypes.c_int
+        lib.dl4j_lstm_plan.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 9)()
+    _build.raise_on(lib, "lstm_plan",
+                    lib.dl4j_lstm_plan(dev.index, n_rows, hidden, out))
+    keys = ["route", "cluster", "row_tile", "units", "blocks"] + [
+        f"{sweep}_{k}" for sweep in ("fwd", "bwd")
+        for k in ("smem_bytes", "active_clusters")]
+    plan = dict(zip(keys, out))
+    plan["route"] = "resident" if plan["route"] else "step"
+    return plan
 
 
 # -- dispatch and autograd ----------------------------------------------------

@@ -25,11 +25,12 @@ def csrc(tmp_path):
     ("flash_fwd", ("wgmma_sm90.cuh", "mma_tf32.cuh")),
     ("flash_bwd", ("wgmma_sm90.cuh", "mma_tf32.cuh")),
     ("gru_scan", ("mma_tf32.cuh",)),
+    ("lstm_scan", ("mma_tf32.cuh",)),
 ])
 def test_the_sources_include_a_shared_header(name, includes):
     """Both flash sources include the bf16 (wgmma) and the float32 (3xTF32
-    mma.sync) tile helpers; the GRU sweeps the float32 ones (which bring
-    in the bf16 header's cp.async copies)."""
+    mma.sync) tile helpers; the GRU and LSTM sweeps the float32 ones
+    (which bring in the bf16 header's cp.async copies)."""
     headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
     assert "wgmma_sm90.cuh" in headers and "mma_tf32.cuh" in headers
     text = (_build.CSRC / f"{name}.cu").read_text()

@@ -228,3 +228,31 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         lstm_scan.lstm_bwd_cuda(xp, torch.zeros(2, 3, 4), torch.zeros(3, 4),
                                 torch.zeros(2, 3, 4), torch.zeros(3, 4),
                                 torch.zeros(4, 16), None)
+
+
+# the card tests' shapes (test_torch_lstm_cuda.py CASES), the char-RNN's
+# H=256, and the step route's H=1024 case of chip_smoke.py
+ROUTES = {1: "resident", 13: "resident", 40: "resident", 64: "resident",
+          128: "resident", 200: "resident", 256: "resident",
+          320: "resident", 321: "step", 1024: "step"}
+
+
+@pytest.mark.parametrize("hidden", sorted(ROUTES))
+def test_route_rule_sends_each_width_to_its_route(hidden):
+    """The wrapper's mirror of csrc/lstm_scan.cu's Resident::fits: RW
+    stays in the clusters' shared memory up to H = 320, and every shape
+    above takes the step kernels."""
+    assert lstm_scan.route(hidden) == ROUTES[hidden]
+
+
+def test_route_rule_has_one_threshold_within_a_block():
+    """Resident exactly for H <= 320, and every resident width's shared
+    memory within a block's 227 KB (the char-RNN's H=256: 148.27 KiB
+    forward, 148.02 KiB backward)."""
+    widths = range(1, 1201)
+    resident = [h for h in widths if lstm_scan.route(h) == "resident"]
+    assert resident == list(range(1, 321))
+    assert all(max(lstm_scan.resident_smem_bytes(h)) <= lstm_scan.SMEM_LIMIT
+               for h in resident)
+    assert max(lstm_scan.resident_smem_bytes(321)) > lstm_scan.SMEM_LIMIT
+    assert lstm_scan.resident_smem_bytes(256) == (151824, 151568)

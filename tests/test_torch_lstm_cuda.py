@@ -16,11 +16,14 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels import _dispatch
 from deeplearning4j_tpu_torch.kernels.lstm_scan import (
+    launch_plan,
     lstm,
     lstm_bwd_cuda,
     lstm_fwd_cuda,
     reference_lstm_bwd,
     reference_lstm_fwd,
+    resident_smem_bytes,
+    route,
 )
 from deeplearning4j_tpu_torch.models.zoo.classic import text_generation_lstm
 from deeplearning4j_tpu_torch.ops import rnn as opsrnn
@@ -34,17 +37,33 @@ pytestmark = pytest.mark.cuda
 # order of the sums of h·RW (forward) and dz·RWᵀ (backward) over H and 4H
 # terms: forward outputs (|h| <= 1, |c| of order 1) to 1e-5 absolute;
 # backward dz and the carries to 1e-5 of max(1, max |plain|), carried back
-# over up to 256 steps.
+# over up to 256 steps. The resident route's products are 3xTF32 on the
+# tensor cores (about 21 bits of each operand); against float64, entry
+# by entry, both routes to 1e-5 of max(1, |float64|).
 TOL_FWD = 1e-5
 TOL_BWD = 1e-5
 
-# (N, T, H, peepholes, forget_bias, non-zero initial state)
+# (N, T, H, peepholes, forget_bias, non-zero initial state); then the
+# edges of the resident route (clusters of 16 blocks, 8 rows a cluster,
+# ceil(H / 16) units a block): one row, 17 rows (three row tiles, the last
+# ragged), 130 rows (17 clusters, more than the card holds at once), H=13
+# (one unit a block, three blocks without one), H=72 and H=88 over 30
+# steps (the last block owns no unit and must still keep step with the
+# others), H=320 (the most that stays resident) and H=321 (the step route)
 CASES = {
     "train_shape_graves": (32, 256, 256, True, 1.0, False),
     "no_peepholes": (32, 64, 256, False, 1.0, False),
     "h200_n3": (3, 50, 200, True, 1.0, False),
     "init_state": (8, 40, 128, True, 0.0, True),
     "ragged_n5_h40": (5, 9, 40, False, 0.0, True),
+    "n1_h256": (1, 24, 256, True, 1.0, True),
+    "n17_h256": (17, 20, 256, True, 1.0, True),
+    "n130_h64": (130, 12, 64, True, 1.0, False),
+    "h13_n5": (5, 15, 13, True, 0.0, True),
+    "h72_empty_member": (6, 30, 72, True, 1.0, True),
+    "h88_empty_member": (6, 30, 88, False, 0.0, True),
+    "h320_resident_limit": (9, 12, 320, True, 1.0, True),
+    "h321_step_route": (9, 12, 321, True, 1.0, True),
 }
 
 
@@ -110,6 +129,140 @@ def test_kernels_match_plain_versions(dev, case):
         assert bool(torch.isfinite(a).all()), name
         ref = max(1.0, w.abs().max().item())
         assert _max_err(a, w) <= TOL_BWD * ref, (name, _max_err(a, w), ref)
+
+
+def _fwd_float64(xp, rw, b, h0, c0, peep, fb):
+    """The forward sweep written out again in float64 from the same
+    inputs → hs, gates, cell states."""
+    xp, rw, b, h, c = (a.double() for a in (xp, rw, b, h0, c0))
+    pe = None if peep is None else peep.double()
+    hs, gates, cs = [], [], []
+    for t in range(xp.shape[0]):
+        zi, zf, zg, zo = torch.chunk(xp[t] + h @ rw + b, 4, dim=1)
+        if pe is not None:
+            zi, zf = zi + pe[0] * c, zf + pe[1] * c
+        i, f, g = torch.sigmoid(zi), torch.sigmoid(zf + fb), torch.tanh(zg)
+        c = f * c + i * g
+        o = torch.sigmoid(zo + (pe[2] * c if pe is not None else 0.0))
+        h = o * torch.tanh(c)
+        hs.append(h)
+        gates.append(torch.cat([i, f, g, o], dim=1))
+        cs.append(c)
+    return torch.stack(hs), torch.stack(gates), torch.stack(cs)
+
+
+def _bwd_float64(gates, cs, c0, gh, gcT, rw, peep):
+    """The reversed dgrad sweep written out again in float64 from the same
+    workspace → dz, dh0, dc0."""
+    gates, cs, c0, gh, gcT, rw = (a.double()
+                                  for a in (gates, cs, c0, gh, gcT, rw))
+    pe = None if peep is None else peep.double()
+    dh, dc = torch.zeros_like(gcT), gcT
+    dxp = torch.empty_like(gates)
+    for t in range(gates.shape[0] - 1, -1, -1):
+        i, f, g, o = torch.chunk(gates[t], 4, dim=1)
+        c_prev = cs[t - 1] if t > 0 else c0
+        dh_total = gh[t] + dh
+        tc = torch.tanh(cs[t])
+        dzo = dh_total * tc * o * (1.0 - o)
+        dc = dc + dh_total * o * (1.0 - tc * tc)
+        if pe is not None:
+            dc = dc + dzo * pe[2]
+        dzi = dc * g * i * (1.0 - i)
+        dzf = dc * c_prev * f * (1.0 - f)
+        dzg = dc * i * (1.0 - g * g)
+        dc_next = dc * f
+        if pe is not None:
+            dc_next = dc_next + dzi * pe[0] + dzf * pe[1]
+        dxp[t] = torch.cat([dzi, dzf, dzg, dzo], dim=1)
+        dh = dxp[t] @ rw.t()
+        dc = dc_next
+    return dxp, dh, dc
+
+
+def _entry_err(a, w):
+    """max over entries of |a - w| / max(1, |w|), w float64."""
+    return ((a.double() - w).abs() / w.abs().clamp(min=1.0)).max().item()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sweeps_match_float64(dev, case):
+    """Both sweeps against a float64 evaluation of the same inputs (the
+    backward fed the kernel's own workspace), entry by entry, within
+    TOL_FWD / TOL_BWD of max(1, |float64|)."""
+    n, t, h, use_peep, fb, init = CASES[case]
+    xp, rw, b, h0, c0, peep, gh, gcT = _inputs(dev, n, t, h, use_peep, init,
+                                               seed=n * t + h + 1)
+    hs, _, _, gates, cs = lstm_fwd_cuda(xp, rw, b, h0, c0, peep, fb,
+                                        save_workspace=True)
+    dxp, dh0, dc0 = lstm_bwd_cuda(gates, cs, c0, gh, gcT, rw, peep)
+    whs, wgates, wcs = _fwd_float64(xp, rw, b, h0, c0, peep, fb)
+    wdxp, wdh0, wdc0 = _bwd_float64(gates, cs, c0, gh, gcT, rw, peep)
+    torch.cuda.synchronize()
+    for name, a, w in (("hs", hs, whs), ("gates", gates, wgates),
+                       ("cs", cs, wcs)):
+        assert _entry_err(a, w) <= TOL_FWD, (name, _entry_err(a, w))
+    for name, a, w in (("dxp", dxp, wdxp), ("dh0", dh0, wdh0),
+                       ("dc0", dc0, wdc0)):
+        assert _entry_err(a, w) <= TOL_BWD, (name, _entry_err(a, w))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_launch_plan_follows_the_route_rule(dev, case):
+    """dl4j_lstm_plan takes the route the wrapper's rule names: on the
+    resident route clusters of 16 that the card holds, ceil(H / 16) units
+    a block and the shared memory of resident_smem_bytes; on the step
+    route 8 x 8 tiles without clusters."""
+    n, _, h = CASES[case][:3]
+    plan = launch_plan(n, h, dev)
+    assert plan["route"] == route(h)
+    if plan["route"] == "resident":
+        assert (plan["cluster"], plan["row_tile"], plan["units"],
+                plan["blocks"]) == (16, 8, -(-h // 16), 16 * -(-n // 8))
+        assert (plan["fwd_smem_bytes"],
+                plan["bwd_smem_bytes"]) == resident_smem_bytes(h)
+        assert plan["fwd_active_clusters"] >= 1
+        assert plan["bwd_active_clusters"] >= 1
+    else:
+        assert (plan["cluster"], plan["units"], plan["blocks"],
+                plan["fwd_active_clusters"]) == (
+                    1, 8, -(-h // 8) * -(-n // 8), 0)
+
+
+@pytest.mark.parametrize("case", ["train_shape_graves", "h320_resident_limit",
+                                  "h321_step_route"])
+def test_kernel_launches_per_call_follow_the_route(dev, case):
+    """The profiler's count of the sweeps' kernels in one call of each: one
+    persistent kernel on the resident route, T (forward) and T + 1
+    (backward) step kernels on the step route. Idle host time at both
+    edges of the recording keeps every kernel record in the trace
+    (chip_smoke.TRACE_EDGE_S)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    n, t, h, use_peep, fb, init = CASES[case]
+    xp, rw, b, h0, c0, peep, gh, gcT = _inputs(dev, n, t, h, use_peep, init,
+                                               seed=7)
+    _, _, _, gates, cs = lstm_fwd_cuda(xp, rw, b, h0, c0, peep, fb,
+                                       save_workspace=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
+        lstm_fwd_cuda(xp, rw, b, h0, c0, peep, fb, save_workspace=True)
+        lstm_bwd_cuda(gates, cs, c0, gh, gcT, rw, peep)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = {k: sum(k in x for x in names) for k in (
+        "lstm_fwd_persistent_kernel", "lstm_bwd_persistent_kernel",
+        "lstm_fwd_step_kernel", "lstm_bwd_step_kernel")}
+    if route(h) == "resident":
+        want = (1, 1, 0, 0)
+    else:
+        want = (0, 0, t, t + 1)
+    assert tuple(count.values()) == want, count
 
 
 def test_gradients_are_bit_identical_over_two_runs(dev):
