@@ -47,8 +47,9 @@ caught:
    a cluster's shared memory); the launch plan of each logged; then
    timed beside their bounds (3xTF32 on the tensor cores, and on the
    CUDA cores), the plain versions and torch.nn.LSTM (cuDNN, the case
-   without peepholes), the kernel launches a call counted by the
-   profiler (one persistent kernel on the resident route). It runs right
+   without peepholes; also the forward at the serving bucket N=8), the
+   kernel launches a call counted by the profiler (one persistent kernel
+   on the resident route). It runs right
    after phase 3, before phases 4 and 5.
 7. char-RNN serving — text_generation_lstm (vocab 77, hidden 256, seq
    256, GravesLSTM, backend "pallas"), weights from a seed, behind
@@ -69,8 +70,9 @@ caught:
    from a non-zero h0, at the serving bucket N=8 without the workspace,
    and at H=200 with N=3; then timed beside their bounds (3xTF32 on the
    tensor cores, and on the CUDA cores), the plain versions and
-   torch.nn.GRU (cuDNN), the step launches counted by the profiler, the
-   launch plan (clusters, grid, shared memory) logged.
+   torch.nn.GRU (cuDNN; also the forward at the serving bucket N=8), the
+   step launches counted by the profiler, the launch plan (clusters,
+   grid, shared memory) logged.
 10. char-GRU serving — the TensorFlow tutorial's char-GRU (Embedding(66,
    256) → GRU(1024) → softmax, seq 100, backend "pallas"), weights from a
    seed, behind ModelServer (batched, max batch 8): int char ids in, the
@@ -88,15 +90,39 @@ caught:
    tile and at BERT-base's parameter count, on the char-GRU's gradient
    leaves and in bfloat16 (against the kernel's plain version); timed at
    BERT-base's size beside its bound.
+13. LeNet-5 training — lenet (bench.py's bench_lenet: batch 256, Adam
+   1e-3) on load_mnist's synthetic set: one step's loss and every
+   gradient leaf against a float64 copy of the model on the card (1e-5,
+   1e-3 of the leaf's max); 30 steps of Trainer.fit through
+   ArrayDataSetIterator → AsyncDataSetIterator with a falling loss and a
+   checkpoint restored bit-equal; evaluate_model's accuracy on the test
+   split above 0.5; step time, samples/s, peak memory, idle share.
+14. ResNet-50 training — resnet50 (bench_resnet50: batch 32 × 224 × 224
+   × 3, 1000 classes, Adam 1e-3): one step against the float64 copy
+   (loss, BatchNorm state, gradients by relative L2 error; see
+   TOL_GRAD_L2), 30 float32 steps and then 30 mixed-precision steps of
+   fit, each with a falling loss and a checkpoint restored bit-equal
+   (BatchNorm state included), the first mixed step against the float64
+   loss; step time, samples/s, peak memory, idle share and device time
+   by kernel class (conv, elementwise, reduce, ...).
+15. ResNet-50 serving — the trained ResNet-50 behind ModelServer
+   (batched, max batch 8), 100 requests of 1–2 NHWC images as JSON from
+   4 client threads; every response against output_single to 1e-5;
+   requests/s, p50/p99, a bucket-8 forward's wall and device time, and
+   the host time of one request's JSON.
+
+No TPU kernel lies on phases 13–15: their convolutions run in cuDNN (as
+the JAX package leaves them to XLA) and launch none of the port's hand
+kernels.
 
 On the recurrent paths the plain ops/rnn.lstm and ops/rnn.gru must never
 see a CUDA tensor (they are the plain paths the kernels are held against,
 run separately).
 
 It prints the kernels line ({"kernels": [...]}), the serving, training,
-char-RNN, char-GRU and bitmap lines, the nvidia-smi line and, last,
-{"ok": true, "device": {...}}. It imports nothing of JAX nor of the JAX
-package.
+char-RNN, char-GRU, bitmap, LeNet-5 and ResNet-50 lines, the nvidia-smi
+line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
+nor of the JAX package.
 """
 
 from __future__ import annotations
@@ -870,10 +896,10 @@ def phase_slice(dev, smi):
             "card": smi}
 
 
-def _forward_breakdown(fwd, kernel: str) -> dict:
+def _forward_breakdown(fwd, kernel=None) -> dict:
     """Where one forward's time goes: host wall time (synchronised,
-    median of 10), device busy time (the union of its kernels' intervals)
-    and ``kernel``'s part of it."""
+    median of 10), device busy time (the union of its kernels' intervals),
+    its kernel classes and ``kernel``'s part of it (where named)."""
     with torch.inference_mode():
         walls = []
         for _ in range(13):
@@ -886,13 +912,16 @@ def _forward_breakdown(fwd, kernel: str) -> dict:
     wall_ms = float(np.median(walls[3:])) * 1e3
     # busy time: kernels that overlap (dependent launches) count once
     device_ms = _busy_us(spans, "", 10) / 1e3
-    kernel_ms = _busy_us(spans, f"{kernel}_", 10) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            f"{kernel}_ms": kernel_ms,
-            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-            f"{kernel}_share_of_device": kernel_ms / device_ms,
-            "top_kernels_us": {k[:60]: round(us, 1) for k, us in top}}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+           "classes_ms": _kernel_classes(spans, 10),
+           "top_kernels_us": {k[:60]: round(us, 1) for k, us in top}}
+    if kernel is not None:
+        kernel_ms = _busy_us(spans, f"{kernel}_", 10) / 1e3
+        out[f"{kernel}_ms"] = kernel_ms
+        out[f"{kernel}_share_of_device"] = kernel_ms / device_ms
+    return out
 
 
 # -- 5. train: BERT-base through the port's Trainer.fit ---------------------
@@ -1096,12 +1125,14 @@ def _step_events():
     return StepEvents()
 
 
-def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev) -> dict:
-    """Trainer.fit over ``batches`` for ``epochs`` with a checkpoint every
-    10 iterations (keep 2); the launch counts, losses, median step (CUDA
+def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev,
+                     next_batch=None) -> dict:
+    """Trainer.fit over ``batches`` (a list, or an iterator with
+    ``next_batch`` given) for ``epochs`` with a checkpoint every 10
+    iterations (keep 2); the launch counts, losses, median step (CUDA
     events between steps, after 3), peak memory; then the last checkpoint
-    restored must give bit-equal params and updater state and the same
-    next-step loss as the live state."""
+    restored must give bit-equal params, layer state and updater state
+    and the same next-step loss as the live state."""
     from deeplearning4j_tpu_torch.kernels import _dispatch
     from deeplearning4j_tpu_torch.serde.checkpoint import (
         latest_checkpoint,
@@ -1145,14 +1176,16 @@ def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev) -> dict:
             torch.equal(a, b) for a, b in zip(tree_leaves(restored.params),
                                               tree_leaves(ts.params)))
         same_opt = all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(restored.opt_state), tree_leaves(ts.opt_state)))
-        nxt = batches[ts.step % len(batches)]
+            tree_leaves((restored.opt_state, restored.model_state)),
+            tree_leaves((ts.opt_state, ts.model_state))))
+        nxt = (batches[ts.step % len(batches)] if next_batch is None
+               else next_batch)
         _, m_live = trainer.train_step(ts, nxt)
         _, m_back = trainer.train_step(restored, nxt)
         next_live, next_back = (float(m_live["total_loss"]),
                                 float(m_back["total_loss"]))
         log(f"[{tag}] restored {Path(path).name}: params bit-equal={same}, "
-            f"updater state bit-equal={same_opt}; next-step loss "
+            f"updater and layer state bit-equal={same_opt}; next-step loss "
             f"{next_live:.6f} live vs {next_back:.6f} restored")
         if not (same and same_opt and next_live == next_back):
             raise SystemExit("chip_smoke: the checkpoint did not restore "
@@ -1164,6 +1197,38 @@ def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev) -> dict:
             "median_step_ms": step_ms, "step_ms_gaps": gaps,
             "peak_memory_gib": peak_gib, "fit_seconds": fit_s,
             "checkpoint_next_loss": next_back}
+
+
+# Kernel classes of a step's device time, by the CUDA kernel's name: the
+# convolutions (cuDNN's implicit-GEMM, xmma, FFT and Winograd kernels), the
+# dense layers' GEMMs, reductions (BatchNorm's statistics, pools' sums,
+# the loss), pooling, and the elementwise kernels (BatchNorm's normalise,
+# activations, adds, casts, the updater); the rest as "other".
+KERNEL_CLASSES = (
+    ("conv", ("conv", "fprop", "dgrad", "wgrad", "xmma", "implicit",
+              "cudnn", "winograd", "fft")),
+    ("gemm", ("gemm", "cutlass", "cublas")),
+    ("pool", ("pool",)),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "foreach")),
+)
+
+
+def _kernel_classes(spans, calls) -> dict:
+    """Device busy ms per call of each kernel class (``KERNEL_CLASSES``),
+    from the profiler's (start, end, name) spans."""
+    def klass(name):
+        low = name.lower()
+        for cls, keys in KERNEL_CLASSES:
+            if any(k in low for k in keys):
+                return cls
+        return "other"
+
+    by_class = {}
+    for a, b, name in spans:
+        by_class.setdefault(klass(name), []).append((a, b, name))
+    return {cls: _busy_us(sp, "", calls) / 1e3
+            for cls, sp in sorted(by_class.items())}
 
 
 def _step_breakdown(trainer, ts, batch, kernels) -> dict:
@@ -1189,10 +1254,16 @@ def _step_breakdown(trainer, ts, batch, kernels) -> dict:
         k_ms = _busy_us(spans, f"{kernel}_", 3) / 1e3
         shares[kernel] = {"ms": k_ms, "share_of_device": k_ms / device_ms}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    classes = _kernel_classes(spans, 3)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "kernels": shares,
-            "top_kernels_us": {k[:60]: round(us, 1) for k, us in top}}
+            "classes_ms": classes,
+            "class_share_of_device": {c: ms / device_ms
+                                      for c, ms in classes.items()},
+            "top_kernels_us": {k[:60]: round(us, 1) for k, us in top},
+            "top_kernel_share_of_device": {
+                k[:60]: us / 1e3 / device_ms for k, us in top}}
 
 
 def _train_batches():
@@ -1350,7 +1421,11 @@ def phase_kernels_lstm(dev):
                     f" ms vs cuDNN {row['cudnn_fwd_ms']:.4f} ms; backward "
                     f"op {row['op_bwd_ms']:.4f} ms vs cuDNN "
                     f"{row['cudnn_bwd_ms']:.4f} ms; outputs agree to "
-                    f"{row['cudnn_max_abs_err']:.3e}")
+                    f"{row['cudnn_max_abs_err']:.3e}; serving N=8 forward: "
+                    f"kernel {row['lstm_fwd_n8_ms']:.4f}, plain "
+                    f"{row['lstm_fwd_n8_plain_ms']:.4f}, op "
+                    f"{row['op_fwd_n8_ms']:.4f} vs cuDNN "
+                    f"{row['cudnn_fwd_n8_ms']:.4f} ms")
         results[name] = row
     return results
 
@@ -1361,7 +1436,7 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
     time (busy time) and launches a call from the profiler — on the
     resident route one persistent kernel a call, on the step route T
     forward and T + 1 backward, or the run fails — and the forward at the
-    serving bucket N=8 without the workspace."""
+    serving bucket N=8 without the workspace, beside its plain version."""
     from deeplearning4j_tpu_torch.kernels.lstm_scan import (
         lstm_bwd_cuda,
         lstm_fwd_cuda,
@@ -1382,11 +1457,14 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
         "lstm_bwd_plain": lambda: reference_lstm_bwd(gates, cs, c_prev, gh,
                                                      gc, rw, pe),
         "lstm_fwd_n8": lambda: lstm_fwd_cuda(xp8, rw, b, h08, c08, pe, fb),
+        "lstm_fwd_n8_plain": lambda: reference_lstm_fwd(xp8, rw, b, h08,
+                                                        c08, pe, fb),
     }
     runs = {k: [] for k in fns}
     for k in ("lstm_fwd", "lstm_fwd_plain", "lstm_fwd_plain", "lstm_fwd",
               "lstm_bwd", "lstm_bwd_plain", "lstm_bwd_plain", "lstm_bwd",
-              "lstm_fwd_n8", "lstm_fwd_n8"):
+              "lstm_fwd_n8", "lstm_fwd_n8_plain", "lstm_fwd_n8_plain",
+              "lstm_fwd_n8"):
         runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
     row = {f"{k}_ms": min(v) for k, v in runs.items()}
     row.update({f"{k}_ms_runs": v for k, v in runs.items()})
@@ -1425,8 +1503,9 @@ def _time_cudnn(dev, rw, b, fb):
     """torch.nn.LSTM (cuDNN) on an input x [N,T,H] beside the port's op on
     the same x and weights (forget bias folded into b_ih's f slice, RW
     transposed to weight_hh, gate order i,f,g,o as the port's), forward
-    without grad and backward to x and every weight: the library
-    yardstick of the case without peepholes. The outputs must agree."""
+    without grad (also at the serving bucket N=8) and backward to x and
+    every weight: the library yardstick of the case without peepholes.
+    The outputs must agree."""
     from deeplearning4j_tpu_torch.kernels.lstm_scan import lstm
 
     h = rw.shape[0]
@@ -1453,9 +1532,12 @@ def _time_cudnn(dev, rw, b, fb):
     out_lib = cudnn(xg)[0]
     dout = torch.randn(out_lib.shape, generator=g).to(dev)
     lib_leaves = [xg, *cudnn.parameters()]
+    x8 = x[:8].contiguous()
     fns = {
         "op_fwd": lambda: lstm(x, w_x, rw, b, forget_bias=fb),
         "cudnn_fwd": lambda: cudnn(x),
+        "op_fwd_n8": lambda: lstm(x8, w_x, rw, b, forget_bias=fb),
+        "cudnn_fwd_n8": lambda: cudnn(x8),
         "op_bwd": lambda: torch.autograd.grad(out_op, leaves, dout,
                                               retain_graph=True),
         "cudnn_bwd": lambda: torch.autograd.grad(out_lib, lib_leaves, dout,
@@ -1463,7 +1545,8 @@ def _time_cudnn(dev, rw, b, fb):
     }
     runs = {k: [] for k in fns}
     with torch.no_grad():
-        for k in ("op_fwd", "cudnn_fwd", "cudnn_fwd", "op_fwd"):
+        for k in ("op_fwd", "cudnn_fwd", "cudnn_fwd", "op_fwd",
+                  "op_fwd_n8", "cudnn_fwd_n8", "cudnn_fwd_n8", "op_fwd_n8"):
             runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
     for k in ("op_bwd", "cudnn_bwd", "cudnn_bwd", "op_bwd"):
         runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
@@ -1821,6 +1904,16 @@ def _lstm_entries(cases, serving, training, smi):
             "serving_n8_no_workspace_ms": (main_row["lstm_fwd_n8_ms"]
                                            if kernel == "lstm_fwd"
                                            else None),
+            "serving_n8": None if kernel != "lstm_fwd" else {
+                "ms": main_row["lstm_fwd_n8_ms"],
+                "plain_ms": main_row["lstm_fwd_n8_plain_ms"],
+                "bound_ms": main_row["lstm_fwd_n8_bound_ms"],
+                "library_ms": None,
+                "no_peepholes": {
+                    "ms": nopeep["lstm_fwd_n8_ms"],
+                    "plain_ms": nopeep["lstm_fwd_n8_plain_ms"],
+                    "op_ms": nopeep["op_fwd_n8_ms"],
+                    "library_ms": nopeep["cudnn_fwd_n8_ms"]}},
             "shape": main_row["shape"], "card": smi,
         })
     return entries
@@ -1962,7 +2055,11 @@ def phase_kernels_gru(dev):
                 f"{row['cudnn_fwd_ms']:.4f} ms; backward op "
                 f"{row['op_bwd_ms']:.4f} ms vs cuDNN "
                 f"{row['cudnn_bwd_ms']:.4f} ms; outputs agree to "
-                f"{row['cudnn_max_abs_err']:.3e}")
+                f"{row['cudnn_max_abs_err']:.3e}; serving N=8 forward: "
+                f"kernel {row['gru_fwd_n8_ms']:.4f}, plain "
+                f"{row['gru_fwd_n8_plain_ms']:.4f}, op "
+                f"{row['op_fwd_n8_ms']:.4f} vs cuDNN "
+                f"{row['cudnn_fwd_n8_ms']:.4f} ms")
         results[name] = row
     return results
 
@@ -1972,9 +2069,9 @@ def _time_gru(dev, xp, rw, b, h0, gh, hs, gates, hpn):
     in turn, twice: kernel, plain, plain, kernel), the kernels' device
     time and step launches from the profiler (T forward, T + 1 backward,
     or the run fails), and the forward at the serving bucket N=8 without
-    the workspace. A step may start while the one before it ends
-    (dependent launches), so the device time is the steps' busy time, the
-    union of their intervals."""
+    the workspace, beside its plain version. A step may start while the
+    one before it ends (dependent launches), so the device time is the
+    steps' busy time, the union of their intervals."""
     from deeplearning4j_tpu_torch.kernels.gru_scan import (
         gru_bwd_cuda,
         gru_fwd_cuda,
@@ -1994,11 +2091,13 @@ def _time_gru(dev, xp, rw, b, h0, gh, hs, gates, hpn):
         "gru_bwd_plain": lambda: reference_gru_bwd(gates, hpn, h_prev, gh,
                                                    rw),
         "gru_fwd_n8": lambda: gru_fwd_cuda(xp8, rw, b, h08),
+        "gru_fwd_n8_plain": lambda: reference_gru_fwd(xp8, rw, b, h08),
     }
     runs = {k: [] for k in fns}
     for k in ("gru_fwd", "gru_fwd_plain", "gru_fwd_plain", "gru_fwd",
               "gru_bwd", "gru_bwd_plain", "gru_bwd_plain", "gru_bwd",
-              "gru_fwd_n8", "gru_fwd_n8"):
+              "gru_fwd_n8", "gru_fwd_n8_plain", "gru_fwd_n8_plain",
+              "gru_fwd_n8"):
         runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
     row = {f"{k}_ms": min(v) for k, v in runs.items()}
     row.update({f"{k}_ms_runs": v for k, v in runs.items()})
@@ -2033,9 +2132,9 @@ def _time_cudnn_gru(dev, rw, b):
     """torch.nn.GRU (cuDNN) on an input x [N,T,E] beside the port's op on
     the same x and weights (W and RW transposed to weight_ih/weight_hh,
     b to bias_ih, bias_hh zero; gate order r,z,n and the reset applied
-    after the recurrent product, as the port's), forward without grad and
-    backward to x and every weight: the library yardstick. The outputs
-    must agree."""
+    after the recurrent product, as the port's), forward without grad
+    (also at the serving bucket N=8) and backward to x and every weight:
+    the library yardstick. The outputs must agree."""
     from deeplearning4j_tpu_torch.kernels.gru_scan import gru
 
     h = rw.shape[0]
@@ -2059,9 +2158,12 @@ def _time_cudnn_gru(dev, rw, b):
     out_lib = cudnn(xg)[0]
     dout = torch.randn(out_lib.shape, generator=g).to(dev)
     lib_leaves = [xg, *cudnn.parameters()]
+    x8 = x[:8].contiguous()
     fns = {
         "op_fwd": lambda: gru(x, w_x, rw, b),
         "cudnn_fwd": lambda: cudnn(x),
+        "op_fwd_n8": lambda: gru(x8, w_x, rw, b),
+        "cudnn_fwd_n8": lambda: cudnn(x8),
         "op_bwd": lambda: torch.autograd.grad(out_op, leaves, dout,
                                               retain_graph=True),
         "cudnn_bwd": lambda: torch.autograd.grad(out_lib, lib_leaves, dout,
@@ -2069,7 +2171,8 @@ def _time_cudnn_gru(dev, rw, b):
     }
     runs = {k: [] for k in fns}
     with torch.no_grad():
-        for k in ("op_fwd", "cudnn_fwd", "cudnn_fwd", "op_fwd"):
+        for k in ("op_fwd", "cudnn_fwd", "cudnn_fwd", "op_fwd",
+                  "op_fwd_n8", "cudnn_fwd_n8", "cudnn_fwd_n8", "op_fwd_n8"):
             runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
     for k in ("op_bwd", "cudnn_bwd", "cudnn_bwd", "op_bwd"):
         runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
@@ -2482,6 +2585,12 @@ def _gru_entries(cases, serving, training, bitmap, smi):
             "op_ms": main_row[op_key],
             "serving_n8_no_workspace_ms": (main_row["gru_fwd_n8_ms"]
                                            if kernel == "gru_fwd" else None),
+            "serving_n8": None if kernel != "gru_fwd" else {
+                "ms": main_row["gru_fwd_n8_ms"],
+                "plain_ms": main_row["gru_fwd_n8_plain_ms"],
+                "bound_ms": main_row["gru_fwd_n8_bound_ms"],
+                "op_ms": main_row["op_fwd_n8_ms"],
+                "library_ms": main_row["cudnn_fwd_n8_ms"]},
             "shape": main_row["shape"], "card": smi,
         })
     entries.append({
@@ -2497,6 +2606,420 @@ def _gru_entries(cases, serving, training, bitmap, smi):
         "shape": [bitmap["n"]], "card": smi,
     })
     return entries
+
+
+# -- 13. LeNet-5 training -----------------------------------------------------
+
+# bench.py's bench_lenet: LeNet-5 (conv5x5x20, maxpool 2, conv5x5x50,
+# maxpool 2, dense 500, softmax 10) on 28x28x1, batch 256, Adam 1e-3; the
+# data is load_mnist's deterministic synthetic set (no idx files ship with
+# the repository), 10 batches an epoch, 3 epochs: 30 steps.
+LENET_BATCH, LENET_EPOCHS = 256, 3
+LENET_TRAIN, LENET_TEST = 10 * LENET_BATCH, 2048
+LENET_ACCURACY = 0.5
+
+
+def _tree_map(fn, tree):
+    from deeplearning4j_tpu_torch.utils.pytree import tree_map
+
+    return tree_map(fn, tree)
+
+
+def _float64_copy(tree):
+    return _tree_map(lambda a: a.to(torch.float64), tree)
+
+
+def _grads_by_name(trainer, params, state, batch):
+    """Loss, new layer state and every gradient leaf (by name) of the
+    train step's differentiated function, no dropout."""
+    from deeplearning4j_tpu_torch.utils.pytree import flatten_with_names
+
+    loss, new_state, _, grads = trainer._grad_of(params, state, batch, None)
+    return (float(loss), dict(flatten_with_names(new_state)),
+            dict(flatten_with_names(grads)))
+
+
+def _l2_errors(got, want):
+    """Each leaf's relative L2 error |got − want| / |want| and the whole
+    tree's."""
+    leaf = {n: float((got[n].double() - w).norm() / w.norm().clamp_min(
+        1e-300)) for n, w in want.items()}
+    num = sum(float((got[n].double() - w).norm()) ** 2
+              for n, w in want.items())
+    den = sum(float(w.norm()) ** 2 for w in want.values())
+    return leaf, (num / den) ** 0.5
+
+
+def _vs_float64(tag, trainer, ts, batch, *, per_leaf_max: bool) -> dict:
+    """One loss, BatchNorm state and gradient of the float32 train step
+    against the same model run in float64 on the card (cuDNN's float64
+    convolutions), on the same batch. The loss to TOL_LOSS_REL and the
+    layer state to TOL_STATE of max(1, |float64|) always; the gradients
+    either per leaf to TOL_GRAD_FRAC of the leaf's floored max
+    (``per_leaf_max``, as _check_grads does) or, for a net too deep for
+    that (ResNet-50: see TOL_GRAD_L2), by relative L2 error, beside the
+    float64 copy's own change under float32-sized noise on its features
+    and params."""
+    p64, s64 = _float64_copy(ts.params), _float64_copy(ts.model_state)
+    b64 = dict(batch, features=batch["features"].double())
+    loss32, state32, g32 = _grads_by_name(trainer, ts.params,
+                                          ts.model_state, batch)
+    loss64, state64, g64 = _grads_by_name(trainer, p64, s64, b64)
+    loss_rel = abs(loss32 - loss64) / abs(loss64)
+    state_err = max((float((state32[n].double() - w).abs().max())
+                     / max(1.0, float(w.abs().max())) for n, w in
+                     state64.items()), default=0.0)
+    top = max(float(g.abs().max()) for g in g64.values())
+    fracs = {n: float((g32[n].double() - w).abs().max())
+             / max(float(w.abs().max()), TOL_GRAD_FLOOR * top)
+             for n, w in g64.items()}
+    worst_name = max(fracs, key=fracs.get)
+    leaf_l2, all_l2 = _l2_errors(g32, g64)
+    worst_l2 = max(leaf_l2, key=leaf_l2.get)
+    out = {"loss_float32": loss32, "loss_float64": loss64,
+           "loss_rel": loss_rel, "state_err": state_err,
+           "worst_grad_leaf": worst_name,
+           "worst_grad_frac": fracs[worst_name],
+           "worst_l2_leaf": worst_l2, "worst_l2_err": leaf_l2[worst_l2],
+           "l2_err": all_l2}
+    ok = loss_rel <= TOL_LOSS_REL and state_err <= TOL_STATE
+    if per_leaf_max:
+        ok = ok and fracs[worst_name] <= TOL_GRAD_FRAC
+    else:
+        # the float64 copy's own spread: features and params each moved by
+        # a relative N(0, 2^-24), float32's rounding
+        gen = torch.Generator(batch["features"].device).manual_seed(SEED)
+
+        def nudge(a):
+            return a * (1 + 2.0 ** -24 * torch.randn(
+                a.shape, generator=gen, device=a.device, dtype=a.dtype))
+
+        _, _, g_noise = _grads_by_name(
+            trainer, _tree_map(nudge, p64), s64,
+            dict(b64, features=nudge(b64["features"])))
+        noise_leaf, noise_all = _l2_errors(g_noise, g64)
+        out.update(noise_l2_err=noise_all,
+                   noise_worst_l2_err=max(noise_leaf.values()))
+        ok = ok and leaf_l2[worst_l2] <= TOL_GRAD_L2 and \
+            all_l2 <= TOL_GRAD_L2
+        del g_noise
+    log(f"[{tag}] float32 vs float64 on the card: loss {loss32:.7f} vs "
+        f"{loss64:.7f} (rel {loss_rel:.2e}, tol {TOL_LOSS_REL:.0e}); layer "
+        f"state {state_err:.2e} of max(1, |float64|) (tol {TOL_STATE:.0e}); "
+        f"worst gradient leaf {worst_name} at {fracs[worst_name]:.2e} of "
+        f"its max" + (f" (tol {TOL_GRAD_FRAC:.0e})" if per_leaf_max else
+                      f"; relative L2 error {all_l2:.2e} over all leaves, "
+                      f"worst leaf {worst_l2} {leaf_l2[worst_l2]:.2e} (tol "
+                      f"{TOL_GRAD_L2:.0e}); the float64 copy's own under "
+                      f"2^-24 noise {out['noise_l2_err']:.2e}, worst leaf "
+                      f"{out['noise_worst_l2_err']:.2e}"))
+    if not ok:
+        raise SystemExit(f"chip_smoke: {tag}: the float32 step disagrees "
+                         "with float64")
+    del p64, s64, g64, g32
+    return out
+
+
+def phase_lenet_train(dev, smi):
+    from deeplearning4j_tpu_torch.data import (
+        ArrayDataSetIterator,
+        AsyncDataSetIterator,
+        load_mnist,
+    )
+    from deeplearning4j_tpu_torch.evaluation import evaluate_model
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    t0 = time.monotonic()
+    (xtr, ytr), (xte, yte), real = load_mnist(n_train=LENET_TRAIN,
+                                              n_test=LENET_TEST)
+    model = lenet(device=dev, updater=Adam(1e-3), seed=SEED)
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    log(f"[lenet_train] lenet: {model.num_params(trainer.variables(ts0)):,} "
+        f"parameters, Adam(1e-3), batch {LENET_BATCH}, MNIST "
+        f"{'idx files' if real else 'synthetic'} {xtr.shape} / {xte.shape}, "
+        f"built in {time.monotonic() - t0:.1f} s")
+    first = batch_to_device({"features": xtr[:LENET_BATCH],
+                             "labels": ytr[:LENET_BATCH]}, dev)
+    f64 = _vs_float64("lenet_train", trainer, ts0, first, per_leaf_max=True)
+
+    data = AsyncDataSetIterator(
+        ArrayDataSetIterator(xtr, ytr, LENET_BATCH, seed=SEED),
+        device_put_to=dev)
+    fit = _fit_and_restore("lenet_train", trainer, ts0, data, LENET_EPOCHS,
+                           dev, next_batch=first)
+    ts, losses, step_ms = fit["ts"], fit["losses"], fit["median_step_ms"]
+    per_epoch = len(losses) // LENET_EPOCHS
+    first_loss, last_loss = (np.mean(losses[:per_epoch]),
+                             np.mean(losses[-per_epoch:]))
+    if ts.step != LENET_EPOCHS * (LENET_TRAIN // LENET_BATCH) or not (
+            np.all(np.isfinite(losses)) and last_loss < first_loss):
+        raise SystemExit(f"chip_smoke: LeNet-5 did not train ({ts.step} "
+                         f"steps, loss {first_loss:.4f} -> {last_loss:.4f})")
+    t0 = time.monotonic()
+    ev = evaluate_model(model, trainer.variables(ts), ArrayDataSetIterator(
+        xte, yte, LENET_BATCH, shuffle=False, drop_last=False), 10)
+    accuracy = ev.accuracy()
+    eval_s = time.monotonic() - t0
+    breakdown = _step_breakdown(trainer, ts, first, ())
+    log(f"[lenet_train] one step: {breakdown}")
+    log(f"[lenet_train] {ts.step} steps: loss {first_loss:.4f} -> "
+        f"{last_loss:.4f}; median step {step_ms:.3f} ms "
+        f"({LENET_BATCH / (step_ms / 1e3):.1f} samples/s), peak memory "
+        f"{fit['peak_memory_gib']:.2f} GiB; evaluate_model on "
+        f"{xte.shape[0]} test images: accuracy {accuracy:.4f} (must exceed "
+        f"{LENET_ACCURACY}) in {eval_s:.2f} s; on {smi}")
+    if not accuracy > LENET_ACCURACY:
+        raise SystemExit(f"chip_smoke: LeNet-5 accuracy {accuracy:.4f}")
+    return {"model": "lenet", "batch": LENET_BATCH, "steps": ts.step,
+            "mnist": "idx" if real else "synthetic",
+            "launches": fit["launches"], "losses": losses,
+            "loss_first_epoch": float(first_loss),
+            "loss_last_epoch": float(last_loss),
+            "median_step_ms": step_ms, "step_ms_gaps": fit["step_ms_gaps"],
+            "samples_per_s": LENET_BATCH / (step_ms / 1e3),
+            "peak_memory_gib": fit["peak_memory_gib"],
+            "fit_seconds": fit["fit_seconds"],
+            "checkpoint_next_loss": fit["checkpoint_next_loss"],
+            "vs_float64": f64, "test_accuracy": accuracy,
+            "evaluate_seconds": eval_s, "step_breakdown": breakdown,
+            "card": smi}
+
+
+# -- 14. ResNet-50 training ---------------------------------------------------
+
+# bench.py's bench_resnet50: ResNet-50 (blocks 3, 4, 6, 3; 25,557,032
+# parameters) on 224x224x3, 1000 classes, batch 32, Adam 1e-3; float32
+# (TF32 off) and mixed precision as bench_resnet50 runs it. Random images
+# and labels from the seed; 3 fixed batches cycled by 10 epochs: 30 steps.
+RESNET_BATCH, RESNET_BATCHES, RESNET_EPOCHS = 32, 3, 10
+# float32 vs the float64 copy, one step from the same init on the same
+# batch. The loss to TOL_LOSS_REL (relative) and every BatchNorm running
+# statistic to TOL_STATE of max(1, |float64|): both are sums that float32
+# computes to a few ulp of the 53-layer forward. The gradients are not
+# held per leaf to TOL_GRAD_FRAC: a BatchNorm ReLU net of this depth at
+# init turns a perturbation at rounding level into changes of whole
+# percents of a leaf's largest entry, in float64 as in float32, so no
+# float32 implementation can be held to that. They
+# are held by relative L2 error, each leaf and all of them, to
+# TOL_GRAD_L2; the float64 copy's own change when its features and params
+# move by a relative 2^-24 (float32's rounding) is logged beside it. The
+# LeNet-5 phase keeps the per-leaf check.
+TOL_STATE = 1e-5
+TOL_GRAD_L2 = 1e-1
+
+
+def _resnet_batches():
+    """bench_resnet50's batch: N(0, 1) images, one-hot labels, here one per
+    seed."""
+    out = []
+    for i in range(RESNET_BATCHES):
+        r = np.random.default_rng(SEED + i)
+        out.append({
+            "features": r.normal(size=(RESNET_BATCH, 224, 224, 3)).astype(
+                np.float32),
+            "labels": np.eye(1000, dtype=np.float32)[
+                r.integers(0, 1000, RESNET_BATCH)]})
+    return out
+
+
+def _train_resnet(tag, trainer, ts0, on_dev, dev):
+    """30 steps of fit with checkpoints (the loss must fall over them),
+    then one step's breakdown: the fit's record."""
+    fit = _fit_and_restore(tag, trainer, ts0, on_dev, RESNET_EPOCHS, dev)
+    losses = fit["losses"]
+    first, last = (np.mean(losses[:RESNET_BATCHES]),
+                   np.mean(losses[-RESNET_BATCHES:]))
+    if fit["ts"].step != RESNET_BATCHES * RESNET_EPOCHS or not (
+            np.all(np.isfinite(losses)) and last < first):
+        raise SystemExit(f"chip_smoke: {tag}: the loss did not fall "
+                         f"({first:.4f} -> {last:.4f})")
+    breakdown = _step_breakdown(trainer, fit["ts"], on_dev[0], ())
+    step_ms = fit["median_step_ms"]
+    shares = {c: round(v, 3)
+              for c, v in breakdown["class_share_of_device"].items()}
+    log(f"[{tag}] one step: {breakdown}")
+    log(f"[{tag}] {fit['ts'].step} steps: loss {first:.4f} -> {last:.4f}; "
+        f"median step {step_ms:.2f} ms ({RESNET_BATCH / (step_ms / 1e3):.1f}"
+        f" samples/s), peak memory {fit['peak_memory_gib']:.2f} GiB; one "
+        f"step {breakdown['wall_ms']:.2f} ms wall, "
+        f"{breakdown['device_ms']:.2f} device, idle "
+        f"{breakdown['device_idle_share']:.1%}; device time by class "
+        f"{shares}")
+    return fit, {
+        "steps": fit["ts"].step, "launches": fit["launches"],
+        "losses": losses, "loss_first_epoch": float(first),
+        "loss_last_epoch": float(last), "median_step_ms": step_ms,
+        "step_ms_gaps": fit["step_ms_gaps"],
+        "samples_per_s": RESNET_BATCH / (step_ms / 1e3),
+        "peak_memory_gib": fit["peak_memory_gib"],
+        "fit_seconds": fit["fit_seconds"],
+        "checkpoint_next_loss": fit["checkpoint_next_loss"],
+        "step_breakdown": breakdown}
+
+
+def phase_resnet_train(dev, smi):
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    from deeplearning4j_tpu_torch.utils.pytree import tree_leaves
+
+    t0 = time.monotonic()
+    model = resnet50(device=dev, updater=Adam(1e-3), seed=SEED)
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    on_dev = [batch_to_device(b, dev) for b in _resnet_batches()]
+    n_params = model.num_params(trainer.variables(ts0))
+    log(f"[resnet_train] resnet50: {n_params:,} parameters, "
+        f"{len(model.order)} vertices, Adam(1e-3), batches "
+        f"{RESNET_BATCH}x224x224x3, built in {time.monotonic() - t0:.1f} s")
+    f64 = _vs_float64("resnet_train", trainer, ts0, on_dev[0],
+                      per_leaf_max=False)
+    fit, fp32 = _train_resnet("resnet_train", trainer, ts0, on_dev, dev)
+    trained = trainer.variables(fit["ts"])
+
+    # mixed precision as bench_resnet50 runs it: bf16 compute, float32
+    # master params, updater state and BatchNorm statistics
+    mp_model = resnet50(device=dev, updater=Adam(1e-3), seed=SEED)
+    mp_model.net.mixed_precision = True
+    mp_trainer = Trainer(mp_model)
+    mts0 = mp_trainer.init_state(trainer.variables(ts0))
+    mts1, m = mp_trainer.train_step(mts0, on_dev[0])
+    mp_loss = float(m["total_loss"])
+    mp_rel = abs(mp_loss - f64["loss_float64"]) / abs(f64["loss_float64"])
+    state_f32 = all(a.dtype == torch.float32 for a in tree_leaves(
+        (mts1.params, mts1.model_state, mts1.opt_state)))
+    log(f"[resnet_mixed] first step's loss {mp_loss:.6f} vs float64 "
+        f"{f64['loss_float64']:.6f} (rel {mp_rel:.2e}, tol "
+        f"{TOL_MIXED_REL:.0e}); params, BatchNorm and updater state float32:"
+        f" {state_f32}")
+    if mp_rel > TOL_MIXED_REL or not state_f32:
+        raise SystemExit("chip_smoke: the mixed-precision ResNet-50 step "
+                         "failed")
+    del mts1
+    _, mixed = _train_resnet("resnet_mixed", mp_trainer, mts0, on_dev, dev)
+    mixed["first_loss_vs_float64_rel"] = mp_rel
+    del mts0, ts0
+    return {"model": "resnet50", "batch": RESNET_BATCH, "image": 224,
+            "num_params": model.num_params(trained), "vs_float64": f64,
+            "float32": fp32, "mixed_precision": mixed, "card": smi}, \
+        model, trained
+
+
+# -- 15. ResNet-50 serving ----------------------------------------------------
+
+# Closed loop: RESNET_CLIENTS client threads, requests of 1-2 NHWC float
+# images (224x224x3, sent as JSON numbers), batched mode, max batch 8.
+RESNET_REQUESTS, RESNET_CLIENTS, RESNET_MAX_BATCH = 100, 4, 8
+TOL_RESNET_PROBS = 1e-5
+
+
+def _resnet_probs(model, variables, images):
+    """The served function: NHWC images → softmax probabilities."""
+    return model.output_single(variables, images)
+
+
+def _image_request(i):
+    r = np.random.default_rng(2000 + i)
+    return r.normal(size=(1 + i % 2, 224, 224, 3)).astype(np.float32)
+
+
+def phase_resnet_serve(dev, smi, model, variables):
+    import functools
+
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.serving import (
+        ModelRegistry,
+        ModelServer,
+        ServingClient,
+        spec,
+    )
+
+    reg = ModelRegistry()
+    entry = reg.register(
+        "resnet50", functools.partial(_resnet_probs, model), variables,
+        input_spec=spec((224, 224, 3), np.float32), mode="batched",
+        max_batch_size=RESNET_MAX_BATCH)
+    server = ModelServer(reg, port=0)
+    t0 = time.monotonic()
+    server.start(warm=True)
+    client = ServingClient(server.url, timeout=120)
+    if not client.ready()["ready"]:
+        raise SystemExit("chip_smoke: /readyz not ready after warm start")
+    log(f"[resnet_serve] server warm and ready in {time.monotonic() - t0:.2f}"
+        f" s (buckets {sorted(entry.batch_stats().items())})")
+    requests = [_image_request(i) for i in range(RESNET_REQUESTS)]
+    latencies = [0.0] * RESNET_REQUESTS
+
+    def call(i):
+        t_start = time.monotonic()
+        resp = client.predict("resnet50", requests[i])
+        latencies[i] = time.monotonic() - t_start
+        return resp
+
+    _dispatch.reset_launch_counts()
+    before = entry.batch_stats()
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(RESNET_CLIENTS) as pool:
+        responses = list(pool.map(call, range(RESNET_REQUESTS)))
+    wall = time.monotonic() - t0
+    launches = _dispatch.launch_counts()
+    after = entry.batch_stats()
+    batches = after["batches"] - before["batches"]
+    rows = after["rows"] - before["rows"]
+    drained = server.stop()
+    log(f"[resnet_serve] {RESNET_REQUESTS} requests ({rows} rows) in "
+        f"{wall:.3f} s over {batches} batches; hand-kernel launches "
+        f"{launches} (the path has none); drained={drained}")
+    if batches < 1 or not drained:
+        raise SystemExit("chip_smoke: the ResNet-50 server did not serve "
+                         "and drain")
+    worst = 0.0
+    for req, resp in zip(requests, responses):
+        out = np.asarray(resp["outputs"], dtype=np.float64)
+        if out.shape != (req.shape[0], 1000) or not np.all(
+                np.isfinite(out)) or np.abs(out.sum(-1) - 1).max() > 1e-5:
+            raise SystemExit(f"chip_smoke: bad served output {out.shape}")
+        want = _resnet_probs(model, variables, req).double().cpu().numpy()
+        worst = max(worst, float(np.abs(out - want).max()))
+    # host cost of one 2-image request's JSON: encode (client), decode and
+    # coerce to the input spec (server), 301,056 numbers
+    req2 = requests[1]
+    t0 = time.perf_counter()
+    body = json.dumps({"inputs": req2.tolist()})
+    t1 = time.perf_counter()
+    parsed = entry.parse_inputs(json.loads(body)["inputs"])
+    t2 = time.perf_counter()
+    json_ms = {"encode_ms": (t1 - t0) * 1e3, "decode_and_coerce_ms":
+               (t2 - t1) * 1e3, "body_mib": len(body) / 2**20}
+    if not np.array_equal(parsed, req2):
+        raise SystemExit("chip_smoke: a request did not survive JSON")
+    x8 = torch.from_numpy(np.concatenate(requests[:6])[:8]).to(dev)
+    breakdown = _forward_breakdown(
+        lambda: _resnet_probs(model, variables, x8))
+    lat_ms = np.asarray(latencies) * 1e3
+    log(f"[resnet_serve] one bucket-8 forward: {breakdown}")
+    log(f"[resnet_serve] a 2-image request's JSON: {json_ms}")
+    log(f"[resnet_serve] served probabilities vs output_single: max_abs_err "
+        f"{worst:.3e} (tol {TOL_RESNET_PROBS:.0e}); "
+        f"{RESNET_REQUESTS / wall:.1f} requests/s ({rows / wall:.1f} "
+        f"images/s), p50 {np.percentile(lat_ms, 50):.2f} ms, p99 "
+        f"{np.percentile(lat_ms, 99):.2f} ms, {RESNET_CLIENTS} clients, on "
+        f"{smi}")
+    if worst > TOL_RESNET_PROBS:
+        raise SystemExit("chip_smoke: served ResNet-50 probabilities "
+                         "disagree with output_single")
+    return {"model": "resnet50", "requests": RESNET_REQUESTS, "rows": rows,
+            "client_threads": RESNET_CLIENTS, "batches": batches,
+            "kernel_launches": launches,
+            "requests_per_s": RESNET_REQUESTS / wall,
+            "images_per_s": rows / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "max_abs_err_probs": worst, "json_2_images": json_ms,
+            "forward_bucket8": breakdown, "card": smi}
 
 
 def main() -> int:
@@ -2522,6 +3045,9 @@ def main() -> int:
     gru_training, gru_grads = phase_chargru_train(dev, smi)
     bitmap = phase_bitmap(dev, smi, serving["num_params"], gru_grads)
     del gru_grads
+    lenet_training = phase_lenet_train(dev, smi)
+    resnet_training, resnet_model, resnet_vars = phase_resnet_train(dev, smi)
+    resnet_serving = phase_resnet_serve(dev, smi, resnet_model, resnet_vars)
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
         "name": "flash_fwd", "route": "cuda",
@@ -2600,6 +3126,9 @@ def main() -> int:
     print(json.dumps({"char_gru_serving": gru_serving}), flush=True)
     print(json.dumps({"char_gru_training": gru_training}), flush=True)
     print(json.dumps({"bitmap": bitmap}), flush=True)
+    print(json.dumps({"lenet_training": lenet_training}), flush=True)
+    print(json.dumps({"resnet_training": resnet_training}), flush=True)
+    print(json.dumps({"resnet_serving": resnet_serving}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

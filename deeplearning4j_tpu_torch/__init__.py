@@ -15,7 +15,13 @@ Ported so far: the BERT serving path — ``models/bert.py`` behind
 ``parallel.ParallelInference``, through the flash-attention forward kernel
 — and BERT training — ``train.trainer.Trainer.fit`` with the JAX
 package's updaters, schedules, listeners and checkpoint format, through
-the flash-attention backward kernels.
+the flash-attention backward kernels; the GravesLSTM char-RNN and a
+char-level GRU, trained and served through the LSTM and GRU scan kernels;
+the gradient codecs with the bitmap encoder; and LeNet-5 and ResNet-50
+(``SequentialModel`` and ``GraphModel`` of conv, pooling and BatchNorm
+layers), trained through ``Trainer.fit`` over the MNIST and prefetch
+iterators, scored by ``evaluation.evaluate_model`` and served, their
+convolutions in cuDNN.
 """
 
 __version__ = "0.4.0"

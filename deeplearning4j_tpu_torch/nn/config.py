@@ -6,8 +6,8 @@ fields are the JAX package's, so a config JSON written by either package
 loads in the other: ``models.bert.BertConfig``, and ``SequentialConfig``
 with the layer configs of ``nn/layers`` (a layer config is a value with
 ``init``/``apply`` methods, as in the JAX package), each with its
-``NeuralNetConfiguration`` and updater. ``GraphVertex``/``GraphConfig``
-come with the graph models.
+``NeuralNetConfiguration`` and updater, and ``GraphConfig`` with its
+``GraphVertex`` DAG (``nn.model.GraphModel``).
 """
 
 from __future__ import annotations
@@ -152,4 +152,47 @@ class SequentialConfig:
         cfg = config_from_json(s)
         if not isinstance(cfg, SequentialConfig):
             raise TypeError(f"expected SequentialConfig, got {type(cfg)}")
+        return cfg
+
+
+@register_config
+@dataclass
+class GraphVertex:
+    """One vertex of a DAG network (↔ org.deeplearning4j.nn.conf.graph.*).
+
+    kind: 'layer' (wraps a LayerConfig), 'merge' (concat on the feature
+    axis), 'add' / 'mul' / 'average' / 'max' / 'min' / 'subtract'
+    (ElementWiseVertex ops), and the JAX package's arg-taking kinds
+    ('scale', 'shift', 'subset', 'stack', 'unstack', 'l2norm', 'reshape',
+    'last_timestep', 'duplicate_to_timeseries', 'reverse_timeseries'),
+    which load here and which ``GraphModel`` refuses until they are ported;
+    ``args`` carries each kind's parameters.
+    """
+
+    kind: str
+    inputs: List[str]
+    layer: Any = None  # LayerConfig when kind == 'layer'
+    args: Dict[str, Any] = field(default_factory=dict)
+
+
+@register_config
+@dataclass
+class GraphConfig:
+    """↔ ComputationGraphConfiguration: a named-vertex DAG with explicit
+    network inputs and outputs."""
+
+    net: NeuralNetConfiguration
+    inputs: List[str]
+    input_shapes: Dict[str, Sequence[int]]
+    vertices: Dict[str, GraphVertex]  # name → vertex (insertion order kept)
+    outputs: List[str]
+
+    def to_json(self) -> str:
+        return config_to_json(self)
+
+    @staticmethod
+    def from_json(s: str) -> "GraphConfig":
+        cfg = config_from_json(s)
+        if not isinstance(cfg, GraphConfig):
+            raise TypeError(f"expected GraphConfig, got {type(cfg)}")
         return cfg

@@ -32,6 +32,21 @@ def xavier(shape, generator: torch.Generator, dtype=torch.float32):
     return std * torch.randn(shape, generator=generator, dtype=dtype)
 
 
+def relu(shape, generator: torch.Generator, dtype=torch.float32):
+    """He normal: N(0, 2/fan_in) (ref: WeightInit.RELU)."""
+    fan_in, _ = _fans(shape)
+    std = math.sqrt(2.0 / fan_in)
+    return std * torch.randn(shape, generator=generator, dtype=dtype)
+
+
+def relu_uniform(shape, generator: torch.Generator, dtype=torch.float32):
+    """He uniform: U(-a, a) with a = sqrt(6/fan_in)."""
+    fan_in, _ = _fans(shape)
+    a = math.sqrt(6.0 / fan_in)
+    u = torch.rand(shape, generator=generator, dtype=dtype)
+    return (2.0 * a) * u - a
+
+
 def truncated_normal(shape, generator: torch.Generator, std=1.0,
                      dtype=torch.float32):
     """``std * jax.random.truncated_normal(key, -2, 2, shape)``: a standard
@@ -55,6 +70,10 @@ INITIALIZERS: dict[str, Callable] = {
     "xavier": xavier,
     "glorot_normal": xavier,
     "normal": normal(0.01),
+    "relu": relu,
+    "he_normal": relu,
+    "relu_uniform": relu_uniform,
+    "he_uniform": relu_uniform,
 }
 
 

@@ -1,12 +1,15 @@
-"""Core feed-forward layers (↔ deeplearning4j_tpu/nn/layers/core.py): ``Dense``, ``Embedding``.
+"""Core feed-forward layers (↔ deeplearning4j_tpu/nn/layers/core.py): ``Dense``, ``Embedding``, ``ActivationLayer``, ``Flatten``.
 
 Param names follow the reference: ``Dense`` "W" [in, out] and "b" [out],
 applied as ``x @ W + b`` then the activation; ``Embedding`` "W" [vocab,
-units], a gather of rows by integer id.
+units], a gather of rows by integer id. ``Flatten`` flattens the logical
+NHWC activation in (H, W, C) order, so a dense layer's weights carry across
+from the JAX package.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -65,3 +68,38 @@ class Embedding(LayerConfig):
 
     def apply(self, params, state, x, *, train=False, generator=None):
         return opsnn.embedding_lookup(params["W"], x), state
+
+
+@register_config
+@dataclass
+class ActivationLayer(LayerConfig):
+    """↔ ActivationLayer: an activation with no params. ``alpha``
+    parameterizes leakyrelu's slope, elu's alpha and thresholdedrelu's
+    theta; None keeps each function's default."""
+
+    activation: str = "relu"
+    alpha: Optional[float] = None
+
+    def apply(self, params, state, x, *, train=False, generator=None):
+        if self.alpha is not None:
+            name = self.activation.lower()
+            if name == "leakyrelu":
+                return opsnn.leaky_relu(x, self.alpha), state
+            if name == "elu":
+                return opsnn.elu(x, self.alpha), state
+            if name == "thresholdedrelu":
+                return opsnn.thresholded_relu(x, self.alpha), state
+            raise ValueError(f"activation {name!r} takes no alpha")
+        return get_activation(self.activation)(x), state
+
+
+@register_config
+@dataclass
+class Flatten(LayerConfig):
+    """↔ CnnToFeedForwardPreProcessor: flatten the trailing dims."""
+
+    def output_shape(self, input_shape):
+        return (math.prod(input_shape),)
+
+    def apply(self, params, state, x, *, train=False, generator=None):
+        return x.reshape(x.shape[0], -1), state

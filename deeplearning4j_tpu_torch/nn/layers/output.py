@@ -1,4 +1,4 @@
-"""Output layers (↔ deeplearning4j_tpu/nn/layers/output.py): ``RnnOutputLayer``.
+"""Output layers (↔ deeplearning4j_tpu/nn/layers/output.py): ``OutputLayer``, ``RnnOutputLayer``.
 
 An output layer is a dense layer fused with a loss: ``apply`` gives the
 activations (``output()``), ``compute_loss(params, state, x, labels, *,
@@ -51,6 +51,26 @@ def _masked_mean_loss(loss_name, activation, x, labels, *, mask=None,
         n = torch.sum(torch.broadcast_to(mask, per.shape))
         return torch.sum(per) / torch.clamp(n, min=1.0)
     return torch.mean(per)
+
+
+@register_config
+@dataclass
+class OutputLayer(Dense):
+    """↔ OutputLayer: Dense + activation + loss (reference defaults:
+    softmax activation, MCXENT loss). ``mask`` (else ``weights``) weights
+    the per-example losses of the mean."""
+
+    loss: str = "mcxent"
+    activation: str = "softmax"
+
+    def compute_loss(self, params, state, x, labels, *, mask=None,
+                     weights=None):
+        pre = opsnn.linear(x, params["W"], params.get("b"))
+        fn = losses.get_loss(self.loss)
+        w = mask if mask is not None else weights
+        if (self.loss.lower(), self.activation.lower()) in _LOGIT_LOSSES:
+            return fn(pre, labels, weights=w)
+        return fn(get_activation(self.activation)(pre), labels, weights=w)
 
 
 @register_config

@@ -1,4 +1,4 @@
-"""Sequential model container (↔ deeplearning4j_tpu/nn/model.py: ``SequentialModel``).
+"""Model containers (↔ deeplearning4j_tpu/nn/model.py): ``SequentialModel`` and ``GraphModel``.
 
 A model is a config plus pure functions of (variables, batch), as in the
 JAX package: ``init`` builds the variables tree, ``apply``/``loss_fn`` run
@@ -15,19 +15,29 @@ an ``rng``, the port takes a ``torch.Generator`` on that device (weight
 noise draws from it). ``loss_fn`` returns ``(loss, (state, metrics))``,
 what ``train.trainer.Trainer`` differentiates.
 
+``output`` moves its inputs to the model's device: a model on the card
+never computes on the CPU because a caller handed it host arrays.
+
 Not ported yet: ``apply_tbptt``/``loss_fn_tbptt`` (truncated BPTT),
-``summary``, and ``GraphModel``.
+``summary`` of either model, the build-time name validation
+(``_validate_registry_names``), and the arg-taking vertex kinds of
+``_VERTEX_OPS`` (ROADMAP queue 1 items 4, 5 and 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+import functools
+import graphlib
+import operator
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.config import (
+    GraphConfig,
+    GraphVertex,
     LayerConfig,
     NeuralNetConfiguration,
     SequentialConfig,
@@ -50,6 +60,43 @@ def _with_net_weight_init(layer: LayerConfig, net: NeuralNetConfiguration):
     if net.weight_init and getattr(layer, "weight_init", "") is None:
         return dataclasses.replace(layer, weight_init=net.weight_init)
     return layer
+
+
+def _layer_generator(seed: int, i: int) -> torch.Generator:
+    """The CPU generator layer (or vertex) ``i`` draws its init from — the
+    role of the JAX package's ``fold_in(key(seed), i)``."""
+    state = np.random.SeedSequence([seed & 0xFFFFFFFF, i])
+    return torch.Generator().manual_seed(
+        int(state.generate_state(1, np.uint64)[0]))
+
+
+def _on_device(x, device):
+    from deeplearning4j_tpu_torch.train.trainer import batch_to_device
+
+    return batch_to_device(x, device)
+
+
+def _regularization(named_layers, params, net, device):
+    """l1/l2 penalties (per-layer value, else the net's) over the
+    weights; biases, norm scales and peepholes are exempt."""
+    total = None
+    for name, layer in named_layers:
+        l1 = layer.l1 if layer.l1 is not None else net.l1
+        l2 = layer.l2 if layer.l2 is not None else net.l2
+        if (not l1 and not l2) or name not in params:
+            continue
+        for k, p in params[name].items():
+            if k in NON_WEIGHT_KEYS:
+                continue
+            term = 0.0
+            if l2:
+                term = term + l2 * torch.sum(torch.square(p))
+            if l1:
+                term = term + l1 * torch.sum(torch.abs(p))
+            total = term if total is None else total + term
+    if total is None:
+        return torch.zeros((), device=device)
+    return total
 
 
 class SequentialModel:
@@ -78,9 +125,7 @@ class SequentialModel:
         params, state = {}, {}
         for i, (name, layer) in enumerate(zip(self.layer_names,
                                               self.layers)):
-            gen_seed = np.random.SeedSequence([seed & 0xFFFFFFFF, i])
-            gen = torch.Generator().manual_seed(
-                int(gen_seed.generate_state(1, np.uint64)[0]))
+            gen = _layer_generator(seed, i)
             ldtype = torch_dtype(layer.dtype) if layer.dtype else dtype
             p, s = _with_net_weight_init(layer, self.net).init(
                 gen, self.shapes[i], ldtype)
@@ -161,26 +206,8 @@ class SequentialModel:
                                         "reg": reg.detach()})
 
     def _regularization(self, params):
-        """l1/l2 penalties (per-layer value, else the net's) over the
-        weights; biases, norm scales and peepholes are exempt."""
-        total = None
-        for name, layer in zip(self.layer_names, self.layers):
-            l1 = layer.l1 if layer.l1 is not None else self.net.l1
-            l2 = layer.l2 if layer.l2 is not None else self.net.l2
-            if (not l1 and not l2) or name not in params:
-                continue
-            for k, p in params[name].items():
-                if k in NON_WEIGHT_KEYS:
-                    continue
-                term = 0.0
-                if l2:
-                    term = term + l2 * torch.sum(torch.square(p))
-                if l1:
-                    term = term + l1 * torch.sum(torch.abs(p))
-                total = term if total is None else total + term
-        if total is None:
-            return torch.zeros((), device=self.device)
-        return total
+        return _regularization(self.named_layers(), params, self.net,
+                               self.device)
 
     # -- eager conveniences ------------------------------------------------
 
@@ -188,18 +215,217 @@ class SequentialModel:
         """Inference forward (↔ MultiLayerNetwork.output), under
         ``torch.inference_mode()``: no graph, no training workspace."""
         with torch.inference_mode():
-            return self.apply(variables, x, train=False)[0]
+            return self.apply(variables, _on_device(x, self.device),
+                              train=False)[0]
 
     def score(self, variables, batch) -> float:
         """↔ MultiLayerNetwork.score(DataSet): the loss of a DataSet,
         (x, y) tuple or batch dict, moved to the model's device."""
         from deeplearning4j_tpu_torch.data.dataset import as_batch_dict
-        from deeplearning4j_tpu_torch.train.trainer import batch_to_device
 
-        batch = batch_to_device(as_batch_dict(batch), self.device)
+        batch = _on_device(as_batch_dict(batch), self.device)
         with torch.inference_mode():
             return float(self.loss_fn(variables["params"],
                                       variables["state"], batch)[0])
+
+    def num_params(self, variables) -> int:
+        return sum(p.numel() for p in tree_leaves(variables["params"]))
+
+
+# --- DAG model ---------------------------------------------------------
+
+def _reduce(fn):
+    return lambda xs: functools.reduce(fn, xs)
+
+
+# element-wise vertices (↔ ElementWiseVertex) and 'merge' (↔ MergeVertex)
+_MERGE_OPS = {
+    "add": _reduce(operator.add),
+    "subtract": lambda xs: xs[0] - xs[1],
+    "mul": _reduce(operator.mul),
+    "average": lambda xs: functools.reduce(operator.add, xs) / len(xs),
+    "max": _reduce(torch.maximum),
+    "min": _reduce(torch.minimum),
+    "merge": lambda xs: torch.cat(xs, dim=-1),
+}
+
+# the JAX package's arg-taking vertex kinds, not ported yet (ROADMAP queue 1
+# item 5): a config that uses one is refused when the model is built
+_UNPORTED_VERTEX_OPS = frozenset({
+    "subset", "stack", "unstack", "l2norm", "scale", "shift", "reshape",
+    "last_timestep", "duplicate_to_timeseries", "reverse_timeseries"})
+
+
+class GraphModel:
+    """↔ ComputationGraph: a named-vertex DAG with merge and element-wise
+    vertices, visited in the JAX package's topological order (the same
+    ``graphlib`` order, so vertex ``i`` seeds its init alike).
+
+    Variables are named by vertex (``{"params": {"stem_conv": {...}},
+    "state": {"stem_bn": {...}}}``), as in the JAX package. ``apply``
+    takes a dict of inputs by name (or one array for a single-input graph)
+    and returns ``({output name: activation}, new_state)``.
+    """
+
+    def __init__(self, config: GraphConfig, device=None):
+        self.config = config
+        self.net: NeuralNetConfiguration = config.net
+        self.device = resolve_device(device)
+        ts = graphlib.TopologicalSorter(
+            {name: set(v.inputs) - set(config.inputs)
+             for name, v in config.vertices.items()})
+        self.order = [n for n in ts.static_order() if n in config.vertices]
+        self.shapes: Dict[str, Tuple[int, ...]] = {
+            k: tuple(v) for k, v in config.input_shapes.items()}
+        for name in self.order:
+            v = config.vertices[name]
+            self.shapes[name] = self._vertex_out_shape(
+                name, v, [self.shapes[i] for i in v.inputs])
+
+    @staticmethod
+    def _vertex_out_shape(name: str, v: GraphVertex, in_shapes):
+        if v.kind == "layer":
+            if len(v.inputs) > 1:
+                raise ValueError(
+                    f"layer vertex {name!r} has {len(v.inputs)} inputs; the "
+                    f"port has no multi-input layer, and "
+                    f"{type(v.layer).__name__} is single-input — merge the "
+                    "inputs with a 'merge'/elementwise vertex first")
+            return tuple(v.layer.output_shape(in_shapes[0]))
+        if v.kind == "merge":
+            feat = sum(s[-1] for s in in_shapes)
+            return (*in_shapes[0][:-1], feat)
+        if v.kind in _MERGE_OPS:
+            return tuple(in_shapes[0])
+        if v.kind in _UNPORTED_VERTEX_OPS:
+            raise NotImplementedError(
+                f"vertex {name!r} of kind {v.kind!r}: the port runs 'layer', "
+                f"{sorted(_MERGE_OPS)} vertices; {v.kind!r} is not ported "
+                "yet (ROADMAP queue 1 item 5)")
+        raise ValueError(f"unknown vertex kind {v.kind!r} ({name!r})")
+
+    def named_layers(self):
+        """(name, layer_config) pairs of the layer vertices."""
+        return [(n, self.config.vertices[n].layer) for n in self.order
+                if self.config.vertices[n].kind == "layer"]
+
+    # -- construction ------------------------------------------------------
+
+    def init(self, seed: Optional[int] = None) -> Dict[str, Any]:
+        """The variables tree on the model's device; vertex ``i`` of the
+        topological order draws from a CPU generator seeded from (seed,
+        i). The numbers are not the JAX package's."""
+        seed = self.net.seed if seed is None else seed
+        dtype = torch_dtype(self.net.dtype)
+        params, state = {}, {}
+        for i, name in enumerate(self.order):
+            v = self.config.vertices[name]
+            if v.kind != "layer":
+                continue
+            p, s = _with_net_weight_init(v.layer, self.net).init(
+                _layer_generator(seed, i), self.shapes[v.inputs[0]], dtype)
+            if p:
+                params[name] = p
+            if s:
+                state[name] = s
+        return tree_map(lambda a: a.to(self.device),
+                        {"params": params, "state": state})
+
+    # -- forward -----------------------------------------------------------
+
+    def _forward_values(self, variables, inputs, *, train, generator,
+                        exclude):
+        if not isinstance(inputs, dict):
+            inputs = {self.config.inputs[0]: inputs}
+        params, state = variables["params"], variables["state"]
+        values = dict(inputs)
+        new_state = dict(state)
+        for name in self.order:
+            if name in exclude:
+                continue
+            v = self.config.vertices[name]
+            xs = [values[inp] for inp in v.inputs]
+            if v.kind == "layer":
+                p = apply_weight_noise(v.layer, params.get(name, {}),
+                                       generator, train)
+                y, s = v.layer.apply(p, state.get(name, {}), xs[0],
+                                     train=train, generator=generator)
+                if s:
+                    new_state[name] = s
+            else:
+                y = _MERGE_OPS[v.kind](xs)
+            values[name] = y
+        return values, new_state
+
+    def apply(self, variables, inputs, *, train: bool = False,
+              generator=None):
+        """Forward pass → ({output name: activation}, new_state)."""
+        values, new_state = self._forward_values(
+            variables, inputs, train=train, generator=generator,
+            exclude=set())
+        return ({o: values[o] for o in self.config.outputs if o in values},
+                new_state)
+
+    def feed_forward(self, variables, inputs, *, train: bool = False,
+                     generator=None):
+        """Every vertex's activation (↔ ComputationGraph.feedForward):
+        ({input name: x, vertex name: activation}, new_state)."""
+        return self._forward_values(variables, inputs, train=train,
+                                    generator=generator, exclude=set())
+
+    def loss_fn(self, params, state, batch, generator=None):
+        """Sum of the output layers' losses (↔ ComputationGraph's score)
+        → (loss, (new_state, metrics)). ``batch["labels"]`` is one array
+        for a single output, else a dict by output name."""
+        variables = {"params": params, "state": state}
+        out_names = list(self.config.outputs)
+        values, new_state = self._forward_values(
+            variables, batch["features"], train=True, generator=generator,
+            exclude=set(out_names))
+        labels = batch["labels"]
+        if not isinstance(labels, dict):
+            labels = {out_names[0]: labels}
+        total = None
+        metrics = {}
+        for name in out_names:
+            v = self.config.vertices[name]
+            if not hasattr(v.layer, "compute_loss"):
+                raise TypeError(
+                    f"output vertex {name!r} ({type(v.layer).__name__}) is "
+                    "not an output layer; add a loss head for training")
+            out_params = apply_weight_noise(v.layer, params.get(name, {}),
+                                            generator, True)
+            loss = v.layer.compute_loss(
+                out_params, state.get(name, {}), values[v.inputs[0]],
+                labels[name], mask=batch.get("mask"),
+                weights=batch.get("weights"))
+            total = loss if total is None else total + loss
+            metrics[f"loss/{name}"] = loss.detach()
+        metrics["loss"] = total.detach()
+        return total + self._regularization(params), (new_state, metrics)
+
+    def _regularization(self, params):
+        return _regularization(self.named_layers(), params, self.net,
+                               self.device)
+
+    # -- eager conveniences ------------------------------------------------
+
+    def output(self, variables, inputs):
+        """Inference forward → {output name: activation}, under
+        ``torch.inference_mode()``, the inputs moved to the model's
+        device."""
+        with torch.inference_mode():
+            return self.apply(variables, _on_device(inputs, self.device),
+                              train=False)[0]
+
+    def output_single(self, variables, inputs):
+        """↔ ComputationGraph.outputSingle: the one output of a
+        single-output graph."""
+        if len(self.config.outputs) != 1:
+            raise ValueError(
+                f"output_single on a graph with outputs "
+                f"{self.config.outputs}; use output() for multi-output")
+        return self.output(variables, inputs)[self.config.outputs[0]]
 
     def num_params(self, variables) -> int:
         return sum(p.numel() for p in tree_leaves(variables["params"]))

@@ -6,6 +6,8 @@ Layouts and numerics follow the JAX package:
 - ``gelu`` is the tanh approximation (``jax.nn.gelu``'s default; torch's
   default is the exact erf form);
 - ``layer_norm`` uses the population variance;
+- ``batch_norm_inference`` is the scale/offset form
+  ``x·(γ·rsqrt(var+eps)) + (β − mean·γ·rsqrt(var+eps))``;
 - ``embedding_lookup`` raises on an out-of-range id, where ``jnp.take``
   clamps it (a CUDA gather with a bad index would poison the context);
 - ``dropout`` draws its mask from an explicit ``torch.Generator`` (on the
@@ -23,6 +25,18 @@ tanh = torch.tanh
 sigmoid = torch.sigmoid
 
 
+def leaky_relu(x, negative_slope=0.01):
+    return F.leaky_relu(x, negative_slope)
+
+
+def elu(x, alpha=1.0):
+    return F.elu(x, alpha)
+
+
+def thresholded_relu(x, theta=1.0):
+    return torch.where(x > theta, x, 0.0)
+
+
 def softmax(x):
     """Over the last axis (``jax.nn.softmax``'s default)."""
     return torch.softmax(x, dim=-1)
@@ -35,6 +49,21 @@ def gelu(x):
 def layer_norm(x, gamma=None, beta=None, eps=1e-5):
     """Over the last axis, population variance (``jnp.var``)."""
     return F.layer_norm(x, x.shape[-1:], gamma, beta, eps)
+
+
+def batch_norm_inference(x, mean, var, gamma, beta, eps=1e-5,
+                         channel_axis=-1):
+    """Normalize with running statistics over ``channel_axis``."""
+    shape = [1] * x.ndim
+    shape[channel_axis] = x.shape[channel_axis]
+    mean, var = mean.reshape(shape), var.reshape(shape)
+    scale = torch.rsqrt(var + eps)
+    if gamma is not None:
+        scale = gamma.reshape(shape) * scale
+    offset = -mean * scale
+    if beta is not None:
+        offset = beta.reshape(shape) + offset
+    return x * scale + offset
 
 
 def linear(x, w, b=None):

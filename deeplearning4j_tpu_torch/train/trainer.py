@@ -162,7 +162,8 @@ class Trainer:
 
     model: anything with ``.net``, ``.device``, ``.init(seed)`` and
     ``.loss_fn(params, state, batch, generator) -> (loss, (state, metrics))``
-    (``models.bert.Bert``, ``nn.model.SequentialModel``).
+    (``models.bert.Bert``, ``nn.model.SequentialModel``,
+    ``nn.model.GraphModel``).
 
     ``frozen_layers``: top-level param-tree keys excluded from training.
     Their gradients are zeroed before the updater (moments stay zero) and
@@ -175,7 +176,10 @@ class Trainer:
 
     ``net.mixed_precision``: bf16 compute with float32 master params and
     updater state. The cast sits inside the differentiated function, so
-    gradients come back float32.
+    gradients come back float32. Only params and features are cast: layer
+    state (BatchNorm's running statistics) stays float32, and BatchNorm
+    computes its batch statistics in float32 from the bf16 activation.
+    The state a step returns is detached from the graph.
     """
 
     def __init__(
@@ -221,6 +225,8 @@ class Trainer:
                                     allow_unused=True)
         by_name = {n: torch.zeros_like(p) if g is None else g
                    for (n, p), g in zip(named, grads)}
+        # layer state (BatchNorm's running statistics) leaves the graph
+        new_state = tree_map(torch.Tensor.detach, new_state)
         return (loss.detach(), new_state, metrics,
                 tree_map_with_names(lambda n, _: by_name[n], leaves))
 
@@ -306,11 +312,14 @@ class Trainer:
         if variables is None:
             variables = self.model.init(seed)
         seed = self.net.seed if seed is None else seed
-        params = tree_map(
-            lambda a: _as_tensor(a).detach().to(self.device, copy=True),
-            variables["params"])
+
+        def own(a):
+            return _as_tensor(a).detach().to(self.device, copy=True)
+
+        params = tree_map(own, variables["params"])
         return TrainState(params=params,
-                          model_state=variables.get("state", {}),
+                          model_state=tree_map(own,
+                                               variables.get("state", {})),
                           opt_state=self._upd_init(params), step=0,
                           rng=RngKey(seed))
 

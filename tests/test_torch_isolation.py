@@ -47,6 +47,19 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.kernels.gru_scan",
     "deeplearning4j_tpu_torch.kernels.bitmap_pack",
     "deeplearning4j_tpu_torch.ops.compression",
+    "deeplearning4j_tpu_torch.ops.cnn",
+    "deeplearning4j_tpu_torch.ops.nn",
+    "deeplearning4j_tpu_torch.nn.initializers",
+    "deeplearning4j_tpu_torch.nn.layers.conv",
+    "deeplearning4j_tpu_torch.nn.layers.norm",
+    "deeplearning4j_tpu_torch.nn.config",
+    "deeplearning4j_tpu_torch.models.lenet",
+    "deeplearning4j_tpu_torch.models.zoo",
+    "deeplearning4j_tpu_torch.models.zoo.resnet",
+    "deeplearning4j_tpu_torch.data.iterators",
+    "deeplearning4j_tpu_torch.data.mnist",
+    "deeplearning4j_tpu_torch.evaluation",
+    "deeplearning4j_tpu_torch.evaluation.classification",
 ]
 
 
@@ -77,8 +90,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         "from deeplearning4j_tpu_torch.serving import ModelRegistry, spec\n"
         "from deeplearning4j_tpu_torch.models.zoo.classic import "
         "text_generation_lstm\n"
+        "from deeplearning4j_tpu_torch.models.zoo import lenet, resnet50\n"
         "calls = [default_device, lambda: bert_tiny(),\n"
         "         lambda: text_generation_lstm(),\n"
+        "         lambda: lenet(), lambda: resnet50(),\n"
         "         lambda: ParallelInference(lambda v, x: x, {}),\n"
         "         lambda: ModelRegistry().register(\n"
         "             'm', lambda v, x: x, {}, input_spec=spec((2,)))]\n"
@@ -92,7 +107,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         "print('refused', len(calls))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr + out.stdout
-    assert out.stdout.strip() == "refused 5"
+    assert out.stdout.strip() == "refused 7"
 
 
 def test_explicit_cpu_is_honoured():
