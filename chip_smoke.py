@@ -20,8 +20,9 @@ caught:
    kernel runs its products on the tensor cores (bf16 on wgmma, float32
    in 3xTF32 on mma.sync, whose bound is also given on the CUDA cores).
    The forward at the serving shape and at the training shape (both
-   dtypes), its row LSE held against the plain one; the two backward
-   kernels at the training shape (both dtypes); the error of SDPA's
+   dtypes) and at GPT-2-small's causal shapes (T = S = 512 and 1024), its
+   row LSE held against the plain one; the two backward kernels at the
+   same training shapes (both dtypes); the error of SDPA's
    backward against the same plain version is logged beside the
    kernels'.
 4. slice — BERT-base at full width (12 layers, width 768, 12 heads, vocab
@@ -110,9 +111,29 @@ caught:
    4 client threads; every response against output_single to 1e-5;
    requests/s, p50/p99, a bucket-8 forward's wall and device time, and
    the host time of one request's JSON.
+16. GPT-2-small training — gpt2_small (bench.py's bench_gpt: 12 x 768,
+   12 heads, vocab 50257, head tied to embeddings/word, max_position 512,
+   batch 8 x 512 random ids, Adam 1e-4, bf16 mixed precision, rbg rng,
+   dropout 0.1), 124,096,849 parameters: one float32 loss and every
+   gradient through the causal flash kernels against plain attention
+   (BERT's limits), then 30 mixed-precision steps of fit with 12 launches
+   of each flash kernel a step, a falling loss, a checkpoint (rbg key
+   included) restored bit-equal and the first mixed step's loss against
+   the float32 plain loss; step time, tokens/s, peak memory, idle share,
+   device time by kernel class.
+17. GPT-2-small serving — the trained model (float32) in a
+   GenerationEngine (8 slots, max_len 512, 32 new tokens) behind
+   ModelServer's :generate route, 64 streamed requests from 8 client
+   threads (prompts of 8–200 ids, half greedy); every stream's length or
+   eos checked and every greedy token held against the argmax of the
+   full forward with plain attention; tokens/s, requests/s, time to
+   first token and inter-token p50/p99, slot occupancy, the KV slab
+   bytes, and one decode step's wall and device time.
 
-No TPU kernel lies on phases 13–15: their convolutions run in cuDNN (as
-the JAX package leaves them to XLA) and launch none of the port's hand
+No TPU kernel lies on phases 13–15 and 17: the convolutions run in cuDNN
+(as the JAX package leaves them to XLA), and generation's prefill and
+decode attend with plain matmuls (as the JAX package's einsums,
+models/gpt.py:298-304, :370-375); they launch none of the port's hand
 kernels.
 
 On the recurrent paths the plain ops/rnn.lstm and ops/rnn.gru must never
@@ -120,8 +141,8 @@ see a CUDA tensor (they are the plain paths the kernels are held against,
 run separately).
 
 It prints the kernels line ({"kernels": [...]}), the serving, training,
-char-RNN, char-GRU, bitmap, LeNet-5 and ResNet-50 lines, the nvidia-smi
-line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
+char-RNN, char-GRU, bitmap, LeNet-5, ResNet-50 and GPT-2-small lines,
+the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
 """
 
@@ -460,7 +481,39 @@ KERNEL_CASES = [
      None, False),
     ("causal_t70_s200_d128_fp32", 1, 2, 70, 200, 128, torch.float32, True,
      [200], False),
+    # GPT-2-small's causal attention: the training shape of bench.py's
+    # bench_gpt (batch 8 x 512, eight 64-row tiles: the early loop end and
+    # the diagonal tiles' masks over all of them), a ragged causal batch
+    # with a dead row, and T = S = 1024 (GPT-2's context, and the length
+    # from which the JAX package runs its Pallas kernel)
+    ("gpt2_small_train_bf16", 8, 12, 512, 512, 64, torch.bfloat16, True,
+     None, True),
+    ("gpt2_small_train_fp32", 8, 12, 512, 512, 64, torch.float32, True,
+     None, True),
+    ("gpt_causal_ragged_t512_fp32", 4, 12, 512, 512, 64, torch.float32,
+     True, [512, 377, 63, 0], False),
+    ("gpt_causal_ragged_t512_bf16", 4, 12, 512, 512, 64, torch.bfloat16,
+     True, [512, 377, 63, 0], False),
+    ("gpt_causal_t1024_bf16", 4, 12, 1024, 1024, 64, torch.bfloat16, True,
+     None, True),
+    ("gpt_causal_t1024_fp32", 4, 12, 1024, 1024, 64, torch.float32, True,
+     None, True),
 ]
+
+
+def _sdpa_call(q, k, v, mask, causal):
+    """``scaled_dot_product_attention`` computing the same function: the
+    key mask as a boolean mask, causal as ``is_causal`` (T = S on every
+    timed causal case), or both folded into one boolean mask."""
+    if mask is None:
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+    keep = (mask > 0)[:, None, None, :]
+    if causal:
+        t, s = q.shape[2], k.shape[2]
+        keep = keep & (torch.arange(t, device=q.device)[:, None] + (s - t)
+                       >= torch.arange(s, device=q.device)[None, :])
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
 
 
 def _lse_err(q, k, v, mask, causal, lse, lengths):
@@ -518,14 +571,15 @@ def phase_kernels(dev, train_lengths):
             raise SystemExit(f"chip_smoke: kernel case {name} failed")
         if not timed:
             continue
-        bool_mask = (mask > 0)[:, None, None, :]
-        kernel = lambda: flash_attention_cuda(q, k, v, mask)  # noqa: E731
-        plain = lambda: reference_attention(q, k, v, key_mask=mask)  # noqa
-        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q, k, v, attn_mask=bool_mask)
+        kernel = lambda: flash_attention_cuda(  # noqa: E731
+            q, k, v, mask, causal=causal)
+        plain = lambda: reference_attention(  # noqa: E731
+            q, k, v, causal=causal, key_mask=mask)
+        library = _sdpa_call(q, k, v, mask, causal)
         bound_ms, bound_by, ops, nbytes, cores_ms = _bound(
             b, h, t, s, d, dtype, causal, lengths)
         row = {"shape": [b, h, t, s, d], "dtype": str(dtype)[6:],
+               "causal": causal,
                "max_abs_err": err, "lse_err_frac": lse_frac,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_cuda_cores_ms": cores_ms, "ops": ops, "bytes": nbytes}
@@ -606,6 +660,21 @@ BWD_CASES = [
      None, False),
     ("causal_t70_s200_d128_fp32", 1, 2, 70, 200, 128, torch.float32, True,
      [200], False),
+    # GPT-2-small's causal attention, as in KERNEL_CASES: the dkv kernel
+    # starts each key tile's query loop at the diagonal, the dq kernel
+    # stops each query tile's key loop there
+    ("gpt2_small_train_fp32", 8, 12, 512, 512, 64, torch.float32, True,
+     None, True),
+    ("gpt2_small_train_bf16", 8, 12, 512, 512, 64, torch.bfloat16, True,
+     None, True),
+    ("gpt_causal_ragged_t512_fp32", 4, 12, 512, 512, 64, torch.float32,
+     True, [512, 377, 63, 0], False),
+    ("gpt_causal_ragged_t512_bf16", 4, 12, 512, 512, 64, torch.bfloat16,
+     True, [512, 377, 63, 0], False),
+    ("gpt_causal_t1024_fp32", 4, 12, 1024, 1024, 64, torch.float32, True,
+     None, True),
+    ("gpt_causal_t1024_bf16", 4, 12, 1024, 1024, 64, torch.bfloat16, True,
+     None, True),
 ]
 
 
@@ -658,9 +727,11 @@ def phase_kernels_bwd(dev, train_lengths):
             raise SystemExit(f"chip_smoke: backward kernel case {name} "
                              "failed")
         row = {"shape": [b, h, t, s, d], "dtype": str(dtype)[6:],
+               "causal": causal,
                "max_abs_err": errs, "sdpa_max_abs_err": sdpa}
         if timed:
-            row.update(_time_bwd(q, k, v, mask, out, lse, dout, lengths))
+            row.update(_time_bwd(q, k, v, mask, out, lse, dout, lengths,
+                                 causal))
             cores = "".join(
                 f", {kn[10:]} {row[f'{kn}_bound_cuda_cores_ms']:.4f} on the"
                 " CUDA cores" for kn in ("flash_bwd_dkv", "flash_bwd_dq")
@@ -702,7 +773,7 @@ def _sdpa_bwd_err(q, k, v, mask, dout, causal, want):
             for n, g, w in zip(("dq", "dk", "dv"), grads, want)}
 
 
-def _time_bwd(q, k, v, mask, out, lse, dout, lengths):
+def _time_bwd(q, k, v, mask, out, lse, dout, lengths, causal):
     """Times at one shape: each backward kernel's device time per launch
     (profiler), the wrapper's pair of launches with its delta reduction,
     the plain backward and SDPA's backward (CUDA events), and the device
@@ -715,12 +786,11 @@ def _time_bwd(q, k, v, mask, out, lse, dout, lengths):
     b, h, t, d = q.shape
     s = k.shape[2]
     pair = lambda: flash_attention_bwd_cuda(  # noqa: E731
-        q, k, v, mask, out, lse, dout)
+        q, k, v, mask, out, lse, dout, causal=causal)
     plain = lambda: reference_attention_bwd(  # noqa: E731
-        q, k, v, mask, out, lse, dout)
+        q, k, v, mask, out, lse, dout, causal=causal)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    sdpa_out = F.scaled_dot_product_attention(
-        *leaves, attn_mask=(mask > 0)[:, None, None, :])
+    sdpa_out = _sdpa_call(*leaves, mask, causal)()
     library = lambda: torch.autograd.grad(  # noqa: E731
         sdpa_out, leaves, dout, retain_graph=True)
     ms = {"pair": [], "plain": [], "library": []}
@@ -739,7 +809,7 @@ def _time_bwd(q, k, v, mask, out, lse, dout, lengths):
         row[f"{kernel}_ms"] = sum(us for name, us in by_kernel.items()
                                   if f"{kernel}_kernel" in name) / 1e3
         bound_ms, bound_by, ops, nbytes, cores_ms = _bound_bwd(
-            kernel, b, h, t, s, d, q.dtype, False, lengths)
+            kernel, b, h, t, s, d, q.dtype, causal, lengths)
         row.update({f"{kernel}_bound_ms": bound_ms,
                     f"{kernel}_bound_by": bound_by,
                     f"{kernel}_bound_cuda_cores_ms": cores_ms,
@@ -1172,7 +1242,7 @@ def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev,
 
         path = latest_checkpoint(ckpt_dir)
         restored = restore_checkpoint(path, trainer.init_state())
-        same = restored.step == ts.step and all(
+        same = restored.step == ts.step and restored.rng == ts.rng and all(
             torch.equal(a, b) for a, b in zip(tree_leaves(restored.params),
                                               tree_leaves(ts.params)))
         same_opt = all(torch.equal(a, b) for a, b in zip(
@@ -1184,7 +1254,8 @@ def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev,
         _, m_back = trainer.train_step(restored, nxt)
         next_live, next_back = (float(m_live["total_loss"]),
                                 float(m_back["total_loss"]))
-        log(f"[{tag}] restored {Path(path).name}: params bit-equal={same}, "
+        log(f"[{tag}] restored {Path(path).name} (rng {restored.rng}): "
+            f"step, rng and params bit-equal={same}, "
             f"updater and layer state bit-equal={same_opt}; next-step loss "
             f"{next_live:.6f} live vs {next_back:.6f} restored")
         if not (same and same_opt and next_live == next_back):
@@ -3022,6 +3093,297 @@ def phase_resnet_serve(dev, smi, model, variables):
             "forward_bucket8": breakdown, "card": smi}
 
 
+# -- 16. GPT-2-small training ---------------------------------------------
+
+# bench.py's bench_gpt: GPT-2-small (12 x 768, 12 heads, vocab 50257, the
+# head tied to embeddings/word), max_position = max(512, seq_len), batch
+# 8 x 512 random ids, Adam 1e-4, bf16 mixed precision, rbg rng, dropout
+# 0.1. Three fixed batches from the seed, cycled by fit's epochs.
+GPT_BATCH, GPT_T, GPT_BATCHES, GPT_EPOCHS = 8, 512, 3, 10   # 30 steps
+GPT_PARAMS = 124_096_849
+
+
+def _gpt_batches(vocab):
+    return [{"features": {"token_ids": np.random.default_rng(SEED + i)
+                          .integers(0, vocab, (GPT_BATCH, GPT_T))
+                          .astype(np.int32)}}
+            for i in range(GPT_BATCHES)]
+
+
+def phase_gpt_train(dev, smi):
+    """Returns the phase's line, the float32 model and the trained
+    variables (the serving phase serves them)."""
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        reference_attention,
+    )
+    from deeplearning4j_tpu_torch.models.gpt import gpt2_small
+    from deeplearning4j_tpu_torch.nn import config as nnconfig
+    from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
+    from deeplearning4j_tpu_torch.train.trainer import (
+        RngKey,
+        Trainer,
+        batch_to_device,
+    )
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    from deeplearning4j_tpu_torch.utils.pytree import flatten_with_names
+
+    t0 = time.monotonic()
+    net = nnconfig.NeuralNetConfiguration(seed=SEED, updater=Adam(1e-4),
+                                          mixed_precision=True,
+                                          rng_impl="rbg")
+    mp_model = gpt2_small(device=dev, max_position=max(512, GPT_T), net=net)
+    cfg = mp_model.config
+    layers = cfg.num_layers
+    n_params = mp_model.num_params()
+    # the float32 twin shares the parameters, not the config
+    model = copy.copy(mp_model)
+    model.config = dataclasses.replace(cfg, net=dataclasses.replace(
+        net, mixed_precision=False))
+    trainer, mp_trainer = Trainer(model), Trainer(mp_model)
+    ts0 = mp_trainer.init_state()
+    log(f"[gpt_train] gpt2_small: {n_params:,} parameters (want "
+        f"{GPT_PARAMS:,}), {layers} x {cfg.hidden}, vocab {cfg.vocab_size}, "
+        f"max_position {cfg.max_position}, dropout "
+        f"{cfg.dropout}/{cfg.attention_dropout}, Adam(1e-4), rng "
+        f"{ts0.rng}, batches {GPT_BATCH}x{GPT_T}, built in "
+        f"{time.monotonic() - t0:.1f} s")
+    if n_params != GPT_PARAMS or ts0.rng != RngKey(SEED, "rbg"):
+        raise SystemExit("chip_smoke: GPT-2-small's parameter count or rng "
+                         "is not bench_gpt's")
+    batches = _gpt_batches(cfg.vocab_size)
+    on_dev = [batch_to_device(b, dev) for b in batches]
+    want = {"flash_fwd": layers, "flash_bwd_dkv": layers,
+            "flash_bwd_dq": layers}
+
+    # 1. one float32 loss and gradient, causal kernels vs plain attention,
+    # with the dropout masks of fit's first step
+    def loss_and_grads():
+        loss, _, _, grads = trainer._grad_of(
+            ts0.params, {}, on_dev[0], ts0.rng.generator(dev, ts0.step))
+        return float(loss), dict(flatten_with_names(grads))
+
+    _dispatch.reset_launch_counts()
+    loss_k, g_kernel = loss_and_grads()
+    counts = _dispatch.launch_counts()
+    if counts != want:
+        raise SystemExit(f"chip_smoke: GPT's loss+grad launched {counts}, "
+                         f"want {want}")
+    with mock.patch.object(attention_mod, "flash_attention",
+                           reference_attention):
+        loss_p, g_plain = loss_and_grads()
+    loss_rel, worst_name, worst = _check_grads("gpt_train", loss_k, loss_p,
+                                               g_kernel, g_plain)
+    del g_kernel, g_plain
+
+    # 2. 30 mixed-precision steps of fit; the last checkpoint (rbg key
+    # included) restores bit-equal with the same next-step loss
+    fit = _fit_and_restore("gpt_train", mp_trainer, ts0, on_dev, GPT_EPOCHS,
+                           dev)
+    ts, counts, losses = fit["ts"], fit["launches"], fit["losses"]
+    n_steps = ts.step
+    want_fit = {k: v * n_steps for k, v in want.items()}
+    if n_steps != GPT_BATCHES * GPT_EPOCHS or counts != want_fit:
+        raise SystemExit(f"chip_smoke: GPT's fit launched {counts} over "
+                         f"{n_steps} steps, want {want_fit}")
+    first, last = np.mean(losses[:GPT_BATCHES]), np.mean(
+        losses[-GPT_BATCHES:])
+    mp_rel = abs(losses[0] - loss_p) / abs(loss_p)
+    log(f"[gpt_train] first mixed step's loss {losses[0]:.6f} vs the "
+        f"float32 plain loss {loss_p:.6f}: rel {mp_rel:.2e} (tol "
+        f"{TOL_MIXED_REL:.0e}); mean of the first three {first:.4f}, of the "
+        f"last three {last:.4f}")
+    if not (np.all(np.isfinite(losses)) and last < first
+            and mp_rel <= TOL_MIXED_REL):
+        raise SystemExit("chip_smoke: GPT's mixed-precision fit failed")
+
+    # 3. where a mixed-precision step's time goes
+    breakdown = _step_breakdown(mp_trainer, ts, on_dev[0],
+                                ("flash_fwd", "flash_bwd_dkv",
+                                 "flash_bwd_dq"))
+    log(f"[gpt_train] one mixed-precision step: {breakdown}")
+    _require_kernel_time("GPT mixed-precision step", breakdown)
+    step_ms = fit["median_step_ms"]
+    tokens = GPT_BATCH * GPT_T
+    variables = mp_trainer.variables(ts)
+    return {
+        "model": "gpt2_small", "num_params": n_params, "batch": GPT_BATCH,
+        "seq_len": GPT_T, "dtype": "bf16-mixed", "rng": ts.rng.impl,
+        "steps": n_steps, "launches": counts,
+        "launches_per_step": {k: v / n_steps for k, v in counts.items()},
+        "losses": losses, "loss_first_three": float(first),
+        "loss_last_three": float(last),
+        "median_step_ms": step_ms, "step_ms_gaps": fit["step_ms_gaps"],
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "peak_memory_gib": fit["peak_memory_gib"],
+        "fit_seconds": fit["fit_seconds"],
+        "fp32_kernel_vs_plain": {"loss_kernel": loss_k, "loss_plain": loss_p,
+                                 "loss_rel": loss_rel,
+                                 "worst_grad_leaf": worst_name,
+                                 "worst_grad_frac": worst},
+        "first_mixed_vs_fp32_plain_rel": mp_rel,
+        "checkpoint_next_loss": fit["checkpoint_next_loss"],
+        "step_breakdown": breakdown, "card": smi,
+    }, model, variables
+
+
+# -- 17. GPT-2-small generation serving -------------------------------------
+
+# The trained GPT-2-small (float32 weights, TF32 off) in a GenerationEngine
+# behind ModelServer's :generate route: GEN_REQUESTS streamed requests
+# from GEN_CLIENTS client threads (closed loop), prompts of 8-200 random
+# ids from the seed, every other request greedy (the rest at temperature
+# 0.8), every fourth with an eos_id.
+GEN_SLOTS, GEN_MAX_LEN, GEN_NEW = 8, 512, 32
+GEN_REQUESTS, GEN_CLIENTS = 64, 8
+# a greedy token agrees with the full forward's argmax when its logit is
+# within this of the top logit (a tie in float32 arithmetic that sums in
+# another order); ties are counted and printed
+TOL_GREEDY_TIE = 1e-3
+
+
+def _gen_request(i, vocab):
+    r = np.random.default_rng(3000 + i)
+    prompt = r.integers(0, vocab, int(r.integers(8, 201)))
+    return {"prompt": prompt.astype(np.int32),
+            "temperature": 0.0 if i % 2 == 0 else 0.8,
+            "eos_id": int(r.integers(0, vocab)) if i % 4 == 3 else None}
+
+
+def phase_gpt_serve(dev, smi, model, variables):
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        reference_attention,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine,
+        ModelServer,
+        ServingClient,
+    )
+
+    vocab = model.config.vocab_size
+    engine = GenerationEngine(model, variables, num_slots=GEN_SLOTS,
+                              max_len=GEN_MAX_LEN, max_new_tokens=GEN_NEW,
+                              seed=SEED)
+    server = ModelServer(port=0, generators={"gpt2": engine})
+    t0 = time.monotonic()
+    server.start(warm=True)
+    client = ServingClient(server.url, timeout=300)
+    ready = client.ready()
+    if not (ready["ready"] and ready.get("generators") == {"gpt2": True}):
+        raise SystemExit(f"chip_smoke: /readyz not ready after warm start: "
+                         f"{ready}")
+    log(f"[gpt_serve] engine warm ({len(engine.prompt_buckets)} prompt "
+        f"buckets, {len(engine.slot_buckets) * len(engine.kv_buckets)} "
+        f"decode shapes) and ready in {time.monotonic() - t0:.2f} s; KV "
+        f"slabs {engine.kv_bytes / 2**20:.1f} MiB")
+    requests = [_gen_request(i, vocab) for i in range(GEN_REQUESTS)]
+    times = [None] * GEN_REQUESTS
+
+    def call(i):
+        req = requests[i]
+        t_start = time.monotonic()
+        toks, stamps = [], []
+        for tok in client.generate("gpt2", req["prompt"],
+                                   temperature=req["temperature"],
+                                   eos_id=req["eos_id"]):
+            toks.append(tok)
+            stamps.append(time.monotonic())
+        times[i] = (t_start, stamps)
+        return toks
+
+    before = engine.describe()
+    _dispatch.reset_launch_counts()
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(GEN_CLIENTS) as pool:
+        outputs = list(pool.map(call, range(GEN_REQUESTS)))
+    wall = time.monotonic() - t0
+    launches = _dispatch.launch_counts()
+    after = engine.describe()
+    drained = server.stop()
+    steps = after["decode_steps"] - before["decode_steps"]
+    occupancy = ((after["active_rows_total"] - before["active_rows_total"])
+                 / max(1, steps * GEN_SLOTS))
+    n_tokens = sum(len(o) for o in outputs)
+    log(f"[gpt_serve] {GEN_REQUESTS} requests, {n_tokens} tokens in "
+        f"{wall:.3f} s over {steps} decode steps (mean slot occupancy "
+        f"{occupancy:.3f}); hand-kernel launches {launches} (the path has "
+        f"none); shapes run after warm-up {after['shapes_after_warm']}; "
+        f"drained={drained}")
+    if launches or not drained or after["shapes_after_warm"]:
+        raise SystemExit("chip_smoke: GPT serving launched a hand kernel, "
+                         "ran an unwarmed shape or did not drain")
+
+    # every response: length or eos, and every greedy token the argmax of
+    # the full forward (plain attention) over prompt + generated prefix
+    eos_stops = ties = checked = 0
+    worst_gap = 0.0
+    with mock.patch.object(attention_mod, "flash_attention",
+                           reference_attention), torch.inference_mode():
+        for req, toks in zip(requests, outputs):
+            eos = req["eos_id"]
+            if eos is not None and eos in toks:
+                if toks.index(eos) != len(toks) - 1:
+                    raise SystemExit("chip_smoke: a stream ran past its eos")
+                eos_stops += 1
+            elif len(toks) != GEN_NEW:
+                raise SystemExit(f"chip_smoke: a stream gave {len(toks)} "
+                                 f"tokens, want {GEN_NEW}")
+            if min(toks) < 0 or max(toks) >= vocab:
+                raise SystemExit("chip_smoke: a token id outside the vocab")
+            if req["temperature"] != 0.0:
+                continue
+            p = len(req["prompt"])
+            ids = np.concatenate([req["prompt"], toks[:-1]])[None]
+            logits, _ = model.apply(variables, torch.from_numpy(ids).to(dev))
+            lg = logits[0, p - 1:].double()
+            picked = lg.gather(1, torch.tensor(toks, device=dev)[:, None])
+            gap = (lg.max(-1).values - picked[:, 0]).cpu().numpy()
+            worst_gap = max(worst_gap, float(gap.max()))
+            ties += int(np.sum(gap > 0))
+            checked += len(toks)
+            if gap.max() > TOL_GREEDY_TIE:
+                raise SystemExit(f"chip_smoke: a greedy token is not the "
+                                 f"argmax of the full forward (gap "
+                                 f"{gap.max():.3e})")
+    log(f"[gpt_serve] {checked} greedy tokens against the full forward's "
+        f"argmax: {ties} ties within {TOL_GREEDY_TIE:.0e} (worst gap "
+        f"{worst_gap:.3e}); {eos_stops} streams stopped at their eos_id")
+
+    ttft = np.array([(s[0] - t) * 1e3 for t, s in times])
+    gaps = np.concatenate([np.diff(s) * 1e3 for _, s in times])
+    # one decode step at 8 slots over 256 KV columns, the engine stopped
+    slot_idx = list(range(GEN_SLOTS))
+    step = lambda: engine.run_decode(  # noqa: E731
+        256, slot_idx, [11] * GEN_SLOTS, [100 + 17 * i for i in slot_idx],
+        [0.0] * GEN_SLOTS)
+    decode = _forward_breakdown(step)
+    log(f"[gpt_serve] one decode step (8 slots, kv 256): {decode}")
+    out = {"model": "gpt2_small", "requests": GEN_REQUESTS,
+           "client_threads": GEN_CLIENTS, "num_slots": GEN_SLOTS,
+           "max_len": GEN_MAX_LEN, "max_new_tokens": GEN_NEW,
+           "tokens": n_tokens, "decode_steps": steps,
+           "kernel_launches": launches,
+           "generated_tokens_per_s": n_tokens / wall,
+           "requests_per_s": GEN_REQUESTS / wall,
+           "ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "ttft_p99_ms": float(np.percentile(ttft, 99)),
+           "inter_token_p50_ms": float(np.percentile(gaps, 50)),
+           "inter_token_p99_ms": float(np.percentile(gaps, 99)),
+           "mean_slot_occupancy": occupancy,
+           "kv_slab_bytes": engine.kv_bytes,
+           "greedy_tokens_checked": checked, "greedy_ties": ties,
+           "greedy_worst_gap": worst_gap, "eos_stops": eos_stops,
+           "decode_step_8x256": decode, "card": smi}
+    log(f"[gpt_serve] {out['generated_tokens_per_s']:.1f} tokens/s, "
+        f"{out['requests_per_s']:.2f} requests/s, ttft p50 "
+        f"{out['ttft_p50_ms']:.2f} p99 {out['ttft_p99_ms']:.2f} ms, "
+        f"inter-token p50 {out['inter_token_p50_ms']:.2f} p99 "
+        f"{out['inter_token_p99_ms']:.2f} ms, on {smi}")
+    return out
+
+
 def main() -> int:
     t_start = time.monotonic()
     dev, smi = phase_device()
@@ -3048,6 +3410,10 @@ def main() -> int:
     lenet_training = phase_lenet_train(dev, smi)
     resnet_training, resnet_model, resnet_vars = phase_resnet_train(dev, smi)
     resnet_serving = phase_resnet_serve(dev, smi, resnet_model, resnet_vars)
+    del resnet_model, resnet_vars
+    gpt_training, gpt_model, gpt_vars = phase_gpt_train(dev, smi)
+    gpt_serving = phase_gpt_serve(dev, smi, gpt_model, gpt_vars)
+    del gpt_model, gpt_vars
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
         "name": "flash_fwd", "route": "cuda",
@@ -3055,7 +3421,11 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:115",
         "launches": serving["flash_fwd_launches"],
         "launches_by_path": {"serving": serving["flash_fwd_launches"],
-                             "training": training["launches"]["flash_fwd"]},
+                             "training": training["launches"]["flash_fwd"],
+                             "gpt_training":
+                                 gpt_training["launches"]["flash_fwd"],
+                             "gpt_serving": gpt_serving["kernel_launches"]
+                                 .get("flash_fwd", 0)},
         "launches_per_forward": (serving["flash_fwd_launches"]
                                  / serving["batches"]),
         "max_abs_err": main_case["max_abs_err"],
@@ -3085,6 +3455,9 @@ def main() -> int:
             "replaces": f"deeplearning4j_tpu/kernels/flash_attention.py:"
                         f"{line}",
             "launches": training["launches"][kernel],
+            "launches_by_path": {
+                "training": training["launches"][kernel],
+                "gpt_training": gpt_training["launches"][kernel]},
             "launches_per_step": (training["launches"][kernel]
                                   / training["steps"]),
             "max_abs_err": err(main_row),
@@ -3099,6 +3472,14 @@ def main() -> int:
             "bound_is": "the floor on the tensor cores: max(bytes, "
                         "operations at the dtype's tensor-core rate, "
                         "float32 as three TF32 passes)",
+            "causal_gpt": {c: {
+                "ms": r[f"{kernel}_ms"], "plain_ms": r["plain_ms"],
+                "library_ms": r["library_ms"],
+                "bound_ms": r[f"{kernel}_bound_ms"],
+                "bound_by": r[f"{kernel}_bound_by"],
+                "max_abs_err": err(r)}
+                for c, r in bwd_cases.items() if "library_ms" in r
+                and r["causal"]},
             "by_dtype": {r["dtype"]: {
                 "ms": r[f"{kernel}_ms"], "pair_ms": r["pair_ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
@@ -3129,6 +3510,8 @@ def main() -> int:
     print(json.dumps({"lenet_training": lenet_training}), flush=True)
     print(json.dumps({"resnet_training": resnet_training}), flush=True)
     print(json.dumps({"resnet_serving": resnet_serving}), flush=True)
+    print(json.dumps({"gpt_training": gpt_training}), flush=True)
+    print(json.dumps({"gpt_serving": gpt_serving}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

@@ -95,7 +95,56 @@ class ParamGroup(nn.Module):
         return self._parameters.items()
 
 
-class Bert(nn.Module):
+def flat_params(params) -> Dict[str, Any]:
+    """A params tree under the JAX package's names → the module's dotted
+    parameter names (what ``torch.func.functional_call`` takes)."""
+    return {n.replace("/", "."): t for n, t in flatten_with_names(params)}
+
+
+class TreeModule(nn.Module):
+    """A model whose parameters carry the JAX package's variable names
+    (``.`` for ``/``): its variables tree moves across unchanged."""
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    @property
+    def net(self) -> NeuralNetConfiguration:
+        return self.config.net
+
+    def variables(self) -> Dict[str, Any]:
+        """``{"params": nested dict of tensors, "state": {}}`` with the JAX
+        package's names (views of this module's parameters)."""
+        params = unflatten((n.replace(".", "/"), p.detach())
+                           for n, p in self.named_parameters())
+        return {"params": params, "state": {}}
+
+    @torch.no_grad()
+    def load_variables(self, variables: Dict[str, Any]):
+        """Copy a ``{"params": ...}`` tree (tensors or numpy arrays, JAX
+        names) into this module's parameters; names and shapes must match
+        exactly."""
+        given = dict(flatten_with_names(variables["params"]))
+        own = {n.replace(".", "/"): p for n, p in self.named_parameters()}
+        missing, extra = sorted(set(own) - set(given)), sorted(
+            set(given) - set(own))
+        if missing or extra:
+            raise KeyError(f"variables do not match the model: missing "
+                           f"{missing[:5]}, unexpected {extra[:5]}")
+        for name, p in own.items():
+            src = torch.as_tensor(given[name])
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(src.to(dtype=p.dtype, device=p.device))
+        return self
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+
+class Bert(TreeModule):
     """BERT encoder + MLM/NSP heads; ``forward(features)`` = ``encode``."""
 
     def __init__(self, config: BertConfig, device=None):
@@ -125,14 +174,6 @@ class Bert(nn.Module):
         self._act = get_activation(c.activation)
         self.init()
         self.to(device)
-
-    @property
-    def device(self) -> torch.device:
-        return self.embeddings["word"].device
-
-    @property
-    def net(self) -> NeuralNetConfiguration:
-        return self.config.net
 
     # -- construction ------------------------------------------------------
 
@@ -168,33 +209,6 @@ class Bert(nn.Module):
             getattr(self, f"layer_{i}").reset_parameters(gen)
         return self.variables()
 
-    def variables(self) -> Dict[str, Any]:
-        """``{"params": nested dict of tensors, "state": {}}`` with the JAX
-        package's names (views of this module's parameters)."""
-        params = unflatten((n.replace(".", "/"), p.detach())
-                           for n, p in self.named_parameters())
-        return {"params": params, "state": {}}
-
-    @torch.no_grad()
-    def load_variables(self, variables: Dict[str, Any]) -> "Bert":
-        """Copy a ``{"params": ...}`` tree (tensors or numpy arrays, JAX
-        names) into this module's parameters; names and shapes must match
-        exactly."""
-        given = dict(flatten_with_names(variables["params"]))
-        own = {n.replace(".", "/"): p for n, p in self.named_parameters()}
-        missing, extra = sorted(set(own) - set(given)), sorted(
-            set(given) - set(own))
-        if missing or extra:
-            raise KeyError(f"variables do not match the model: missing "
-                           f"{missing[:5]}, unexpected {extra[:5]}")
-        for name, p in own.items():
-            src = torch.as_tensor(given[name])
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(src.to(dtype=p.dtype, device=p.device))
-        return self
-
     # -- forward -----------------------------------------------------------
 
     def encode(self, features, *, train=False, generator=None):
@@ -229,9 +243,8 @@ class Bert(nn.Module):
     def apply(self, variables, features):
         """The JAX package's functional protocol: (hidden [N,T,H], state)
         computed with ``variables`` in place of this module's parameters."""
-        params = {n.replace("/", "."): t
-                  for n, t in flatten_with_names(variables["params"])}
-        hidden = torch.func.functional_call(self, params, (features,))
+        hidden = torch.func.functional_call(
+            self, flat_params(variables["params"]), (features,))
         return hidden, variables.get("state", {})
 
     def mlm_logits(self, hidden):
@@ -255,9 +268,8 @@ class Bert(nn.Module):
         dense one weighted by ``mlm_mask``. Dropout runs when a
         ``generator`` is given."""
         labels = batch["labels"]
-        flat = {n.replace("/", "."): t for n, t in flatten_with_names(params)}
         total, metrics = torch.func.functional_call(
-            self, flat, (batch["features"],),
+            self, flat_params(params), (batch["features"],),
             {"train": True, "generator": generator,
              "head": lambda hidden: self._pretrain_loss(hidden, labels)})
         return total, (state, metrics)
@@ -287,8 +299,6 @@ class Bert(nn.Module):
         metrics["loss"] = total.detach()
         return total, metrics
 
-    def num_params(self) -> int:
-        return sum(p.numel() for p in self.parameters())
 
 
 def bert_base(device=None, **kw) -> Bert:

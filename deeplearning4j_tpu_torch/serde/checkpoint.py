@@ -12,8 +12,8 @@ directory per checkpoint holding
 - ``config.json``   — the model config (``save_checkpoint`` with a model);
 
 and beside them the rotation index ``checkpoint_index.json``. A
-TrainState's ``rng`` is written as the threefry key data with the
-``key_paths``/``key_impls`` entries the JAX package writes, so a
+TrainState's ``rng`` is written as its key data (threefry2x32 or rbg) with
+the ``key_paths``/``key_impls`` entries the JAX package writes, so a
 checkpoint restores in both directions. Every array the port loads is
 checked against its manifest digest.
 """

@@ -1,19 +1,27 @@
-"""Model serving (↔ deeplearning4j_tpu.serving): the predict path.
+"""Model serving (↔ deeplearning4j_tpu.serving): the predict and generate paths.
 
 ``ModelServer`` (HTTP) → ``ModelRegistry``/``ModelEntry`` →
 ``parallel.ParallelInference`` (one worker per card, batched buckets),
-with ``warmup`` and the typed ``errors`` shared with ``ServingClient``.
+and ``:generate`` → ``GenerationEngine`` (continuous batching over KV
+slabs), with ``warmup`` and the typed ``errors`` shared with
+``ServingClient``.
 """
 
 from deeplearning4j_tpu_torch.serving.client import ServingClient
 from deeplearning4j_tpu_torch.serving.errors import (
     BadRequestError,
+    ConnectionFailedError,
     DeadlineExceededError,
     DeadlineExpiredError,
     ModelNotFoundError,
     NotReadyError,
     QueueFullError,
     ServingError,
+    SlotPreemptedError,
+)
+from deeplearning4j_tpu_torch.serving.generation import (
+    GenerationEngine,
+    GenerationStream,
 )
 from deeplearning4j_tpu_torch.serving.registry import ModelEntry, ModelRegistry
 from deeplearning4j_tpu_torch.serving.server import ModelServer
@@ -26,8 +34,10 @@ from deeplearning4j_tpu_torch.serving.warmup import (
 )
 
 __all__ = [
-    "BadRequestError", "DeadlineExceededError", "DeadlineExpiredError",
+    "BadRequestError", "ConnectionFailedError", "DeadlineExceededError",
+    "DeadlineExpiredError", "GenerationEngine", "GenerationStream",
     "ModelEntry", "ModelNotFoundError", "ModelRegistry", "ModelServer",
     "NotReadyError", "QueueFullError", "ServingClient", "ServingError",
-    "Spec", "bucket_sizes", "spec", "warmup_inference", "zeros_batch",
+    "SlotPreemptedError", "Spec", "bucket_sizes", "spec",
+    "warmup_inference", "zeros_batch",
 ]

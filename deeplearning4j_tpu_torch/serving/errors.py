@@ -14,11 +14,19 @@ _BY_CODE: Dict[str, Type["ServingError"]] = {}
 
 
 class ServingError(RuntimeError):
-    """Base class; subclasses fix ``code``/``http_status``/``retryable``."""
+    """Base class; subclasses fix ``code``/``http_status``/``retryable``.
+
+    ``retry_after_ms``: an optional backoff hint of a retryable failure,
+    rendered into the error body (and by the server as ``Retry-After``).
+    """
 
     code = "INTERNAL"
     http_status = 500
     retryable = False
+
+    def __init__(self, *args, retry_after_ms=None):
+        super().__init__(*args)
+        self.retry_after_ms = retry_after_ms
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
@@ -29,8 +37,11 @@ class ServingError(RuntimeError):
         return str(self)
 
     def to_json(self) -> dict:
-        return {"error": {"code": self.code, "message": self.message,
-                          "retryable": self.retryable}}
+        err = {"code": self.code, "message": self.message,
+               "retryable": self.retryable}
+        if self.retry_after_ms is not None:
+            err["retry_after_ms"] = self.retry_after_ms
+        return {"error": err}
 
 
 class BadRequestError(ServingError):
@@ -78,6 +89,28 @@ class DeadlineExpiredError(DeadlineExceededError):
     http_status = 504
 
 
-def error_from_code(code: str, message: str = "") -> ServingError:
+class ConnectionFailedError(ServingError):
+    """The server could not be reached, or a response (a generation
+    stream) ended without its terminal line: raised by the client, never
+    sent by the server. Retryable."""
+
+    code = "CONNECTION_FAILED"
+    http_status = 503
+    retryable = True
+
+
+class SlotPreemptedError(ServingError):
+    """A generation request's decode slot was taken by a ``critical``
+    request mid-stream: its KV slab row was released. Retryable, with
+    ``retry_after_ms`` the engine's estimate of when a slot frees up."""
+
+    code = "SLOT_PREEMPTED"
+    http_status = 503
+    retryable = True
+
+
+def error_from_code(code: str, message: str = "",
+                    retry_after_ms=None) -> ServingError:
     """Rebuild the typed exception from a wire ``code`` (client side)."""
-    return _BY_CODE.get(code, ServingError)(message)
+    return _BY_CODE.get(code, ServingError)(message,
+                                            retry_after_ms=retry_after_ms)

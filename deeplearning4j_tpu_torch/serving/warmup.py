@@ -42,13 +42,18 @@ def map_spec(fn, input_spec):
     return {k: map_spec(fn, v) for k, v in input_spec.items()}
 
 
-def bucket_sizes(max_batch: int, mode: str = "batched") -> List[int]:
+def bucket_sizes(max_batch: int, mode: str = "batched", *,
+                 lo: int = 1) -> List[int]:
     """Row counts whose buckets cover all batched traffic: powers of two
-    below ``max_batch`` plus ``max_batch`` itself. Instant mode pads
-    nothing, so only batch=1 is predictably warmable."""
+    from ``lo`` below ``max_batch`` plus ``max_batch`` itself. Instant
+    mode pads nothing, so only batch=1 is predictably warmable. ``lo`` is
+    the smallest bucket: the generation engine's KV and prompt buckets
+    floor it so that short prompts share one shape."""
     if mode == "instant":
         return [1]
-    sizes, b = [], 1
+    if lo >= max_batch:
+        return [max_batch]
+    sizes, b = [], lo
     while b < max_batch:
         sizes.append(b)
         b *= 2

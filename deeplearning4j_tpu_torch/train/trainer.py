@@ -9,9 +9,9 @@ over trees of tensors named as the JAX package names them.
 ``TrainState`` holds params, model_state, opt_state, step and rng, as in
 the JAX package. Its ``rng`` is an :class:`RngKey`, a seed from which a
 ``torch.Generator`` on the model's device is derived for every step (and
-every microbatch under ``grad_accum``); a checkpoint stores it as the
-threefry key data ``jax.random.key(seed)`` holds, so either package
-restores the other's checkpoints. The two packages draw different dropout
+every microbatch under ``grad_accum``); a checkpoint stores it as the key
+data ``jax.random.key(seed, impl=net.rng_impl)`` holds (threefry2x32 or
+rbg), so either package restores the other's checkpoints. The two packages draw different dropout
 masks from one seed.
 
 Not ported (ROADMAP): meshes and sharding, ``check_nan``,
@@ -45,18 +45,28 @@ from deeplearning4j_tpu_torch.utils.pytree import (
 
 _U32 = 0xFFFFFFFF
 THREEFRY = "threefry2x32"
+RBG = "rbg"
+# uint32 words of key data per impl: threefry's (hi, lo) of the seed; rbg's
+# the same pair twice (jax.random.key(7, impl="rbg") holds [0, 7, 0, 7])
+_KEY_WORDS = {THREEFRY: 2, RBG: 4}
 
 
 @dataclasses.dataclass(frozen=True)
 class RngKey:
     """The training rng: a seed, normalised to 32 bits as the JAX package's
-    ``jax.random.key(seed)`` keeps it (without 64-bit mode a key holds
-    ``[0, seed mod 2**32]``)."""
+    ``jax.random.key(seed, impl=...)`` keeps it (without 64-bit mode a key
+    holds ``[0, seed mod 2**32]``), and the key impl a checkpoint records
+    (``net.rng_impl``: threefry2x32 by default, or rbg). The impl changes
+    only the key data written; dropout draws from the seed either way."""
 
     seed: int
+    impl: str = THREEFRY
 
     def __post_init__(self):
         object.__setattr__(self, "seed", int(self.seed) & _U32)
+        if self.impl not in _KEY_WORDS:
+            raise ValueError(f"the port keys rngs as {sorted(_KEY_WORDS)}, "
+                             f"not {self.impl!r}")
 
     def generator(self, device, *counters: int) -> torch.Generator:
         """A generator on ``device`` seeded from (seed, *counters) — the
@@ -66,21 +76,25 @@ class RngKey:
         return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
     def key_data(self) -> np.ndarray:
-        """The uint32[2] threefry key data of ``jax.random.key(seed)``."""
-        return np.array([self.seed >> 32, self.seed & _U32], np.uint32)
-
-    impl = THREEFRY
+        """The uint32 key data of ``jax.random.key(seed, impl=impl)``."""
+        pair = [self.seed >> 32, self.seed & _U32]
+        return np.array(pair * (_KEY_WORDS[self.impl] // 2), np.uint32)
 
     @classmethod
     def from_key_data(cls, data, impl: Optional[str]) -> "RngKey":
-        if impl not in (None, THREEFRY):
-            raise ValueError(f"the port restores {THREEFRY} keys only, "
-                             f"not {impl!r}")
+        impl = THREEFRY if impl is None else impl
+        if impl not in _KEY_WORDS:
+            raise ValueError(f"the port restores {sorted(_KEY_WORDS)} keys "
+                             f"only, not {impl!r}")
         data = np.asarray(data, np.uint32).reshape(-1)
-        if data.shape != (2,):
-            raise ValueError(f"threefry key data must be uint32[2], got "
+        words = _KEY_WORDS[impl]
+        if data.shape != (words,):
+            raise ValueError(f"{impl} key data must be uint32[{words}], got "
                              f"{data.shape}")
-        return cls((int(data[0]) << 32) | int(data[1]))
+        if impl == RBG and not np.array_equal(data[:2], data[2:]):
+            raise ValueError(f"rbg key data {data.tolist()} is not a seed's "
+                             "(its two halves differ)")
+        return cls((int(data[0]) << 32) | int(data[1]), impl)
 
 
 @register_dataclass
@@ -321,7 +335,7 @@ class Trainer:
                           model_state=tree_map(own,
                                                variables.get("state", {})),
                           opt_state=self._upd_init(params), step=0,
-                          rng=RngKey(seed))
+                          rng=RngKey(seed, self.net.rng_impl or THREEFRY))
 
     def variables(self, ts: TrainState):
         return {"params": ts.params, "state": ts.model_state}

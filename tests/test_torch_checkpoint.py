@@ -165,8 +165,16 @@ def test_rotation_keeps_the_last_checkpoints(jax_run, tmp_path):
 
 def test_rng_key_data_is_jax_random_key_data():
     for seed in (0, 12345, 2**31 - 1, 2**32 - 1, -3, 2**33 + 5):
-        want = np.asarray(jax.random.key_data(jax.random.key(seed)))
-        np.testing.assert_array_equal(RngKey(seed).key_data(), want)
-        assert RngKey.from_key_data(want, "threefry2x32") == RngKey(seed)
-    with pytest.raises(ValueError, match="threefry"):
-        RngKey.from_key_data(np.zeros(4, np.uint32), "rbg")
+        for impl in ("threefry2x32", "rbg"):
+            key = jax.random.key(seed, impl=impl)
+            assert str(jax.random.key_impl(key)) == impl
+            want = np.asarray(jax.random.key_data(key))
+            np.testing.assert_array_equal(RngKey(seed, impl).key_data(),
+                                          want)
+            assert RngKey.from_key_data(want, impl) == RngKey(seed, impl)
+    with pytest.raises(ValueError, match="unsafe_rbg"):
+        RngKey.from_key_data(np.zeros(4, np.uint32), "unsafe_rbg")
+    with pytest.raises(ValueError, match="uint32\\[4\\]"):
+        RngKey.from_key_data(np.zeros(2, np.uint32), "rbg")
+    with pytest.raises(ValueError, match="halves"):
+        RngKey.from_key_data(np.array([0, 1, 0, 2], np.uint32), "rbg")

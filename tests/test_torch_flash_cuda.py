@@ -85,6 +85,22 @@ CASES = {
     # BERT's longest sequences (phase 2, T = 512): eight key tiles summed
     # into each output row
     "long_t512_fp32": (2, 2, 512, 512, 64, torch.float32, False, [512, 300]),
+    # GPT-2-small's causal attention (12 heads of 64): the training shape
+    # (batch 8 x 512, eight 64-row tiles, the early loop end and the
+    # diagonal tiles' masks over all of them), a ragged causal batch with
+    # a dead row, and GPT-2's context of 1024 (the length from which the
+    # JAX package runs its Pallas kernel)
+    "gpt_causal_t512_fp32": (8, 12, 512, 512, 64, torch.float32, True, None),
+    "gpt_causal_t512_bf16": (8, 12, 512, 512, 64, torch.bfloat16, True,
+                             None),
+    "gpt_causal_ragged_t512_fp32": (4, 12, 512, 512, 64, torch.float32,
+                                    True, [512, 377, 63, 0]),
+    "gpt_causal_ragged_t512_bf16": (4, 12, 512, 512, 64, torch.bfloat16,
+                                    True, [512, 377, 63, 0]),
+    "gpt_causal_t1024_fp32": (4, 12, 1024, 1024, 64, torch.float32, True,
+                              None),
+    "gpt_causal_t1024_bf16": (4, 12, 1024, 1024, 64, torch.bfloat16, True,
+                              None),
 }
 BF16_CASES = sorted(c for c in CASES if CASES[c][5] == torch.bfloat16)
 FP32_CASES = sorted(c for c in CASES if CASES[c][5] == torch.float32)

@@ -60,6 +60,13 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.data.mnist",
     "deeplearning4j_tpu_torch.evaluation",
     "deeplearning4j_tpu_torch.evaluation.classification",
+    "deeplearning4j_tpu_torch.models.gpt",
+    "deeplearning4j_tpu_torch.nn.generation",
+    "deeplearning4j_tpu_torch.serving.generation",
+    "deeplearning4j_tpu_torch.serving.overload",
+    "deeplearning4j_tpu_torch.serving.errors",
+    "deeplearning4j_tpu_torch.serving.client",
+    "deeplearning4j_tpu_torch.serving.warmup",
 ]
 
 
@@ -91,7 +98,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         "from deeplearning4j_tpu_torch.models.zoo.classic import "
         "text_generation_lstm\n"
         "from deeplearning4j_tpu_torch.models.zoo import lenet, resnet50\n"
-        "calls = [default_device, lambda: bert_tiny(),\n"
+        "from deeplearning4j_tpu_torch.models.gpt import gpt_tiny\n"
+        "calls = [default_device, lambda: bert_tiny(), lambda: gpt_tiny(),\n"
         "         lambda: text_generation_lstm(),\n"
         "         lambda: lenet(), lambda: resnet50(),\n"
         "         lambda: ParallelInference(lambda v, x: x, {}),\n"
@@ -107,7 +115,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         "print('refused', len(calls))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr + out.stdout
-    assert out.stdout.strip() == "refused 7"
+    assert out.stdout.strip() == "refused 8"
 
 
 def test_explicit_cpu_is_honoured():
