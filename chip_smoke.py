@@ -21,10 +21,11 @@ caught:
    in 3xTF32 on mma.sync, whose bound is also given on the CUDA cores).
    The forward at the serving shape and at the training shape (both
    dtypes) and at GPT-2-small's causal shapes (T = S = 512 and 1024), its
-   row LSE held against the plain one; the two backward kernels at the
-   same training shapes (both dtypes); the error of SDPA's
-   backward against the same plain version is logged beside the
-   kernels'.
+   row LSE held against the plain one; the two backward kernels and the
+   delta pre-pass (flash_bwd_delta against reference_delta, per row to
+   TOL_DELTA of the row's sum of |O dO|) at the same training shapes
+   (both dtypes); the error of SDPA's backward against the same plain
+   version is logged beside the kernels'.
 4. slice — BERT-base at full width (12 layers, width 768, 12 heads, vocab
    30522), weights drawn from a seed on the card, served by the port's
    ModelServer → ModelRegistry → ParallelInference (batched, max batch 8)
@@ -199,6 +200,10 @@ LSE_DEAD = -1e20
 # kernels' 3xTF32 products (about 21 bits of each operand), bfloat16 also
 # by the final rounding of each gradient to bf16 (eps 2^-8).
 TOL_BWD = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# flash_bwd_delta vs reference_delta, per row, as a fraction of the row's
+# sum of |O dO|: both multiply the same float32 values (bf16 x bf16 is
+# exact in float32) and sum D products in float32 in another order
+TOL_DELTA = 1e-6
 # served BERT-base vs the same model with plain attention, float32: 12
 # layers pass the kernel's ~1e-6 differences on through LayerNorms.
 TOL_PROBS = 1e-4
@@ -628,6 +633,21 @@ def _bound_bwd(kernel, b, h, t, s, d, dtype, causal, lengths):
     return ms, by, ops, nbytes, cores_ms
 
 
+def _bound_delta(b, h, t, d, dtype):
+    """Least time for flash_bwd_delta's work (rowsum(dO·O) over B·H·T
+    rows): O and dO read once, delta written once in float32; 2·D
+    operations a row, at the float32 CUDA cores' rate (67 TFLOP/s).
+    Returns (ms, bound by, operations, bytes)."""
+    es = torch.finfo(dtype).bits // 8
+    rows = b * h * t
+    nbytes = 2 * es * rows * d + 4 * rows
+    ops = 2.0 * d * rows
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", ops, nbytes)
+
+
 # (name, B, H, T, S, D, dtype, causal, key lengths per batch row, timed);
 # the training shape's lengths are those of the first training batch
 BWD_CASES = [
@@ -679,14 +699,17 @@ BWD_CASES = [
 
 
 def phase_kernels_bwd(dev, train_lengths):
-    """Both backward kernels against ``reference_attention_bwd`` on the
-    same inputs, forward output and LSE, SDPA's backward's error against
-    the same plain version logged beside theirs; then timed at the
-    training shape beside SDPA's backward."""
+    """The delta pre-pass against ``reference_delta`` and both backward
+    kernels against ``reference_attention_bwd`` on the same inputs,
+    forward output and LSE, SDPA's backward's error against the same
+    plain version logged beside theirs; then timed at the training shape
+    beside SDPA's backward."""
     from deeplearning4j_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda,
         flash_attention_cuda,
+        flash_bwd_delta_cuda,
         reference_attention_bwd,
+        reference_delta,
     )
 
     results = {}
@@ -704,9 +727,15 @@ def phase_kernels_bwd(dev, train_lengths):
                                        causal=causal)
         want = reference_attention_bwd(q, k, v, mask, out, lse, dout,
                                        causal=causal)
+        delta = flash_bwd_delta_cuda(out, dout)
+        delta_want = reference_delta(out, dout)
         torch.cuda.synchronize()
-        errs = {}
-        ok = True
+        delta_err = (delta - delta_want).abs()
+        delta_frac = float((delta_err / (out.float() * dout.float()).abs()
+                            .sum(-1).reshape(delta.shape).clamp(min=1e-30))
+                           .max())
+        errs = {"delta": float(delta_err.max())}
+        ok = delta_frac <= TOL_DELTA
         for which, a, w in zip(("dq", "dk", "dv"), got, want):
             err = float((a.float() - w.float()).abs().max())
             ref = max(1.0, float(w.float().abs().max()))
@@ -719,7 +748,9 @@ def phase_kernels_bwd(dev, train_lengths):
         sdpa = _sdpa_bwd_err(q, k, v, mask, dout, causal, want)
         log(f"[kernels] bwd {name}: max_abs_err dq {errs['dq']:.3e} dk "
             f"{errs['dk']:.3e} dv {errs['dv']:.3e} (tol "
-            f"{TOL_BWD[dtype]:.0e} x max(1, |plain|)) zero_on_masked_rows="
+            f"{TOL_BWD[dtype]:.0e} x max(1, |plain|)), delta "
+            f"{errs['delta']:.3e} ({delta_frac:.2e} of the row's sum of "
+            f"|O dO|, tol {TOL_DELTA:.0e}) zero_on_masked_rows="
             f"{dead_zero} -> {'ok' if ok else 'FAIL'}; sdpa backward vs "
             f"the same plain: dq {sdpa['dq']:.3e} dk {sdpa['dk']:.3e} dv "
             f"{sdpa['dv']:.3e}")
@@ -728,7 +759,8 @@ def phase_kernels_bwd(dev, train_lengths):
                              "failed")
         row = {"shape": [b, h, t, s, d], "dtype": str(dtype)[6:],
                "causal": causal,
-               "max_abs_err": errs, "sdpa_max_abs_err": sdpa}
+               "max_abs_err": errs, "delta_err_frac": delta_frac,
+               "sdpa_max_abs_err": sdpa}
         if timed:
             row.update(_time_bwd(q, k, v, mask, out, lse, dout, lengths,
                                  causal))
@@ -736,7 +768,11 @@ def phase_kernels_bwd(dev, train_lengths):
                 f", {kn[10:]} {row[f'{kn}_bound_cuda_cores_ms']:.4f} on the"
                 " CUDA cores" for kn in ("flash_bwd_dkv", "flash_bwd_dq")
                 if row[f"{kn}_bound_cuda_cores_ms"] is not None)
-            log(f"[kernels] bwd {name}: dkv {row['flash_bwd_dkv_ms']:.4f} ms "
+            log(f"[kernels] bwd {name}: delta {row['flash_bwd_delta_ms']:.4f}"
+                f" ms (bound {row['flash_bwd_delta_bound_ms']:.4f}, "
+                f"{row['flash_bwd_delta_bound_by']}; plain "
+                f"{row['delta_plain_ms']:.4f}), dkv "
+                f"{row['flash_bwd_dkv_ms']:.4f} ms "
                 f"(bound {row['flash_bwd_dkv_bound_ms']:.4f}, "
                 f"{row['flash_bwd_dkv_bound_by']}), dq "
                 f"{row['flash_bwd_dq_ms']:.4f} ms (bound "
@@ -775,12 +811,17 @@ def _sdpa_bwd_err(q, k, v, mask, dout, causal, want):
 
 def _time_bwd(q, k, v, mask, out, lse, dout, lengths, causal):
     """Times at one shape: each backward kernel's device time per launch
-    (profiler), the wrapper's pair of launches with its delta reduction,
-    the plain backward and SDPA's backward (CUDA events), and the device
-    time of each kernel SDPA's backward launches (profiler)."""
+    (profiler; ``delta_ms`` is the pair's device time outside dkv and dq,
+    the delta pre-pass), the wrapper's launches with its delta, the plain
+    backward and SDPA's backward (CUDA events), the device time of each
+    kernel SDPA's backward launches (profiler), and the delta alone: the
+    kernel, ``reference_delta`` and, for float32, ``torch.linalg.vecdot``
+    (CUDA events; bf16 has no one call that sums in float32)."""
     from deeplearning4j_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda,
+        flash_bwd_delta_cuda,
         reference_attention_bwd,
+        reference_delta,
     )
 
     b, h, t, d = q.shape
@@ -805,15 +846,27 @@ def _time_bwd(q, k, v, mask, out, lse, dout, lengths, causal):
     row["library_device_us_by_kernel"] = {
         k[:80]: us for k, us in _device_us_by_kernel(library,
                                                       iters=20).items()}
-    for kernel in ("flash_bwd_dkv", "flash_bwd_dq"):
+    for kernel in ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq"):
         row[f"{kernel}_ms"] = sum(us for name, us in by_kernel.items()
                                   if f"{kernel}_kernel" in name) / 1e3
+    row["delta_ms"] = (sum(by_kernel.values()) / 1e3
+                       - row["flash_bwd_dkv_ms"] - row["flash_bwd_dq_ms"])
+    for kernel in ("flash_bwd_dkv", "flash_bwd_dq"):
         bound_ms, bound_by, ops, nbytes, cores_ms = _bound_bwd(
             kernel, b, h, t, s, d, q.dtype, causal, lengths)
         row.update({f"{kernel}_bound_ms": bound_ms,
                     f"{kernel}_bound_by": bound_by,
                     f"{kernel}_bound_cuda_cores_ms": cores_ms,
                     f"{kernel}_ops": ops, f"{kernel}_bytes": nbytes})
+    bound_ms, bound_by, ops, nbytes = _bound_delta(b, h, t, d, q.dtype)
+    row.update({"flash_bwd_delta_bound_ms": bound_ms,
+                "flash_bwd_delta_bound_by": bound_by,
+                "flash_bwd_delta_ops": ops, "flash_bwd_delta_bytes": nbytes})
+    row["delta_kernel_ms"] = _time_ms(lambda: flash_bwd_delta_cuda(out, dout))
+    row["delta_plain_ms"] = _time_ms(lambda: reference_delta(out, dout))
+    row["delta_library_ms"] = (
+        _time_ms(lambda: torch.linalg.vecdot(out, dout, dim=-1))
+        if q.dtype == torch.float32 else None)
     return row
 
 
@@ -1047,6 +1100,11 @@ def _check_grads(tag, loss_k, loss_p, g_kernel, g_plain):
     return loss_rel, worst_name, worst
 
 
+# the flash kernels a training step launches, each once per layer
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_delta", "flash_bwd_dkv",
+                 "flash_bwd_dq")
+
+
 def phase_train(dev, smi, batches):
     from deeplearning4j_tpu_torch.kernels import _dispatch
     from deeplearning4j_tpu_torch.kernels.flash_attention import (
@@ -1076,8 +1134,7 @@ def phase_train(dev, smi, batches):
     loss_k, g_kernel = _loss_and_grads(trainer, ts0.params, on_dev[0], dev,
                                        SEED)
     counts = _dispatch.launch_counts()
-    want = {"flash_fwd": layers, "flash_bwd_dkv": layers,
-            "flash_bwd_dq": layers}
+    want = {k: layers for k in FLASH_KERNELS}
     if counts != want:
         raise SystemExit(f"chip_smoke: one loss+grad launched {counts}, "
                          f"want {want}")
@@ -1127,16 +1184,14 @@ def phase_train(dev, smi, batches):
     # where a mixed-precision step's time goes (the configuration of
     # bench.py's bench_bert, mixed_precision=True)
     mp_breakdown = _step_breakdown(mp_trainer, mts, on_dev[0],
-                                   ("flash_fwd", "flash_bwd_dkv",
-                                    "flash_bwd_dq"))
+                                   FLASH_KERNELS)
     log(f"[train] one mixed-precision step: {mp_breakdown}")
     _require_kernel_time("mixed-precision step", mp_breakdown)
     del mts, mp_trainer
 
     # 5. where one step's time goes
     breakdown = _step_breakdown(trainer, ts, on_dev[0],
-                                ("flash_fwd", "flash_bwd_dkv",
-                                 "flash_bwd_dq"))
+                                FLASH_KERNELS)
     log(f"[train] one step: {breakdown}")
     _require_kernel_time("float32 step", breakdown)
     tokens = TRAIN_BATCH * TRAIN_T
@@ -3153,8 +3208,7 @@ def phase_gpt_train(dev, smi):
                          "is not bench_gpt's")
     batches = _gpt_batches(cfg.vocab_size)
     on_dev = [batch_to_device(b, dev) for b in batches]
-    want = {"flash_fwd": layers, "flash_bwd_dkv": layers,
-            "flash_bwd_dq": layers}
+    want = {k: layers for k in FLASH_KERNELS}
 
     # 1. one float32 loss and gradient, causal kernels vs plain attention,
     # with the dropout masks of fit's first step
@@ -3199,8 +3253,7 @@ def phase_gpt_train(dev, smi):
 
     # 3. where a mixed-precision step's time goes
     breakdown = _step_breakdown(mp_trainer, ts, on_dev[0],
-                                ("flash_fwd", "flash_bwd_dkv",
-                                 "flash_bwd_dq"))
+                                FLASH_KERNELS)
     log(f"[gpt_train] one mixed-precision step: {breakdown}")
     _require_kernel_time("GPT mixed-precision step", breakdown)
     step_ms = fit["median_step_ms"]
@@ -3384,6 +3437,49 @@ def phase_gpt_serve(dev, smi, model, variables):
     return out
 
 
+def _delta_entry(bwd_cases, training, gpt_training, smi) -> dict:
+    """The kernels line's entry of flash_bwd_delta: the main row is the
+    float32 BERT-base training shape, as for dkv and dq."""
+    timed = {c: r for c, r in bwd_cases.items() if "flash_bwd_delta_ms" in r}
+    main_row = timed["bert_base_train_fp32"]
+    return {
+        "name": "flash_bwd_delta", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/kernels/csrc/flash_bwd.cu",
+        "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:389",
+        "replaces_is": "the rowsum(dO*O) that _flash_bwd_impl leaves to "
+                       "XLA before its two Pallas kernels (no pallas_call)",
+        "launches": training["launches"]["flash_bwd_delta"],
+        "launches_by_path": {
+            "training": training["launches"]["flash_bwd_delta"],
+            "gpt_training": gpt_training["launches"]["flash_bwd_delta"]},
+        "launches_per_step": (training["launches"]["flash_bwd_delta"]
+                              / training["steps"]),
+        "max_abs_err": main_row["max_abs_err"]["delta"],
+        "max_abs_err_by_case": {c: r["max_abs_err"]["delta"]
+                                for c, r in bwd_cases.items()},
+        "err_frac_by_case": {c: r["delta_err_frac"]
+                             for c, r in bwd_cases.items()},
+        "ms": main_row["flash_bwd_delta_ms"],
+        "kernel_event_ms": main_row["delta_kernel_ms"],
+        "plain_ms": main_row["delta_plain_ms"],
+        "library_ms": main_row["delta_library_ms"],
+        "library_is": "torch.linalg.vecdot (float32; in bf16 it sums into "
+                      "bf16, not the same function)",
+        "bound_ms": main_row["flash_bwd_delta_bound_ms"],
+        "bound_by": main_row["flash_bwd_delta_bound_by"],
+        "by_case": {c: {
+            "ms": r["flash_bwd_delta_ms"],
+            "kernel_event_ms": r["delta_kernel_ms"],
+            "plain_ms": r["delta_plain_ms"],
+            "library_ms": r["delta_library_ms"],
+            "bound_ms": r["flash_bwd_delta_bound_ms"],
+            "bound_by": r["flash_bwd_delta_bound_by"]}
+            for c, r in timed.items()},
+        "ms_is": "device time per launch (torch.profiler)",
+        "shape": main_row["shape"], "card": smi,
+    }
+
+
 def main() -> int:
     t_start = time.monotonic()
     dev, smi = phase_device()
@@ -3496,6 +3592,7 @@ def main() -> int:
                                        "backward",
             "shape": main_row["shape"], "card": smi,
         })
+    entries.append(_delta_entry(bwd_cases, training, gpt_training, smi))
     entries += _lstm_entries(lstm_cases, char_serving, char_training, smi)
     entries += _gru_entries(gru_cases, gru_serving, gru_training, bitmap,
                             smi)

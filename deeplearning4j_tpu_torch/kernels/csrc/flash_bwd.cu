@@ -9,9 +9,11 @@
 //   dp = dO . v,  dS = p * (dp - delta) * scale,  delta = rowsum(dO * O)
 //   dV = P^T dO,  dK = dS^T Q,  dQ = dS K
 // with the key-padding mask, the ragged tails and the bottom-right-aligned
-// causal mask (query i sees key j iff i + (S - T) >= j). delta is computed
-// by the caller (a torch op, as the JAX package computes it outside its
-// kernels). Two kernels, as in the JAX package, so that every gradient
+// causal mask (query i sees key j iff i + (S - T) >= j). delta is the
+// third kernel of this file, flash_bwd_delta (below), a pre-pass the
+// wrapper launches first, where the JAX package sums it with XLA outside
+// its kernels (_flash_bwd_impl, flash_attention.py:389). Two gradient
+// kernels, as in the JAX package, so that every gradient
 // element has exactly one writer: deterministic, no atomics. Masked and
 // ragged keys get dK = dV = 0; fully masked query rows (whose LSE the
 // forward writes as about -7e29) get dQ = 0, never NaN: every masked
@@ -77,26 +79,43 @@
 // bfloat16 (flash_bwd_dkv_kernel_wgmma, flash_bwd_dq_kernel_wgmma): every
 // product on the tensor cores (wgmma m64nNk16, bf16 operands, float32
 // accumulators). At the training shape the same 3.2 and 2.4 GFLOP take
-// 3.3 and 2.5 us at 989 TFLOP/s, so the bytes bound them: q, k, v, dO and
-// the outputs once in bf16, the LSE and delta in float32 (0.0112 and
-// 0.0093 ms at 3.35 TB/s, as chip_smoke.py counts them). What the design
-// does about it: each operand tile is read from device memory once per
-// block and the [T, S] tiles (S, dP, P, dS) live only in registers.
+// 3.3 and 2.5 us at 989 TFLOP/s, so the bytes bound them on paper: q, k,
+// v, dO and the outputs once in bf16, the LSE and delta in float32
+// (0.0112 and 0.0093 ms at 3.35 TB/s, as chip_smoke.py counts them).
+// What holds them on the card is instruction issue on the CUDA cores: a
+// 64 x 64 tile pair is 16 (dkv) or 12 (dq) wgmmas, about 512 tensor-core
+// clocks, against some 32 pairs a thread of P/dS math. Overlapping the
+// two products of a tile with the next tile's scores inside the
+// warpgroup (the FlashAttention-3 order) gave the same bits but ran 3-5%
+// slower on an H100 (PERF.md). So the design keeps that math short
+// and the SM full:
+// - p is computed for every pair and selected, no branch per pair; 2^x is
+//   one ex2.approx.ftz; a tile pair inside the causal triangle and inside
+//   T and S tests no position, only the flags of the thread's rows
+//   (p_ds_keys / ds_queries with kMasked false);
+// - dkv at D = 32 and 64 is held to 168 registers so that three blocks
+//   share an SM (52 bytes spill at D = 64); at D = 128 it takes only the
+//   masked path, one copy of the math (4 bytes spill);
+// - each operand tile is read from device memory once per block and the
+//   [T, S] tiles (S, dP, P, dS) live only in registers.
 // - flash_bwd_dkv: one warpgroup (128 threads) owns a 64-key tile of one
 //   (batch*head); grid (B*H, ceil(S/64)). K and V are loaded once; the
 //   64-row query tiles (Q, dO, LSE, delta) stream through a two-stage
 //   cp.async ring, the next tile's load in flight under this tile's
-//   products. Per tile: S^T = K Q^T and dP^T = V dO^T (A and B K-major in
-//   shared memory); P^T and dS^T formed and masked in the accumulator
-//   registers, rounded to bf16 in place, and fed as the register A
-//   operand of dV += P^T dO and dK += dS^T Q (B = dO or Q, MN-major). A
-//   64 x 64 float32 accumulator read as four k16 slices has the layout of
-//   the A fragment, so no shuffle is needed (the FlashAttention-3
-//   arrangement).
+//   products. Causal: key tile y walks the query tiles from the diagonal
+//   down, so the heaviest blocks (y = 0) start first. Per tile: S^T =
+//   K Q^T and dP^T = V dO^T (A and B K-major in shared memory); P^T and
+//   dS^T formed and masked in the accumulator registers, rounded to bf16
+//   in place, and fed as the register A operand of dV += P^T dO and dK +=
+//   dS^T Q (B = dO or Q, MN-major). A 64 x 64 float32 accumulator read as
+//   four k16 slices has the layout of the A fragment, so no shuffle is
+//   needed (the FlashAttention-3 arrangement).
 // - flash_bwd_dq: one warpgroup owns a 64-row query tile; grid (B*H,
 //   ceil(T/64)). Q, dO, LSE and delta are loaded once; the 64-key tiles
 //   (K, V) stream through the ring, tiles of masked keys and tiles past
-//   the causal diagonal skipped. Per tile: S = Q K^T, dP = dO V^T, dS in
+//   the causal diagonal skipped. Causal: blockIdx.y runs the query tiles
+//   last to first, so the tiles that walk the most key tiles start first
+//   and the grid's tail is light. Per tile: S = Q K^T, dP = dO V^T, dS in
 //   registers as bf16, dQ += dS K (B = K, MN-major).
 // Shared tiles sit in wgmma's swizzled layouts (128-byte swizzle for
 // D = 64 and 128, 64-byte for D = 32, whose bf16 row is 64 bytes); rows
@@ -105,6 +124,13 @@
 // and dS in bf16 into their products, float32 accumulation, each gradient
 // rounded once to bf16 at the store. The tile helpers are shared with
 // flash_fwd.cu (wgmma_sm90.cuh).
+//
+// flash_bwd_delta (both dtypes): delta[r] = sum_d float(O) * float(dO),
+// float32, over the B*H*T rows. It moves O and dO once (12.6 MB in bf16
+// at the BERT-base and GPT-2-small training shapes, 3.8 us at 3.35 TB/s)
+// and does 2*D operations a row, so the bytes bound it. Each thread reads
+// one 16-byte chunk of each, 4 to 32 neighbouring lanes cover a row
+// (coalesced), the lanes sum with warp shuffles, and one lane writes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,11 +185,84 @@ constexpr size_t smem_bytes() {
   return 6 * Tile<D>::kBytes + 1280 + 1024;
 }
 
+// The P/dS math, which bounds both kernels (see the top of the file).
+
+// dkv: P^T and dS^T of the query tile at q0 in place (sacc, dpacc:
+// [key][query]), masked pairs exactly 0. The thread's keys are key0 and
+// key0 + 8 (flags kv0, kv1), its query columns q0 + col0 + 8j (+1).
+template <bool kMasked>
+__device__ __forceinline__ void p_ds_keys(float (&sacc)[32],
+                                          float (&dpacc)[32],
+                                          const float* lse_t,
+                                          const float* dlt_t, int q0,
+                                          int key0, bool kv0, bool kv1,
+                                          int col0, int t_len, int offset,
+                                          bool causal, float scale_log2,
+                                          float scale) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + col0;  // query columns c, c + 1
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+    const float2 d2 = *reinterpret_cast<const float2*>(dlt_t + c);
+    const float lse2[2] = {fmaxf(l2.x, kLseFloor) * kLog2e,
+                           fmaxf(l2.y, kLseFloor) * kLog2e};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      bool ok = (e >> 1) ? kv1 : kv0;
+      if (kMasked) {
+        const int qi = q0 + c + (e & 1);
+        ok = ok & (qi < t_len) &
+             (!causal | (qi + offset >= key0 + 8 * (e >> 1)));
+      }
+      const float p =
+          ok ? tf32::ex2(fmaf(sacc[i], scale_log2, -lse2[e & 1])) : 0.f;
+      dpacc[i] = p * (dpacc[i] - ((e & 1) ? d2.y : d2.x)) * scale;
+      sacc[i] = p;
+    }
+  }
+}
+
+// dq: dS of the key tile at k0 in place (sacc, dpacc: [query][key]),
+// masked pairs exactly 0. The thread's query rows are qrow0 and qrow0 + 8
+// (live, lse2, dlt), its key columns k0 + col0 + 8j (+1), their flags in
+// valid.
+template <bool kMasked>
+__device__ __forceinline__ void ds_queries(const float (&sacc)[32],
+                                           float (&dpacc)[32],
+                                           const float* valid, int k0,
+                                           int qrow0, const bool (&live)[2],
+                                           const float (&lse2)[2],
+                                           const float (&dlt)[2], int col0,
+                                           int offset, bool causal,
+                                           float scale_log2, float scale) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + col0;  // key columns c, c + 1
+    float2 kv = make_float2(1.f, 1.f);
+    if (kMasked) kv = *reinterpret_cast<const float2*>(valid + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, h = e >> 1;
+      bool ok = live[h];
+      if (kMasked) {
+        const int key = k0 + c + (e & 1);
+        ok = ok & (((e & 1) ? kv.y : kv.x) > 0.f) &
+             (!causal | (qrow0 + 8 * h + offset >= key));
+      }
+      const float p =
+          ok ? tf32::ex2(fmaf(sacc[i], scale_log2, -lse2[h])) : 0.f;
+      dpacc[i] = p * (dpacc[i] - dlt[h]) * scale;
+    }
+  }
+}
+
 // q/dO [BH, T, D], k/v [BH, S, D], dk/dv [BH, S, D] contiguous bf16;
 // key_mask [B, S] float (nullptr = none); lse/delta [BH, T] float.
 // Grid: x = batch*head, y = 64-key tile.
+// Three blocks an SM at D <= 64 (168 registers).
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
 flash_bwd_dkv_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -255,25 +354,14 @@ flash_bwd_dkv_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
       // P^T and dS^T in place, masked pairs exactly 0
       const float* lse_t = stats + 2 * st * kRows;
       const float* dlt_t = lse_t + kRows;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + col0;  // query columns c, c + 1
-        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
-        const float2 d2 = *reinterpret_cast<const float2*>(dlt_t + c);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * j + e;
-          const int qi = q0 + c + (e & 1);
-          const int key = k0 + row0 + 8 * (e >> 1);
-          const bool ok = ((e >> 1) ? kv1 : kv0) && qi < t_len &&
-                          (!causal || qi + offset >= key);
-          const float lse2 = fmaxf((e & 1) ? l2.y : l2.x, kLseFloor) * kLog2e;
-          const float p =
-              ok ? exp2f(fmaf(sacc[i], scale_log2, -lse2)) : 0.f;
-          dpacc[i] = p * (dpacc[i] - ((e & 1) ? d2.y : d2.x)) * scale;
-          sacc[i] = p;
-        }
-      }
+      // at D = 128 one copy of the math keeps the spills down
+      if (D < 128 && q0 + kRows <= t_len &&
+          (!causal || q0 + offset >= k0 + kRows - 1))
+        p_ds_keys<false>(sacc, dpacc, lse_t, dlt_t, q0, k0 + row0, kv0, kv1,
+                         col0, t_len, offset, causal, scale_log2, scale);
+      else
+        p_ds_keys<true>(sacc, dpacc, lse_t, dlt_t, q0, k0 + row0, kv0, kv1,
+                        col0, t_len, offset, causal, scale_log2, scale);
       uint32_t pf[kSlices][4], dsf[kSlices][4];
       to_frags(sacc, pf);
       to_frags(dpacc, dsf);
@@ -331,7 +419,8 @@ flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
   float* kvalid = dlt_q + kRows;  // [2][kRows]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int bh = blockIdx.x, b = bh / heads, q0 = blockIdx.y * kRows;
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int bh = blockIdx.x, b = bh / heads, q0 = tile * kRows;
   const int offset = s_len - t_len;
   const size_t bh_t = static_cast<size_t>(bh) * t_len;
   const size_t bh_s = static_cast<size_t>(bh) * s_len;
@@ -345,9 +434,10 @@ flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
   const int k_end =
       causal ? min(s_len, min(q0 + kRows, t_len) + offset) : s_len;
   // The first key tile at or after k_from with a key that is not masked
-  // (k_end if none), its key flags written to valid[kRows]. The decision
-  // is the same for every thread of the block.
-  auto next_live = [&](int k_from, float* valid) {
+  // (k_end if none), its key flags written to valid[kRows] and whether
+  // all 64 are live to all_live. The decision is the same for every
+  // thread of the block.
+  auto next_live = [&](int k_from, float* valid, bool& all_live) {
     for (int kt = k_from; kt < k_end; kt += kRows) {
       bool ok = false;
       if (tid < kRows) {
@@ -357,7 +447,11 @@ flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
               key_mask[static_cast<size_t>(b) * s_len + key] > 0.f);
         valid[tid] = ok ? 1.f : 0.f;
       }
-      if (__syncthreads_or(ok)) return kt;
+      const int live_keys = __syncthreads_count(ok);
+      if (live_keys > 0) {
+        all_live = live_keys == kRows;
+        return kt;
+      }
     }
     return k_end;
   };
@@ -378,11 +472,13 @@ flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < kAcc; ++i) dq_acc[nb][i] = 0.f;
   const float scale_log2 = scale * kLog2e;
 
-  int k0 = next_live(0, kvalid);
+  bool all_live = false, next_all_live = false;
+  int k0 = next_live(0, kvalid, all_live);
   if (k0 < k_end) load_kv(k0, 0);
   cp_async_commit();
   for (int st = 0; k0 < k_end; st ^= 1) {
-    const int k_next = next_live(k0 + kRows, kvalid + (st ^ 1) * kRows);
+    const int k_next =
+        next_live(k0 + kRows, kvalid + (st ^ 1) * kRows, next_all_live);
     if (k_next < k_end) load_kv(k_next, st ^ 1);
     cp_async_commit();
     cp_async_wait<1>();  // Q/dO and this key tile have landed
@@ -416,20 +512,12 @@ flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
       lse2[h] = fmaxf(lse_q[r], kLseFloor) * kLog2e;
       dlt[h] = dlt_q[r];
     }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + col0;  // key columns c, c + 1
-      const float2 kv = *reinterpret_cast<const float2*>(valid + c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * j + e, h = e >> 1;
-        const int key = k0 + c + (e & 1);
-        const bool ok = live[h] && ((e & 1) ? kv.y : kv.x) > 0.f &&
-                        (!causal || q0 + row0 + 8 * h + offset >= key);
-        const float p = ok ? exp2f(fmaf(sacc[i], scale_log2, -lse2[h])) : 0.f;
-        dpacc[i] = p * (dpacc[i] - dlt[h]) * scale;
-      }
-    }
+    if (all_live && (!causal || q0 + offset >= k0 + kRows - 1))
+      ds_queries<false>(sacc, dpacc, valid, k0, q0 + row0, live, lse2, dlt,
+                        col0, offset, causal, scale_log2, scale);
+    else
+      ds_queries<true>(sacc, dpacc, valid, k0, q0 + row0, live, lse2, dlt,
+                       col0, offset, causal, scale_log2, scale);
     uint32_t dsf[kSlices][4];
     to_frags(dpacc, dsf);
 
@@ -445,6 +533,7 @@ flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
     for (int nb = 0; nb < kNB; ++nb) fence_regs(dq_acc[nb]);
     __syncthreads();  // this stage is read: the next load may reuse it
     k0 = k_next;
+    all_live = next_all_live;
   }
   cp_async_wait<0>();
 
@@ -784,6 +873,82 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace tf32
 
+// -- delta = rowsum(dO * O): the pre-pass both dtypes' kernels read -----------
+
+namespace delta_pass {
+
+constexpr int kThreads = 256;
+
+// The float32 sum of the products of one 16-byte chunk of o and of g.
+__device__ __forceinline__ float dot_chunk(const uint4& a, const uint4& b,
+                                           const float*) {
+  return fmaf(__uint_as_float(a.w), __uint_as_float(b.w),
+              fmaf(__uint_as_float(a.z), __uint_as_float(b.z),
+                   fmaf(__uint_as_float(a.y), __uint_as_float(b.y),
+                        __uint_as_float(a.x) * __uint_as_float(b.x))));
+}
+
+__device__ __forceinline__ float dot_chunk(const uint4& a, const uint4& b,
+                                           const __nv_bfloat16*) {
+  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(b2[i]);
+    sum = fmaf(x.y, y.y, fmaf(x.x, y.x, sum));
+  }
+  return sum;
+}
+
+// delta[r] = sum_d float(o[r, d]) * float(g[r, d]) over rows r < rows of
+// [rows, D] contiguous o and g. Each thread reads one 16-byte chunk of
+// each (kLanes consecutive lanes cover a row), sums its products in
+// float32, and the row's lanes add theirs with warp shuffles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ g,
+                       float* __restrict__ delta, int rows) {
+  constexpr int kLanes = D * static_cast<int>(sizeof(T)) / 16;
+  static_assert(kLanes >= 4 && kLanes <= 32, "a row spans 4 to 32 lanes");
+  const size_t chunk = static_cast<size_t>(blockIdx.x) * kThreads +
+                       threadIdx.x;
+  const size_t row = chunk / kLanes;
+  float sum = 0.f;
+  if (row < static_cast<size_t>(rows))
+    sum = dot_chunk(__ldg(reinterpret_cast<const uint4*>(o) + chunk),
+                    __ldg(reinterpret_cast<const uint4*>(g) + chunk),
+                    static_cast<const T*>(nullptr));
+#pragma unroll
+  for (int lanes = kLanes / 2; lanes > 0; lanes /= 2)
+    sum += __shfl_xor_sync(0xffffffffu, sum, lanes);
+  if (row < static_cast<size_t>(rows) && chunk % kLanes == 0)
+    delta[row] = sum;
+}
+
+template <typename T, int D>
+cudaError_t launch_t(const void* o, const void* g, float* dlt, int rows,
+                     cudaStream_t stream) {
+  constexpr int kLanes = D * static_cast<int>(sizeof(T)) / 16;
+  const size_t chunks = static_cast<size_t>(rows) * kLanes;
+  const unsigned blocks =
+      static_cast<unsigned>((chunks + kThreads - 1) / kThreads);
+  if (blocks == 0) return cudaSuccess;
+  flash_bwd_delta_kernel<T, D><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(g), dlt, rows);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const void* o, const void* g, float* dlt, int rows,
+                     int dtype, cudaStream_t stream) {
+  if (dtype == 0) return launch_t<float, D>(o, g, dlt, rows, stream);
+  if (dtype == 1) return launch_t<__nv_bfloat16, D>(o, g, dlt, rows, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace delta_pass
+
 // One kernel of a dtype's pair (dkv or dq, as kDkv says) on grid (B*H,
 // ceil(S/64)) or (B*H, ceil(T/64)) with smem bytes of shared memory.
 template <bool kDkv, typename T, typename DkvKernel, typename DqKernel>
@@ -878,6 +1043,31 @@ int dl4j_flash_bwd_dq(int device, const void* q, const void* k,
                static_cast<const float*>(delta), dq, nullptr, batch, heads,
                t_len, s_len, scale, causal};
   return launch<false>(device, a, d, dtype, stream);
+}
+
+// delta [rows] float32 = rowsum(dout * out) over [rows, d] contiguous
+// out and dout of one dtype, both 16-byte aligned (rows = B*H*T).
+int dl4j_flash_bwd_delta(int device, const void* out, const void* dout,
+                         void* delta, int rows, int d, int dtype,
+                         void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* dlt = static_cast<float*>(delta);
+  switch (d) {
+    case 32:
+      e = delta_pass::launch_d<32>(out, dout, dlt, rows, dtype, st);
+      break;
+    case 64:
+      e = delta_pass::launch_d<64>(out, dout, dlt, rows, dtype, st);
+      break;
+    case 128:
+      e = delta_pass::launch_d<128>(out, dout, dlt, rows, dtype, st);
+      break;
+    default:
+      e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }
 
 const char* dl4j_cuda_error_string(int code) {

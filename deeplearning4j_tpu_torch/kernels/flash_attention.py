@@ -5,11 +5,14 @@
   :func:`reference_attention_lse` also returns the row log-sum-exp;
 - :func:`reference_attention_bwd` — the plain backward from the saved
   LSE, in the math of the JAX package's ``_bwd_recompute``;
+  :func:`reference_delta` is its rowsum(dO·O);
 - :func:`flash_attention_cuda` — the wrapper of the hand-written Hopper
   kernel ``csrc/flash_fwd.cu`` (which replaces the Pallas ``_flash_kernel``);
-- :func:`flash_attention_bwd_cuda` — the wrapper of the two kernels of
-  ``csrc/flash_bwd.cu``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` (which
-  replace ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``);
+- :func:`flash_attention_bwd_cuda` — the wrapper of the three kernels of
+  ``csrc/flash_bwd.cu``: ``flash_bwd_delta`` (the pre-pass rowsum(dO·O),
+  which the JAX package leaves to XLA) and ``flash_bwd_dkv`` and
+  ``flash_bwd_dq`` (which replace ``_flash_bwd_dkv_kernel`` and
+  ``_flash_bwd_dq_kernel``);
 - :func:`flash_attention` — the entry point layers call: a CUDA tensor
   launches the kernels, a CPU tensor runs the plain versions. With grad
   enabled it goes through ``_FlashAttention`` (a ``torch.autograd.Function``:
@@ -34,7 +37,8 @@ from deeplearning4j_tpu_torch.kernels import _build, _dispatch
 _NEG_INF = -1e30
 _LSE_FLOOR = -1e20  # the JAX package's clamp of the LSE in backward
 KERNEL = "flash_fwd"
-BWD_KERNEL = "flash_bwd"  # one source, two kernels: flash_bwd_dkv, flash_bwd_dq
+# one source, three kernels: flash_bwd_delta, flash_bwd_dkv, flash_bwd_dq
+BWD_KERNEL = "flash_bwd"
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -114,7 +118,7 @@ def reference_attention_bwd(q, k, v, key_mask, out, lse, g, *, causal=False,
     s = torch.where(keep, s, _NEG_INF)
     lse = torch.clamp(lse.reshape(b, h, t, 1), min=_LSE_FLOOR)
     p = torch.exp(s - lse)  # exactly 0 where masked
-    delta = torch.sum(out.float() * gf, dim=-1, keepdim=True)
+    delta = reference_delta(out, g).reshape(b, h, t, 1)
     dp = torch.einsum("bhtd,bhsd->bhts", gf, vf)
     ds = p * (dp - delta) * scale
     p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
@@ -122,6 +126,14 @@ def reference_attention_bwd(q, k, v, key_mask, out, lse, g, *, causal=False,
     dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
     dq = torch.einsum("bhts,bhsd->bhtd", ds, kf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def reference_delta(out, g):
+    """rowsum(dO·O) in float32 → [B·H, T]: the plain version of the
+    ``flash_bwd_delta`` kernel, as the JAX package computes it outside its
+    kernels (``jnp.sum(out.astype(f32) * g.astype(f32), axis=-1)``)."""
+    b, h, t, _ = out.shape
+    return torch.sum(out.float() * g.float(), dim=-1).reshape(b * h, t)
 
 
 def _check(q, k, v, key_mask):
@@ -200,52 +212,98 @@ def _lib():
     return lib
 
 
+def set_bwd_argtypes(lib):
+    """The ctypes signatures of ``flash_bwd``'s dkv and dq entries (and of
+    its delta entry, where the library has one)."""
+    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
+    lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
+    if hasattr(lib, "dl4j_flash_bwd_delta"):
+        lib.dl4j_flash_bwd_delta.restype = ctypes.c_int
+        lib.dl4j_flash_bwd_delta.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+    lib.dl4j_flash_bwd_dkv.restype = ctypes.c_int
+    lib.dl4j_flash_bwd_dkv.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 9 + tail)
+    lib.dl4j_flash_bwd_dq.restype = ctypes.c_int
+    # argtypes last: another thread that sees them set finds the rest
+    lib.dl4j_flash_bwd_dq.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + tail)
+
+
 def _bwd_lib():
     lib = _build.load(BWD_KERNEL)
     if lib.dl4j_flash_bwd_dq.argtypes is None:
-        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
-        lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
-        lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.dl4j_flash_bwd_dkv.restype = ctypes.c_int
-        lib.dl4j_flash_bwd_dkv.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 9 + tail)
-        lib.dl4j_flash_bwd_dq.restype = ctypes.c_int
-        lib.dl4j_flash_bwd_dq.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 8 + tail)
+        set_bwd_argtypes(lib)
     return lib
 
 
-def flash_attention_bwd_cuda(q, k, v, key_mask, out, lse, g, *,
-                             causal=False, scale=None):
-    """Launch ``csrc/flash_bwd.cu``'s two kernels on the current stream →
-    (dq, dk, dv) in q's dtype.
+def _raise_on(lib, rc, name):
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {rc} "
+            f"({lib.dl4j_cuda_error_string(rc).decode()})")
 
-    q/out/g [B,H,T,D], k/v [B,H,S,D] contiguous CUDA tensors of one dtype
-    (float32 or bfloat16, D in (32, 64, 128)), ``key_mask`` [B,S] 1/0 or
-    None, ``lse`` [B·H, T] float32 as ``flash_attention_cuda`` writes it.
-    delta = rowsum(dO·O) is one torch reduction here, as the JAX package
-    computes it outside its kernels. ``flash_bwd_dkv`` then writes dK and
-    dV, ``flash_bwd_dq`` dQ; each counts its launch."""
+
+def _check_bwd(q, k, v, key_mask, out, lse):
+    """q/k/v/key_mask as ``_check``; out like q (its layout and g's are
+    ``flash_bwd_delta_cuda``'s to check); lse [B·H, T] float32."""
     _check(q, k, v, key_mask)
-    b, h, t, d = q.shape
-    s_len = k.shape[2]
-    for name, x in (("out", out), ("g", g)):
-        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
-            raise ValueError(f"{name} must match q: {tuple(x.shape)} "
-                             f"{x.dtype} {x.device}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    b, h, t, _ = q.shape
+    if (out.shape != q.shape or out.dtype != q.dtype
+            or out.device != q.device):
+        raise ValueError(f"out must match q: {tuple(out.shape)} "
+                         f"{out.dtype} {out.device}")
     if (lse.shape != (b * h, t) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous float32 [B·H, T] = "
                          f"{(b * h, t)} on q's device")
+
+
+def flash_bwd_delta_cuda(out, g):
+    """Launch ``csrc/flash_bwd.cu``'s ``flash_bwd_delta`` on the current
+    stream → rowsum(dO·O) [B·H, T] float32 (:func:`reference_delta`).
+
+    out/g [B,H,T,D] contiguous, 16-byte aligned CUDA tensors of one dtype
+    (float32 or bfloat16, D in (32, 64, 128))."""
+    if not (out.is_cuda and out.dim() == 4 and out.dtype in _DTYPE_CODES):
+        raise ValueError("out must be a [B, H, T, D] float32 or bfloat16 "
+                         "CUDA tensor")
+    if g.shape != out.shape or g.dtype != out.dtype or g.device != out.device:
+        raise ValueError(f"g must match out: {tuple(g.shape)} {g.dtype} "
+                         f"{g.device}")
+    b, h, t, d = out.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head size {d} has no kernel; supported: "
+                         f"{HEAD_DIMS}")
+    for name, x in (("out", out), ("g", g)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=out.device)
+    lib = _bwd_lib()
+    rc = lib.dl4j_flash_bwd_delta(
+        out.device.index, out.data_ptr(), g.data_ptr(), delta.data_ptr(),
+        b * h * t, d, _DTYPE_CODES[out.dtype],
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _raise_on(lib, rc, "flash_bwd_delta")
+    _dispatch.count_launch("flash_bwd_delta")
+    return delta
+
+
+def flash_bwd_kernels_cuda(lib, q, k, v, key_mask, lse, g, delta, *,
+                           causal=False, scale=None):
+    """Launch ``lib``'s ``flash_bwd_dkv`` and ``flash_bwd_dq`` on the
+    current stream from a given ``delta`` [B·H, T] float32 → (dq, dk, dv);
+    each counts its launch. ``lib`` is the loaded ``flash_bwd`` library
+    (``_bwd_lib()``; an A/B run passes an older build of the source)."""
+    b, h, t, d = q.shape
+    s_len = k.shape[2]
     scale = (d ** -0.5) if scale is None else float(scale)
-    delta = torch.sum(out.float() * g.float(), dim=-1).reshape(b * h, t)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     km = (key_mask.to(torch.float32).contiguous()
           if key_mask is not None else None)
-    lib = _bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
               km.data_ptr() if km is not None else None, g.data_ptr(),
@@ -256,18 +314,33 @@ def flash_attention_bwd_cuda(q, k, v, key_mask, out, lse, g, *,
                        ("flash_bwd_dq", (dq.data_ptr(),))):
         rc = getattr(lib, f"dl4j_{name}")(q.device.index, *common, *outs,
                                           *tail)
-        if rc != 0:
-            raise RuntimeError(
-                f"{name} launch failed: CUDA error {rc} "
-                f"({lib.dl4j_cuda_error_string(rc).decode()})")
+        _raise_on(lib, rc, name)
         _dispatch.count_launch(name)
     return dq, dk, dv
+
+
+def flash_attention_bwd_cuda(q, k, v, key_mask, out, lse, g, *,
+                             causal=False, scale=None):
+    """Launch ``csrc/flash_bwd.cu``'s three kernels on the current stream
+    → (dq, dk, dv) in q's dtype.
+
+    q/out/g [B,H,T,D], k/v [B,H,S,D] contiguous CUDA tensors of one dtype
+    (float32 or bfloat16, D in (32, 64, 128)), ``key_mask`` [B,S] 1/0 or
+    None, ``lse`` [B·H, T] float32 as ``flash_attention_cuda`` writes it.
+    ``flash_bwd_delta`` writes delta = rowsum(dO·O) (the JAX package
+    computes it outside its kernels), ``flash_bwd_dkv`` then dK and dV,
+    ``flash_bwd_dq`` dQ; each counts its launch."""
+    _check_bwd(q, k, v, key_mask, out, lse)
+    delta = flash_bwd_delta_cuda(out, g)
+    return flash_bwd_kernels_cuda(_bwd_lib(), q, k, v, key_mask, lse, g,
+                                  delta, causal=causal, scale=scale)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Attention whose backward recomputes the scores from the saved LSE
     (↔ the JAX package's ``_flash`` custom VJP). A CUDA tensor runs
-    ``flash_fwd`` with the LSE, then ``flash_bwd_dkv`` and ``flash_bwd_dq``;
+    ``flash_fwd`` with the LSE, then ``flash_bwd_delta``, ``flash_bwd_dkv``
+    and ``flash_bwd_dq``;
     a CPU tensor runs :func:`reference_attention_lse` and
     :func:`reference_attention_bwd`."""
 
@@ -300,8 +373,8 @@ def flash_attention(q, k, v, *, causal: bool = False, scale=None, bias=None,
     CUDA tensors launch the hand kernels; CPU tensors run the plain
     versions. ``key_mask`` [B,S] 1/0 runs inside the kernels. When grad is
     enabled and q, k or v requires it, the call goes through
-    ``_FlashAttention``, whose backward is ``flash_bwd_dkv`` and
-    ``flash_bwd_dq`` on the card. An additive ``bias`` has no kernel path:
+    ``_FlashAttention``, whose backward is ``flash_bwd_delta``,
+    ``flash_bwd_dkv`` and ``flash_bwd_dq`` on the card. An additive ``bias`` has no kernel path:
     it runs the plain version on the CPU and raises on CUDA (nothing on the
     port's path passes one)."""
     if bias is not None:

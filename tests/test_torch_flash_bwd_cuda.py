@@ -1,4 +1,5 @@
-"""The port's CUDA flash-attention backward kernels on the card.
+"""The port's CUDA flash-attention backward kernels on the card: the
+delta pre-pass ``flash_bwd_delta`` and ``flash_bwd_dkv``/``flash_bwd_dq``.
 
 Marked ``cuda``: each test needs an NVIDIA Hopper card and skips without
 one (the kernels have no CPU or interpret mode; their CPU-side twin,
@@ -19,8 +20,10 @@ from deeplearning4j_tpu_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
+    flash_bwd_delta_cuda,
     reference_attention,
     reference_attention_bwd,
+    reference_delta,
 )
 from deeplearning4j_tpu_torch.models.bert import bert_tiny, make_mlm_batch
 from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
@@ -97,6 +100,14 @@ CASES = {
     "gpt_causal_t1024_bf16": (4, 12, 1024, 1024, 64, torch.bfloat16, True,
                               None),
 }
+# a single query tile of 1 or 4 rows (the rest of the tile dead) against
+# one key tile (S = 64) or three, the last ragged (S = 130); causal aligns
+# the few queries to the last keys
+CASES.update({
+    f"t{t}_s{s}{'_causal' if causal else ''}_{tag}":
+        (2, 3, t, s, 64, dtype, causal, None)
+    for t in (1, 4) for s in (64, 130) for causal in (False, True)
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))})
 BF16_CASES = sorted(c for c in CASES if CASES[c][5] == torch.bfloat16)
 FP32_CASES = sorted(c for c in CASES if CASES[c][5] == torch.float32)
 
@@ -134,8 +145,8 @@ def test_bwd_kernels_match_plain_version(dev, case):
     _dispatch.reset_launch_counts()
     got = flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout,
                                    causal=causal)
-    assert _dispatch.launch_counts() == {"flash_bwd_dkv": 1,
-                                         "flash_bwd_dq": 1}
+    assert _dispatch.launch_counts() == {
+        "flash_bwd_delta": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
     want = reference_attention_bwd(q, k, v, mask, out, lse, dout,
                                    causal=causal)
     torch.cuda.synchronize()
@@ -152,6 +163,30 @@ def test_bwd_kernels_match_plain_version(dev, case):
         keep = mask[:, None, :, None] > 0
         for a in got[1:]:  # masked keys get dK = dV = 0
             assert (a.masked_fill(keep, 0) == 0).all()
+
+
+# the delta kernel against reference_delta, per row, as a fraction of the
+# row's sum of |O dO|: both multiply the same float32 values (bf16 x bf16
+# is exact in float32) and sum D products in float32 in another order
+TOL_DELTA = 1e-6
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_delta_kernel_matches_plain_version(dev, case):
+    b, h, t, s, d, dtype, causal, lengths = CASES[case]
+    q, k, v, mask, dout = _inputs(dev, b, h, t, s, d, dtype, lengths,
+                                  seed=b * t + s + d)
+    out = flash_attention_cuda(q, k, v, mask, causal=causal)
+    _dispatch.reset_launch_counts()
+    got = flash_bwd_delta_cuda(out, dout)
+    assert _dispatch.launch_counts() == {"flash_bwd_delta": 1}
+    want = reference_delta(out, dout)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b * h, t)
+    mag = (out.float() * dout.float()).abs().sum(-1).reshape(b * h, t)
+    err = (got - want).abs()
+    assert bool((err <= TOL_DELTA * mag).all()), (
+        err.max().item(), (err / mag.clamp(min=1e-30)).max().item())
 
 
 def _sdpa_grads(q, k, v, mask, dout, causal):
@@ -286,7 +321,8 @@ def test_autograd_goes_through_the_three_kernels(dev):
     out = flash_attention(*leaves, key_mask=mask)
     got = torch.autograd.grad(out, leaves, dout)
     assert _dispatch.launch_counts() == {
-        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+        "flash_fwd": 1, "flash_bwd_delta": 1, "flash_bwd_dkv": 1,
+        "flash_bwd_dq": 1}
     plain = [x.clone().requires_grad_() for x in (q, k, v)]
     want = torch.autograd.grad(
         reference_attention(*plain, key_mask=mask), plain, dout)
@@ -311,7 +347,8 @@ def test_bert_tiny_train_step_grads_equal_the_plain_path(dev, monkeypatch):
     loss_k, g_kernel = grads()
     n = model.config.num_layers
     assert _dispatch.launch_counts() == {
-        "flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
+        "flash_fwd": n, "flash_bwd_delta": n, "flash_bwd_dkv": n,
+        "flash_bwd_dq": n}
     monkeypatch.setattr(attention_mod, "flash_attention", reference_attention)
     loss_p, g_plain = grads()
     assert abs(loss_k.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
@@ -346,8 +383,8 @@ def test_remat_replays_the_cuda_generator(dev):
         n = model.config.num_layers
         # remat runs each block's forward twice, so flash_fwd twice
         assert _dispatch.launch_counts() == {
-            "flash_fwd": n * (2 if remat else 1), "flash_bwd_dkv": n,
-            "flash_bwd_dq": n}
+            "flash_fwd": n * (2 if remat else 1), "flash_bwd_delta": n,
+            "flash_bwd_dkv": n, "flash_bwd_dq": n}
         out.append((loss.item(), dict(flatten_with_names(grads))))
     assert out[0][0] == out[1][0]  # the same forward, op for op
     # backward sums may be ordered differently by the library; a dropout

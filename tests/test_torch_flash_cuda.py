@@ -285,7 +285,8 @@ def test_bf16_autograd_goes_through_the_three_kernels(dev):
     out = flash_attention(*leaves, key_mask=mask)
     got = torch.autograd.grad(out, leaves, dout)
     assert _dispatch.launch_counts() == {
-        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+        "flash_fwd": 1, "flash_bwd_delta": 1, "flash_bwd_dkv": 1,
+        "flash_bwd_dq": 1}
     plain = [x.float().requires_grad_() for x in (q, k, v)]
     want = torch.autograd.grad(
         reference_attention(*plain, key_mask=mask), plain, dout.float())
