@@ -131,6 +131,34 @@ caught:
    first token and inter-token p50/p99, slot occupancy, the KV slab
    bytes, and one decode step's wall and device time.
 
+18. kernels at the seq2seq slice's shapes — head sizes the kernels lack,
+   zero-padded by flash_attention to the next kernel size (D = 16 at the
+   seq2seq CrossAttention's shape, 1024 x 4 x 10 x 10, both dtypes; D =
+   48 with masked keys): the forward and the three backward kernels once
+   each, against the plain version at D; timed beside SDPA at D = 16 and
+   the bounds of the work at D. Then LearnedSelfAttention (4 learned
+   queries: the forward kernel at T = 4) against its plain attention, and
+   RecurrentAttention (plain torch) against the same layer on the CPU,
+   forward and backward. It runs right after phase 3's backward kernels;
+   the forward cases at T = 1 and 4 are in phase 3, the encoder's LSTM
+   shape (N=1024, T=10, H=32, cuDNN beside it) in phase 6.
+19. seq2seq training — examples/seq2seq_attention.py's graph (Embedding
+   → Bidirectional(LSTM(32)) encoder, PositionalEmbedding queries, a
+   two-input CrossAttention of 4 heads of 16, RnnOutputLayer; vocab 12,
+   T=10, 1024 sequences, Adam(3e-3)), built from its config JSON: one
+   loss and every gradient through the kernels against the plain route
+   (plain attention, the eager LSTM loop); 600 full-batch steps of fit
+   with 1 flash_fwd, 1 each of the backward kernels, 2 lstm_fwd and 2
+   lstm_bwd a step, a falling loss, the example's reversal accuracy
+   (> 0.9 on the first 64 rows) and evaluate_model's, a checkpoint
+   restored bit-equal; step time, peak memory, idle share, classes.
+20. seq2seq serving — the trained model behind ModelServer (batched,
+   max batch 8) with a dict input spec (int tokens, float qpos): 200
+   requests of 1–4 sequences from 8 client threads, every response
+   against the plain forward to 1e-4, 1 flash_fwd and 2 lstm_fwd per
+   dispatched batch; requests/s, p50/p99. Phases 19 and 20 run after
+   phase 8.
+
 No TPU kernel lies on phases 13–15 and 17: the convolutions run in cuDNN
 (as the JAX package leaves them to XLA), and generation's prefill and
 decode attend with plain matmuls (as the JAX package's einsums,
@@ -142,7 +170,8 @@ see a CUDA tensor (they are the plain paths the kernels are held against,
 run separately).
 
 It prints the kernels line ({"kernels": [...]}), the serving, training,
-char-RNN, char-GRU, bitmap, LeNet-5, ResNet-50 and GPT-2-small lines,
+char-RNN, char-GRU, bitmap, LeNet-5, ResNet-50, GPT-2-small and seq2seq
+lines,
 the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
 """
@@ -504,6 +533,15 @@ KERNEL_CASES = [
     ("gpt_causal_t1024_fp32", 4, 12, 1024, 1024, 64, torch.float32, True,
      None, True),
 ]
+# LearnedSelfAttention's few learned queries: one query tile of 1 or 4 rows
+# (the rest of the tile dead) against one key tile (S = 64) or three, the
+# last ragged (S = 130); causal aligns the few queries to the last keys.
+# Timed at S = 130 without the causal mask.
+KERNEL_CASES += [
+    (f"t{t}_s{s}{'_causal' if causal else ''}_{tag}", 2, 3, t, s, 64, dtype,
+     causal, None, s == 130 and not causal)
+    for t in (1, 4) for s in (64, 130) for causal in (False, True)
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))]
 
 
 def _sdpa_call(q, k, v, mask, causal):
@@ -575,6 +613,9 @@ def phase_kernels(dev, train_lengths):
         if not ok:
             raise SystemExit(f"chip_smoke: kernel case {name} failed")
         if not timed:
+            results[name] = {"shape": [b, h, t, s, d],
+                             "dtype": str(dtype)[6:], "causal": causal,
+                             "max_abs_err": err, "lse_err_frac": lse_frac}
             continue
         kernel = lambda: flash_attention_cuda(  # noqa: E731
             q, k, v, mask, causal=causal)
@@ -1426,7 +1467,16 @@ LSTM_CASES = [
     ("h200_n3_graves", 3, CHAR_T, 200, True, 1.0, False, False),
     ("init_state_n8_graves", 8, 64, CHAR_HIDDEN, True, 1.0, True, False),
     ("h1024_n8_graves_step_route", 8, 32, 1024, True, 1.0, False, False),
+    # each direction of the seq2seq example's biLSTM encoder (1024
+    # sequences of 10 steps, 32 units, no peepholes): 128 clusters of 16
+    # blocks, 2 units a block
+    ("seq2seq_encoder_n1024_t10_h32", 1024, 10, 32, False, 1.0, False,
+     True),
 ]
+# the input (N, T, width) torch.nn.LSTM is timed on beside a case without
+# peepholes: the char-RNN's batch by default; the seq2seq encoder's reads
+# the 64-wide embedding
+LSTM_CUDNN_INPUT = {"seq2seq_encoder_n1024_t10_h32": (1024, 10, 64)}
 
 
 def _lstm_inputs(dev, n, t, h, peep, init, seed):
@@ -1541,9 +1591,13 @@ def phase_kernels_lstm(dev):
                 f"{row['lstm_bwd_bound_cuda_cores_ms']:.4f} on the CUDA "
                 f"cores), plain {row['lstm_bwd_plain_ms']:.4f} ms")
             if not peep:
-                row.update(_time_cudnn(dev, rw, b, fb))
+                n_in, t_in, width = LSTM_CUDNN_INPUT.get(
+                    name, (CHAR_BATCH, CHAR_T, h))
+                row.update(_time_cudnn(dev, rw, b, fb, n_in, t_in, width))
+                row["cudnn_input"] = [n_in, t_in, width]
                 log(f"[kernels] lstm {name} vs torch.nn.LSTM (cuDNN), input "
-                    f"width {CHAR_HIDDEN}: forward op {row['op_fwd_ms']:.4f}"
+                    f"{n_in} x {t_in} x {width}: forward op "
+                    f"{row['op_fwd_ms']:.4f}"
                     f" ms vs cuDNN {row['cudnn_fwd_ms']:.4f} ms; backward "
                     f"op {row['op_bwd_ms']:.4f} ms vs cuDNN "
                     f"{row['cudnn_bwd_ms']:.4f} ms; outputs agree to "
@@ -1625,21 +1679,22 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
     return row
 
 
-def _time_cudnn(dev, rw, b, fb):
-    """torch.nn.LSTM (cuDNN) on an input x [N,T,H] beside the port's op on
-    the same x and weights (forget bias folded into b_ih's f slice, RW
-    transposed to weight_hh, gate order i,f,g,o as the port's), forward
-    without grad (also at the serving bucket N=8) and backward to x and
-    every weight: the library yardstick of the case without peepholes.
-    The outputs must agree."""
+def _time_cudnn(dev, rw, b, fb, n=CHAR_BATCH, t=CHAR_T, width=None):
+    """torch.nn.LSTM (cuDNN) on an input x [n, t, width] (width H by
+    default) beside the port's op on the same x and weights (forget bias
+    folded into b_ih's f slice, RW transposed to weight_hh, gate order
+    i,f,g,o as the port's), forward without grad (also at the serving
+    bucket N=8) and backward to x and every weight: the library yardstick
+    of the case without peepholes. The outputs must agree."""
     from deeplearning4j_tpu_torch.kernels.lstm_scan import lstm
 
     h = rw.shape[0]
+    width = width or h
     g = torch.Generator().manual_seed(7)
-    x = torch.randn((CHAR_BATCH, CHAR_T, h), generator=g).to(dev)
-    w_x = ((2.0 / (5 * h)) ** 0.5 * torch.randn((h, 4 * h), generator=g)
-           ).to(dev)
-    cudnn = torch.nn.LSTM(h, h, batch_first=True).to(dev)
+    x = torch.randn((n, t, width), generator=g).to(dev)
+    w_x = ((2.0 / (width + 4 * h)) ** 0.5
+           * torch.randn((width, 4 * h), generator=g)).to(dev)
+    cudnn = torch.nn.LSTM(width, h, batch_first=True).to(dev)
     with torch.no_grad():
         cudnn.weight_ih_l0.copy_(w_x.t())
         cudnn.weight_hh_l0.copy_(rw.t())
@@ -1975,17 +2030,24 @@ def phase_charrnn_train(dev, smi):
     }
 
 
-def _lstm_entries(cases, serving, training, smi):
+def _lstm_entries(cases, serving, training, s2s_serving, s2s_training,
+                  smi):
     """The kernels-line entries of lstm_fwd and lstm_bwd: times at the
     char-RNN's training shape with Graves peepholes (no library call
     computes those), the case without peepholes beside torch.nn.LSTM, and
     the launches of the char-RNN's serving and training runs."""
     main_row = cases["char_rnn_train_graves"]
     nopeep = cases["char_rnn_train_no_peepholes"]
+    s2s = cases["seq2seq_encoder_n1024_t10_h32"]
     by_path = {
         "lstm_fwd": {"serving": serving["lstm_fwd_launches"],
-                     "training": training["launches"]["lstm_fwd"]},
-        "lstm_bwd": {"training": training["launches"]["lstm_bwd"]},
+                     "training": training["launches"]["lstm_fwd"],
+                     "seq2seq_serving": s2s_serving["launches"]["lstm_fwd"],
+                     "seq2seq_training":
+                         s2s_training["launches"]["lstm_fwd"]},
+        "lstm_bwd": {"training": training["launches"]["lstm_bwd"],
+                     "seq2seq_training":
+                         s2s_training["launches"]["lstm_bwd"]},
     }
     library = {"lstm_fwd": ("cudnn_fwd_ms", "op_fwd_ms"),
                "lstm_bwd": ("cudnn_bwd_ms", "op_bwd_ms")}
@@ -2040,6 +2102,17 @@ def _lstm_entries(cases, serving, training, smi):
                     "plain_ms": nopeep["lstm_fwd_n8_plain_ms"],
                     "op_ms": nopeep["op_fwd_n8_ms"],
                     "library_ms": nopeep["cudnn_fwd_n8_ms"]}},
+            "seq2seq_encoder": {
+                "shape": s2s["shape"], "route": s2s[f"{kernel}_route"],
+                "ms": s2s[f"{kernel}_ms"],
+                "device_ms": s2s[f"{kernel}_device_ms"],
+                "plain_ms": s2s[f"{kernel}_plain_ms"],
+                "bound_ms": s2s[f"{kernel}_bound_ms"],
+                "bound_by": s2s[f"{kernel}_bound_by"],
+                "op_ms": s2s[op_key], "library_ms": s2s[lib_key],
+                "library": "torch.nn.LSTM (cuDNN) on the encoder's input "
+                           f"{s2s['cudnn_input']}; op_ms the port's lstm "
+                           "op on it"},
             "shape": main_row["shape"], "card": smi,
         })
     return entries
@@ -3437,7 +3510,549 @@ def phase_gpt_serve(dev, smi, model, variables):
     return out
 
 
-def _delta_entry(bwd_cases, training, gpt_training, smi) -> dict:
+# -- 18. kernels at the seq2seq slice's shapes ---------------------------------
+
+# Head sizes the kernels lack, run zero-padded by flash_attention
+# (pad_head): forward and backward through autograd, against the plain
+# version at the original D (forward in the inputs' dtype to TOL, the
+# gradients against autograd of the plain version of the inputs in
+# float32 to TOL_BWD of max(1, |plain|)). (name, B, H, T, S, D, dtype,
+# causal, key lengths, timed): the seq2seq CrossAttention's shape (1024
+# sequences x 4 heads of 16, T = S = 10, padded to 32) and D = 48 (to 64).
+PADDED_CASES = [
+    ("seq2seq_xatt_d16_fp32", 1024, 4, 10, 10, 16, torch.float32, False,
+     None, True),
+    ("seq2seq_xatt_d16_bf16", 1024, 4, 10, 10, 16, torch.bfloat16, False,
+     None, True),
+    ("d48_masked_fp32", 2, 3, 70, 100, 48, torch.float32, False, [100, 41],
+     False),
+    ("d48_causal_bf16", 2, 3, 70, 100, 48, torch.bfloat16, True, [100, 41],
+     False),
+]
+
+
+def phase_kernels_padded(dev):
+    """The PADDED_CASES through flash_attention with grad: one launch of
+    each flash kernel per forward and backward, outputs and gradients
+    against the plain version at D; the timed cases also timed (kernel
+    on the padded tensors, the wrapper with its pad and slice, the plain
+    version and SDPA at D = 16), bounds counted at the original D."""
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        kernel_head_size,
+        reference_attention,
+    )
+
+    results = {}
+    for (name, b, h, t, s, d, dtype, causal, lengths,
+         timed) in PADDED_CASES:
+        q, k, v, mask = _attention_inputs(dev, b, h, t, s, d, dtype, lengths,
+                                          seed=len(name))
+        dout = torch.randn((b, h, t, d), generator=torch.Generator()
+                           .manual_seed(len(name) + 1)).to(dev, dtype)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        _dispatch.reset_launch_counts()
+        out = flash_attention(*leaves, causal=causal, key_mask=mask)
+        grads = torch.autograd.grad(out, leaves, dout)
+        counts = _dispatch.launch_counts()
+        want = reference_attention(q, k, v, causal=causal, key_mask=mask)
+        plain = [x.float().requires_grad_() for x in (q, k, v)]
+        want_g = torch.autograd.grad(
+            reference_attention(*plain, causal=causal, key_mask=mask), plain,
+            dout.float())
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        errs = {}
+        ok = (err <= TOL[dtype] and counts == dict.fromkeys(FLASH_KERNELS, 1)
+              and out.shape == q.shape)
+        for which, a, w in zip(("dq", "dk", "dv"), grads, want_g):
+            errs[which] = float((a.float() - w).abs().max())
+            ok &= (a.shape == w.shape and bool(torch.isfinite(a).all())
+                   and errs[which] <= TOL_BWD[dtype]
+                   * max(1.0, float(w.abs().max())))
+        log(f"[kernels] padded {name} (D={d} run at "
+            f"{kernel_head_size(d)}): forward max_abs_err {err:.3e} (tol "
+            f"{TOL[dtype]:.0e}); dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv "
+            f"{errs['dv']:.3e} (tol {TOL_BWD[dtype]:.0e} x max(1, |plain|))"
+            f"; launches {counts} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: padded head case {name} failed")
+        row = {"shape": [b, h, t, s, d], "dtype": str(dtype)[6:],
+               "causal": causal, "run_at_head_size": kernel_head_size(d),
+               "max_abs_err": err, "max_abs_err_bwd": errs,
+               "launches": counts}
+        if timed:
+            row.update(_time_padded(q, k, v, mask, dout, causal, lengths))
+            log(f"[kernels] padded {name}: forward kernel "
+                f"{row['kernel_ms']:.4f} ms (device "
+                f"{row['kernel_device_ms']:.4f}; with the pad and slice "
+                f"{row['wrapper_ms']:.4f}), plain {row['plain_ms']:.4f}, "
+                f"sdpa at D={d} {row['library_ms']:.4f}, bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']}); backward delta "
+                f"{row['flash_bwd_delta_ms']:.4f} dkv "
+                f"{row['flash_bwd_dkv_ms']:.4f} dq {row['flash_bwd_dq_ms']:.4f}"
+                f" ms (device), pair with delta {row['pair_ms']:.4f} ms, "
+                f"plain {row['bwd_plain_ms']:.4f}, sdpa backward "
+                f"{row['bwd_library_ms']:.4f}; bounds delta "
+                f"{row['flash_bwd_delta_bound_ms']:.4f} dkv "
+                f"{row['flash_bwd_dkv_bound_ms']:.4f} dq "
+                f"{row['flash_bwd_dq_bound_ms']:.4f}")
+        results[name] = row
+    return results
+
+
+def _time_padded(q, k, v, mask, dout, causal, lengths):
+    """Times at a padded head size: the forward kernel on the zero-padded
+    tensors with D's scale, flash_attention with its pad and slice, the
+    plain forward and SDPA at D (CUDA events; the kernel's device time by
+    the profiler); the backward pair with its delta on the padded tensors
+    (CUDA events, and each kernel's device time by the profiler), the
+    plain backward and SDPA's backward at D. Bounds: the work at D
+    (``_bound``, ``_bound_bwd``, ``_bound_delta``)."""
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+        kernel_head_size,
+        reference_attention,
+        reference_attention_bwd,
+        reference_attention_lse,
+    )
+
+    b, h, t, d = q.shape
+    s = k.shape[2]
+    pad = (0, kernel_head_size(d) - d)
+    qp, kp, vp, gp = (F.pad(x, pad).contiguous() for x in (q, k, v, dout))
+    scale = d ** -0.5
+    out_p, lse_p = flash_attention_cuda(qp, kp, vp, mask, causal=causal,
+                                        scale=scale, return_lse=True)
+    out, lse = reference_attention_lse(q, k, v, causal=causal, key_mask=mask)
+    fns = {
+        "kernel": lambda: flash_attention_cuda(qp, kp, vp, mask,
+                                               causal=causal, scale=scale),
+        "wrapper": lambda: flash_attention(q, k, v, causal=causal,
+                                           key_mask=mask),
+        "plain": lambda: reference_attention(q, k, v, causal=causal,
+                                             key_mask=mask),
+        "library": _sdpa_call(q, k, v, mask, causal),
+        "pair": lambda: flash_attention_bwd_cuda(
+            qp, kp, vp, mask, out_p, lse_p, gp, causal=causal, scale=scale),
+        "bwd_plain": lambda: reference_attention_bwd(
+            q, k, v, mask, out, lse, dout, causal=causal),
+    }
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    sdpa_out = _sdpa_call(*leaves, mask, causal)()
+    fns["bwd_library"] = lambda: torch.autograd.grad(
+        sdpa_out, leaves, dout, retain_graph=True)
+    runs = {k: [] for k in fns}
+    with torch.no_grad():
+        for which in ("kernel", "wrapper", "plain", "library", "library",
+                      "plain", "wrapper", "kernel"):
+            runs[which].append(_time_ms(fns[which]))
+    for which in ("pair", "bwd_plain", "bwd_library", "bwd_library",
+                  "bwd_plain", "pair"):
+        runs[which].append(_time_ms(fns[which], iters=50, warmup=5))
+    row = {f"{w}_ms": min(r) for w, r in runs.items()}
+    row.update({f"{w}_ms_runs": r for w, r in runs.items()})
+    row["kernel_device_ms"] = _device_ms(fns["kernel"])
+    by_kernel = _device_us_by_kernel(fns["pair"], iters=20)
+    for kernel in ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq"):
+        row[f"{kernel}_ms"] = sum(us for name, us in by_kernel.items()
+                                  if f"{kernel}_kernel" in name) / 1e3
+    bound_ms, bound_by, ops, nbytes, cores_ms = _bound(
+        b, h, t, s, d, q.dtype, causal, lengths)
+    row.update({"bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_cuda_cores_ms": cores_ms, "ops": ops,
+                "bytes": nbytes})
+    for kernel in ("flash_bwd_dkv", "flash_bwd_dq"):
+        k_ms, k_by, _, _, k_cores = _bound_bwd(kernel, b, h, t, s, d,
+                                               q.dtype, causal, lengths)
+        row.update({f"{kernel}_bound_ms": k_ms, f"{kernel}_bound_by": k_by,
+                    f"{kernel}_bound_cuda_cores_ms": k_cores})
+    d_ms, d_by, _, _ = _bound_delta(b, h, t, d, q.dtype)
+    row.update({"flash_bwd_delta_bound_ms": d_ms,
+                "flash_bwd_delta_bound_by": d_by})
+    return row
+
+
+# LearnedSelfAttention (4 learned queries: the forward kernel at T = 4)
+# and RecurrentAttention on the card, forward and backward with a key
+# mask, against their plain route: LearnedSelfAttention with the plain
+# attention in the kernels' place, RecurrentAttention (plain torch on
+# both devices, no hand kernel) against the same layer on the CPU. Both
+# float32: outputs and every gradient to TOL_LAYER of max(1, |plain|).
+LAYER_N, LAYER_T, LAYER_E = 64, 10, 64
+TOL_LAYER = 1e-5
+
+
+def phase_attention_layers(dev):
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        reference_attention,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
+    from deeplearning4j_tpu_torch.utils.pytree import flatten_with_names
+
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn((LAYER_N, LAYER_T, LAYER_E), generator=g)
+    lengths = torch.randint(1, LAYER_T + 1, (LAYER_N,), generator=g)
+    mask = (torch.arange(LAYER_T)[None, :] < lengths[:, None]).float()
+    w_out = torch.randn((LAYER_N, LAYER_T, LAYER_E), generator=g)
+    results = {}
+    for name, layer, want_launches in (
+            ("learned_self_attention_q4",
+             attention_mod.LearnedSelfAttention(num_heads=4, n_queries=4),
+             dict.fromkeys(FLASH_KERNELS, 1)),
+            ("recurrent_attention",
+             attention_mod.RecurrentAttention(units=LAYER_E, num_heads=4),
+             {})):
+        params, _ = layer.init(torch.Generator().manual_seed(1),
+                               (LAYER_T, LAYER_E), torch.float32)
+
+        def run(device, plain_attention=False):
+            p = {k: a.to(device).requires_grad_() for k, a in params.items()}
+            xd = x.to(device).requires_grad_()
+            ctx = (mock.patch.object(attention_mod, "flash_attention",
+                                     reference_attention)
+                   if plain_attention else contextlib.nullcontext())
+            with ctx:
+                y, _ = layer.apply(p, {}, xd, mask=mask.to(device))
+                w = w_out[:, :y.shape[1], :y.shape[2]].to(device)
+                grads = torch.autograd.grad((y * w).sum(),
+                                            [xd, *p.values()])
+            return [y.detach(), *grads], ["y", "x", *p]
+
+        _dispatch.reset_launch_counts()
+        got, names = run(dev)
+        counts = _dispatch.launch_counts()
+        want, _ = (run(dev, True) if want_launches else run("cpu"))
+        torch.cuda.synchronize()
+        errs = {n: float((a.cpu() - w.cpu()).abs().max())
+                / max(1.0, float(w.abs().max()))
+                for n, a, w in zip(names, got, want)}
+        ok = counts == want_launches and max(errs.values()) <= TOL_LAYER
+        plain = ("the plain attention on the card" if want_launches
+                 else "the same layer on the CPU")
+        log(f"[layers] {name}: output {tuple(got[0].shape)}, launches "
+            f"{counts}; worst of output and gradients vs {plain}: "
+            f"{max(errs, key=errs.get)} {max(errs.values()):.2e} of max(1, "
+            f"|plain|) (tol {TOL_LAYER:.0e}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {name} disagrees with its plain "
+                             "route or missed its kernels")
+        results[name] = {"launches": counts, "err_frac": errs,
+                         "shape": [LAYER_N, LAYER_T, LAYER_E]}
+    return results
+
+
+# -- 19. seq2seq training ------------------------------------------------------
+
+# examples/seq2seq_attention.py at its own widths (vocab 12, T=10, hidden
+# 64, 1024 sequences, 600 full-batch Adam(3e-3) steps): nothing cut
+S2S_VOCAB, S2S_T, S2S_HIDDEN, S2S_QPOS = 12, 10, 64, 64
+S2S_N, S2S_STEPS, S2S_LR = 1024, 600, 3e-3
+S2S_EVAL_ROWS = 64
+S2S_ACCURACY = 0.9  # the example's own check after 600 steps
+# the kernels one training step launches: one CrossAttention, the two
+# directions of the biLSTM
+S2S_STEP_LAUNCHES = {"flash_fwd": 1, "flash_bwd_delta": 1,
+                     "flash_bwd_dkv": 1, "flash_bwd_dq": 1, "lstm_fwd": 2,
+                     "lstm_bwd": 2}
+
+
+def seq2seq_config(backend="xla"):
+    """examples/seq2seq_attention.py's ``build()`` in the port's classes,
+    through its JSON: the dict the JAX package's ``config_to_dict`` writes
+    for the example (``tests/test_torch_seq2seq.py`` holds them equal).
+    The biLSTM's ``backend`` is the JAX default "xla" (the sweeps, the
+    CUDA kernels on the card); "plain" gives the eager loop."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.config import (
+        GraphConfig,
+        GraphVertex,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    verts = {
+        "embed": GraphVertex(kind="layer", inputs=["tokens"],
+                             layer=L.Embedding(vocab_size=S2S_VOCAB,
+                                               units=S2S_HIDDEN)),
+        "enc": GraphVertex(kind="layer", inputs=["embed"],
+                           layer=L.Bidirectional(L.LSTM(
+                               units=S2S_HIDDEN // 2, backend=backend))),
+        "queries": GraphVertex(kind="layer", inputs=["qpos"],
+                               layer=L.PositionalEmbedding(max_len=S2S_T)),
+        "xatt": GraphVertex(kind="layer", inputs=["queries", "enc"],
+                            layer=L.CrossAttention(num_heads=4,
+                                                   out_size=S2S_HIDDEN)),
+        "out": GraphVertex(kind="layer", inputs=["xatt"],
+                           layer=L.RnnOutputLayer(units=S2S_VOCAB,
+                                                  activation="softmax",
+                                                  loss="mcxent")),
+    }
+    cfg = GraphConfig(
+        net=NeuralNetConfiguration(seed=0, updater=Adam(S2S_LR)),
+        inputs=["tokens", "qpos"],
+        input_shapes={"tokens": (S2S_T,), "qpos": (S2S_T, S2S_QPOS)},
+        vertices=verts, outputs=["out"])
+    return GraphConfig.from_json(cfg.to_json())
+
+
+def seq2seq_batch(n=S2S_N, seed=SEED):
+    """The example's data: random tokens in [2, vocab), the targets the
+    sequences reversed, zero ``qpos`` carriers; → (batch, targets)."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(2, S2S_VOCAB, size=(n, S2S_T)).astype(np.int32)
+    targets = tokens[:, ::-1]
+    eye = np.eye(S2S_VOCAB, dtype=np.float32)
+    qpos = np.zeros((n, S2S_T, S2S_QPOS), np.float32)
+    return ({"features": {"tokens": tokens, "qpos": qpos},
+             "labels": {"out": eye[targets]}}, np.ascontiguousarray(targets))
+
+
+def _seq2seq_model(dev, backend="xla"):
+    from deeplearning4j_tpu_torch.nn.model import GraphModel
+
+    return GraphModel(seq2seq_config(backend), device=dev)
+
+
+def _reversal_accuracy(model, variables, batch, targets):
+    """The example's check: argmax of the first S2S_EVAL_ROWS rows'
+    outputs against the reversed sequences, per token."""
+    feats = {k: a[:S2S_EVAL_ROWS] for k, a in batch["features"].items()}
+    out = model.output(variables, feats)["out"]
+    pred = out.argmax(-1).cpu().numpy()
+    return float((pred == targets[:S2S_EVAL_ROWS]).mean())
+
+
+def phase_seq2seq_train(dev, smi):
+    """The example's graph, built from its config JSON, trained by
+    Trainer.fit: one loss and every gradient through the kernels against
+    the plain route (plain attention, the eager LSTM loop) on the same
+    weights; 600 full-batch steps with S2S_STEP_LAUNCHES a step, a falling
+    loss, the example's reversal accuracy and a checkpoint restored
+    bit-equal; evaluate_model against that accuracy; the step's time."""
+    from deeplearning4j_tpu_torch.evaluation import evaluate_model
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        reference_attention,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+
+    model = _seq2seq_model(dev)
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    batch, targets = seq2seq_batch()
+    on_dev = batch_to_device(batch, dev)
+    log(f"[seq2seq_train] examples/seq2seq_attention.py: "
+        f"{model.num_params(trainer.variables(ts0)):,} parameters, order "
+        f"{model.order}, {S2S_N} sequences of {S2S_T}, vocab {S2S_VOCAB}, "
+        f"hidden {S2S_HIDDEN}, Adam({S2S_LR})")
+
+    # 1. one loss and gradient: kernels vs the plain route
+    with _plain_rnn_guard() as plain_calls:
+        _dispatch.reset_launch_counts()
+        loss_k, g_kernel = _loss_and_grads(trainer, ts0.params, on_dev, dev,
+                                           SEED)
+        counts = _dispatch.launch_counts()
+    if counts != S2S_STEP_LAUNCHES or plain_calls:
+        raise SystemExit(f"chip_smoke: one seq2seq loss+grad launched "
+                         f"{counts} with {len(plain_calls)} plain LSTM "
+                         f"calls; want {S2S_STEP_LAUNCHES} and none")
+    plain_trainer = Trainer(_seq2seq_model(dev, "plain"))
+    with mock.patch.object(attention_mod, "flash_attention",
+                           reference_attention):
+        _dispatch.reset_launch_counts()
+        loss_p, g_plain = _loss_and_grads(plain_trainer, ts0.params, on_dev,
+                                          dev, SEED)
+        if _dispatch.launch_counts():
+            raise SystemExit("chip_smoke: the plain route launched "
+                             f"{_dispatch.launch_counts()}")
+    loss_rel, worst_name, worst = _check_grads("seq2seq_train", loss_k,
+                                               loss_p, g_kernel, g_plain)
+    del g_kernel, g_plain
+
+    # 2. Trainer.fit, 600 full-batch steps; 3. checkpoint restore
+    with _plain_rnn_guard() as plain_calls:
+        fit = _fit_and_restore("seq2seq_train", trainer, ts0, [on_dev],
+                               S2S_STEPS, dev)
+    ts, counts, losses = fit["ts"], fit["launches"], fit["losses"]
+    want = {k: n * S2S_STEPS for k, n in S2S_STEP_LAUNCHES.items()}
+    if ts.step != S2S_STEPS or counts != want or plain_calls:
+        raise SystemExit(f"chip_smoke: fit launched {counts} over {ts.step}"
+                         f" steps with {len(plain_calls)} plain LSTM calls; "
+                         f"want {want} and none")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    variables = trainer.variables(ts)
+    accuracy = _reversal_accuracy(model, variables, on_dev, targets)
+    eye = np.eye(S2S_VOCAB, dtype=np.float32)
+    ev = evaluate_model(model, variables, [{
+        "features": {k: a[:S2S_EVAL_ROWS]
+                     for k, a in on_dev["features"].items()},
+        "labels": eye[targets[:S2S_EVAL_ROWS]]}], S2S_VOCAB)
+    log(f"[seq2seq_train] loss {first:.4f} (first 3 steps) -> {last:.4f} "
+        f"(last 3); reversal accuracy on the first {S2S_EVAL_ROWS} rows "
+        f"{accuracy:.4f} (must be > {S2S_ACCURACY}); evaluate_model "
+        f"accuracy {ev.accuracy():.4f} over {int(ev.confusion().sum())} "
+        f"tokens")
+    if not (np.all(np.isfinite(losses)) and last < first
+            and accuracy > S2S_ACCURACY
+            and abs(ev.accuracy() - accuracy) < 1e-6):
+        raise SystemExit("chip_smoke: the seq2seq model did not learn to "
+                         "reverse its sequences")
+
+    # 4. where one step's time goes
+    breakdown = _step_breakdown(trainer, ts, on_dev,
+                                tuple(S2S_STEP_LAUNCHES))
+    _require_kernel_time("seq2seq step", breakdown)
+    log(f"[seq2seq_train] one step: {breakdown}")
+    step_ms = fit["median_step_ms"]
+    log(f"[seq2seq_train] median step {step_ms:.3f} ms, "
+        f"{S2S_N / (step_ms / 1e3):,.0f} sequences/s, peak memory "
+        f"{fit['peak_memory_gib']:.3f} GiB, on {smi}")
+    return {
+        "model": "examples/seq2seq_attention.py", "vocab": S2S_VOCAB,
+        "seq_len": S2S_T, "hidden": S2S_HIDDEN, "batch": S2S_N,
+        "steps": ts.step, "launches": counts,
+        "launches_per_step": S2S_STEP_LAUNCHES,
+        "loss_first3": first, "loss_last3": last,
+        "losses_every_50": losses[::50],
+        "reversal_accuracy": accuracy,
+        "evaluate_model_accuracy": ev.accuracy(),
+        "median_step_ms": step_ms,
+        "sequences_per_s": S2S_N / (step_ms / 1e3),
+        "peak_memory_gib": fit["peak_memory_gib"],
+        "fit_seconds": fit["fit_seconds"],
+        "kernel_vs_plain": {"loss_kernel": loss_k, "loss_plain": loss_p,
+                            "loss_rel": loss_rel,
+                            "worst_grad_leaf": worst_name,
+                            "worst_grad_frac": worst},
+        "checkpoint_next_loss": fit["checkpoint_next_loss"],
+        "step_breakdown": breakdown, "card": smi,
+    }, model, variables
+
+
+# -- 20. seq2seq serving -------------------------------------------------------
+
+S2S_REQUESTS = 200
+# served probabilities vs the plain forward (plain attention, the eager
+# LSTM loop), float32: the kernels' ~1e-6 differences through a softmax
+TOL_S2S_PROBS = 1e-4
+
+
+def _s2s_probs(model, variables, feats):
+    """The served function: {"tokens", "qpos"} → [n, T, vocab]."""
+    return model.output(variables, feats)["out"]
+
+
+def phase_seq2seq_serve(dev, smi, model, variables):
+    from functools import partial
+
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        reference_attention,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
+    from deeplearning4j_tpu_torch.serving import (
+        ModelRegistry,
+        ModelServer,
+        ServingClient,
+        spec,
+    )
+
+    reg = ModelRegistry()
+    entry = reg.register(
+        "seq2seq", partial(_s2s_probs, model), variables,
+        input_spec={"tokens": spec((S2S_T,), np.int32, high=S2S_VOCAB),
+                    "qpos": spec((S2S_T, S2S_QPOS), np.float32)},
+        mode="batched", max_batch_size=8)
+    server = ModelServer(reg, port=0)
+    t0 = time.monotonic()
+    server.start(warm=True)
+    client = ServingClient(server.url, timeout=120)
+    if not client.ready()["ready"]:
+        raise SystemExit("chip_smoke: /readyz not ready after warm start")
+    log(f"[seq2seq_serve] server warm and ready in "
+        f"{time.monotonic() - t0:.2f} s")
+    requests = [seq2seq_batch(1 + i % 4, 6000 + i)[0]["features"]
+                for i in range(S2S_REQUESTS)]
+    latencies = [0.0] * S2S_REQUESTS
+
+    def call(i):
+        t_start = time.monotonic()
+        resp = client.predict("seq2seq", {
+            "tokens": requests[i]["tokens"].tolist(),
+            "qpos": requests[i]["qpos"].tolist()})
+        latencies[i] = time.monotonic() - t_start
+        return resp
+
+    with _plain_rnn_guard() as plain_calls:
+        _dispatch.reset_launch_counts()
+        before = entry.batch_stats()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(CLIENT_THREADS) as pool:
+            responses = list(pool.map(call, range(S2S_REQUESTS)))
+        wall = time.monotonic() - t0
+        counts = _dispatch.launch_counts()
+        after = entry.batch_stats()
+    batches = after["batches"] - before["batches"]
+    rows = after["rows"] - before["rows"]
+    drained = server.stop()
+    want = {"flash_fwd": batches, "lstm_fwd": 2 * batches}
+    log(f"[seq2seq_serve] {S2S_REQUESTS} requests ({rows} sequences) in "
+        f"{wall:.3f} s over {batches} batches; launches {counts}; plain "
+        f"ops/rnn.lstm calls on the card {len(plain_calls)}; "
+        f"drained={drained}")
+    if batches < 1 or counts != want or plain_calls or not drained:
+        raise SystemExit(f"chip_smoke: {counts} for {batches} batches, "
+                         f"{len(plain_calls)} plain LSTM calls, drained="
+                         f"{drained}; want {want}, none and a drain")
+
+    got = [np.asarray(r["outputs"], np.float64) for r in responses]
+    for req, out in zip(requests, got):
+        if out.shape != (req["tokens"].shape[0], S2S_T, S2S_VOCAB) or not (
+                np.all(np.isfinite(out))
+                and np.abs(out.sum(-1) - 1).max() <= 1e-5):
+            raise SystemExit(f"chip_smoke: bad served output {out.shape}")
+    feats = {k: np.concatenate([r[k] for r in requests])
+             for k in ("tokens", "qpos")}
+    with mock.patch.object(attention_mod, "flash_attention",
+                           reference_attention):
+        want_probs = _s2s_probs(_seq2seq_model(dev, "plain"), variables,
+                                feats).double().cpu().numpy()
+    worst = float(np.abs(np.concatenate(got) - want_probs).max())
+    log(f"[seq2seq_serve] served probabilities vs the plain forward: "
+        f"max_abs_err {worst:.3e} (tol {TOL_S2S_PROBS:.0e}) over "
+        f"{feats['tokens'].shape[0]} sequences")
+    if worst > TOL_S2S_PROBS:
+        raise SystemExit("chip_smoke: served seq2seq outputs disagree with "
+                         "the plain forward")
+    feats8 = {k: torch.from_numpy(a[:8]).to(dev) for k, a in feats.items()}
+    breakdown = _forward_breakdown(
+        lambda: _s2s_probs(model, variables, feats8), "flash_fwd")
+    log(f"[seq2seq_serve] one bucket-8 forward: {breakdown}")
+    lat_ms = np.asarray(latencies) * 1e3
+    log(f"[seq2seq_serve] {S2S_REQUESTS / wall:.1f} requests/s "
+        f"({rows / wall:.1f} sequences/s), p50 "
+        f"{np.percentile(lat_ms, 50):.2f} ms, p99 "
+        f"{np.percentile(lat_ms, 99):.2f} ms over {S2S_REQUESTS} requests, "
+        f"{CLIENT_THREADS} clients, on {smi}")
+    return {"model": "examples/seq2seq_attention.py",
+            "requests": S2S_REQUESTS, "rows": rows,
+            "client_threads": CLIENT_THREADS, "batches": batches,
+            "launches": counts, "requests_per_s": S2S_REQUESTS / wall,
+            "rows_per_s": rows / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "max_abs_err_probs": worst, "forward_bucket8": breakdown,
+            "card": smi}
+
+
+def _delta_entry(bwd_cases, training, gpt_training, s2s_training,
+                 smi) -> dict:
     """The kernels line's entry of flash_bwd_delta: the main row is the
     float32 BERT-base training shape, as for dkv and dq."""
     timed = {c: r for c, r in bwd_cases.items() if "flash_bwd_delta_ms" in r}
@@ -3451,7 +4066,9 @@ def _delta_entry(bwd_cases, training, gpt_training, smi) -> dict:
         "launches": training["launches"]["flash_bwd_delta"],
         "launches_by_path": {
             "training": training["launches"]["flash_bwd_delta"],
-            "gpt_training": gpt_training["launches"]["flash_bwd_delta"]},
+            "gpt_training": gpt_training["launches"]["flash_bwd_delta"],
+            "seq2seq_training":
+                s2s_training["launches"]["flash_bwd_delta"]},
         "launches_per_step": (training["launches"]["flash_bwd_delta"]
                               / training["steps"]),
         "max_abs_err": main_row["max_abs_err"]["delta"],
@@ -3491,6 +4108,8 @@ def main() -> int:
                      batches[0]["features"]["mask"].sum(axis=1)]
     cases = phase_kernels(dev, train_lengths)
     bwd_cases = phase_kernels_bwd(dev, train_lengths)
+    padded_cases = phase_kernels_padded(dev)
+    layer_cases = phase_attention_layers(dev)
     # before BERT's long profiled phases: after them the profiler kept 2 of
     # 5 records of a persistent LSTM sweep (seen on the card), all 5 before
     lstm_cases = phase_kernels_lstm(dev)
@@ -3498,6 +4117,9 @@ def main() -> int:
     training = phase_train(dev, smi, batches)
     char_serving = phase_charrnn_serving(dev, smi)
     char_training = phase_charrnn_train(dev, smi)
+    s2s_training, s2s_model, s2s_vars = phase_seq2seq_train(dev, smi)
+    s2s_serving = phase_seq2seq_serve(dev, smi, s2s_model, s2s_vars)
+    del s2s_model, s2s_vars
     gru_cases = phase_kernels_gru(dev)
     gru_serving = phase_chargru_serving(dev, smi)
     gru_training, gru_grads = phase_chargru_train(dev, smi)
@@ -3521,7 +4143,11 @@ def main() -> int:
                              "gpt_training":
                                  gpt_training["launches"]["flash_fwd"],
                              "gpt_serving": gpt_serving["kernel_launches"]
-                                 .get("flash_fwd", 0)},
+                                 .get("flash_fwd", 0),
+                             "seq2seq_training":
+                                 s2s_training["launches"]["flash_fwd"],
+                             "seq2seq_serving":
+                                 s2s_serving["launches"]["flash_fwd"]},
         "launches_per_forward": (serving["flash_fwd_launches"]
                                  / serving["batches"]),
         "max_abs_err": main_case["max_abs_err"],
@@ -3533,7 +4159,12 @@ def main() -> int:
         "bound_is": "the floor on the tensor cores: max(bytes, operations "
                     "at the dtype's tensor-core rate, float32 as three TF32 "
                     "passes)",
-        "cases": cases, "card": smi,
+        "cases": cases,
+        "padded_head_cases": padded_cases,
+        "padded_head_is": "head sizes the kernels lack, zero-padded to the "
+                          "next kernel size by flash_attention (pad_head); "
+                          "bound_ms and library_ms (SDPA) at the original D",
+        "attention_layers": layer_cases, "card": smi,
     }
     entries = [fwd]
     for kernel, line in (("flash_bwd_dkv", 321), ("flash_bwd_dq", 352)):
@@ -3553,7 +4184,8 @@ def main() -> int:
             "launches": training["launches"][kernel],
             "launches_by_path": {
                 "training": training["launches"][kernel],
-                "gpt_training": gpt_training["launches"][kernel]},
+                "gpt_training": gpt_training["launches"][kernel],
+                "seq2seq_training": s2s_training["launches"][kernel]},
             "launches_per_step": (training["launches"][kernel]
                                   / training["steps"]),
             "max_abs_err": err(main_row),
@@ -3592,8 +4224,10 @@ def main() -> int:
                                        "backward",
             "shape": main_row["shape"], "card": smi,
         })
-    entries.append(_delta_entry(bwd_cases, training, gpt_training, smi))
-    entries += _lstm_entries(lstm_cases, char_serving, char_training, smi)
+    entries.append(_delta_entry(bwd_cases, training, gpt_training,
+                                s2s_training, smi))
+    entries += _lstm_entries(lstm_cases, char_serving, char_training,
+                             s2s_serving, s2s_training, smi)
     entries += _gru_entries(gru_cases, gru_serving, gru_training, bitmap,
                             smi)
     print(json.dumps({"kernels": entries}), flush=True)
@@ -3609,6 +4243,8 @@ def main() -> int:
     print(json.dumps({"resnet_serving": resnet_serving}), flush=True)
     print(json.dumps({"gpt_training": gpt_training}), flush=True)
     print(json.dumps({"gpt_serving": gpt_serving}), flush=True)
+    print(json.dumps({"seq2seq_training": s2s_training}), flush=True)
+    print(json.dumps({"seq2seq_serving": s2s_serving}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

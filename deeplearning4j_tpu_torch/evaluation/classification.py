@@ -31,20 +31,28 @@ def _class_ids(labels, scores):
 
 def _confusion_update(cm, scores, labels, mask=None):
     """cm + the confusion counts of [N,C] (or flattened [N,T,C]) scores;
-    ``mask`` weights exclude entries (padded steps)."""
+    ``mask`` weights exclude entries (padded steps). Rows whose label lies
+    outside [0, k) are dropped, as the JAX package's ``segment_sum`` drops
+    their out-of-range index."""
     k = cm.shape[0]
     pred = torch.argmax(scores, dim=-1).reshape(-1)
     lab = _class_ids(labels, scores).reshape(-1)
     w = None if mask is None else mask.to(torch.float32).reshape(-1)
-    counts = torch.bincount(lab * k + pred, weights=w, minlength=k * k)
+    keep = (lab >= 0) & (lab < k)
+    idx = (lab * k + pred)[keep]
+    w = None if w is None else w[keep]
+    counts = torch.bincount(idx, weights=w, minlength=k * k)
     return cm + counts.to(torch.float32).reshape(k, k)
 
 
 def _topn_update(correct, scores, labels, n, mask=None):
-    """correct + the rows whose true class is among the n highest scores."""
+    """correct + the rows whose true class is among the n highest scores.
+    Among equal scores the lower class index ranks first (a stable
+    descending sort, ``lax.top_k``'s order)."""
     lab = _class_ids(labels, scores).reshape(-1)
     flat = scores.reshape(-1, scores.shape[-1])
-    top = torch.topk(flat, n, dim=-1).indices
+    top = torch.sort(flat, dim=-1, descending=True, stable=True).indices[
+        :, :n]
     hit = torch.any(top == lab[:, None], dim=-1).to(torch.float32)
     if mask is not None:
         hit = hit * mask.to(torch.float32).reshape(-1)

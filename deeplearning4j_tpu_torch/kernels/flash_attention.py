@@ -17,7 +17,9 @@
   launches the kernels, a CPU tensor runs the plain versions. With grad
   enabled it goes through ``_FlashAttention`` (a ``torch.autograd.Function``:
   the forward saves the LSE, the backward recomputes the scores from it),
-  the same path on both devices but for the kernels.
+  the same path on both devices but for the kernels. On the card a head
+  size the kernels lack (below 128) runs zero-padded to the next one
+  (:func:`pad_head`), as the JAX kernel pads D to 128 lanes.
 
 Fully-masked query rows (a batch row whose key mask is all zero, such as
 the zero rows ``ParallelInference`` pads a bucket with) come out as 0 from
@@ -31,6 +33,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.kernels import _build, _dispatch
 
@@ -366,6 +369,35 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def kernel_head_size(d):
+    """The head size the kernels run a head of ``d`` at: the least of
+    ``HEAD_DIMS`` that holds it. Above the largest it raises."""
+    for size in HEAD_DIMS:
+        if d <= size:
+            return size
+    raise ValueError(f"head size {d} exceeds the flash kernels' limit of "
+                     f"{HEAD_DIMS[-1]}")
+
+
+def pad_head(attend, q, k, v, *, scale=None):
+    """``attend(q, k, v, scale)`` at the kernels' head size: q, k and v
+    zero-padded on D to ``kernel_head_size(D)``, the output sliced back
+    to D. The scale is the original D's (D^-0.5 unless given). Zero
+    columns add nothing to QKᵀ and give zero output columns, so the
+    result is the unpadded attention; padding and slicing are autograd
+    ops, so a backward through ``attend`` runs on the padded tensors and
+    its gradients come back [.., D]. (The JAX wrapper pads D to its
+    128-lane tile the same way.)"""
+    d = q.shape[-1]
+    scale = (d ** -0.5) if scale is None else scale
+    size = kernel_head_size(d)
+    if size == d:
+        return attend(q, k, v, scale)
+    pad = (0, size - d)
+    return attend(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad),
+                  scale)[..., :d]
+
+
 def flash_attention(q, k, v, *, causal: bool = False, scale=None, bias=None,
                     key_mask=None):
     """Attention entry point; q [B,H,T,D], k/v [B,H,S,D] → [B,H,T,D].
@@ -374,7 +406,10 @@ def flash_attention(q, k, v, *, causal: bool = False, scale=None, bias=None,
     versions. ``key_mask`` [B,S] 1/0 runs inside the kernels. When grad is
     enabled and q, k or v requires it, the call goes through
     ``_FlashAttention``, whose backward is ``flash_bwd_delta``,
-    ``flash_bwd_dkv`` and ``flash_bwd_dq`` on the card. An additive ``bias`` has no kernel path:
+    ``flash_bwd_dkv`` and ``flash_bwd_dq`` on the card. On the card a
+    head size outside ``HEAD_DIMS`` runs zero-padded to the next of them
+    (``pad_head``), forward and backward; above 128 it raises. An
+    additive ``bias`` has no kernel path:
     it runs the plain version on the CPU and raises on CUDA (nothing on the
     port's path passes one)."""
     if bias is not None:
@@ -383,6 +418,10 @@ def flash_attention(q, k, v, *, causal: bool = False, scale=None, bias=None,
                 "flash_attention: an additive bias has no CUDA kernel path")
         return reference_attention(q, k, v, causal=causal, bias=bias,
                                    key_mask=key_mask, scale=scale)
+    if _dispatch.use_kernel(q) and q.shape[-1] not in HEAD_DIMS:
+        return pad_head(lambda qp, kp, vp, s: flash_attention(
+            qp, kp, vp, causal=causal, scale=s, key_mask=key_mask),
+            q, k, v, scale=scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q.contiguous(), k.contiguous(),

@@ -43,7 +43,7 @@ from deeplearning4j_tpu_torch.nn.config import (
 )
 from deeplearning4j_tpu_torch.nn.initializers import truncated_normal
 from deeplearning4j_tpu_torch.nn.layers.attention import (
-    TransformerEncoderBlock,
+    TransformerEncoderBlockModule,
 )
 from deeplearning4j_tpu_torch.ops import loss as losses
 from deeplearning4j_tpu_torch.ops import nn as opsnn
@@ -166,7 +166,7 @@ class Bert(TreeModule):
             self.pooler = ParamGroup({"W": (e, e), "b": (e,)}, dtype)
             self.nsp = ParamGroup({"W": (e, 2), "b": (2,)}, dtype)
         for i in range(c.num_layers):
-            self.add_module(f"layer_{i}", TransformerEncoderBlock(
+            self.add_module(f"layer_{i}", TransformerEncoderBlockModule(
                 e, c.num_heads, intermediate=c.intermediate,
                 activation=c.activation, dropout=c.dropout,
                 attention_dropout=c.attention_dropout, post_ln=True,

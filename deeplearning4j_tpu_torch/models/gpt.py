@@ -4,7 +4,7 @@
 variable names with ``.`` for ``/`` (``embeddings.word``,
 ``final.out_b``, ``layer_3.attention.Wq``), so a variables tree moves
 across unchanged. Training runs the pre-LN causal
-``TransformerEncoderBlock``: on the card its attention is the causal
+``TransformerEncoderBlockModule``: on the card its attention is the causal
 flash kernels (``flash_fwd``, and under grad ``flash_bwd_dkv`` and
 ``flash_bwd_dq``). The head is tied to ``embeddings/word``; only its bias
 ``final/out_b`` is its own.
@@ -45,7 +45,7 @@ from deeplearning4j_tpu_torch.nn.config import (
 from deeplearning4j_tpu_torch.nn.generation import categorical
 from deeplearning4j_tpu_torch.nn.initializers import truncated_normal
 from deeplearning4j_tpu_torch.nn.layers.attention import (
-    TransformerEncoderBlock,
+    TransformerEncoderBlockModule,
 )
 from deeplearning4j_tpu_torch.ops import loss as losses
 from deeplearning4j_tpu_torch.ops import nn as opsnn
@@ -107,7 +107,7 @@ class Gpt(TreeModule):
             "ln_gamma": (e,), "ln_beta": (e,), "out_b": (c.vocab_size,)},
             dtype)
         for i in range(c.num_layers):
-            self.add_module(f"layer_{i}", TransformerEncoderBlock(
+            self.add_module(f"layer_{i}", TransformerEncoderBlockModule(
                 e, c.num_heads, intermediate=c.intermediate,
                 activation=c.activation, dropout=c.dropout,
                 attention_dropout=c.attention_dropout, causal=True,

@@ -160,13 +160,13 @@ class SequentialConfig:
 class GraphVertex:
     """One vertex of a DAG network (↔ org.deeplearning4j.nn.conf.graph.*).
 
-    kind: 'layer' (wraps a LayerConfig), 'merge' (concat on the feature
-    axis), 'add' / 'mul' / 'average' / 'max' / 'min' / 'subtract'
-    (ElementWiseVertex ops), and the JAX package's arg-taking kinds
-    ('scale', 'shift', 'subset', 'stack', 'unstack', 'l2norm', 'reshape',
-    'last_timestep', 'duplicate_to_timeseries', 'reverse_timeseries'),
-    which load here and which ``GraphModel`` refuses until they are ported;
-    ``args`` carries each kind's parameters.
+    kind: 'layer' (wraps a LayerConfig; several inputs go to a
+    multi-input layer), 'merge' (concat on the feature axis), 'add' /
+    'mul' / 'average' / 'max' / 'min' / 'subtract' (ElementWiseVertex
+    ops), and the arg-taking kinds ('scale', 'shift', 'subset', 'stack',
+    'unstack', 'l2norm', 'reshape', 'last_timestep',
+    'duplicate_to_timeseries', 'reverse_timeseries'); ``args`` carries
+    each kind's parameters.
     """
 
     kind: str

@@ -1,8 +1,14 @@
 """Layers (↔ deeplearning4j_tpu.nn.layers)."""
 
 from deeplearning4j_tpu_torch.nn.layers.attention import (
+    CrossAttention,
+    LearnedSelfAttention,
+    PositionalEmbedding,
+    RecurrentAttention,
     SelfAttention,
+    SelfAttentionModule,
     TransformerEncoderBlock,
+    TransformerEncoderBlockModule,
 )
 from deeplearning4j_tpu_torch.nn.layers.conv import (
     Conv2D,
@@ -23,10 +29,18 @@ from deeplearning4j_tpu_torch.nn.layers.output import (
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     GRU,
     LSTM,
+    Bidirectional,
     GravesLSTM,
+    LastTimeStep,
+    SimpleRnn,
+    graves_bidirectional_lstm,
 )
 
-__all__ = ["GRU", "LSTM", "ActivationLayer", "BatchNorm", "Conv2D", "Dense",
-           "Embedding", "Flatten", "GlobalPooling", "GravesLSTM",
-           "OutputLayer", "Pooling2D", "RnnOutputLayer", "SelfAttention",
-           "TransformerEncoderBlock"]
+__all__ = ["GRU", "LSTM", "ActivationLayer", "BatchNorm", "Bidirectional",
+           "Conv2D", "CrossAttention", "Dense", "Embedding", "Flatten",
+           "GlobalPooling", "GravesLSTM", "LastTimeStep",
+           "LearnedSelfAttention", "OutputLayer", "Pooling2D",
+           "PositionalEmbedding", "RecurrentAttention", "RnnOutputLayer",
+           "SelfAttention", "SelfAttentionModule", "SimpleRnn",
+           "TransformerEncoderBlock", "TransformerEncoderBlockModule",
+           "graves_bidirectional_lstm"]

@@ -1,4 +1,4 @@
-"""Recurrent layers (↔ deeplearning4j_tpu/nn/layers/recurrent.py): ``LSTM``, ``GravesLSTM``, ``GRU``.
+"""Recurrent layers (↔ deeplearning4j_tpu/nn/layers/recurrent.py): ``LSTM``, ``GravesLSTM``, ``GRU``, ``SimpleRnn``, ``Bidirectional``, ``LastTimeStep``.
 
 Sequence layout [N, T, C] (batch, time, features), as in the JAX package.
 LSTM params: "W" input weights [in, 4H], "RW" recurrent weights [H, 4H],
@@ -14,18 +14,28 @@ name of the port only, runs the eager loops of ``ops/rnn.lstm`` and
 compare with. All compute the same function. ``unroll`` is kept for the
 config's JSON; the port has no scan to unroll.
 
-Not ported yet: ``init_carry``/``step`` (rnnTimeStep), ``SimpleRnn``,
-``Bidirectional``, ``LastTimeStep``.
+``SimpleRnn`` (params "W" [in, H], "RW" [H, H], "b" [H]) runs the eager
+loop of ``ops/rnn.simple_rnn`` on both devices, as the JAX package runs
+its scan: no Pallas kernel lies under it. ``Bidirectional`` wraps any of
+them with params ``{"fwd": ..., "bwd": ...}``: the backward direction
+runs the inner layer on the time-flipped input (so a ``Bidirectional``
+LSTM launches ``lstm_fwd`` twice a forward on the card, and ``lstm_bwd``
+twice a backward) and flips its output back when it has a time axis.
+``LastTimeStep`` takes [N,T,C] to [N,C], each example's last unpadded
+step under a mask. ``graves_bidirectional_lstm`` composes the two.
+
+Not ported yet: ``init_carry``/``step`` (rnnTimeStep) and ``ConvLSTM2D``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.kernels import gru_scan, lstm_scan
+from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_config
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
 from deeplearning4j_tpu_torch.ops import rnn as opsrnn
@@ -162,3 +172,104 @@ class GRU(LayerConfig):
                              "valid: 'pallas', 'xla', 'plain'")
         y = outputs if self.return_sequences else outputs[:, -1, :]
         return y, state, final
+
+
+@register_config
+@dataclass
+class SimpleRnn(LayerConfig):
+    """↔ SimpleRnn (Elman RNN: h_t = act(x_t·W + h_{t-1}·RW + b))."""
+
+    units: int = 0
+    activation: str = "tanh"
+    weight_init: Optional[str] = None
+    return_sequences: bool = True
+    unroll: int = 1
+
+    def output_shape(self, input_shape):
+        t, _ = input_shape
+        return (t, self.units) if self.return_sequences else (self.units,)
+
+    def init(self, generator, input_shape, dtype):
+        c, h = input_shape[-1], self.units
+        w_init = get_initializer(self.weight_init or "xavier")
+        return {"W": w_init((c, h), generator, dtype),
+                "RW": w_init((h, h), generator, dtype),
+                "b": torch.zeros((h,), dtype=dtype)}, {}
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              initial_state=None):
+        y, state, _final = self.apply_window(params, state, x,
+                                             initial_state, train=train,
+                                             generator=generator)
+        return y, state
+
+    def apply_window(self, params, state, x, carry, *, train=False,
+                     generator=None):
+        """Forward from hidden state ``carry`` [N, H] (None = zeros) →
+        (y, new_state, final h)."""
+        outputs, final = opsrnn.simple_rnn(
+            x, params["W"], params["RW"], params["b"], init_h=carry,
+            activation=get_activation(self.activation))
+        y = outputs if self.return_sequences else outputs[:, -1, :]
+        return y, state, final
+
+
+@register_config
+@dataclass
+class Bidirectional(LayerConfig):
+    """↔ recurrent.Bidirectional (modes CONCAT/ADD/MUL/AVERAGE): the inner
+    recurrent layer over the sequence (params "fwd") and over it reversed
+    in time (params "bwd")."""
+
+    layer: Any = None  # the inner recurrent LayerConfig
+    merge: str = "concat"
+
+    def output_shape(self, input_shape):
+        inner = self.layer.output_shape(input_shape)
+        if self.merge == "concat":
+            return (*inner[:-1], inner[-1] * 2)
+        return inner
+
+    def init(self, generator, input_shape, dtype):
+        pf, sf = self.layer.init(generator, input_shape, dtype)
+        pb, sb = self.layer.init(generator, input_shape, dtype)
+        return {"fwd": pf, "bwd": pb}, {"fwd": sf, "bwd": sb}
+
+    def apply(self, params, state, x, *, train=False, generator=None):
+        yf, sf = self.layer.apply(params["fwd"], state.get("fwd", {}), x,
+                                  train=train, generator=generator)
+        yb, sb = self.layer.apply(params["bwd"], state.get("bwd", {}),
+                                  torch.flip(x, dims=(1,)), train=train,
+                                  generator=generator)
+        # back to forward time order; with return_sequences=False there is
+        # no time axis to flip
+        if yb.ndim == yf.ndim == 3:
+            yb = torch.flip(yb, dims=(1,))
+        return (opsrnn.merge_directions(yf, yb, self.merge),
+                {"fwd": sf, "bwd": sb})
+
+
+@register_config
+@dataclass
+class LastTimeStep(LayerConfig):
+    """↔ LastTimeStep: [N,T,C] → [N,C], the last step, or under ``mask``
+    [N,T] each example's last unpadded step."""
+
+    def output_shape(self, input_shape):
+        return (input_shape[-1],)
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
+        if mask is None:
+            return x[:, -1, :], state
+        idx = torch.clamp(torch.sum(mask.to(torch.int32), dim=1) - 1, min=0)
+        return x[torch.arange(x.shape[0], device=x.device),
+                 idx.long()], state
+
+
+def graves_bidirectional_lstm(units: int, *, merge: str = "concat",
+                              **lstm_kwargs) -> Bidirectional:
+    """↔ GravesBidirectionalLSTM: a Bidirectional over the peephole
+    LSTM."""
+    return Bidirectional(layer=GravesLSTM(units=units, **lstm_kwargs),
+                         merge=merge)

@@ -19,9 +19,8 @@ what ``train.trainer.Trainer`` differentiates.
 never computes on the CPU because a caller handed it host arrays.
 
 Not ported yet: ``apply_tbptt``/``loss_fn_tbptt`` (truncated BPTT),
-``summary`` of either model, the build-time name validation
-(``_validate_registry_names``), and the arg-taking vertex kinds of
-``_VERTEX_OPS`` (ROADMAP queue 1 items 4, 5 and 7).
+``summary`` of either model and the build-time name validation
+(``_validate_registry_names``) (ROADMAP queue 1 items 4, 5 and 7).
 """
 
 from __future__ import annotations
@@ -47,6 +46,7 @@ from deeplearning4j_tpu_torch.nn.weightnoise import (
     NON_WEIGHT_KEYS,
     apply_weight_noise,
 )
+from deeplearning4j_tpu_torch.ops.nn import safe_sq_norm
 from deeplearning4j_tpu_torch.runtime.device import resolve_device
 from deeplearning4j_tpu_torch.utils.pytree import tree_leaves, tree_map
 
@@ -249,17 +249,90 @@ _MERGE_OPS = {
     "merge": lambda xs: torch.cat(xs, dim=-1),
 }
 
-# the JAX package's arg-taking vertex kinds, not ported yet (ROADMAP queue 1
-# item 5): a config that uses one is refused when the model is built
-_UNPORTED_VERTEX_OPS = frozenset({
-    "subset", "stack", "unstack", "l2norm", "scale", "shift", "reshape",
-    "last_timestep", "duplicate_to_timeseries", "reverse_timeseries"})
+def _masked_last_step(x, mask):
+    """Each example's last unpadded step: x [N,T,C], mask [N,T]."""
+    idx = torch.clamp(torch.sum((mask > 0).to(torch.int32), dim=1) - 1,
+                      min=0)
+    return x[torch.arange(x.shape[0], device=x.device), idx.long()]
+
+
+def _unstack(xs, a):
+    x, n = xs[0], a["of"]
+    if x.shape[0] % n:
+        raise ValueError(f"unstack: a batch of {x.shape[0]} does not split "
+                         f"into {n} equal parts")
+    return torch.split(x, x.shape[0] // n)[a["from"]]
+
+
+# Arg-taking vertices (↔ the JAX package's _VERTEX_OPS, reference
+# *Vertex classes beyond the elementwise set): kind → (apply(xs, args),
+# out_shape(in_shapes, args)); shapes are batchless, the batch axis is 0.
+_VERTEX_OPS = {
+    # ↔ SubsetVertex: feature range [from, to] inclusive on the last axis
+    "subset": (
+        lambda xs, a: xs[0][..., a["from"]:a["to"] + 1],
+        lambda ss, a: (*ss[0][:-1], a["to"] + 1 - a["from"]),
+    ),
+    # ↔ StackVertex: concatenate along the batch axis
+    "stack": (
+        lambda xs, a: torch.cat(xs, dim=0),
+        lambda ss, a: tuple(ss[0]),
+    ),
+    # ↔ UnstackVertex(from, stackSize): batch slice ``from`` of ``of``
+    "unstack": (
+        _unstack,
+        lambda ss, a: tuple(ss[0]),
+    ),
+    # ↔ L2NormalizeVertex: unit norm over the last axis (safe norm)
+    "l2norm": (
+        lambda xs, a: xs[0] * torch.rsqrt(
+            safe_sq_norm(xs[0], eps=a.get("eps", 1e-8))),
+        lambda ss, a: tuple(ss[0]),
+    ),
+    # ↔ ScaleVertex (x * const)
+    "scale": (
+        lambda xs, a: xs[0] * a.get("factor", 1.0),
+        lambda ss, a: tuple(ss[0]),
+    ),
+    # ↔ ShiftVertex (x + const)
+    "shift": (
+        lambda xs, a: xs[0] + a["shift"],
+        lambda ss, a: tuple(ss[0]),
+    ),
+    # ↔ ReshapeVertex: batchless target shape
+    "reshape": (
+        lambda xs, a: xs[0].reshape(xs[0].shape[0], *a["shape"]),
+        lambda ss, a: tuple(a["shape"]),
+    ),
+    # ↔ LastTimeStepVertex: [T, C] → [C]; a second input [N, T] is the
+    # mask, and each example's last unpadded step is taken
+    "last_timestep": (
+        lambda xs, a: (xs[0][:, -1] if len(xs) == 1
+                       else _masked_last_step(xs[0], xs[1])),
+        lambda ss, a: tuple(ss[0][1:]),
+    ),
+    # ↔ DuplicateToTimeSeriesVertex: [C] repeated over the second input's
+    # time axis → [T, C]
+    "duplicate_to_timeseries": (
+        lambda xs, a: xs[0][:, None, :].expand(
+            xs[0].shape[0], xs[1].shape[1], xs[0].shape[-1]),
+        lambda ss, a: (ss[1][0], ss[0][-1]),
+    ),
+    # ↔ ReverseTimeSeriesVertex: flip the time axis
+    "reverse_timeseries": (
+        lambda xs, a: torch.flip(xs[0], dims=(1,)),
+        lambda ss, a: tuple(ss[0]),
+    ),
+}
 
 
 class GraphModel:
-    """↔ ComputationGraph: a named-vertex DAG with merge and element-wise
-    vertices, visited in the JAX package's topological order (the same
-    ``graphlib`` order, so vertex ``i`` seeds its init alike).
+    """↔ ComputationGraph: a named-vertex DAG of layer, merge,
+    element-wise and arg-taking vertices (``_VERTEX_OPS``), visited in the
+    JAX package's topological order (the same ``graphlib`` order, so
+    vertex ``i`` seeds its init alike). A layer vertex with several inputs
+    hands them all to a multi-input layer (``CrossAttention``) through its
+    ``init_multi``/``apply_multi``/``output_shape_multi``.
 
     Variables are named by vertex (``{"params": {"stem_conv": {...}},
     "state": {"stem_bn": {...}}}``), as in the JAX package. ``apply``
@@ -283,25 +356,40 @@ class GraphModel:
                 name, v, [self.shapes[i] for i in v.inputs])
 
     @staticmethod
-    def _vertex_out_shape(name: str, v: GraphVertex, in_shapes):
+    def _is_multi(v: GraphVertex) -> bool:
+        """True when a layer vertex hands all its inputs to its layer
+        (the multi-input protocol). A layer declaring ``apply_multi`` must
+        also declare ``init_multi`` and ``output_shape_multi``; a layer
+        vertex with several inputs whose layer has no protocol is refused
+        rather than dropping inputs 1..n."""
+        if v.kind != "layer" or len(v.inputs) <= 1:
+            return False
+        if not hasattr(v.layer, "apply_multi"):
+            raise ValueError(
+                f"layer vertex with {len(v.inputs)} inputs requires a "
+                f"multi-input layer (apply_multi), but "
+                f"{type(v.layer).__name__} is single-input — merge the "
+                "inputs with a 'merge'/elementwise vertex first")
+        missing = [m for m in ("init_multi", "output_shape_multi")
+                   if not hasattr(v.layer, m)]
+        if missing:
+            raise TypeError(
+                f"{type(v.layer).__name__} declares apply_multi but lacks "
+                f"{missing}: the multi-input protocol is all-or-nothing")
+        return True
+
+    def _vertex_out_shape(self, name: str, v: GraphVertex, in_shapes):
         if v.kind == "layer":
-            if len(v.inputs) > 1:
-                raise ValueError(
-                    f"layer vertex {name!r} has {len(v.inputs)} inputs; the "
-                    f"port has no multi-input layer, and "
-                    f"{type(v.layer).__name__} is single-input — merge the "
-                    "inputs with a 'merge'/elementwise vertex first")
+            if self._is_multi(v):
+                return tuple(v.layer.output_shape_multi(in_shapes))
             return tuple(v.layer.output_shape(in_shapes[0]))
         if v.kind == "merge":
             feat = sum(s[-1] for s in in_shapes)
             return (*in_shapes[0][:-1], feat)
         if v.kind in _MERGE_OPS:
             return tuple(in_shapes[0])
-        if v.kind in _UNPORTED_VERTEX_OPS:
-            raise NotImplementedError(
-                f"vertex {name!r} of kind {v.kind!r}: the port runs 'layer', "
-                f"{sorted(_MERGE_OPS)} vertices; {v.kind!r} is not ported "
-                "yet (ROADMAP queue 1 item 5)")
+        if v.kind in _VERTEX_OPS:
+            return tuple(_VERTEX_OPS[v.kind][1](in_shapes, v.args))
         raise ValueError(f"unknown vertex kind {v.kind!r} ({name!r})")
 
     def named_layers(self):
@@ -322,8 +410,13 @@ class GraphModel:
             v = self.config.vertices[name]
             if v.kind != "layer":
                 continue
-            p, s = _with_net_weight_init(v.layer, self.net).init(
-                _layer_generator(seed, i), self.shapes[v.inputs[0]], dtype)
+            layer = _with_net_weight_init(v.layer, self.net)
+            gen = _layer_generator(seed, i)
+            if self._is_multi(v):
+                p, s = layer.init_multi(
+                    gen, [self.shapes[inp] for inp in v.inputs], dtype)
+            else:
+                p, s = layer.init(gen, self.shapes[v.inputs[0]], dtype)
             if p:
                 params[name] = p
             if s:
@@ -348,12 +441,19 @@ class GraphModel:
             if v.kind == "layer":
                 p = apply_weight_noise(v.layer, params.get(name, {}),
                                        generator, train)
-                y, s = v.layer.apply(p, state.get(name, {}), xs[0],
-                                     train=train, generator=generator)
+                if self._is_multi(v):
+                    y, s = v.layer.apply_multi(p, state.get(name, {}), xs,
+                                               train=train,
+                                               generator=generator)
+                else:
+                    y, s = v.layer.apply(p, state.get(name, {}), xs[0],
+                                         train=train, generator=generator)
                 if s:
                     new_state[name] = s
-            else:
+            elif v.kind in _MERGE_OPS:
                 y = _MERGE_OPS[v.kind](xs)
+            else:
+                y = _VERTEX_OPS[v.kind][0](xs, v.args)
             values[name] = y
         return values, new_state
 

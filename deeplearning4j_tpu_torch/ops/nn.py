@@ -71,6 +71,13 @@ def linear(x, w, b=None):
     return F.linear(x, w.t(), b)
 
 
+def safe_sq_norm(x, axis=-1, keepdims=True, eps=1e-8):
+    """Sum of squares over ``axis`` clamped at eps²: ``x·rsqrt(...)`` has
+    finite gradients at x = 0, where a plain norm's are NaN."""
+    return torch.clamp(torch.sum(torch.square(x), dim=axis,
+                                 keepdim=keepdims), min=eps * eps)
+
+
 def embedding_lookup(table, ids):
     """Rows of ``table`` [V, E] for integer ``ids`` (any shape)."""
     ids = ids.long()

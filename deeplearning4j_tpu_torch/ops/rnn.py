@@ -16,10 +16,18 @@ The plain PyTorch recurrence, gate math in the JAX package's order:
 - :func:`gru` — a full sequence, from an optional initial state, forwards
   or reversed in time.
 
+- :func:`simple_rnn` — the Elman recurrence h_t = act(x_t·W + h·RW + b);
+- :func:`reverse_sequence` — each sequence reversed up to its length;
+- :func:`bidirectional_lstm` — an LSTM over the sequence and another over
+  it reversed in time, their outputs merged (concat, add, mul,
+  average). It runs the fused sweeps of ``kernels/lstm_scan.py`` in both
+  directions (the reversed one on the time-flipped input), so on the
+  card each direction is one ``lstm_fwd`` launch.
+
 This is the recurrent layers' ``backend="plain"`` path. The fused sweeps
 of ``kernels/lstm_scan.py`` and ``kernels/gru_scan.py`` (the ``"pallas"``
 and ``"xla"`` path) compute the same functions; their own plain versions
-live beside them there. ``simple_rnn`` comes with its layer.
+live beside them there.
 """
 
 from __future__ import annotations
@@ -125,3 +133,78 @@ def gru(x, w_x, w_h, b=None, init_h=None, *, reverse: bool = False):
         h = gru_cell(x_proj[:, t], h, w_h, b)
         hs[t] = h
     return torch.stack(hs, dim=1), h
+
+
+def simple_rnn(x, w_x, w_h, b=None, init_h=None, *, activation=torch.tanh,
+               reverse: bool = False, unroll: int = 1):
+    """Elman RNN: x [N,T,In] → (outputs [N,T,H], final h [N,H]), from
+    ``init_h`` (zeros when None), reversed in time with ``reverse``
+    (outputs kept at their own time index). ``unroll`` is the JAX
+    package's scan argument; a Python loop has nothing to unroll."""
+    n, t_len, _ = x.shape
+    h = (torch.zeros((n, w_h.shape[0]), dtype=x.dtype, device=x.device)
+         if init_h is None else init_h)
+    x_proj = torch.matmul(x, w_x)  # [N,T,H]
+    hs = [None] * t_len
+    steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
+    for t in steps:
+        pre = x_proj[:, t] + torch.matmul(h, w_h)
+        if b is not None:
+            pre = pre + b
+        h = activation(pre)
+        hs[t] = h
+    return torch.stack(hs, dim=1), h
+
+
+def reverse_sequence(x, lengths, time_axis=1, batch_axis=0):
+    """↔ nd4j ReverseSequence: each sequence's first ``lengths[n]`` steps
+    reversed, the steps beyond its length left in place. ``batch_axis``
+    must be 0, as in the JAX package, which gathers along ``time_axis``
+    with the lengths on the leading axis."""
+    if batch_axis != 0:
+        raise ValueError("reverse_sequence takes the batch on axis 0")
+    t = x.shape[time_axis]
+    idx = torch.arange(t, device=x.device)
+    rev = lengths.to(idx.dtype)[:, None] - 1 - idx[None, :]
+    rev = torch.where(rev >= 0, rev, idx[None, :])
+    rev = rev.reshape(rev.shape + (1,) * (x.ndim - 2))
+    return torch.gather(x, time_axis, rev.expand(x.shape))
+
+
+def merge_directions(out_f, out_b, merge: str):
+    """The Bidirectional wrapper's merge of the two directions' outputs."""
+    if merge == "concat":
+        return torch.cat([out_f, out_b], dim=-1)
+    if merge == "add":
+        return out_f + out_b
+    if merge == "mul":
+        return out_f * out_b
+    if merge == "average":
+        return 0.5 * (out_f + out_b)
+    raise ValueError(f"unknown merge mode {merge}")
+
+
+def bidirectional_lstm(x, params_fwd, params_bwd, *, merge="concat",
+                       init_state: Optional[LSTMState] = None,
+                       peepholes=None, forget_bias: float = 0.0,
+                       unroll: int = 1):
+    """↔ the Bidirectional wrapper over an LSTM: ``params_*`` are (w_x,
+    w_h, b) triples; the backward direction runs on the time-flipped input
+    and its outputs are flipped back. Both directions run the fused sweeps
+    (``kernels/lstm_scan.lstm``: ``lstm_fwd``/``lstm_bwd`` on the card).
+    Returns (merged outputs, (final state forward, final state
+    backward)); ``unroll`` is the JAX package's scan argument."""
+    from deeplearning4j_tpu_torch.kernels import lstm_scan
+
+    def run(inp, w_x, w_h, b=None):
+        if b is None:
+            b = torch.zeros((w_h.shape[1],), dtype=w_h.dtype,
+                            device=w_h.device)
+        return lstm_scan.lstm(inp, w_x, w_h, b, peepholes=peepholes,
+                              forget_bias=forget_bias,
+                              init_state=init_state)
+
+    out_f, st_f = run(x, *params_fwd)
+    out_b, st_b = run(torch.flip(x, dims=(1,)), *params_bwd)
+    out_b = torch.flip(out_b, dims=(1,))
+    return merge_directions(out_f, out_b, merge), (st_f, st_b)

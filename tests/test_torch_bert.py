@@ -23,7 +23,7 @@ from deeplearning4j_tpu.nn.layers import (
 from deeplearning4j_tpu.serde.checkpoint import save_state_tree
 from deeplearning4j_tpu_torch.models.bert import BertConfig, bert_tiny
 from deeplearning4j_tpu_torch.nn.config import config_from_json, config_to_json
-from deeplearning4j_tpu_torch.nn.layers import TransformerEncoderBlock
+from deeplearning4j_tpu_torch.nn.layers import TransformerEncoderBlockModule
 from deeplearning4j_tpu_torch.serde.checkpoint import (
     load_inference_variables,
     variables_from_numpy,
@@ -106,8 +106,8 @@ def test_pre_ln_causal_block_matches_jax():
                            post_ln=False)
     jp, _ = jblk.init(jax.random.key(5), (t, e), jnp.float32)
     jp = jax.tree_util.tree_map(np.asarray, jp)
-    blk = TransformerEncoderBlock(e, 2, intermediate=96, causal=True,
-                                  post_ln=False)
+    blk = TransformerEncoderBlockModule(e, 2, intermediate=96, causal=True,
+                                        post_ln=False)
     flat = dict(flatten_with_names(jp))
     assert {n.replace(".", "/") for n, _ in blk.named_parameters()} \
         == set(flat)

@@ -330,6 +330,45 @@ def test_autograd_goes_through_the_three_kernels(dev):
         assert (a - w).abs().max().item() <= 1e-4
 
 
+# head sizes the kernels lack (b, h, t, s, d, dtype, causal, lengths): the
+# seq2seq example's CrossAttention (1024 sequences x 4 heads of 16, T = S
+# = 10) and D = 48 with masked keys, zero-padded to 32 and 64
+PADDED_CASES = {
+    "seq2seq_d16_fp32": (1024, 4, 10, 10, 16, torch.float32, False, None),
+    "seq2seq_d16_bf16": (1024, 4, 10, 10, 16, torch.bfloat16, False, None),
+    "d48_padded_fp32": (2, 3, 70, 100, 48, torch.float32, False, [100, 41]),
+    "d48_causal_bf16": (2, 3, 70, 100, 48, torch.bfloat16, True, [100, 41]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PADDED_CASES))
+def test_padded_head_size_runs_the_three_kernels(dev, case):
+    """Autograd through flash_attention at a head size the kernels lack:
+    the forward and the three backward kernels run once each on the
+    zero-padded tensors, with the scale of the original D, and the
+    gradients come back [.., D], against autograd of the plain version of
+    the inputs in float32 (TOL of max(1, |plain|))."""
+    b, h, t, s, d, dtype, causal, lengths = PADDED_CASES[case]
+    q, k, v, mask, dout = _inputs(dev, b, h, t, s, d, dtype, lengths,
+                                  seed=13)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    _dispatch.reset_launch_counts()
+    out = flash_attention(*leaves, causal=causal, key_mask=mask)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert _dispatch.launch_counts() == {
+        "flash_fwd": 1, "flash_bwd_delta": 1, "flash_bwd_dkv": 1,
+        "flash_bwd_dq": 1}
+    plain = [x.float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        reference_attention(*plain, causal=causal, key_mask=mask), plain,
+        dout.float())
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and a.dtype == dtype
+        ref = max(1.0, w.abs().max().item())
+        err = (a.float() - w).abs().max().item()
+        assert err <= TOL[dtype] * ref, (name, err, ref)
+
+
 def test_bert_tiny_train_step_grads_equal_the_plain_path(dev, monkeypatch):
     model = bert_tiny(device=dev, dropout=0.1, attention_dropout=0.1)
     params = {n: p.detach().clone().requires_grad_()

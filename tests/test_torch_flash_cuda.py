@@ -102,8 +102,26 @@ CASES = {
     "gpt_causal_t1024_bf16": (4, 12, 1024, 1024, 64, torch.bfloat16, True,
                               None),
 }
+# a single query tile of 1 or 4 rows (LearnedSelfAttention's few learned
+# queries; the rest of the tile dead) against one key tile (S = 64) or
+# three, the last ragged (S = 130); causal aligns the few queries to the
+# last keys
+CASES.update({
+    f"t{t}_s{s}{'_causal' if causal else ''}_{tag}":
+        (2, 3, t, s, 64, dtype, causal, None)
+    for t in (1, 4) for s in (64, 130) for causal in (False, True)
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))})
 BF16_CASES = sorted(c for c in CASES if CASES[c][5] == torch.bfloat16)
 FP32_CASES = sorted(c for c in CASES if CASES[c][5] == torch.float32)
+# head sizes the kernels lack, run zero-padded to the next kernel size by
+# flash_attention (pad_head): the seq2seq example's CrossAttention (1024
+# sequences x 4 heads of 16, T = S = 10), and D = 48 with masked keys
+PADDED_CASES = {
+    "seq2seq_d16_fp32": (1024, 4, 10, 10, 16, torch.float32, False, None),
+    "seq2seq_d16_bf16": (1024, 4, 10, 10, 16, torch.bfloat16, False, None),
+    "d48_padded_fp32": (2, 3, 70, 100, 48, torch.float32, False, [100, 41]),
+    "d48_causal_bf16": (2, 3, 70, 100, 48, torch.bfloat16, True, [100, 41]),
+}
 
 
 @pytest.fixture(scope="module")
@@ -297,6 +315,24 @@ def test_bf16_autograd_goes_through_the_three_kernels(dev):
         assert err <= TOL_BWD * ref, (name, err, ref)
 
 
+@pytest.mark.parametrize("case", sorted(PADDED_CASES))
+def test_padded_head_size_runs_the_kernel(dev, case):
+    """A head size the kernels lack runs the forward kernel once on q, k
+    and v zero-padded to the next kernel size, with the scale of the
+    original D; the output, sliced back to D, against the plain version
+    at D."""
+    b, h, t, s, d, dtype, causal, lengths = PADDED_CASES[case]
+    q, k, v, mask = _inputs(dev, b, h, t, s, d, dtype, lengths)
+    _dispatch.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, key_mask=mask)
+    assert _dispatch.launch_counts() == {"flash_fwd": 1}
+    want = reference_attention(q, k, v, causal=causal, key_mask=mask)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_a_call_the_kernel_refuses_raises(dev, dtype, monkeypatch):
     """Past the wrapper's checks, a head size without a kernel is refused
@@ -310,17 +346,17 @@ def test_a_call_the_kernel_refuses_raises(dev, dtype, monkeypatch):
     assert _dispatch.launch_counts() == {}
 
 
-@pytest.mark.parametrize("bad", ["bias", "head_size_48", "cpu_mask"])
+@pytest.mark.parametrize("bad", ["bias", "head_size_160", "cpu_mask"])
 def test_what_the_kernel_does_not_take_raises(dev, bad):
-    q, k, v, mask = _inputs(dev, 1, 2, 16, 16, 48 if bad == "head_size_48"
+    q, k, v, mask = _inputs(dev, 1, 2, 16, 16, 160 if bad == "head_size_160"
                             else 32, torch.float32, [16])
     _dispatch.reset_launch_counts()
     if bad == "bias":
         with pytest.raises(NotImplementedError):
             flash_attention(q, k, v, bias=torch.zeros(1, 2, 16, 16,
                                                       device=dev))
-    elif bad == "head_size_48":
-        with pytest.raises(ValueError, match="head size 48"):
+    elif bad == "head_size_160":
+        with pytest.raises(ValueError, match="head size 160 exceeds"):
             flash_attention(q, k, v, key_mask=mask)
     else:
         with pytest.raises(ValueError, match="key_mask"):

@@ -67,6 +67,8 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.serving.errors",
     "deeplearning4j_tpu_torch.serving.client",
     "deeplearning4j_tpu_torch.serving.warmup",
+    "deeplearning4j_tpu_torch.nn.layers",
+    "deeplearning4j_tpu_torch.nn.layers.attention",
 ]
 
 

@@ -60,6 +60,24 @@ def _threads():
     torch.set_num_threads(before)
 
 
+@pytest.fixture(autouse=True)
+def _no_injected_faults():
+    """The JAX package's data iterators, the references here, consult its
+    process-wide fault injector (``data.read``); a plan that another test
+    file left armed in the same worker process would fail them. Each test
+    runs with an empty injector and gets back the one that was there."""
+    from deeplearning4j_tpu.resilience.faults import (
+        FaultInjector,
+        get_fault_injector,
+        set_fault_injector,
+    )
+
+    before = get_fault_injector()
+    set_fault_injector(FaultInjector())
+    yield
+    set_fault_injector(before)
+
+
 def _batch(seed, n=N):
     r = np.random.default_rng(seed)
     return {"features": r.random((n, 28, 28, 1), dtype=np.float32),
@@ -324,3 +342,62 @@ def test_evaluation_stats_equal_jax():
     assert ev.stats() == jev.stats()
     with pytest.raises(ValueError, match="top_n"):
         Evaluation(7).top_n_accuracy()
+
+
+def test_top_n_ties_count_like_jax():
+    """Equal scores rank the lower class first, as ``lax.top_k`` does:
+    all-zero scores (labels 4, 0, 2 at top-2: only class 0 is a hit) and
+    rows of saturated probabilities, in eval and eval_time_series."""
+    scores = np.zeros((3, 5), np.float32)
+    labels = np.array([4, 0, 2])
+    ev, jev = Evaluation(5, top_n=2), jax_eval.Evaluation(5, top_n=2)
+    ev.eval(labels, scores)
+    jev.eval(jnp.asarray(labels), jnp.asarray(scores))
+    assert ev.top_n_accuracy() == jev.top_n_accuracy() == pytest.approx(1 / 3)
+    seq = np.array([[[0.5, 0.5, 0.0, 0.0, 0.0], [0.0, 1.0, 1.0, 1.0, 0.0]],
+                    [[0.2, 0.2, 0.2, 0.2, 0.2], [1.0, 0.0, 0.0, 0.0, 1.0]]],
+                   np.float32)
+    seq_labels = np.array([[1, 3], [2, 4]])
+    ev.eval_time_series(seq_labels, seq)
+    jev.eval_time_series(jnp.asarray(seq_labels), jnp.asarray(seq))
+    assert ev.top_n_accuracy() == pytest.approx(jev.top_n_accuracy(),
+                                                rel=1e-6)
+    np.testing.assert_array_equal(ev.confusion(), jev.confusion())
+
+
+@pytest.mark.parametrize("bad", [-1, 4])
+def test_out_of_range_labels_count_like_jax(bad, jax_model, variables):
+    """A label outside [0, k) leaves the confusion matrix (the JAX
+    package's ``segment_sum`` drops its index) and counts as a top-N miss
+    in the total: eval, eval_time_series with a mask, and evaluate_model
+    over integer labels."""
+    r = np.random.default_rng(11)
+    labels = np.array([0, 1, bad, 3, 2, 1])
+    probs = r.random((6, 4)).astype(np.float32)
+    ev, jev = Evaluation(4, top_n=2), jax_eval.Evaluation(4, top_n=2)
+    ev.eval(labels, probs)
+    jev.eval(jnp.asarray(labels), jnp.asarray(probs))
+    seq_labels = np.array([[bad, 2, 3], [1, 0, bad]])
+    seq = r.random((2, 3, 4)).astype(np.float32)
+    mask = np.array([[1, 1, 0], [1, 1, 1]], np.float32)
+    ev.eval_time_series(seq_labels, seq, mask)
+    jev.eval_time_series(jnp.asarray(seq_labels), jnp.asarray(seq),
+                         jnp.asarray(mask))
+    np.testing.assert_array_equal(ev.confusion(), jev.confusion())
+    assert int(ev.confusion().sum()) == 8
+    assert ev.accuracy() == jev.accuracy()
+    assert ev.top_n_accuracy() == pytest.approx(jev.top_n_accuracy(),
+                                                rel=1e-6)
+    b = _batch(12, 20)
+    ids = b["labels"].argmax(-1)
+    ids[[3, 17]] = -1 if bad < 0 else 10
+    ev = evaluate_model(lenet(device="cpu"), variables_from_numpy(variables),
+                        ArrayDataSetIterator(b["features"], ids, 8,
+                                             shuffle=False, drop_last=False),
+                        num_classes=10)
+    jev = jax_eval.evaluate_model(
+        jax_model, variables, jax_data.ArrayDataSetIterator(
+            b["features"], ids, 8, shuffle=False, drop_last=False),
+        num_classes=10)
+    np.testing.assert_array_equal(ev.confusion(), jev.confusion())
+    assert int(ev.confusion().sum()) == 18

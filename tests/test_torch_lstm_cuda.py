@@ -64,6 +64,9 @@ CASES = {
     "h88_empty_member": (6, 30, 88, False, 0.0, True),
     "h320_resident_limit": (9, 12, 320, True, 1.0, True),
     "h321_step_route": (9, 12, 321, True, 1.0, True),
+    # the seq2seq example's biLSTM encoder (each direction): 1024 rows in
+    # 128 clusters, 2 units a block, no peepholes
+    "seq2seq_n1024_t10_h32": (1024, 10, 32, False, 1.0, False),
 }
 
 

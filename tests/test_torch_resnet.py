@@ -328,18 +328,41 @@ def test_merge_vertices_match_jax(kind):
 @pytest.mark.parametrize("kind", ["subset", "l2norm", "reshape",
                                   "last_timestep", "scale"])
 def test_unported_vertex_kinds_are_refused_by_name(kind):
-    v = {"a": nnconfig.GraphVertex(kind=kind, inputs=["x"]),
-         "out": nnconfig.GraphVertex(kind="layer", inputs=["a"],
-                                     layer=layers.OutputLayer(units=3))}
-    cfg = nnconfig.GraphConfig(net=nnconfig.NeuralNetConfiguration(),
-                               inputs=["x"], input_shapes={"x": (5,)},
-                               vertices=v, outputs=["out"])
-    with pytest.raises(NotImplementedError, match=repr(kind)):
-        GraphModel(cfg, device="cpu")
-    v["a"] = nnconfig.GraphVertex(kind="layer", inputs=["x", "x"],
-                                  layer=layers.Dense(units=3))
+    """These arg-taking kinds, once refused, now build and answer like the
+    JAX package's (every kind: tests/test_torch_attention_layers.py); an
+    unknown kind is refused by name, and a layer vertex with two inputs
+    whose layer is single-input is refused."""
+    args = {"subset": {"from": 1, "to": 3}, "l2norm": {},
+            "reshape": {"shape": [5, 1]}, "last_timestep": {},
+            "scale": {"factor": 2.5}}[kind]
+    shape = (4, 5) if kind == "last_timestep" else (5,)
+
+    def cfg(pkg_config, pkg_layers, vkind=kind):
+        v = {"a": pkg_config.GraphVertex(kind=vkind, inputs=["x"],
+                                         args=args),
+             "out": pkg_config.GraphVertex(
+                 kind="layer", inputs=["a"],
+                 layer=pkg_layers.OutputLayer(units=3))}
+        return pkg_config.GraphConfig(
+            net=pkg_config.NeuralNetConfiguration(seed=0), inputs=["x"],
+            input_shapes={"x": shape}, vertices=v, outputs=["out"])
+
+    jm = JaxGraphModel(cfg(jax_config, jax_layers))
+    pm = GraphModel(cfg(nnconfig, layers), device="cpu")
+    assert pm.shapes == {k: tuple(s) for k, s in jm.shapes.items()}
+    v = jax.tree_util.tree_map(np.array, jm.init())
+    x = np.random.default_rng(9).standard_normal((4, *shape),
+                                                 dtype=np.float32)
+    np.testing.assert_allclose(
+        pm.output_single(ckpt.variables_from_numpy(v), x).numpy(),
+        np.asarray(jm.output_single(v, x)), atol=TOL)
+    with pytest.raises(ValueError, match="'nonsense'"):
+        GraphModel(cfg(nnconfig, layers, "nonsense"), device="cpu")
+    bad = cfg(nnconfig, layers)
+    bad.vertices["a"] = nnconfig.GraphVertex(kind="layer", inputs=["x", "x"],
+                                             layer=layers.Dense(units=3))
     with pytest.raises(ValueError, match="multi-input"):
-        GraphModel(cfg, device="cpu")
+        GraphModel(bad, device="cpu")
 
 
 def _probs(model, variables, images):
