@@ -159,6 +159,35 @@ caught:
    dispatched batch; requests/s, p50/p99. Phases 19 and 20 run after
    phase 8.
 
+21. char-RNN by truncated BPTT — the char-RNN of phase 8 with
+   backprop_type "tbptt" and tbptt_length 50 (GravesLSTMCharModellingExample's
+   tbpttLength): a batch of 256 steps is 5 windows and a tail of 6, one
+   Adam update each, 12 lstm_fwd + 12 lstm_bwd launches (the dispatch
+   counts, and the persistent kernels by the profiler). One batch window
+   by window through the kernels and through the plain route from the same
+   state: each window's loss to 1e-5 relative, the carries handed on to
+   TOL_CARRY of their max, the params after the batch to TOL_ADAM_STEP of
+   an Adam step; one window over the whole sequence against the standard
+   step, bit for bit; 30 batches of Trainer.fit (a listener callback a
+   window), a falling loss, a checkpoint restored bit-equal that continues
+   with the live state's loss; batch time, windows/s, tokens/s, peak
+   memory and one window's idle share.
+22. char-RNN sampling — the trained model: RnnTimeStepper primed with 64
+   chars at N=32 (one lstm_fwd a layer; its carries against 64 plain
+   steps), 256 single steps (the cells, no sweep) against the plain full
+   forward, a greedy generate of 200 chars at batch 8 whose every id is
+   the plain full forward's argmax (ties within TOL_GREEDY_TIE counted),
+   a sampled generate twice from one seed; chars/s. Phases 21 and 22 run
+   right after phase 6.
+23. char-GRU by truncated BPTT — the char-GRU on one-hot chars through a
+   bias-free Dense(66 → 256) (TBPTT splits features of rank >= 3 only, so
+   the Embedding's int ids are refused), tbptt_length 50 over T=100: one
+   batch of 2 windows against the plain route (phase 21's limits), 2
+   gru_fwd + 2 gru_bwd launches a batch; batch time. It runs after
+   phase 11. The kernel phases 6 and 9 also hold and time the TBPTT
+   window shapes (T=50 from carried state, the T=6 tail, the T=64 prime)
+   beside torch.nn.LSTM / torch.nn.GRU from the same initial state.
+
 No TPU kernel lies on phases 13–15 and 17: the convolutions run in cuDNN
 (as the JAX package leaves them to XLA), and generation's prefill and
 decode attend with plain matmuls (as the JAX package's einsums,
@@ -170,8 +199,8 @@ see a CUDA tensor (they are the plain paths the kernels are held against,
 run separately).
 
 It prints the kernels line ({"kernels": [...]}), the serving, training,
-char-RNN, char-GRU, bitmap, LeNet-5, ResNet-50, GPT-2-small and seq2seq
-lines,
+char-RNN (TBPTT and sampling too), char-GRU (TBPTT too), bitmap, LeNet-5,
+ResNet-50, GPT-2-small and seq2seq lines,
 the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
 """
@@ -445,14 +474,19 @@ def _device_ms(fn) -> float:
 
 
 def _step_launches(fn, kernel: str, want: int, attempts: int = 3,
-                   spans=None, name=None):
+                   spans=None, name=None, route_only=False):
     """The launches per call of ``kernel``'s step kernel (or of the CUDA
     kernel whose name contains ``name``) as the profiler counts them, and
     that trace's device µs by kernel (a list passed as ``spans`` receives
     its kernel intervals, 5 calls). A trace may lose kernel records (seen
     on the card: a few to 63 of a call's launches missing, never one too
     many), so a count under ``want`` is retaken, up to ``attempts``
-    traces; a count over it, or none that reaches it, fails the run.
+    traces; a count over it, or none that reaches it, fails the run. With
+    ``route_only`` (the persistent LSTM sweeps, one kernel a call, whose
+    traces kept 3 or 4 of 5 records in every attempt in some full runs,
+    at T = 50, 6, 64 and once at T = 256, while other cases of the same
+    run kept all: PR 17) a count of at least half of ``want`` shows the route
+    and passes; the launches themselves are the dispatch counts'.
     Returns (count, µs by kernel, every count taken)."""
     name = name or f"{kernel}_step_kernel"
     counts = []
@@ -466,6 +500,12 @@ def _step_launches(fn, kernel: str, want: int, attempts: int = 3,
             break
     log(f"[kernels] {kernel}: {steps} launches of {name} per call "
         f"(profiler; expected {want}; traces {counts})")
+    if route_only and want / 2 <= steps < want:
+        log(f"[kernels] {kernel}: the profiler kept {steps / want:.0%} of "
+            f"the records; the route holds (no launch over {want})")
+        if spans is not None:
+            spans.extend(recorded)
+        return steps, by_kernel, counts
     if steps != want:
         log(f"[kernels] {kernel}: the last trace's launches per call by "
             f"kernel: {launches}")
@@ -1292,13 +1332,16 @@ def _step_events():
 
 
 def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev,
-                     next_batch=None) -> dict:
+                     next_batch=None, per_batch=1, step=None) -> dict:
     """Trainer.fit over ``batches`` (a list, or an iterator with
     ``next_batch`` given) for ``epochs`` with a checkpoint every 10
-    iterations (keep 2); the launch counts, losses, median step (CUDA
+    batches (keep 2); the launch counts, losses, median step (CUDA
     events between steps, after 3), peak memory; then the last checkpoint
     restored must give bit-equal params, layer state and updater state
-    and the same next-step loss as the live state."""
+    and the same next-step loss as the live state. ``per_batch``: the
+    iterations a batch makes (its truncated-BPTT windows; the median is
+    then one batch's); ``step(ts, batch) -> (ts, metrics)``: the next
+    step (default ``trainer.train_step``)."""
     from deeplearning4j_tpu_torch.kernels import _dispatch
     from deeplearning4j_tpu_torch.serde.checkpoint import (
         latest_checkpoint,
@@ -1314,7 +1357,7 @@ def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev,
     try:
         steps = _step_events()
         ckpts = CheckpointListener(str(ckpt_dir), every_epochs=None,
-                                   every_iters=10, keep_last=2,
+                                   every_iters=10 * per_batch, keep_last=2,
                                    model=trainer.model)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1327,8 +1370,8 @@ def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev,
         counts = _dispatch.launch_counts()
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         losses = [float(x) for x in steps.losses]
-        gaps = [a.elapsed_time(b) for a, b in zip(steps.events,
-                                                  steps.events[1:])]
+        ends = steps.events[per_batch - 1::per_batch]
+        gaps = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
         step_ms = float(np.median(gaps[3:]))
         log(f"[{tag}] fit: {ts.step} steps in {fit_s:.2f} s (checkpoints "
             f"included); launches {counts}; losses first "
@@ -1344,10 +1387,11 @@ def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev,
         same_opt = all(torch.equal(a, b) for a, b in zip(
             tree_leaves((restored.opt_state, restored.model_state)),
             tree_leaves((ts.opt_state, ts.model_state))))
-        nxt = (batches[ts.step % len(batches)] if next_batch is None
-               else next_batch)
-        _, m_live = trainer.train_step(ts, nxt)
-        _, m_back = trainer.train_step(restored, nxt)
+        nxt = (batches[(ts.step // per_batch) % len(batches)]
+               if next_batch is None else next_batch)
+        step = step or trainer.train_step
+        _, m_live = step(ts, nxt)
+        _, m_back = step(restored, nxt)
         next_live, next_back = (float(m_live["total_loss"]),
                                 float(m_back["total_loss"]))
         log(f"[{tag}] restored {Path(path).name} (rng {restored.rng}): "
@@ -1398,12 +1442,13 @@ def _kernel_classes(spans, calls) -> dict:
             for cls, sp in sorted(by_class.items())}
 
 
-def _step_breakdown(trainer, ts, batch, kernels) -> dict:
-    """One train step: host wall time (synchronised, median of 5 after 2
-    warm-up), device busy time from the profiler (the union of its
-    kernels' intervals), the device's idle share of the wall time, and
-    each named kernel's share of the device time."""
-    step = lambda: trainer.train_step(ts, batch)  # noqa: E731
+def _step_breakdown(trainer, ts, batch, kernels, step=None) -> dict:
+    """One train step (or ``step()``, a callable): host wall time
+    (synchronised, median of 5 after 2 warm-up), device busy time from the
+    profiler (the union of its kernels' intervals), the device's idle
+    share of the wall time, and each named kernel's share of the device
+    time."""
+    step = step or (lambda: trainer.train_step(ts, batch))
     walls = []
     for _ in range(7):
         torch.cuda.synchronize()
@@ -1447,6 +1492,10 @@ def _train_batches():
 # The char-RNN of bench.py's bench_lstm: text_generation_lstm at vocab 77,
 # hidden 256, seq 256, two GravesLSTM layers, batch 32.
 CHAR_VOCAB, CHAR_HIDDEN, CHAR_T, CHAR_BATCH = 77, 256, 256, 32
+# truncated BPTT of the char-RNN: GravesLSTMCharModellingExample's
+# tbpttLength(50), over T=256 five windows of 50 and a tail of 6; the
+# rnnTimeStep prime of 64 chars
+CHAR_TBPTT, CHAR_PRIME = 50, 64
 # lstm_fwd / lstm_bwd vs their plain versions, float32 on both sides,
 # differing in the order of the sums of h·RW over H terms and of dz·RWᵀ
 # over 4H (and, on the resident route, in its 3xTF32 products, about 21
@@ -1472,7 +1521,19 @@ LSTM_CASES = [
     # blocks, 2 units a block
     ("seq2seq_encoder_n1024_t10_h32", 1024, 10, 32, False, 1.0, False,
      True),
+    # the char-RNN's TBPTT windows (from the carries the window before
+    # left) and tail, and the rnnTimeStep prime (from zeros)
+    ("charrnn_tbptt_window_t50", CHAR_BATCH, CHAR_TBPTT, CHAR_HIDDEN, True,
+     1.0, True, True),
+    ("charrnn_tbptt_tail_t6", CHAR_BATCH, CHAR_T % CHAR_TBPTT, CHAR_HIDDEN,
+     True, 1.0, True, True),
+    ("charrnn_prime_t64", CHAR_BATCH, CHAR_PRIME, CHAR_HIDDEN, True, 1.0,
+     False, True),
 ]
+# the cases with peepholes whose library yardstick is torch.nn.LSTM at the
+# same shape without them, from the case's (h0, c0)
+LSTM_LIBRARY_AT_SHAPE = ("charrnn_tbptt_window_t50", "charrnn_tbptt_tail_t6",
+                         "charrnn_prime_t64")
 # the input (N, T, width) torch.nn.LSTM is timed on beside a case without
 # peepholes: the char-RNN's batch by default; the seq2seq encoder's reads
 # the 64-wide embedding
@@ -1606,6 +1667,20 @@ def phase_kernels_lstm(dev):
                     f"{row['lstm_fwd_n8_plain_ms']:.4f}, op "
                     f"{row['op_fwd_n8_ms']:.4f} vs cuDNN "
                     f"{row['cudnn_fwd_n8_ms']:.4f} ms")
+            elif name in LSTM_LIBRARY_AT_SHAPE:
+                row.update(_time_cudnn(dev, rw, b, fb, n, t, h,
+                                       *((h0, c0) if init else ())))
+                row["cudnn_input"] = [n, t, h]
+                log(f"[kernels] lstm {name} beside torch.nn.LSTM (cuDNN, no "
+                    f"peepholes, the case's h0/c0), input {n} x {t} x {h}: "
+                    f"forward without workspace: kernel "
+                    f"{row['lstm_fwd_no_ws_ms']:.4f} ms (bound "
+                    f"{row['lstm_fwd_no_ws_bound_ms']:.4f}), plain "
+                    f"{row['lstm_fwd_no_ws_plain_ms']:.4f}, op "
+                    f"{row['op_fwd_ms']:.4f} vs cuDNN "
+                    f"{row['cudnn_fwd_ms']:.4f} ms; backward op "
+                    f"{row['op_bwd_ms']:.4f} vs cuDNN "
+                    f"{row['cudnn_bwd_ms']:.4f} ms")
         results[name] = row
     return results
 
@@ -1615,8 +1690,11 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
     in turn, twice: kernel, plain, plain, kernel), the kernels' device
     time (busy time) and launches a call from the profiler — on the
     resident route one persistent kernel a call, on the step route T
-    forward and T + 1 backward, or the run fails — and the forward at the
-    serving bucket N=8 without the workspace, beside its plain version."""
+    forward and T + 1 backward, or the run fails — and the forward without
+    the workspace (as inference runs it) at the case's N and at the
+    serving bucket N=8, beside its plain version. On the resident route
+    the profiler's count shows the route only (``_step_launches``'s
+    ``route_only``)."""
     from deeplearning4j_tpu_torch.kernels.lstm_scan import (
         lstm_bwd_cuda,
         lstm_fwd_cuda,
@@ -1639,12 +1717,16 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
         "lstm_fwd_n8": lambda: lstm_fwd_cuda(xp8, rw, b, h08, c08, pe, fb),
         "lstm_fwd_n8_plain": lambda: reference_lstm_fwd(xp8, rw, b, h08,
                                                         c08, pe, fb),
+        "lstm_fwd_no_ws": lambda: lstm_fwd_cuda(xp, rw, b, h0, c0, pe, fb),
+        "lstm_fwd_no_ws_plain": lambda: reference_lstm_fwd(xp, rw, b, h0,
+                                                           c0, pe, fb),
     }
     runs = {k: [] for k in fns}
     for k in ("lstm_fwd", "lstm_fwd_plain", "lstm_fwd_plain", "lstm_fwd",
               "lstm_bwd", "lstm_bwd_plain", "lstm_bwd_plain", "lstm_bwd",
               "lstm_fwd_n8", "lstm_fwd_n8_plain", "lstm_fwd_n8_plain",
-              "lstm_fwd_n8"):
+              "lstm_fwd_n8", "lstm_fwd_no_ws", "lstm_fwd_no_ws_plain",
+              "lstm_fwd_no_ws_plain", "lstm_fwd_no_ws"):
         runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
     row = {f"{k}_ms": min(v) for k, v in runs.items()}
     row.update({f"{k}_ms_runs": v for k, v in runs.items()})
@@ -1660,8 +1742,12 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
             name, want = f"{kernel}_step_kernel", t + (kernel == "lstm_bwd")
         spans = []
         launches, by_kernel, traces = _step_launches(
-            fns[kernel], kernel, want, spans=spans, name=name)
-        row[f"{kernel}_device_ms"] = _busy_us(spans, f"{kernel}_", 5) / 1e3
+            fns[kernel], kernel, want, spans=spans, name=name,
+            route_only=route == "resident")
+        # busy time a call; where the profiler lost records, a recorded
+        # launch's
+        row[f"{kernel}_device_ms"] = (_busy_us(spans, f"{kernel}_", 5)
+                                      / 1e3 * want / launches)
         row[f"{kernel}_route"] = route
         row[f"{kernel}_launches_per_call"] = launches
         row[f"{kernel}_launch_traces"] = traces
@@ -1676,17 +1762,23 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
     n8 = _lstm_bound("lstm_fwd", 8, t, h, peep, zero_init, workspace=False)
     row["lstm_fwd_n8_bound_ms"] = n8[0]
     row["lstm_fwd_n8_bound_cuda_cores_ms"] = n8[4]
+    no_ws = _lstm_bound("lstm_fwd", n, t, h, peep, zero_init,
+                        workspace=False)
+    row["lstm_fwd_no_ws_bound_ms"], row["lstm_fwd_no_ws_bound_by"] = no_ws[:2]
     return row
 
 
-def _time_cudnn(dev, rw, b, fb, n=CHAR_BATCH, t=CHAR_T, width=None):
+def _time_cudnn(dev, rw, b, fb, n=CHAR_BATCH, t=CHAR_T, width=None,
+                h0=None, c0=None):
     """torch.nn.LSTM (cuDNN) on an input x [n, t, width] (width H by
     default) beside the port's op on the same x and weights (forget bias
     folded into b_ih's f slice, RW transposed to weight_hh, gate order
     i,f,g,o as the port's), forward without grad (also at the serving
     bucket N=8) and backward to x and every weight: the library yardstick
-    of the case without peepholes. The outputs must agree."""
+    of the case without peepholes. With ``h0``/``c0`` both start from that
+    state. The outputs must agree."""
     from deeplearning4j_tpu_torch.kernels.lstm_scan import lstm
+    from deeplearning4j_tpu_torch.ops.rnn import LSTMState
 
     h = rw.shape[0]
     width = width or h
@@ -1702,23 +1794,35 @@ def _time_cudnn(dev, rw, b, fb, n=CHAR_BATCH, t=CHAR_T, width=None):
         bias[h:2 * h] += fb
         cudnn.bias_ih_l0.copy_(bias)
         cudnn.bias_hh_l0.zero_()
-        err = float((cudnn(x)[0] - lstm(x, w_x, rw, b, forget_bias=fb)[0]
-                     ).abs().max())
+    state = None if h0 is None else (h0, c0)
+    state8 = None if h0 is None else (h0[:8].contiguous(),
+                                      c0[:8].contiguous())
+
+    def op(inp, w_x, rw, b, st=state):
+        return lstm(inp, w_x, rw, b, forget_bias=fb,
+                    init_state=None if st is None else LSTMState(*st))
+
+    def lib(inp, st=state):
+        return cudnn(inp) if st is None else cudnn(
+            inp, (st[0][None], st[1][None]))
+
+    with torch.no_grad():
+        err = float((lib(x)[0] - op(x, w_x, rw, b)[0]).abs().max())
     if err > 1e-4:
         raise SystemExit(f"chip_smoke: torch.nn.LSTM disagrees with the "
                          f"port's op by {err:.3e}: not the same function")
     leaves = [a.clone().requires_grad_() for a in (x, w_x, rw, b)]
-    out_op = lstm(*leaves, forget_bias=fb)[0]
+    out_op = op(*leaves)[0]
     xg = x.clone().requires_grad_()
-    out_lib = cudnn(xg)[0]
+    out_lib = lib(xg)[0]
     dout = torch.randn(out_lib.shape, generator=g).to(dev)
     lib_leaves = [xg, *cudnn.parameters()]
     x8 = x[:8].contiguous()
     fns = {
-        "op_fwd": lambda: lstm(x, w_x, rw, b, forget_bias=fb),
-        "cudnn_fwd": lambda: cudnn(x),
-        "op_fwd_n8": lambda: lstm(x8, w_x, rw, b, forget_bias=fb),
-        "cudnn_fwd_n8": lambda: cudnn(x8),
+        "op_fwd": lambda: op(x, w_x, rw, b),
+        "cudnn_fwd": lambda: lib(x),
+        "op_fwd_n8": lambda: op(x8, w_x, rw, b, state8),
+        "cudnn_fwd_n8": lambda: lib(x8, state8),
         "op_bwd": lambda: torch.autograd.grad(out_op, leaves, dout,
                                               retain_graph=True),
         "cudnn_bwd": lambda: torch.autograd.grad(out_lib, lib_leaves, dout,
@@ -2030,12 +2134,490 @@ def phase_charrnn_train(dev, smi):
     }
 
 
+# -- 21. char-RNN by truncated BPTT -------------------------------------------
+
+# kernels vs the plain route over one batch, window by window from the same
+# variables: each window's loss to TOL_LOSS_REL relative and each carry
+# handed on to TOL_CARRY of its max |plain|. After the batch the params:
+# the two routes' gradients differ by ~1e-6 of a leaf's max (the 3xTF32
+# products; 1.29e-6 measured on the char-RNN), which Adam, m/sqrt(v) per
+# entry, turns into a difference of lr · 1e-6 · max / |g| in an entry's
+# step. So every entry whose plain gradient stays above TOL_ADAM_FLOOR of
+# its leaf's max in every window is held to TOL_ADAM_STEP of one Adam step
+# (lr); the others (gradients near 0, whose sign the two routes may take
+# differently) to 2·lr per window. A skipped or misdirected update moves
+# the held entries by ~lr.
+TOL_CARRY = 1e-5
+TOL_ADAM_FLOOR = 1e-3
+TOL_ADAM_STEP = 0.1
+CHAR_TBPTT_EPOCHS = 3   # 10 batches, 30 batches of 6 windows: 180 updates
+
+
+def _tbptt_windows(batch, length):
+    """A batch cut into its TBPTT windows as the Trainer cuts it."""
+    from deeplearning4j_tpu_torch.train.trainer import _is_time_distributed
+
+    t_len = batch["features"].shape[1]
+    bounds = list(range(0, t_len, length)) + [t_len]
+    return [{k: v[:, lo:hi] if _is_time_distributed(k, v, t_len) else v
+             for k, v in batch.items()}
+            for lo, hi in zip(bounds, bounds[1:])]
+
+
+def _run_windows(trainer, ts, windows, grads=None):
+    """The windows one update each from zero carries → (ts, losses,
+    carries handed on after each window); ``grads`` collects each
+    window's gradient."""
+    finish = trainer._finish_step
+
+    def record(ts, g, *a):
+        grads.append(g)
+        return finish(ts, g, *a)
+
+    carries = trainer._zero_carries(ts, windows[0]["features"])
+    losses, handed = [], []
+    with (mock.patch.object(trainer, "_finish_step", record)
+          if grads is not None else contextlib.nullcontext()):
+        for wb in windows:
+            ts, carries, m = trainer.train_step_tbptt(ts, wb, carries)
+            losses.append(float(m["total_loss"]))
+            handed.append(carries)
+    return ts, losses, handed
+
+
+def _tbptt_vs_plain(tag, trainer, plain_trainer, ts0, batch, op, want,
+                    lr) -> dict:
+    """One batch by TBPTT, window by window, through the kernels and
+    through the plain route (``backend="plain"``) from the same TrainState:
+    the kernel launches (``want``), each window's loss, the carries handed
+    on and the params after the batch (see TOL_ADAM_STEP)."""
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.utils.pytree import flatten_with_names
+
+    windows = _tbptt_windows(batch, trainer.net.tbptt_length)
+    with _plain_rnn_guard(op) as plain_calls:
+        _dispatch.reset_launch_counts()
+        ts_k, loss_k, carry_k = _run_windows(trainer, ts0, windows)
+        counts = _dispatch.launch_counts()
+    if counts != want or plain_calls:
+        raise SystemExit(f"chip_smoke: one TBPTT batch launched {counts} "
+                         f"with {len(plain_calls)} plain {op} calls; want "
+                         f"{want} and none")
+    grads = []
+    ts_p, loss_p, carry_p = _run_windows(plain_trainer, ts0, windows, grads)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_k, loss_p))
+    carry_frac = 0.0
+    for ck, cp in zip(carry_k, carry_p):
+        for (n, a), (_, w) in zip(flatten_with_names(ck),
+                                  flatten_with_names(cp)):
+            carry_frac = max(carry_frac, float((a - w).abs().max())
+                             / float(w.abs().max()))
+    g_named = [dict(flatten_with_names(g)) for g in grads]
+    held_err = free_err = 0.0
+    n_free = n_all = 0
+    kernel_params = dict(flatten_with_names(ts_k.params))
+    for n, w in flatten_with_names(ts_p.params):
+        got = kernel_params[n]
+        held = torch.ones_like(w, dtype=torch.bool)
+        for g in g_named:
+            held &= g[n].abs() >= TOL_ADAM_FLOOR * g[n].abs().max()
+        err = (got - w).abs()
+        held_err = max(held_err, float(err[held].max()) if held.any()
+                       else 0.0)
+        free_err = max(free_err, float(err.max()))
+        n_free += int((~held).sum())
+        n_all += w.numel()
+    ok = (loss_rel <= TOL_LOSS_REL and carry_frac <= TOL_CARRY
+          and held_err <= TOL_ADAM_STEP * lr
+          and free_err <= 2 * lr * len(windows))
+    log(f"[{tag}] one batch, {len(windows)} windows "
+        f"({[w['features'].shape[1] for w in windows]} steps), kernels vs "
+        f"plain: launches {counts}; losses {[round(x, 6) for x in loss_k]} "
+        f"vs {[round(x, 6) for x in loss_p]} (worst rel {loss_rel:.2e}, tol "
+        f"{TOL_LOSS_REL:.0e}); carries handed on to {carry_frac:.2e} of "
+        f"their max (tol {TOL_CARRY:.0e}); params after the batch: "
+        f"{n_all - n_free} entries whose gradient stays above "
+        f"{TOL_ADAM_FLOOR:.0e} of their leaf's max to {held_err:.3e} (tol "
+        f"{TOL_ADAM_STEP * lr:.0e}), the other {n_free} "
+        f"({n_free / n_all:.2%}) to {free_err:.3e} (tol "
+        f"{2 * lr * len(windows):.0e}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {tag}: the kernel route's TBPTT "
+                         "batch disagrees with the plain route")
+    return {"windows": [w["features"].shape[1] for w in windows],
+            "launches_per_batch": counts, "losses_kernel": loss_k,
+            "losses_plain": loss_p, "loss_rel": loss_rel,
+            "carry_err_frac": carry_frac, "param_err_held": held_err,
+            "param_err_all": free_err, "param_near_zero_grad_share":
+                n_free / n_all, "ts": ts_k}
+
+
+def _with_tbptt(model, length):
+    """The model with net.backprop_type "tbptt" and ``length``."""
+    from deeplearning4j_tpu_torch.nn.model import SequentialModel
+
+    cfg = dataclasses.replace(model.config, net=dataclasses.replace(
+        model.config.net, backprop_type="tbptt", tbptt_length=length))
+    return SequentialModel(cfg, device=model.device)
+
+
+def _tbptt_batch_step(trainer):
+    """(ts, batch) → (ts, the last window's metrics): one TBPTT batch, the
+    step ``_fit_and_restore`` continues with."""
+    def step(ts, batch):
+        ts, wmetrics = trainer._fit_tbptt_batch(ts, batch)
+        return ts, wmetrics[-1]
+
+    return step
+
+
+def phase_charrnn_tbptt(dev, smi):
+    """Returns the phase's line, the kernel route's model and its trained
+    variables (for phase 22)."""
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    from deeplearning4j_tpu_torch.utils.pytree import tree_leaves
+
+    t0 = time.monotonic()
+    model = _with_tbptt(_char_rnn(dev, "pallas", Adam(CHAR_LR)), CHAR_TBPTT)
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    on_dev = [batch_to_device(b, dev) for b in _char_batches()]
+    n_win = -(-CHAR_T // CHAR_TBPTT)
+    log(f"[char_tbptt] text_generation_lstm by truncated BPTT, "
+        f"tbptt_length {CHAR_TBPTT} over T={CHAR_T}: {n_win} windows a "
+        f"batch of {CHAR_BATCH}, Adam({CHAR_LR})")
+
+    # 1. one batch, kernels vs plain, window by window
+    plain = Trainer(_with_tbptt(_char_rnn(dev, "plain", Adam(CHAR_LR)),
+                                CHAR_TBPTT))
+    want = {"lstm_fwd": 2 * n_win, "lstm_bwd": 2 * n_win}
+    vs_plain = _tbptt_vs_plain("char_tbptt", trainer, plain, ts0, on_dev[0],
+                               "lstm", want, CHAR_LR)
+    ts_loop = vs_plain.pop("ts")
+    ts_fit, _ = trainer._fit_tbptt_batch(ts0, on_dev[0])
+    same_fit = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(ts_fit.params), tree_leaves(ts_loop.params)))
+    # the persistent kernels per batch, as the profiler counts them
+    prof = {}
+    for kernel in ("lstm_fwd", "lstm_bwd"):
+        prof[kernel] = _step_launches(
+            lambda: trainer._fit_tbptt_batch(ts0, on_dev[0]), kernel,
+            2 * n_win, name=f"{kernel}_persistent_kernel",
+            route_only=True)[0]
+
+    # 2. tbptt_length >= T: one window, the standard step's params
+    whole = Trainer(_with_tbptt(model, CHAR_T))
+    ts_w, wm = whole._fit_tbptt_batch(ts0, on_dev[0])
+    std = Trainer(_char_rnn(dev, "pallas", Adam(CHAR_LR)))
+    ts_s, m_s = std.train_step(ts0, on_dev[0])
+    whole_diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(ts_w.params), tree_leaves(ts_s.params)))
+    log(f"[char_tbptt] the fit's windows give the loop's params bit-equal="
+        f"{same_fit}; profiler: {prof} persistent kernels a batch; "
+        f"tbptt_length {CHAR_T} (one window): loss "
+        f"{float(wm[0]['total_loss']):.6f} vs the standard step's "
+        f"{float(m_s['total_loss']):.6f}, params max diff {whole_diff:.3e}")
+    if len(wm) != 1 or whole_diff != 0.0 or not same_fit:
+        raise SystemExit("chip_smoke: one window over the whole sequence is "
+                         "not the standard step, or the fit's windows not "
+                         "the loop's")
+    del plain, whole, std, ts_w, ts_s, ts_fit, ts_loop
+
+    # 3. Trainer.fit, 30 batches (180 windows), checkpoint restore
+    with _plain_rnn_guard() as plain_calls:
+        fit = _fit_and_restore("char_tbptt", trainer, ts0, on_dev,
+                               CHAR_TBPTT_EPOCHS, dev, per_batch=n_win,
+                               step=_tbptt_batch_step(trainer))
+    ts, counts, losses = fit["ts"], fit["launches"], fit["losses"]
+    n_batches = CHAR_TRAIN_BATCHES * CHAR_TBPTT_EPOCHS
+    want = {k: v * n_batches for k, v in want.items()}
+    if (ts.step != n_win * n_batches or len(losses) != n_win * n_batches
+            or counts != want or plain_calls):
+        raise SystemExit(f"chip_smoke: fit made {len(losses)} iterations, "
+                         f"step {ts.step}, launches {counts}, "
+                         f"{len(plain_calls)} plain LSTM calls; want "
+                         f"{n_win} a batch, {want} and none")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    log(f"[char_tbptt] {len(losses)} listener callbacks over {n_batches} "
+        f"batches ({n_win} a batch); loss {first:.4f} (first 3 windows) -> "
+        f"{last:.4f} (last 3), fall {first - last:.4f} (must be >= "
+        f"{LOSS_FALL})")
+    if not (np.all(np.isfinite(losses)) and first - last >= LOSS_FALL):
+        raise SystemExit("chip_smoke: the TBPTT char-RNN's loss did not "
+                         f"fall by {LOSS_FALL}")
+
+    # 4. where one window's time goes: the second window, from the carries
+    # the first left
+    w = _tbptt_windows(on_dev[0], CHAR_TBPTT)
+    _, carries, _ = trainer.train_step_tbptt(
+        ts, w[0], trainer._zero_carries(ts, w[0]["features"]))
+    breakdown = _step_breakdown(
+        trainer, ts, None, ("lstm_fwd", "lstm_bwd"),
+        step=lambda: trainer.train_step_tbptt(ts, w[1], carries))
+    log(f"[char_tbptt] one window ({CHAR_TBPTT} steps): {breakdown}")
+    batch_ms = fit["median_step_ms"]
+    tokens = CHAR_BATCH * CHAR_T
+    log(f"[char_tbptt] median batch {batch_ms:.2f} ms ({n_win} windows), "
+        f"{n_win / (batch_ms / 1e3):,.1f} windows/s, "
+        f"{tokens / (batch_ms / 1e3):,.0f} tokens/s, peak memory "
+        f"{fit['peak_memory_gib']:.2f} GiB, phase "
+        f"{time.monotonic() - t0:.1f} s, on {smi}")
+    return {
+        "model": "text_generation_lstm", "backprop_type": "tbptt",
+        "tbptt_length": CHAR_TBPTT, "vocab": CHAR_VOCAB,
+        "hidden": CHAR_HIDDEN, "batch": CHAR_BATCH, "seq_len": CHAR_T,
+        "windows_per_batch": n_win, "batches": n_batches,
+        "steps": ts.step, "launches": counts,
+        "profiler_launches_per_batch": prof, "kernel_vs_plain": vs_plain,
+        "whole_sequence_window_vs_standard_max_diff": whole_diff,
+        "listener_callbacks": len(losses), "losses": losses,
+        "loss_first3": first, "loss_last3": last,
+        "median_batch_ms": batch_ms, "batch_ms_gaps": fit["step_ms_gaps"],
+        "windows_per_s": n_win / (batch_ms / 1e3),
+        "tokens_per_s": tokens / (batch_ms / 1e3),
+        "peak_memory_gib": fit["peak_memory_gib"],
+        "fit_seconds": fit["fit_seconds"],
+        "checkpoint_next_loss": fit["checkpoint_next_loss"],
+        "window_breakdown": breakdown, "phase_seconds":
+            time.monotonic() - t0, "card": smi,
+    }, model, trainer.variables(ts)
+
+
+# -- 22. char-RNN sampling: rnnTimeStep and generate ---------------------------
+
+GEN_STEPS, GEN_BATCH, GEN_CHARS = 256, 8, 200
+GEN_TEMPERATURE = 0.3
+
+
+def _carry_frac(got, want) -> float:
+    """max |got - plain| over the carries, as a fraction of max |plain|."""
+    from deeplearning4j_tpu_torch.utils.pytree import tree_leaves
+
+    return max(float((a - w).abs().max()) / float(w.abs().max())
+               for a, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def phase_charrnn_generate(dev, smi, model, variables):
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.nn.generation import (
+        RnnTimeStepper,
+        generate,
+    )
+
+    t_phase = time.monotonic()
+    plain = _char_rnn(dev, "plain")
+    ids = torch.from_numpy(_text_windows(
+        CHAR_VOCAB, CHAR_BATCH, CHAR_PRIME + GEN_STEPS)[3]).to(dev)
+    eye = torch.eye(CHAR_VOCAB, device=dev)
+    x = eye[ids[:, :-1]]
+
+    # 1. the prime: one sweep a layer, against plain stepping
+    stepper = RnnTimeStepper(model, variables)
+    with _plain_rnn_guard() as plain_calls:
+        _dispatch.reset_launch_counts()
+        out = stepper.time_step(x[:, :CHAR_PRIME])
+        torch.cuda.synchronize()
+        prime_counts = _dispatch.launch_counts()
+    ref = RnnTimeStepper(plain, variables)
+    for t in range(CHAR_PRIME):
+        out_p = ref.time_step(x[:, t])
+    carry_err = _carry_frac(stepper.carries, ref.carries)
+    prime_err = float((out - out_p).abs().max())
+    log(f"[char_gen] RnnTimeStepper prime of {CHAR_PRIME} chars at N="
+        f"{CHAR_BATCH}: launches {prime_counts}, plain LSTM calls "
+        f"{len(plain_calls)}; carries vs {CHAR_PRIME} plain steps to "
+        f"{carry_err:.2e} of their max (tol {TOL_CARRY:.0e}), "
+        f"probabilities to {prime_err:.2e} (tol {TOL_CHAR_PROBS:.0e})")
+    if (prime_counts != {"lstm_fwd": 2} or plain_calls
+            or carry_err > TOL_CARRY or prime_err > TOL_CHAR_PROBS):
+        raise SystemExit("chip_smoke: the rnnTimeStep prime did not run one "
+                         "lstm_fwd a layer or disagrees with plain stepping")
+
+    # 2. single steps: plain torch ops (the cells), no sweep
+    _dispatch.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(CHAR_PRIME, CHAR_PRIME + GEN_STEPS):
+        out = stepper.time_step(x[:, t])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_counts = _dispatch.launch_counts()
+    want = plain.output(variables, x)[:, -1]
+    step_err = float((out - want).abs().max())
+    log(f"[char_gen] {GEN_STEPS} single steps at N={CHAR_BATCH}: "
+        f"{step_s * 1e3 / GEN_STEPS:.3f} ms a step, "
+        f"{CHAR_BATCH * GEN_STEPS / step_s:,.0f} chars/s; launches "
+        f"{step_counts}; the last step's probabilities vs the plain full "
+        f"forward over all {CHAR_PRIME + GEN_STEPS} chars: {step_err:.2e} "
+        f"(tol {TOL_CHAR_PROBS:.0e})")
+    if step_counts or step_err > TOL_CHAR_PROBS:
+        raise SystemExit("chip_smoke: rnnTimeStep's single steps disagree "
+                         "with the full forward")
+
+    # 3. greedy generate: every id the full forward's argmax
+    prime = ids[:GEN_BATCH, :CHAR_PRIME]
+    generate(model, variables, n_steps=4, rng=SEED, prime=prime,
+             temperature=0.0, batch_size=GEN_BATCH)  # warm-up
+    with _plain_rnn_guard() as plain_calls:
+        _dispatch.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy = generate(model, variables, n_steps=GEN_CHARS, rng=SEED,
+                          prime=prime, temperature=0.0,
+                          batch_size=GEN_BATCH)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_counts = _dispatch.launch_counts()
+    seq = torch.cat([prime, greedy.long()], dim=1)
+    probs = plain.output(variables, eye[seq[:, :-1]])[:, CHAR_PRIME - 1:]
+    lg = torch.log(probs.double())
+    picked = lg.gather(2, greedy.long()[..., None])[..., 0]
+    gap = (lg.max(-1).values - picked).cpu().numpy()
+    ties, worst_gap = int(np.sum(gap > 0)), float(gap.max())
+    log(f"[char_gen] greedy generate of {GEN_CHARS} chars at batch "
+        f"{GEN_BATCH}: {gen_s:.3f} s, {GEN_BATCH * GEN_CHARS / gen_s:,.0f} "
+        f"chars/s; launches {gen_counts}, plain LSTM calls "
+        f"{len(plain_calls)}; {gap.size} ids against the plain full "
+        f"forward's argmax: {ties} ties within {TOL_GREEDY_TIE:.0e} (worst "
+        f"gap {worst_gap:.3e})")
+    if (gen_counts != {"lstm_fwd": 2} or plain_calls
+            or worst_gap > TOL_GREEDY_TIE or greedy.shape != (GEN_BATCH,
+                                                             GEN_CHARS)):
+        raise SystemExit("chip_smoke: greedy generation is not the full "
+                         "forward's argmax, or its prime did not run one "
+                         "lstm_fwd a layer")
+
+    # 4. sampled generate: the same generator seed gives the same ids
+    sampled = [generate(model, variables, n_steps=GEN_CHARS, rng=SEED + 1,
+                        prime=prime, temperature=GEN_TEMPERATURE,
+                        batch_size=GEN_BATCH) for _ in range(2)]
+    same = torch.equal(*sampled)
+    in_range = bool(((sampled[0] >= 0) & (sampled[0] < CHAR_VOCAB)).all())
+    differs = int((sampled[0] != greedy).sum())
+    log(f"[char_gen] sampled generate (temperature {GEN_TEMPERATURE}, seed "
+        f"{SEED + 1}) twice: identical={same}, ids in range={in_range}, "
+        f"{differs} of {greedy.numel()} ids differ from the greedy ones; "
+        f"phase {time.monotonic() - t_phase:.1f} s, on {smi}")
+    if not (same and in_range):
+        raise SystemExit("chip_smoke: sampled generation does not follow "
+                         "its seed")
+    return {"model": "text_generation_lstm", "prime_chars": CHAR_PRIME,
+            "prime_batch": CHAR_BATCH, "prime_launches": prime_counts,
+            "prime_carry_err_frac": carry_err,
+            "prime_probs_max_abs_err": prime_err,
+            "single_steps": GEN_STEPS,
+            "single_step_ms": step_s * 1e3 / GEN_STEPS,
+            "single_step_chars_per_s": CHAR_BATCH * GEN_STEPS / step_s,
+            "single_step_probs_max_abs_err": step_err,
+            "greedy_chars": GEN_CHARS, "greedy_batch": GEN_BATCH,
+            "greedy_seconds": gen_s,
+            "greedy_chars_per_s": GEN_BATCH * GEN_CHARS / gen_s,
+            "greedy_launches": gen_counts, "greedy_ties": ties,
+            "greedy_worst_gap": worst_gap,
+            "sampled_identical": same, "sampled_differs_from_greedy": differs,
+            "phase_seconds": time.monotonic() - t_phase, "card": smi}
+
+
+# -- 23. char-GRU by truncated BPTT --------------------------------------------
+
+GRU_TBPTT_TIMED = 5  # batches timed after one warm-up
+
+
+def _char_gru_onehot(dev, backend, updater=None):
+    """The char-GRU for truncated BPTT: one-hot chars [N, T, 66] through a
+    bias-free Dense(66 → 256), the embedding as a product, then GRU(1024)
+    and the softmax head, tbptt_length GRU_TBPTT. Truncated BPTT splits
+    features of rank >= 3 only, in both packages, so the Embedding's int
+    ids [N, T] are refused (``_fit_tbptt_batch``)."""
+    from deeplearning4j_tpu_torch.nn.config import (
+        NeuralNetConfiguration,
+        SequentialConfig,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import GRU, Dense, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.model import SequentialModel
+
+    cfg = SequentialConfig(
+        net=NeuralNetConfiguration(seed=SEED, updater=updater,
+                                   weight_init="xavier",
+                                   backprop_type="tbptt",
+                                   tbptt_length=GRU_TBPTT),
+        layers=[Dense(units=GRU_EMBED, use_bias=False),
+                GRU(units=GRU_HIDDEN, backend=backend),
+                RnnOutputLayer(units=GRU_VOCAB, activation="softmax",
+                               loss="mcxent")],
+        input_shape=(GRU_T, GRU_VOCAB))
+    return SequentialModel(cfg, device=dev)
+
+
+def phase_gru_tbptt(dev, smi):
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    t0 = time.monotonic()
+    model = _char_gru_onehot(dev, "pallas", Adam(GRU_LR))
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    eye = np.eye(GRU_VOCAB, dtype=np.float32)
+    on_dev = [batch_to_device(dict(b, features=eye[b["features"]]), dev)
+              for b in _gru_batches()[:1 + GRU_TBPTT_TIMED]]
+    n_win = GRU_T // GRU_TBPTT
+    log(f"[gru_tbptt] char-GRU (one-hot → Dense 256 → GRU {GRU_HIDDEN}) by "
+        f"truncated BPTT, tbptt_length {GRU_TBPTT} over T={GRU_T}: {n_win} "
+        f"windows a batch of {GRU_BATCH}, "
+        f"{model.num_params(trainer.variables(ts0)):,} parameters")
+    plain = Trainer(_char_gru_onehot(dev, "plain", Adam(GRU_LR)))
+    want = {"gru_fwd": n_win, "gru_bwd": n_win}
+    vs_plain = _tbptt_vs_plain("gru_tbptt", trainer, plain, ts0, on_dev[0],
+                               "gru", want, GRU_LR)
+    ts = vs_plain.pop("ts")
+    del plain
+    with _plain_rnn_guard("gru") as plain_calls:
+        _dispatch.reset_launch_counts()
+        ts, _ = trainer._fit_tbptt_batch(ts, on_dev[1])  # warm-up
+        gaps = []
+        for b in on_dev[1:]:
+            torch.cuda.synchronize()
+            t_b = time.perf_counter()
+            ts, wm = trainer._fit_tbptt_batch(ts, b)
+            torch.cuda.synchronize()
+            gaps.append((time.perf_counter() - t_b) * 1e3)
+        counts = _dispatch.launch_counts()
+    n_b = 1 + len(gaps)
+    if counts != {k: v * n_b for k, v in want.items()} or plain_calls:
+        raise SystemExit(f"chip_smoke: {n_b} TBPTT batches launched "
+                         f"{counts} with {len(plain_calls)} plain GRU "
+                         f"calls; want {want} a batch and none")
+    losses = [float(m["total_loss"]) for m in wm]
+    batch_ms = float(np.median(gaps))
+    tokens = GRU_BATCH * GRU_T
+    log(f"[gru_tbptt] {n_b} batches, launches {counts}; {len(gaps)} timed: "
+        f"median {batch_ms:.2f} ms "
+        f"({n_win} windows), {n_win / (batch_ms / 1e3):,.1f} windows/s, "
+        f"{tokens / (batch_ms / 1e3):,.0f} tokens/s; the last batch's "
+        f"window losses {[round(x, 4) for x in losses]}; phase "
+        f"{time.monotonic() - t0:.1f} s, on {smi}")
+    if not np.all(np.isfinite(losses)):
+        raise SystemExit("chip_smoke: the TBPTT char-GRU's loss is not "
+                         "finite")
+    return {"model": "char_gru_onehot", "backprop_type": "tbptt",
+            "tbptt_length": GRU_TBPTT, "hidden": GRU_HIDDEN,
+            "batch": GRU_BATCH, "seq_len": GRU_T,
+            "windows_per_batch": n_win, "batches": n_b, "launches": counts,
+            "kernel_vs_plain": vs_plain, "median_batch_ms": batch_ms,
+            "batch_ms": gaps, "windows_per_s": n_win / (batch_ms / 1e3),
+            "tokens_per_s": tokens / (batch_ms / 1e3),
+            "phase_seconds": time.monotonic() - t0, "card": smi}
+
+
 def _lstm_entries(cases, serving, training, s2s_serving, s2s_training,
-                  smi):
+                  tbptt, gen, smi):
     """The kernels-line entries of lstm_fwd and lstm_bwd: times at the
     char-RNN's training shape with Graves peepholes (no library call
-    computes those), the case without peepholes beside torch.nn.LSTM, and
-    the launches of the char-RNN's serving and training runs."""
+    computes those), the case without peepholes beside torch.nn.LSTM, the
+    TBPTT window, tail and prime shapes beside torch.nn.LSTM from the same
+    state, and the launches of every path that runs them."""
     main_row = cases["char_rnn_train_graves"]
     nopeep = cases["char_rnn_train_no_peepholes"]
     s2s = cases["seq2seq_encoder_n1024_t10_h32"]
@@ -2044,10 +2626,15 @@ def _lstm_entries(cases, serving, training, s2s_serving, s2s_training,
                      "training": training["launches"]["lstm_fwd"],
                      "seq2seq_serving": s2s_serving["launches"]["lstm_fwd"],
                      "seq2seq_training":
-                         s2s_training["launches"]["lstm_fwd"]},
+                         s2s_training["launches"]["lstm_fwd"],
+                     "tbptt_training": tbptt["launches"]["lstm_fwd"],
+                     "rnn_time_step_prime":
+                         gen["prime_launches"]["lstm_fwd"],
+                     "generate": gen["greedy_launches"]["lstm_fwd"]},
         "lstm_bwd": {"training": training["launches"]["lstm_bwd"],
                      "seq2seq_training":
-                         s2s_training["launches"]["lstm_bwd"]},
+                         s2s_training["launches"]["lstm_bwd"],
+                     "tbptt_training": tbptt["launches"]["lstm_bwd"]},
     }
     library = {"lstm_fwd": ("cudnn_fwd_ms", "op_fwd_ms"),
                "lstm_bwd": ("cudnn_bwd_ms", "op_bwd_ms")}
@@ -2102,6 +2689,25 @@ def _lstm_entries(cases, serving, training, s2s_serving, s2s_training,
                     "plain_ms": nopeep["lstm_fwd_n8_plain_ms"],
                     "op_ms": nopeep["op_fwd_n8_ms"],
                     "library_ms": nopeep["cudnn_fwd_n8_ms"]}},
+            "tbptt_and_prime": {
+                c: {"shape": r["shape"], "init_state": r["init_state"],
+                    "route": r[f"{kernel}_route"],
+                    "ms": r[f"{kernel}_ms"],
+                    "device_ms": r[f"{kernel}_device_ms"],
+                    "plain_ms": r[f"{kernel}_plain_ms"],
+                    "bound_ms": r[f"{kernel}_bound_ms"],
+                    "bound_by": r[f"{kernel}_bound_by"],
+                    "no_workspace": None if kernel != "lstm_fwd" else {
+                        "ms": r["lstm_fwd_no_ws_ms"],
+                        "plain_ms": r["lstm_fwd_no_ws_plain_ms"],
+                        "bound_ms": r["lstm_fwd_no_ws_bound_ms"],
+                        "bound_by": r["lstm_fwd_no_ws_bound_by"]},
+                    "op_ms": r[op_key], "library_ms": r[lib_key],
+                    "library": "torch.nn.LSTM (cuDNN) without peepholes "
+                               "from the case's (h0, c0), input width "
+                               f"{CHAR_HIDDEN}; op_ms the port's lstm op "
+                               "on it"}
+                for c, r in cases.items() if c in LSTM_LIBRARY_AT_SHAPE},
             "seq2seq_encoder": {
                 "shape": s2s["shape"], "route": s2s[f"{kernel}_route"],
                 "ms": s2s[f"{kernel}_ms"],
@@ -2123,6 +2729,7 @@ def _lstm_entries(cases, serving, training, s2s_serving, s2s_training,
 # The char-GRU of the TensorFlow tutorial "Text generation with an RNN":
 # Embedding(66, 256) -> GRU(1024) -> softmax over 66, seq 100, batch 64.
 GRU_VOCAB, GRU_EMBED, GRU_HIDDEN, GRU_T, GRU_BATCH = 66, 256, 1024, 100, 64
+GRU_TBPTT = 50  # two truncated-BPTT windows over T=100
 # gru_fwd / gru_bwd vs their plain versions, float32 on both sides,
 # differing in the order of the sums of h·RW over H terms and of the
 # carry's product over 3H, and in the kernels' 3xTF32 products (about 21
@@ -2136,6 +2743,10 @@ GRU_CASES = [
     ("char_gru_train_init", GRU_BATCH, GRU_T, GRU_HIDDEN, True, True, False),
     ("serving_n8_no_workspace", 8, GRU_T, GRU_HIDDEN, False, False, False),
     ("untiled_n3_h200", 3, GRU_T, 200, False, True, False),
+    # a truncated-BPTT window of the char-GRU (tbptt_length 50 over T=100)
+    # from the carry the window before left
+    ("gru_tbptt_window_t50", GRU_BATCH, GRU_TBPTT, GRU_HIDDEN, True, True,
+     True),
 ]
 
 
@@ -2248,7 +2859,8 @@ def phase_kernels_gru(dev):
                 f"on the tensor cores, "
                 f"{row['gru_bwd_bound_cuda_cores_ms']:.4f} on the CUDA "
                 f"cores), plain {row['gru_bwd_plain_ms']:.4f} ms")
-            row.update(_time_cudnn_gru(dev, rw, b))
+            row.update(_time_cudnn_gru(dev, rw, b, t,
+                                       h0 if init else None))
             log(f"[kernels] gru {name} vs torch.nn.GRU (cuDNN), input width "
                 f"{GRU_EMBED}: forward op {row['op_fwd_ms']:.4f} ms vs cuDNN "
                 f"{row['cudnn_fwd_ms']:.4f} ms; backward op "
@@ -2327,18 +2939,21 @@ def _time_gru(dev, xp, rw, b, h0, gh, hs, gates, hpn):
     return row
 
 
-def _time_cudnn_gru(dev, rw, b):
+def _time_cudnn_gru(dev, rw, b, t=GRU_T, h0=None):
     """torch.nn.GRU (cuDNN) on an input x [N,T,E] beside the port's op on
     the same x and weights (W and RW transposed to weight_ih/weight_hh,
     b to bias_ih, bias_hh zero; gate order r,z,n and the reset applied
     after the recurrent product, as the port's), forward without grad
     (also at the serving bucket N=8) and backward to x and every weight:
-    the library yardstick. The outputs must agree."""
+    the library yardstick, over ``t`` steps from ``h0`` (zeros when None).
+    The outputs must agree."""
     from deeplearning4j_tpu_torch.kernels.gru_scan import gru
 
     h = rw.shape[0]
     g = torch.Generator().manual_seed(7)
-    x = torch.randn((GRU_BATCH, GRU_T, GRU_EMBED), generator=g).to(dev)
+    n = GRU_BATCH if h0 is None else h0.shape[0]
+    x = torch.randn((n, t, GRU_EMBED), generator=g).to(dev)
+    h8 = None if h0 is None else h0[:8].contiguous()
     w_x = ((2.0 / (GRU_EMBED + 3 * h)) ** 0.5
            * torch.randn((GRU_EMBED, 3 * h), generator=g)).to(dev)
     cudnn = torch.nn.GRU(GRU_EMBED, h, batch_first=True).to(dev)
@@ -2347,22 +2962,30 @@ def _time_cudnn_gru(dev, rw, b):
         cudnn.weight_hh_l0.copy_(rw.t())
         cudnn.bias_ih_l0.copy_(b)
         cudnn.bias_hh_l0.zero_()
-        err = float((cudnn(x)[0] - gru(x, w_x, rw, b)[0]).abs().max())
+
+    def op(inp, w_x, rw, b, hh=h0):
+        return gru(inp, w_x, rw, b, init_h=hh)
+
+    def lib(inp, hh=h0):
+        return cudnn(inp) if hh is None else cudnn(inp, hh[None])
+
+    with torch.no_grad():
+        err = float((lib(x)[0] - op(x, w_x, rw, b)[0]).abs().max())
     if err > 1e-4:
         raise SystemExit(f"chip_smoke: torch.nn.GRU disagrees with the "
                          f"port's op by {err:.3e}: not the same function")
     leaves = [a.clone().requires_grad_() for a in (x, w_x, rw, b)]
-    out_op = gru(*leaves)[0]
+    out_op = op(*leaves)[0]
     xg = x.clone().requires_grad_()
-    out_lib = cudnn(xg)[0]
+    out_lib = lib(xg)[0]
     dout = torch.randn(out_lib.shape, generator=g).to(dev)
     lib_leaves = [xg, *cudnn.parameters()]
     x8 = x[:8].contiguous()
     fns = {
-        "op_fwd": lambda: gru(x, w_x, rw, b),
-        "cudnn_fwd": lambda: cudnn(x),
-        "op_fwd_n8": lambda: gru(x8, w_x, rw, b),
-        "cudnn_fwd_n8": lambda: cudnn(x8),
+        "op_fwd": lambda: op(x, w_x, rw, b),
+        "cudnn_fwd": lambda: lib(x),
+        "op_fwd_n8": lambda: op(x8, w_x, rw, b, h8),
+        "cudnn_fwd_n8": lambda: lib(x8, h8),
         "op_bwd": lambda: torch.autograd.grad(out_op, leaves, dout,
                                               retain_graph=True),
         "cudnn_bwd": lambda: torch.autograd.grad(out_lib, lib_leaves, dout,
@@ -2740,13 +3363,16 @@ def phase_bitmap(dev, smi, n_bert, grads):
     return row
 
 
-def _gru_entries(cases, serving, training, bitmap, smi):
+def _gru_entries(cases, serving, training, tbptt, bitmap, smi):
     """The kernels-line entries of gru_fwd, gru_bwd and bitmap_pack."""
     main_row = cases["char_gru_train"]
+    window = cases["gru_tbptt_window_t50"]
     by_path = {
         "gru_fwd": {"serving": serving["gru_fwd_launches"],
-                    "training": training["launches"]["gru_fwd"]},
-        "gru_bwd": {"training": training["launches"]["gru_bwd"]},
+                    "training": training["launches"]["gru_fwd"],
+                    "tbptt_training": tbptt["launches"]["gru_fwd"]},
+        "gru_bwd": {"training": training["launches"]["gru_bwd"],
+                    "tbptt_training": tbptt["launches"]["gru_bwd"]},
     }
     library = {"gru_fwd": ("cudnn_fwd_ms", "op_fwd_ms"),
                "gru_bwd": ("cudnn_bwd_ms", "op_bwd_ms")}
@@ -2790,6 +3416,15 @@ def _gru_entries(cases, serving, training, bitmap, smi):
                 "bound_ms": main_row["gru_fwd_n8_bound_ms"],
                 "op_ms": main_row["op_fwd_n8_ms"],
                 "library_ms": main_row["cudnn_fwd_n8_ms"]},
+            "tbptt_window": {
+                "shape": window["shape"], "init_state": True,
+                "ms": window[f"{kernel}_ms"],
+                "device_ms": window[f"{kernel}_device_ms"],
+                "plain_ms": window[f"{kernel}_plain_ms"],
+                "bound_ms": window[f"{kernel}_bound_ms"],
+                "bound_by": window[f"{kernel}_bound_by"],
+                "op_ms": window[op_key], "library_ms": window[lib_key],
+                "library": "torch.nn.GRU (cuDNN) from the case's h0"},
             "shape": main_row["shape"], "card": smi,
         })
     entries.append({
@@ -4113,6 +4748,11 @@ def main() -> int:
     # before BERT's long profiled phases: after them the profiler kept 2 of
     # 5 records of a persistent LSTM sweep (seen on the card), all 5 before
     lstm_cases = phase_kernels_lstm(dev)
+    # the persistent LSTM kernels are counted by the profiler here too, so
+    # before BERT's phases as well
+    char_tbptt, tbptt_model, tbptt_vars = phase_charrnn_tbptt(dev, smi)
+    char_gen = phase_charrnn_generate(dev, smi, tbptt_model, tbptt_vars)
+    del tbptt_model, tbptt_vars
     serving = phase_slice(dev, smi)
     training = phase_train(dev, smi, batches)
     char_serving = phase_charrnn_serving(dev, smi)
@@ -4123,6 +4763,7 @@ def main() -> int:
     gru_cases = phase_kernels_gru(dev)
     gru_serving = phase_chargru_serving(dev, smi)
     gru_training, gru_grads = phase_chargru_train(dev, smi)
+    gru_tbptt = phase_gru_tbptt(dev, smi)
     bitmap = phase_bitmap(dev, smi, serving["num_params"], gru_grads)
     del gru_grads
     lenet_training = phase_lenet_train(dev, smi)
@@ -4227,16 +4868,20 @@ def main() -> int:
     entries.append(_delta_entry(bwd_cases, training, gpt_training,
                                 s2s_training, smi))
     entries += _lstm_entries(lstm_cases, char_serving, char_training,
-                             s2s_serving, s2s_training, smi)
-    entries += _gru_entries(gru_cases, gru_serving, gru_training, bitmap,
-                            smi)
+                             s2s_serving, s2s_training, char_tbptt,
+                             char_gen, smi)
+    entries += _gru_entries(gru_cases, gru_serving, gru_training, gru_tbptt,
+                            bitmap, smi)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"char_rnn_serving": char_serving}), flush=True)
     print(json.dumps({"char_rnn_training": char_training}), flush=True)
+    print(json.dumps({"char_rnn_tbptt": char_tbptt}), flush=True)
+    print(json.dumps({"char_rnn_generate": char_gen}), flush=True)
     print(json.dumps({"char_gru_serving": gru_serving}), flush=True)
     print(json.dumps({"char_gru_training": gru_training}), flush=True)
+    print(json.dumps({"char_gru_tbptt": gru_tbptt}), flush=True)
     print(json.dumps({"bitmap": bitmap}), flush=True)
     print(json.dumps({"lenet_training": lenet_training}), flush=True)
     print(json.dumps({"resnet_training": resnet_training}), flush=True)

@@ -112,8 +112,8 @@ class LayerConfig:
     over dicts of tensors. Shapes exclude the batch dimension. The
     keyword-only fields are the JAX package's: per-layer l1/l2 (None
     inherits the net's), dtype, a train-time ``weight_noise`` transform
-    (``nn/weightnoise.py``) and ``constraints`` (carried for the JSON; the
-    port's Trainer raises on them until it applies them).
+    (``nn/weightnoise.py``) and ``constraints`` (``nn/constraints.py``,
+    projected by the Trainer after every update).
     """
 
     name: Optional[str] = field(default=None, kw_only=True)

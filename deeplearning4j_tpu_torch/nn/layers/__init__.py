@@ -1,4 +1,11 @@
-"""Layers (↔ deeplearning4j_tpu.nn.layers)."""
+"""Layers (↔ deeplearning4j_tpu.nn.layers).
+
+Importing this package registers every layer config, and the weight
+constraints a layer may carry (``nn/constraints.py``), for
+``config_from_dict``.
+"""
+
+from deeplearning4j_tpu_torch.nn import constraints  # noqa: F401
 
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     CrossAttention,

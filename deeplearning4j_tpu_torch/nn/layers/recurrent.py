@@ -24,7 +24,16 @@ twice a backward) and flips its output back when it has a time axis.
 ``LastTimeStep`` takes [N,T,C] to [N,C], each example's last unpadded
 step under a mask. ``graves_bidirectional_lstm`` composes the two.
 
-Not ported yet: ``init_carry``/``step`` (rnnTimeStep) and ``ConvLSTM2D``.
+Stateful inference (rnnTimeStep, ``nn/generation.py``): ``LSTM``,
+``GravesLSTM``, ``GRU`` and ``SimpleRnn`` have ``init_carry(params,
+batch_size, dtype)`` (zeros: an ``LSTMState`` for the LSTMs, h [N, H]
+for the others) and ``step(params, carry, x_t)`` → (y_t [N, H], new
+carry), one timestep through the cells of ``ops/rnn.py`` in plain torch
+ops, as the JAX package's step is plain ``jnp``. ``apply_window`` runs a
+whole window from a carry and returns the final one (truncated BPTT,
+and several steps of rnnTimeStep at once).
+
+Not ported yet: ``ConvLSTM2D``.
 """
 
 from __future__ import annotations
@@ -77,6 +86,26 @@ class LSTM(LayerConfig):
 
     def _peepholes(self, params):
         return None
+
+    # -- stateful single-step inference (↔ MultiLayerNetwork.rnnTimeStep) --
+
+    def init_carry(self, params, batch_size: int, dtype=torch.float32):
+        zeros = torch.zeros((batch_size, self.units), dtype=dtype,
+                            device=params["RW"].device)
+        return opsrnn.LSTMState(zeros, zeros)
+
+    def step(self, params, carry, x_t):
+        """One timestep: x_t [N, In] → (y_t [N, H], new ``LSTMState``)."""
+        x_proj = torch.matmul(x_t, params["W"])
+        peep = self._peepholes(params)
+        if peep is not None:
+            new = opsrnn.graves_lstm_cell(x_proj, carry, params["RW"],
+                                          params["b"], *peep,
+                                          forget_bias=self.forget_bias)
+        else:
+            new = opsrnn.lstm_cell(x_proj, carry, params["RW"], params["b"],
+                                   forget_bias=self.forget_bias)
+        return new.h, new
 
     def apply(self, params, state, x, *, train=False, generator=None,
               initial_state=None):
@@ -150,6 +179,15 @@ class GRU(LayerConfig):
         }
         return params, {}
 
+    def init_carry(self, params, batch_size: int, dtype=torch.float32):
+        return torch.zeros((batch_size, self.units), dtype=dtype,
+                           device=params["RW"].device)
+
+    def step(self, params, carry, x_t):
+        h = opsrnn.gru_cell(torch.matmul(x_t, params["W"]), carry,
+                            params["RW"], params["b"])
+        return h, h
+
     def apply(self, params, state, x, *, train=False, generator=None,
               initial_state=None):
         y, state, _final = self.apply_window(params, state, x,
@@ -195,6 +233,16 @@ class SimpleRnn(LayerConfig):
         return {"W": w_init((c, h), generator, dtype),
                 "RW": w_init((h, h), generator, dtype),
                 "b": torch.zeros((h,), dtype=dtype)}, {}
+
+    def init_carry(self, params, batch_size: int, dtype=torch.float32):
+        return torch.zeros((batch_size, self.units), dtype=dtype,
+                           device=params["RW"].device)
+
+    def step(self, params, carry, x_t):
+        pre = torch.matmul(x_t, params["W"]) + torch.matmul(carry,
+                                                            params["RW"])
+        h = get_activation(self.activation)(pre + params["b"])
+        return h, h
 
     def apply(self, params, state, x, *, train=False, generator=None,
               initial_state=None):

@@ -18,9 +18,13 @@ what ``train.trainer.Trainer`` differentiates.
 ``output`` moves its inputs to the model's device: a model on the card
 never computes on the CPU because a caller handed it host arrays.
 
-Not ported yet: ``apply_tbptt``/``loss_fn_tbptt`` (truncated BPTT),
-``summary`` of either model and the build-time name validation
-(``_validate_registry_names``) (ROADMAP queue 1 items 4, 5 and 7).
+``SequentialModel.apply_tbptt``/``loss_fn_tbptt`` run one truncated-BPTT
+window from the recurrent layers' carries and hand back the final ones
+(``train.trainer.Trainer`` drives them under ``backprop_type="tbptt"``);
+``GraphModel`` has neither, as in the JAX package.
+
+Not ported yet: ``summary`` of either model and the build-time name
+validation (``_validate_registry_names``) (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -143,40 +147,113 @@ class SequentialModel:
     # -- forward -----------------------------------------------------------
 
     def _forward_layers(self, variables, x, *, train, generator, up_to,
-                        collect=None):
-        """The layer loop of apply/feed_forward; ``collect``: optional list
-        each layer's activation is appended to."""
+                        carries=None, tbptt=False, collect=None):
+        """The layer loop of apply/apply_tbptt/feed_forward → (x,
+        new_state, new_carries). Under ``tbptt`` the recurrent layers run
+        ``apply_window`` from ``carries[name]`` (None: zeros) and report
+        their final carry, and layers that need the whole sequence are
+        refused. ``collect``: optional list each layer's activation is
+        appended to."""
         params = variables["params"]
         state = variables["state"]
         new_state = dict(state)
+        new_carries = {}
+        carries = carries or {}
         n = len(self.layers) if up_to is None else up_to
         for name, layer in zip(self.layer_names[:n], self.layers[:n]):
+            if tbptt:
+                self._check_tbptt_compatible(layer)
             p = apply_weight_noise(layer, params.get(name, {}), generator,
                                    train)
-            x, s = layer.apply(p, state.get(name, {}), x, train=train,
-                               generator=generator)
+            if tbptt and hasattr(layer, "apply_window"):
+                x, s, carry = layer.apply_window(
+                    p, state.get(name, {}), x, carries.get(name),
+                    train=train, generator=generator)
+                new_carries[name] = carry
+            else:
+                x, s = layer.apply(p, state.get(name, {}), x, train=train,
+                                   generator=generator)
             if s:
                 new_state[name] = s
             if collect is not None:
                 collect.append(x)
-        return x, new_state
+        return x, new_state, new_carries
+
+    @staticmethod
+    def _check_tbptt_compatible(layer):
+        """↔ the reference's TBPTT restrictions: a layer that reads the
+        whole sequence (bidirectional, attention, absolute positions) or
+        collapses the time axis (last step, global pooling,
+        return_sequences=False) would compute another function window by
+        window, so it raises."""
+        from deeplearning4j_tpu_torch.nn.layers.attention import (
+            CrossAttention,
+            PositionalEmbedding,
+            RecurrentAttention,
+            SelfAttention,
+            TransformerEncoderBlock,
+        )
+        from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+            Bidirectional,
+            LastTimeStep,
+        )
+
+        kind = type(layer).__name__
+        if isinstance(layer, Bidirectional):
+            raise ValueError(
+                "truncated BPTT cannot be used with Bidirectional layers "
+                "(the backward direction needs the full sequence)")
+        if isinstance(layer, (SelfAttention, CrossAttention,
+                              RecurrentAttention, TransformerEncoderBlock)):
+            raise ValueError(
+                f"truncated BPTT cannot be used with {kind}: attention "
+                "reads the full sequence, so per-window application would "
+                "silently attend within each window only")
+        if isinstance(layer, PositionalEmbedding):
+            raise ValueError(
+                "truncated BPTT cannot be used with PositionalEmbedding: "
+                "absolute positions would restart at 0 in every window")
+        if isinstance(layer, LastTimeStep) or kind in ("GlobalPooling",
+                                                       "GlobalPooling1D"):
+            raise ValueError(
+                f"truncated BPTT cannot be used with {kind}: it collapses "
+                "the time axis, so each window would train an intermediate "
+                "state against the full-sequence target")
+        if getattr(layer, "return_sequences", True) is False:
+            raise ValueError(
+                f"truncated BPTT requires return_sequences=True on {kind} "
+                "(per-window last-step outputs are not the sequence output)")
 
     def apply(self, variables, x, *, train: bool = False, generator=None,
               up_to: Optional[int] = None):
         """Forward pass → (activations, new_state); ``up_to`` stops before
         that layer index (↔ feedForward/feedForwardToLayer)."""
-        return self._forward_layers(variables, x, train=train,
-                                    generator=generator, up_to=up_to)
+        x, new_state, _ = self._forward_layers(
+            variables, x, train=train, generator=generator, up_to=up_to)
+        return x, new_state
 
     def feed_forward(self, variables, x, *, train: bool = False,
                      generator=None):
         """([input, act_0, ..., act_{L-1}], new_state) (↔
         MultiLayerNetwork.feedForward); acts[i+1] is layer i's."""
         collect: list = []
-        _, new_state = self._forward_layers(variables, x, train=train,
-                                            generator=generator, up_to=None,
-                                            collect=collect)
+        _, new_state, _ = self._forward_layers(
+            variables, x, train=train, generator=generator, up_to=None,
+            collect=collect)
         return [x] + collect, new_state
+
+    def apply_tbptt(self, variables, x, carries, *, train: bool = False,
+                    generator=None, up_to: Optional[int] = None):
+        """One TBPTT window with the recurrent state carried in and out (↔
+        rnnActivateUsingStoredState under BackpropType.TruncatedBPTT): the
+        recurrent layers start from ``carries[name]`` (None: zeros) →
+        (activations, new_state, new_carries), an entry per recurrent
+        layer. The caller truncates the gradient at the window's start by
+        handing in carries outside the graph (``Trainer`` detaches them).
+        """
+        return self._forward_layers(variables, x, train=train,
+                                    generator=generator, up_to=up_to,
+                                    carries=carries, tbptt=True)
 
     def _output_loss(self, params, state, x, batch, generator):
         """The output layer (weight noise applied) and its compute_loss over
@@ -204,6 +281,18 @@ class SequentialModel:
         reg = self._regularization(params)
         return loss + reg, (new_state, {"loss": loss.detach(),
                                         "reg": reg.detach()})
+
+    def loss_fn_tbptt(self, params, state, batch, carries, generator=None):
+        """``loss_fn`` over one TBPTT window from ``carries`` → (loss,
+        (new_state, {"loss", "reg"}, new_carries))."""
+        variables = {"params": params, "state": state}
+        x, new_state, new_carries = self.apply_tbptt(
+            variables, batch["features"], carries, train=True,
+            generator=generator, up_to=len(self.layers) - 1)
+        loss = self._output_loss(params, state, x, batch, generator)
+        reg = self._regularization(params)
+        return loss + reg, (new_state, {"loss": loss.detach(),
+                                        "reg": reg.detach()}, new_carries)
 
     def _regularization(self, params):
         return _regularization(self.named_layers(), params, self.net,

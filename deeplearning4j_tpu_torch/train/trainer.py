@@ -14,10 +14,18 @@ data ``jax.random.key(seed, impl=net.rng_impl)`` holds (threefry2x32 or
 rbg), so either package restores the other's checkpoints. The two packages draw different dropout
 masks from one seed.
 
-Not ported (ROADMAP): meshes and sharding, ``check_nan``,
-``make_chained_step``, truncated BPTT and weight constraints (the Trainer
-raises on a config that sets either), ``step_flops``, and the telemetry, incident, fault-injection, heartbeat, compile-cache and
-auto-prefetch hooks of ``fit``.
+Truncated BPTT (``net.backprop_type="tbptt"``, ``net.tbptt_length``): a
+batch of long sequences [N, T, ...] is cut along time into windows of
+``tbptt_length`` steps and a shorter tail; each window is one update, run
+by ``loss_fn_tbptt`` from the recurrent carries the window before it left
+(detached there: the gradient stops at the window's start) and counted as
+one iteration by ``fit``. Layer weight constraints (``nn/constraints.py``)
+are projected after every update, that of each window included.
+
+Not ported (ROADMAP queue 1 item 2): meshes and sharding, ``check_nan``,
+``make_chained_step``, ``step_flops``, and the telemetry, incident,
+fault-injection, heartbeat, compile-cache and auto-prefetch hooks of
+``fit``.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from deeplearning4j_tpu_torch.data.dataset import as_batch_dict
 from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.constraints import constrain_params
 from deeplearning4j_tpu_torch.ops import math as opsmath
 from deeplearning4j_tpu_torch.train.updaters import (
     apply_updates,
@@ -151,24 +160,23 @@ def _first_dim(batch) -> int:
     return tree_leaves(batch["features"])[0].shape[0]
 
 
-def _refuse_unported(model) -> None:
-    """Raise on settings the JAX package's Trainer honours and the port
-    does not run yet (ROADMAP queue 1 items 2 and 7), so that a config
-    loaded from the JAX package's JSON never trains a different function
-    without a word."""
-    bt = getattr(model.net, "backprop_type", "standard")
-    if bt != "standard":
-        raise NotImplementedError(
-            f"backprop_type={bt!r}: the port trains with standard backprop "
-            "only; truncated BPTT (Trainer.make_tbptt_step) is not ported "
-            "yet (ROADMAP queue 1 item 7)")
-    named = model.named_layers() if hasattr(model, "named_layers") else []
-    constrained = [n for n, l in named if getattr(l, "constraints", None)]
-    if constrained:
-        raise NotImplementedError(
-            f"layers {constrained} set weight constraints, which the port's "
-            "Trainer does not apply yet (nn/constraints.py, ROADMAP queue 1 "
-            "item 4)")
+def _shape(v):
+    """A tensor's shape as the tuple the JAX package prints; None for a
+    value without one."""
+    shape = getattr(v, "shape", None)
+    return None if shape is None else tuple(shape)
+
+
+def _is_time_distributed(key: str, v, t: int) -> bool:
+    """Which batch entries a TBPTT batch splits along time: features and
+    labels of rank >= 3 [N, T, ...], mask and weights of rank 2 [N, T].
+    Labels [N, C] with C == T are not split (full-sequence targets are
+    refused by ``_fit_tbptt_batch`` instead)."""
+    if key in ("features", "labels"):
+        return hasattr(v, "ndim") and v.ndim >= 3 and v.shape[1] == t
+    if key in ("mask", "weights"):
+        return hasattr(v, "ndim") and v.ndim == 2 and v.shape[1] == t
+    return False
 
 
 class Trainer:
@@ -207,7 +215,11 @@ class Trainer:
     ):
         self.model = model
         self.net: NeuralNetConfiguration = model.net
-        _refuse_unported(model)
+        bt = getattr(self.net, "backprop_type", "standard")
+        if bt not in ("standard", "tbptt"):
+            raise ValueError(
+                f"unknown backprop_type {bt!r}: expected 'standard' or "
+                "'tbptt' (↔ BackpropType.{Standard,TruncatedBPTT})")
         self.device = model.device
         self.frozen_layers = frozenset(frozen_layers or ())
         self._upd_init, self._upd_update = resolve_updater(
@@ -217,7 +229,17 @@ class Trainer:
         if not isinstance(grad_accum, int) or grad_accum < 1:
             raise ValueError(
                 f"grad_accum must be an int >= 1, got {grad_accum!r}")
+        if grad_accum > 1 and bt == "tbptt":
+            raise ValueError(
+                "grad_accum is not supported with backprop_type='tbptt' "
+                "(windows already bound the per-update memory; accumulate "
+                "by widening tbptt_length instead)")
         self.grad_accum = grad_accum
+        # the layers whose weights are projected after every update
+        named = (model.named_layers() if hasattr(model, "named_layers")
+                 else [])
+        self._constrained_layers = [(n, l) for n, l in named
+                                    if getattr(l, "constraints", None)]
         self.grad_metrics = bool(grad_metrics)
 
     # -- one step -----------------------------------------------------------
@@ -227,22 +249,34 @@ class Trainer:
             return dict(batch, features=_to_bf16(batch["features"]))
         return batch
 
-    def _grad_of(self, params, model_state, batch, generator):
-        """Loss and gradients of every param leaf (float32 leaves; the
-        mixed-precision cast is inside the differentiated function)."""
+    def _leaves(self, params):
+        """(float32 leaves that require grad, the tree the model computes
+        with): the mixed-precision cast sits inside the differentiated
+        function, so gradients come back float32."""
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        compute = _to_bf16(leaves) if self._mixed else leaves
-        loss, (new_state, metrics) = self.model.loss_fn(
-            compute, model_state, batch, generator=generator)
+        return leaves, (_to_bf16(leaves) if self._mixed else leaves)
+
+    @staticmethod
+    def _grads(loss, leaves):
+        """d loss / d every leaf, a tree like ``leaves`` (zeros where the
+        loss does not reach)."""
         named = flatten_with_names(leaves)
         grads = torch.autograd.grad(loss, [p for _, p in named],
                                     allow_unused=True)
         by_name = {n: torch.zeros_like(p) if g is None else g
                    for (n, p), g in zip(named, grads)}
+        return tree_map_with_names(lambda n, _: by_name[n], leaves)
+
+    def _grad_of(self, params, model_state, batch, generator):
+        """Loss and gradients of every param leaf (float32 leaves; the
+        mixed-precision cast is inside the differentiated function)."""
+        leaves, compute = self._leaves(params)
+        loss, (new_state, metrics) = self.model.loss_fn(
+            compute, model_state, batch, generator=generator)
+        grads = self._grads(loss, leaves)
         # layer state (BatchNorm's running statistics) leaves the graph
         new_state = tree_map(torch.Tensor.detach, new_state)
-        return (loss.detach(), new_state, metrics,
-                tree_map_with_names(lambda n, _: by_name[n], leaves))
+        return loss.detach(), new_state, metrics, grads
 
     def train_step(self, ts: TrainState, batch):
         """One update from ``batch`` → (new TrainState, metrics)."""
@@ -299,6 +333,9 @@ class Trainer:
                                             ts.step)
         updates = self._mask_frozen(updates)
         new_params = apply_updates(ts.params, updates)
+        if self._constrained_layers:
+            new_params = constrain_params(self._constrained_layers,
+                                          new_params)
         metrics = dict(metrics)
         metrics["total_loss"] = loss
         metrics["batch_size"] = _first_dim(batch)
@@ -308,6 +345,126 @@ class Trainer:
         new_ts = TrainState(params=new_params, model_state=new_model_state,
                             opt_state=new_opt, step=ts.step + 1, rng=ts.rng)
         return new_ts, metrics
+
+    # -- truncated BPTT (↔ BackpropType.TruncatedBPTT) ------------------------
+
+    def _tbptt_window_step(self, ts: TrainState, batch, carries):
+        """One TBPTT window → (new TrainState, the final carries,
+        metrics): the loss over the window from ``carries``, detached so
+        that the gradient stops at the window's start, and one update.
+        Dropout draws from (rng, step), as a standard step's."""
+        gen = ts.rng.generator(self.device, ts.step)
+        batch = self._cast_batch(batch)
+        carries = tree_map(torch.Tensor.detach, carries)
+        leaves, compute = self._leaves(ts.params)
+        loss, (new_state, metrics, new_carries) = self.model.loss_fn_tbptt(
+            compute, ts.model_state, batch, carries, generator=gen)
+        grads = self._grads(loss, leaves)
+        new_state = tree_map(torch.Tensor.detach, new_state)
+        new_carries = tree_map(torch.Tensor.detach, new_carries)
+        new_ts, metrics = self._finish_step(ts, grads, new_state, metrics,
+                                            loss.detach(), batch)
+        return new_ts, new_carries, metrics
+
+    def _zero_carries(self, ts: TrainState, x_window):
+        """Zero carries of every recurrent layer for a window of
+        ``x_window``'s batch, in the dtype the window computes in (bf16
+        under mixed precision, as the JAX package derives them from the
+        bf16 forward)."""
+        n = tree_leaves(x_window)[0].shape[0]
+        params = _to_bf16(ts.params) if self._mixed else ts.params
+        out = {}
+        for name, layer in self.model.named_layers():
+            if hasattr(layer, "apply_window"):
+                p = params.get(name, {})
+                out[name] = layer.init_carry(p, n, p["RW"].dtype)
+        return out
+
+    def make_tbptt_step(self, n_windows: int, window_len: int):
+        """``prog(ts, batch) -> (ts, per-window metrics, carries)``: the
+        ``n_windows`` windows of ``window_len`` steps of a batch whose time
+        axes are exactly ``n_windows * window_len`` long, one update each,
+        from zero carries. The metrics are a list of the step's metric
+        dicts, one per window (the JAX package stacks them into arrays of
+        one compiled scan; here the windows run one after another). The
+        carries let a caller run a shorter tail through
+        ``train_step_tbptt``."""
+        span = n_windows * window_len
+
+        def program(ts: TrainState, batch):
+            batch = batch_to_device(as_batch_dict(batch), self.device)
+            t_len = tree_leaves(batch["features"])[0].shape[1]
+            if t_len != span:
+                raise ValueError(
+                    f"make_tbptt_step({n_windows}, {window_len}) takes "
+                    f"sequences of {span} steps, got {t_len}")
+            timed = {k for k, v in batch.items()
+                     if _is_time_distributed(k, v, span)}
+            carries, metrics = None, []
+            for w in range(n_windows):
+                lo, hi = w * window_len, (w + 1) * window_len
+                wb = {k: v[:, lo:hi] if k in timed else v
+                      for k, v in batch.items()}
+                if carries is None:
+                    carries = self._zero_carries(ts, wb["features"])
+                ts, carries, m = self._tbptt_window_step(ts, wb, carries)
+                metrics.append(m)
+            return ts, metrics, carries
+
+        return program
+
+    def train_step_tbptt(self, ts: TrainState, batch, carries):
+        """One TBPTT window from ``carries`` → (ts, final carries,
+        metrics): the tail window of a batch, and the building block a
+        caller can drive directly."""
+        batch = batch_to_device(as_batch_dict(batch), self.device)
+        return self._tbptt_window_step(ts, batch, carries)
+
+    def _fit_tbptt_batch(self, ts: TrainState, batch):
+        """One batch of long sequences by truncated BPTT: the full windows
+        (``make_tbptt_step``), then any shorter tail from the carries they
+        leave (the reference trains the tail window too) → (ts, [metrics
+        of each window])."""
+        if not hasattr(self.model, "loss_fn_tbptt"):
+            raise ValueError(
+                "backprop_type='tbptt' requires a model with TBPTT support "
+                f"(SequentialModel); {type(self.model).__name__} has none")
+        length = int(self.net.tbptt_length)
+        if length <= 0:
+            raise ValueError("backprop_type='tbptt' requires tbptt_length>0")
+        batch = batch_to_device(as_batch_dict(batch), self.device)
+        feats = batch["features"]
+        if not (hasattr(feats, "ndim") and feats.ndim >= 3):
+            raise ValueError(
+                "TBPTT needs sequence features [N, T, ...]; got shape "
+                f"{_shape(feats)}")
+        t_total = feats.shape[1]
+        labels = batch.get("labels")
+        if labels is not None and not _is_time_distributed(
+                "labels", labels, t_total):
+            raise ValueError(
+                "TBPTT requires per-timestep labels [N, T, ...] matching the "
+                f"feature time axis (T={t_total}); got labels shape "
+                f"{_shape(labels)} — full-sequence targets "
+                "cannot be trained per truncated window")
+        n_w, rem = divmod(t_total, length)
+        span = n_w * length
+
+        def time_slice(lo, hi):
+            return {k: v[:, lo:hi] if _is_time_distributed(k, v, t_total)
+                    else v for k, v in batch.items()}
+
+        wmetrics, carries = [], None
+        if n_w:
+            ts, wmetrics, carries = self.make_tbptt_step(n_w, length)(
+                ts, time_slice(0, span))
+        if rem:
+            tail = time_slice(span, t_total)
+            if carries is None:
+                carries = self._zero_carries(ts, tail["features"])
+            ts, _, metrics = self.train_step_tbptt(ts, tail, carries)
+            wmetrics.append(metrics)
+        return ts, wmetrics
 
     def _mask_frozen(self, tree):
         if not self.frozen_layers:
@@ -350,6 +507,7 @@ class Trainer:
             lst.on_fit_start(self, ts)
         stop = False
         host_step = ts.step
+        tbptt = getattr(self.net, "backprop_type", "standard") == "tbptt"
         # on_fit_end runs even when a step raises: listeners hold resources
         try:
             for epoch in range(epochs):
@@ -357,12 +515,19 @@ class Trainer:
                     lst.on_epoch_start(epoch)
                 n = 0
                 for batch in data:
-                    ts, metrics = self.train_step(ts, batch)
+                    if tbptt:
+                        # every window is an iteration (the reference fires
+                        # iterationDone once per window)
+                        ts, wmetrics = self._fit_tbptt_batch(ts, batch)
+                    else:
+                        ts, metrics = self.train_step(ts, batch)
+                        wmetrics = [metrics]
                     n += 1
-                    host_step += 1
-                    for lst in listeners:
-                        if lst.on_iteration(epoch, host_step, ts, metrics):
-                            stop = True
+                    for wm in wmetrics:
+                        host_step += 1
+                        for lst in listeners:
+                            if lst.on_iteration(epoch, host_step, ts, wm):
+                                stop = True
                     if steps_per_epoch is not None and n >= steps_per_epoch:
                         break
                     if stop:

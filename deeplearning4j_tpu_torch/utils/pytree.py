@@ -3,7 +3,7 @@
 The JAX package names every leaf of a variables tree by its path,
 ``a/b/c`` (``flatten_with_names``); checkpoints and the port's parameters
 use the same names. This is the port's own copy over plain nested dicts,
-lists and tuples, and dataclasses registered with :func:`register_dataclass`
+lists and tuples (namedtuples too), and dataclasses registered with :func:`register_dataclass`
 (``TrainState``): dict keys are visited in sorted order and dataclass fields
 in declaration order, as ``jax.tree_util`` does, so both packages list and
 name leaves alike (``opt_state/m/embeddings/word``).
@@ -68,12 +68,20 @@ def unflatten(named: Iterable[Tuple[str, Any]]) -> Dict[str, Any]:
     return root
 
 
+def _sequence(like, items):
+    """A list or tuple of ``like``'s type holding ``items``; a namedtuple
+    (``LSTMState``) takes them as its fields."""
+    if hasattr(like, "_fields"):
+        return type(like)(*items)
+    return type(like)(items)
+
+
 def tree_map(fn: Callable, tree, *rest):
     """Apply ``fn`` leafwise over one or more trees of the same structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+        return _sequence(tree, [tree_map(fn, *xs) for xs in zip(tree, *rest)])
     if type(tree) in _DATACLASS_NODES:
         return type(tree)(**{
             f.name: tree_map(fn, getattr(tree, f.name),
@@ -93,7 +101,7 @@ def tree_map_with_names(fn: Callable, tree, prefix: str = ""):
     if isinstance(tree, dict):
         return {k: rebuilt[str(k)] for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(rebuilt[str(i)] for i in range(len(tree)))
+        return _sequence(tree, [rebuilt[str(i)] for i in range(len(tree))])
     return type(tree)(**rebuilt)
 
 

@@ -168,3 +168,18 @@ def test_out_of_vocab_id_raises(pair):
     with pytest.raises(IndexError, match="0, 1000"):
         tm.encode(feats)
 
+
+
+@pytest.mark.parametrize("bad", [-1, 7], ids=["minus_one", "num_classes"])
+def test_out_of_range_class_id_raises(bad):
+    """``sparse_softmax_cross_entropy`` raises on a class id outside [0, C)
+    (here C = 7) on the CPU tensors it is given, instead of reading
+    another row's log-probability."""
+    from deeplearning4j_tpu_torch.ops.loss import sparse_softmax_cross_entropy
+
+    logits = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((3, 7)).astype(np.float32))
+    ids = torch.tensor([0, 6, bad])
+    assert torch.isfinite(sparse_softmax_cross_entropy(logits, ids[:2]))
+    with pytest.raises(RuntimeError, match="out of bounds"):
+        sparse_softmax_cross_entropy(logits, ids)

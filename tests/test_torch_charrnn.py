@@ -120,29 +120,102 @@ def test_config_json_and_layer_names_cross_both_ways(jax_model):
 
 
 def test_jax_config_with_tbptt_or_constraints_is_refused(jax_model):
-    """Settings the JAX Trainer honours and the port does not run yet
-    raise instead of training another function: backprop_type "tbptt"
-    and layer weight constraints."""
-    from deeplearning4j_tpu.nn.constraints import MaxNorm
-    from deeplearning4j_tpu_torch.nn.model import SequentialModel
+    """What the JAX Trainer refuses of a config with TBPTT, the port's
+    refuses with the same words: an unknown backprop_type, and
+    grad_accum > 1 under TBPTT."""
+    for net, kw, match in (
+            (dict(backprop_type="TBPTT"), {}, "unknown backprop_type"),
+            (dict(backprop_type="tbptt", tbptt_length=4),
+             dict(grad_accum=2), "grad_accum is not supported")):
+        cfg = dataclasses.replace(jax_model.config, net=dataclasses.replace(
+            jax_model.config.net, **net))
+        model = SequentialModel(
+            nnconfig.SequentialConfig.from_json(cfg.to_json()), device="cpu")
+        with pytest.raises(ValueError, match=match) as err:
+            Trainer(model, **kw)
+        with pytest.raises(ValueError) as jerr:
+            JaxTrainer(type(jax_model)(cfg), **kw)
+        assert str(err.value) == str(jerr.value)
 
-    tbptt = dataclasses.replace(jax_model.config, net=dataclasses.replace(
-        jax_model.config.net, backprop_type="tbptt", tbptt_length=4))
-    cfg = nnconfig.SequentialConfig.from_json(tbptt.to_json())
-    assert cfg.net.backprop_type == "tbptt"
-    with pytest.raises(NotImplementedError, match="truncated BPTT"):
-        Trainer(SequentialModel(cfg, device="cpu"))
-    layers = list(jax_model.config.layers)
-    layers[1] = dataclasses.replace(layers[1], constraints=[MaxNorm(1.0)])
-    constrained = dataclasses.replace(jax_model.config, layers=layers)
-    # the port has no constraint classes yet: the JSON does not load
-    with pytest.raises(ValueError, match="MaxNorm"):
-        nnconfig.SequentialConfig.from_json(constrained.to_json())
-    model = _port_model()
-    model.layers[1] = dataclasses.replace(model.layers[1],
-                                          constraints=[{"max_norm": 1.0}])
-    with pytest.raises(NotImplementedError, match="1_graveslstm"):
-        Trainer(model)
+
+def _jax_windows(jmodel, variables, batch, length):
+    """The JAX Trainer's TBPTT batch, window by window: (losses, params
+    after the batch, each window's gradient)."""
+    trainer = JaxTrainer(jmodel)
+    ts = trainer.init_state(jax.tree_util.tree_map(jnp.asarray, variables))
+    carries = trainer._zero_carries(ts, batch["features"][:, :length])
+    losses, grads = [], []
+    for lo in range(0, T, length):
+        wb = {k: v[:, lo:lo + length] for k, v in batch.items()}
+        rng = jax.random.fold_in(ts.rng, ts.step)
+        grads.append(_np(jax.tree_util.tree_map(np.array, jax.grad(
+            lambda p: jmodel.loss_fn_tbptt(p, {}, wb, carries,
+                                           rng=rng)[0])(ts.params))))
+        ts, carries, m = trainer.train_step_tbptt(ts, wb, carries)
+        losses.append(float(m["total_loss"]))
+    return losses, _np(jax.tree_util.tree_map(np.array, ts.params)), grads
+
+
+@pytest.mark.parametrize("setting", ["tbptt", "max_norm"])
+def test_jax_config_with_tbptt_or_constraints_trains_like_jax(
+        jax_model, variables, setting):
+    """A JAX char-RNN config with backprop_type "tbptt" (a window of 5 over
+    T = 8 and a tail of 3), or with MaxNorm on its second layer,
+    loads from JSON and trains like the JAX Trainer: the losses to
+    TOL_LOSS, the params to TOL_ADAM_PARAM (GRAD_FLOOR exemption)."""
+    from deeplearning4j_tpu.nn.constraints import MaxNorm
+
+    from deeplearning4j_tpu_torch.nn.constraints import (
+        MaxNorm as PortMaxNorm,
+    )
+
+    cfg = jax_model.config
+    if setting == "tbptt":
+        cfg = dataclasses.replace(cfg, net=dataclasses.replace(
+            cfg.net, backprop_type="tbptt", tbptt_length=5))
+    else:
+        layers = list(cfg.layers)
+        layers[1] = dataclasses.replace(layers[1],
+                                        constraints=[MaxNorm(0.3)])
+        cfg = dataclasses.replace(cfg, layers=layers)
+    jmodel = type(jax_model)(cfg)
+    model = SequentialModel(nnconfig.SequentialConfig.from_json(
+        cfg.to_json()), device="cpu")
+    trainer = Trainer(model)
+    batch = _batch(10)
+    if setting == "tbptt":
+        assert model.net.backprop_type == "tbptt"
+        jlosses, jparams, jgrads = _jax_windows(jmodel, variables, batch, 5)
+        ts, wm = trainer._fit_tbptt_batch(trainer.init_state(variables),
+                                          batch)
+        losses = [float(m["total_loss"]) for m in wm]
+    else:
+        assert isinstance(model.layers[1].constraints[0], PortMaxNorm)
+        jt = JaxTrainer(jmodel)
+        jts = jt.init_state(jax.tree_util.tree_map(jnp.asarray, variables))
+        jgrads = [_np(jax.tree_util.tree_map(np.array, jax.grad(
+            lambda p: jmodel.loss_fn(p, {}, batch)[0])(jts.params)))]
+        jts, jm = jt.train_step(jts, batch)
+        jlosses = [float(jm["total_loss"])]
+        jparams = _np(jax.tree_util.tree_map(np.array, jts.params))
+        ts, m = trainer.train_step(trainer.init_state(variables), batch)
+        losses = [float(m["total_loss"])]
+        rw = ts.params["1_graveslstm"]["RW"]
+        assert float(torch.sqrt((rw ** 2).sum(0)).max()) <= 0.3 + 1e-6
+    np.testing.assert_allclose(losses, jlosses, rtol=TOL_LOSS)
+    got = _np(ts.params)
+    n_exempt = n_all = 0
+    for n, w in jparams.items():
+        exempt = np.zeros(w.shape, bool)
+        for g in jgrads:
+            exempt |= (np.abs(g[n]) < GRAD_FLOOR * np.abs(g[n]).max()) & (
+                g[n] != 0)
+        err = np.abs(got[n] - w)
+        assert err[~exempt].max(initial=0) <= TOL_ADAM_PARAM, n
+        assert err.max() <= 2 * len(jgrads) * LR, n
+        n_exempt += int(exempt.sum())
+        n_all += w.size
+    assert n_exempt <= MAX_EXEMPT * n_all, (n_exempt, n_all)
 
 
 def test_init_has_the_jax_names_shapes_and_dtypes(jax_model):

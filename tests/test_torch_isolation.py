@@ -69,6 +69,7 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.serving.warmup",
     "deeplearning4j_tpu_torch.nn.layers",
     "deeplearning4j_tpu_torch.nn.layers.attention",
+    "deeplearning4j_tpu_torch.nn.constraints",
 ]
 
 
