@@ -188,7 +188,35 @@ caught:
    window shapes (T=50 from carried state, the T=6 tail, the T=64 prime)
    beside torch.nn.LSTM / torch.nn.GRU from the same initial state.
 
-No TPU kernel lies on phases 13–15 and 17: the convolutions run in cuDNN
+24. GPT-2-small serving with prefix-KV reuse — the gpt_serve engine with
+   prefix_cache=True, a ServingMetrics bundle and a warmup manifest behind
+   ModelServer: 64 streamed requests from 8 client threads, each one of 2
+   fixed 256-id system prompts and a distinct 8–32-id suffix, half greedy.
+   Hits must equal 64 less the publishes, the /metrics scrape's prefix
+   counters the store's describe(), no shape may run first after warm
+   (the grafts included), every greedy token must be the full forward's
+   argmax and every greedy hit's tokens those of the same prompt served by
+   an engine without a store (parting only at a tie); TTFT p50/p99 for
+   hits and misses, the suffix feeds a hit took, the store's bytes; then
+   the same requests from the same clients through that store-less engine
+   behind a server of its own, its TTFT p50/p99 and tokens/s beside the
+   store's.
+25. warm restart — BERT-base and GPT-2-small behind one ModelServer with
+   a warmup manifest, a traffic mix on a strict subset of the buckets,
+   stop; a fresh server from the manifest file with warm_async=True,
+   /readyz polled (503 progress bodies) until 200; the warm ran fewer
+   shapes than the full vocabulary, the replayed mix runs no shape first
+   after warm on either plane, BERT outputs bit-equal to the first
+   server's with 12 flash_fwd launches a dispatched batch; warm seconds,
+   full against manifest. Phases 24 and 25 run after phase 17.
+26. loss guard — in a child process, sparse_softmax_cross_entropy on CUDA
+   tensors with class ids -1 and C raises cleanly and the card goes on
+   computing in that process (run right after phase 1). Phase 16 also
+   times a mixed-precision GPT step with the loss's range check and
+   without it, step by step in alternating pairs, and reads one step of
+   each in turns through the profiler (device busy ms, idle share).
+
+No TPU kernel lies on phases 13–15, 17 and 24: the convolutions run in cuDNN
 (as the JAX package leaves them to XLA), and generation's prefill and
 decode attend with plain matmuls (as the JAX package's einsums,
 models/gpt.py:298-304, :370-375); they launch none of the port's hand
@@ -200,7 +228,8 @@ run separately).
 
 It prints the kernels line ({"kernels": [...]}), the serving, training,
 char-RNN (TBPTT and sampling too), char-GRU (TBPTT too), bitmap, LeNet-5,
-ResNet-50, GPT-2-small and seq2seq lines,
+ResNet-50, GPT-2-small (prefix serving and the warm restart too), loss
+guard and seq2seq lines,
 the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
 """
@@ -422,6 +451,24 @@ def _busy_us(spans, match="", calls=1) -> float:
     return total / calls
 
 
+def _window_start(recorded, iters) -> int:
+    """The index of the first record of the traced calls in ``recorded``
+    ((start µs, end µs, name), sorted): past the pause of TRACE_EDGE_S
+    that opens the window, where a trace kept records of the warm-up call
+    before it (seen on the card: 6 records for 5 calls of an LSTM sweep).
+    0 where no pause of 0.8 TRACE_EDGE_S lies between kernels, where more
+    than one does (a pause inside the function), or where more records
+    lie before it than one call leaves."""
+    pauses, end = [], None
+    for k, (a, b, _) in enumerate(recorded):
+        if end is not None and a - end >= 0.8 * TRACE_EDGE_S * 1e6:
+            pauses.append(k)
+        end = b if end is None else max(end, b)
+    if len(pauses) == 1 and pauses[0] <= (len(recorded) - pauses[0]) / iters:
+        return pauses[0]
+    return 0
+
+
 def _device_us_by_kernel(fn, iters=50, launches=None, spans=None) -> dict:
     """Device time per call of each CUDA kernel ``fn`` launches, in µs,
     from the profiler. A dict passed as ``launches`` receives each
@@ -431,15 +478,15 @@ def _device_us_by_kernel(fn, iters=50, launches=None, spans=None) -> dict:
     profiler traces one call as warm-up and discards it (tracing that
     starts with a burst of launches misses the first few), then records
     ``iters`` calls, TRACE_EDGE_S after its window opens and before it
-    closes."""
+    closes. Records of the warm-up call that a trace kept all the same
+    are dropped (``_window_start``)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    averages, recorded = [], []
+    recorded = []
 
     def ready(p):
-        averages.append(p.key_averages())
         recorded.extend(
             (e.time_range.start, e.time_range.end, e.name) for e in p.events()
             if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -455,14 +502,20 @@ def _device_us_by_kernel(fn, iters=50, launches=None, spans=None) -> dict:
             if i == iters:
                 time.sleep(TRACE_EDGE_S)
             prof.step()
-    out = {}
-    for e in averages[0]:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None) or \
-                getattr(e, "self_cuda_time_total", 0.0)
-            out[e.key] = out.get(e.key, 0.0) + us / iters
-            if launches is not None:
-                launches[e.key] = launches.get(e.key, 0) + e.count / iters
+    recorded.sort()
+    opened = _window_start(recorded, iters)
+    if opened:
+        log(f"[kernels] the trace kept {opened} records of the warm-up "
+            f"call; dropped")
+    recorded = recorded[opened:]
+    count, total = {}, {}
+    for a, b, n in recorded:
+        count[n] = count.get(n, 0) + 1
+        total[n] = total.get(n, 0.0) + b - a
+    out = {n: us / iters for n, us in total.items()}
+    if launches is not None:
+        for n, c in count.items():
+            launches[n] = launches.get(n, 0) + c / iters
     if spans is not None:
         spans.extend(recorded)
     return out
@@ -3964,6 +4017,15 @@ def phase_gpt_train(dev, smi):
                                 FLASH_KERNELS)
     log(f"[gpt_train] one mixed-precision step: {breakdown}")
     _require_kernel_time("GPT mixed-precision step", breakdown)
+    loss_check = _time_loss_check(mp_trainer, ts, on_dev[0])
+    log(f"[gpt_train] a mixed-precision step with the sparse loss's range "
+        f"check {loss_check['checked_median_ms']:.2f} ms, without it "
+        f"{loss_check['unchecked_median_ms']:.2f} ms (medians over "
+        f"{loss_check['pairs']} alternating pairs); with less without, "
+        f"paired: {loss_check['paired_diff_ms']} ms; one step's wall, "
+        f"device ms and idle share with it "
+        f"{loss_check['checked_breakdown']}, without it "
+        f"{loss_check['unchecked_breakdown']}")
     step_ms = fit["median_step_ms"]
     tokens = GPT_BATCH * GPT_T
     variables = mp_trainer.variables(ts)
@@ -3984,7 +4046,8 @@ def phase_gpt_train(dev, smi):
                                  "worst_grad_frac": worst},
         "first_mixed_vs_fp32_plain_rel": mp_rel,
         "checkpoint_next_loss": fit["checkpoint_next_loss"],
-        "step_breakdown": breakdown, "card": smi,
+        "step_breakdown": breakdown, "loss_range_check": loss_check,
+        "card": smi,
     }, model, variables
 
 
@@ -4011,12 +4074,59 @@ def _gen_request(i, vocab):
             "eos_id": int(r.integers(0, vocab)) if i % 4 == 3 else None}
 
 
-def phase_gpt_serve(dev, smi, model, variables):
-    from deeplearning4j_tpu_torch.kernels import _dispatch
+def _full_forward_gaps(model, variables, dev, prompt, toks):
+    """For each generated token, the top logit of the full forward (plain
+    attention) over prompt + the tokens before it, minus the token's own
+    logit: 0 for the argmax, small for a tie."""
     from deeplearning4j_tpu_torch.kernels.flash_attention import (
         reference_attention,
     )
     from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
+
+    p = len(prompt)
+    ids = np.concatenate([prompt, toks[:-1]])[None]
+    with mock.patch.object(attention_mod, "flash_attention",
+                           reference_attention), torch.inference_mode():
+        logits, _ = model.apply(variables, torch.from_numpy(ids).to(dev))
+        lg = logits[0, p - 1:].double()
+        picked = lg.gather(1, torch.tensor(toks, device=dev)[:, None])
+        return (lg.max(-1).values - picked[:, 0]).cpu().numpy()
+
+
+def _check_streams(model, variables, dev, requests, outputs):
+    """Every stream: ``GEN_NEW`` tokens or ending at its eos_id, ids in the
+    vocab, and every greedy token the argmax of the full forward with plain
+    attention over prompt + generated prefix (a tie within TOL_GREEDY_TIE
+    counted). Returns (greedy tokens checked, ties, worst gap, eos stops)."""
+    vocab = model.config.vocab_size
+    eos_stops = ties = checked = 0
+    worst_gap = 0.0
+    for req, toks in zip(requests, outputs):
+        eos = req.get("eos_id")
+        if eos is not None and eos in toks:
+            if toks.index(eos) != len(toks) - 1:
+                raise SystemExit("chip_smoke: a stream ran past its eos")
+            eos_stops += 1
+        elif len(toks) != GEN_NEW:
+            raise SystemExit(f"chip_smoke: a stream gave {len(toks)} "
+                             f"tokens, want {GEN_NEW}")
+        if min(toks) < 0 or max(toks) >= vocab:
+            raise SystemExit("chip_smoke: a token id outside the vocab")
+        if req["temperature"] != 0.0:
+            continue
+        gap = _full_forward_gaps(model, variables, dev, req["prompt"], toks)
+        worst_gap = max(worst_gap, float(gap.max()))
+        ties += int(np.sum(gap > 0))
+        checked += len(toks)
+        if gap.max() > TOL_GREEDY_TIE:
+            raise SystemExit(f"chip_smoke: a greedy token is not the "
+                             f"argmax of the full forward (gap "
+                             f"{gap.max():.3e})")
+    return checked, ties, worst_gap, eos_stops
+
+
+def phase_gpt_serve(dev, smi, model, variables):
+    from deeplearning4j_tpu_torch.kernels import _dispatch
     from deeplearning4j_tpu_torch.serving import (
         GenerationEngine,
         ModelServer,
@@ -4076,38 +4186,8 @@ def phase_gpt_serve(dev, smi, model, variables):
         raise SystemExit("chip_smoke: GPT serving launched a hand kernel, "
                          "ran an unwarmed shape or did not drain")
 
-    # every response: length or eos, and every greedy token the argmax of
-    # the full forward (plain attention) over prompt + generated prefix
-    eos_stops = ties = checked = 0
-    worst_gap = 0.0
-    with mock.patch.object(attention_mod, "flash_attention",
-                           reference_attention), torch.inference_mode():
-        for req, toks in zip(requests, outputs):
-            eos = req["eos_id"]
-            if eos is not None and eos in toks:
-                if toks.index(eos) != len(toks) - 1:
-                    raise SystemExit("chip_smoke: a stream ran past its eos")
-                eos_stops += 1
-            elif len(toks) != GEN_NEW:
-                raise SystemExit(f"chip_smoke: a stream gave {len(toks)} "
-                                 f"tokens, want {GEN_NEW}")
-            if min(toks) < 0 or max(toks) >= vocab:
-                raise SystemExit("chip_smoke: a token id outside the vocab")
-            if req["temperature"] != 0.0:
-                continue
-            p = len(req["prompt"])
-            ids = np.concatenate([req["prompt"], toks[:-1]])[None]
-            logits, _ = model.apply(variables, torch.from_numpy(ids).to(dev))
-            lg = logits[0, p - 1:].double()
-            picked = lg.gather(1, torch.tensor(toks, device=dev)[:, None])
-            gap = (lg.max(-1).values - picked[:, 0]).cpu().numpy()
-            worst_gap = max(worst_gap, float(gap.max()))
-            ties += int(np.sum(gap > 0))
-            checked += len(toks)
-            if gap.max() > TOL_GREEDY_TIE:
-                raise SystemExit(f"chip_smoke: a greedy token is not the "
-                                 f"argmax of the full forward (gap "
-                                 f"{gap.max():.3e})")
+    checked, ties, worst_gap, eos_stops = _check_streams(
+        model, variables, dev, requests, outputs)
     log(f"[gpt_serve] {checked} greedy tokens against the full forward's "
         f"argmax: {ties} ties within {TOL_GREEDY_TIE:.0e} (worst gap "
         f"{worst_gap:.3e}); {eos_stops} streams stopped at their eos_id")
@@ -4143,6 +4223,552 @@ def phase_gpt_serve(dev, smi, model, variables):
         f"inter-token p50 {out['inter_token_p50_ms']:.2f} p99 "
         f"{out['inter_token_p99_ms']:.2f} ms, on {smi}")
     return out
+
+
+# -- 24. GPT-2-small serving with prefix-KV reuse -----------------------------
+
+# Shared-system-prompt chat traffic: the gpt_serve engine (8 slots, 512
+# positions, 32 new tokens) with a prefix store, a ServingMetrics bundle
+# and a warmup manifest, behind ModelServer. PREFIX_REQUESTS streamed
+# requests from GEN_CLIENTS client threads, each one of PREFIX_SYSTEMS
+# fixed system prompts of PREFIX_T ids (from the seed) and a distinct
+# suffix of 8-32 ids; every other request greedy, the rest at 0.8.
+PREFIX_T, PREFIX_SYSTEMS, PREFIX_REQUESTS = 256, 2, 64
+PREFIX_SUFFIX = (8, 32)
+
+
+def _prefix_requests(vocab):
+    systems = [np.random.default_rng(SEED + 7000 + k).integers(
+        0, vocab, PREFIX_T) for k in range(PREFIX_SYSTEMS)]
+    out = []
+    for i in range(PREFIX_REQUESTS):
+        r = np.random.default_rng(6000 + i)
+        suffix = r.integers(0, vocab, int(r.integers(PREFIX_SUFFIX[0],
+                                                     PREFIX_SUFFIX[1] + 1)))
+        out.append({"prompt": np.concatenate(
+                        [systems[(i // 2) % PREFIX_SYSTEMS], suffix]
+                    ).astype(np.int32),
+                    "temperature": 0.0 if i % 2 == 0 else 0.8})
+    return out
+
+
+def _prom_samples(text):
+    """A Prometheus text scrape → {(name, ((label, value), ...)): value}."""
+    import re
+
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$', line)
+        if m is None:
+            raise SystemExit(f"chip_smoke: /metrics line does not parse: "
+                             f"{line!r}")
+        labels = tuple(sorted(re.findall(r'([a-zA-Z_]\w*)="([^"]*)"',
+                                         m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def _first_divergence_is_a_tie(model, variables, dev, prompt, got, want):
+    """Two greedy streams of one prompt that differ: at the first position
+    where they part, both tokens must lie within TOL_GREEDY_TIE of the top
+    logit of the full forward over their common prefix."""
+    k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    gaps = [float(_full_forward_gaps(model, variables, dev, prompt,
+                                     list(s[:k + 1]))[-1])
+            for s in (got, want)]
+    return max(gaps) <= TOL_GREEDY_TIE
+
+
+def _drive_prefix_mix(client, engine, requests):
+    """The requests streamed through the server's :generate from
+    GEN_CLIENTS client threads: each one's tokens, its (start, token
+    stamps) on the client's clock and its engine stream, and the wall
+    seconds of the whole."""
+    times = [None] * len(requests)
+    streams = {}
+    submit = engine.submit
+
+    def keep(prompt, **kw):  # the server's submit, stream kept
+        stream = submit(prompt, **kw)
+        streams[tuple(int(t) for t in prompt)] = stream
+        return stream
+
+    def call(i):
+        req = requests[i]
+        t_start = time.monotonic()
+        toks, stamps = [], []
+        for tok in client.generate("gpt2", req["prompt"],
+                                   temperature=req["temperature"]):
+            toks.append(tok)
+            stamps.append(time.monotonic())
+        times[i] = (t_start, stamps)
+        return toks
+
+    t0 = time.monotonic()
+    with mock.patch.object(engine, "submit", keep), \
+            ThreadPoolExecutor(GEN_CLIENTS) as pool:
+        outputs = list(pool.map(call, range(len(requests))))
+    wall = time.monotonic() - t0
+    handles = [streams[tuple(int(t) for t in r["prompt"])] for r in requests]
+    return outputs, times, handles, wall
+
+
+def phase_gpt_prefix_serve(dev, smi, model, variables):
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine,
+        ModelServer,
+        ServingClient,
+        ServingMetrics,
+    )
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_prefix_"))
+    engine = GenerationEngine(model, variables, num_slots=GEN_SLOTS,
+                              max_len=GEN_MAX_LEN, max_new_tokens=GEN_NEW,
+                              seed=SEED, prefix_cache=True)
+    server = ModelServer(port=0, generators={"gpt2": engine},
+                         metrics=ServingMetrics(),
+                         warmup_manifest=str(tmp / "warmup_manifest.json"))
+    try:
+        t0 = time.monotonic()
+        server.start(warm=True)
+        client = ServingClient(server.url, timeout=300)
+        if not client.ready()["ready"]:
+            raise SystemExit("chip_smoke: the prefix server is not ready")
+        warmed = engine.describe()["shapes_run"]
+        log(f"[gpt_prefix_serve] engine warm ({warmed} shapes: prefill, "
+            f"decode and {len(engine.prompt_buckets)} grafts) in "
+            f"{time.monotonic() - t0:.2f} s")
+        requests = _prefix_requests(model.config.vocab_size)
+        _dispatch.reset_launch_counts()
+        outputs, times, handles, wall = _drive_prefix_mix(client, engine,
+                                                          requests)
+        launches = _dispatch.launch_counts()
+        after = engine.describe()
+        store = after["prefix_cache"]
+        scrape = _prom_samples(client.metrics_text())
+    finally:
+        drained = server.stop()
+    manifest = json.loads((tmp / "warmup_manifest.json").read_text())
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    hit = [h.prefix_len > 0 for h in handles]
+    hits, publishes = store["hits"], store["insertions"]
+    model_l = (("model", "gpt2"),)
+    counters = {
+        "hits": scrape.get(("cache_prefix_requests_total",
+                            (("model", "gpt2"), ("outcome", "hit")))),
+        "misses": scrape.get(("cache_prefix_requests_total",
+                              (("model", "gpt2"), ("outcome", "miss")))),
+        "insertions": scrape.get(("cache_prefix_insertions_total",
+                                  model_l)),
+        "entries": scrape.get(("cache_prefix_entries", model_l)),
+        "bytes": scrape.get(("cache_prefix_bytes", model_l))}
+    ttft_count = scrape.get(("generation_ttft_seconds_count", model_l))
+    log(f"[gpt_prefix_serve] {PREFIX_REQUESTS} requests in {wall:.3f} s; "
+        f"store {store}; scrape {counters}, ttft count {ttft_count}; "
+        f"shapes run after warm-up {after['shapes_after_warm']}; "
+        f"hand-kernel launches {launches}; manifest "
+        f"{len(manifest['entries'])} entries; drained={drained}")
+    if not (hits > 0 and hits == PREFIX_REQUESTS - publishes
+            and sum(hit) == hits and all(
+                counters[k] == store[k] for k in counters)
+            and ttft_count == PREFIX_REQUESTS):
+        raise SystemExit("chip_smoke: prefix hits, publishes and the "
+                         "/metrics scrape disagree")
+    if launches or not drained or after["shapes_after_warm"]:
+        raise SystemExit("chip_smoke: prefix serving launched a hand "
+                         "kernel, ran an unwarmed shape or did not drain")
+
+    checked, ties, worst_gap, _ = _check_streams(model, variables, dev,
+                                                 requests, outputs)
+    # the same requests from the same clients through an engine without a
+    # store: its timings beside the store's, and each greedy hit's tokens
+    # against the same prompt served there
+    plain = GenerationEngine(model, variables, num_slots=GEN_SLOTS,
+                             max_len=GEN_MAX_LEN, max_new_tokens=GEN_NEW,
+                             seed=SEED, prefix_cache=False)
+    plain_server = ModelServer(port=0, generators={"gpt2": plain})
+    try:
+        plain_server.start(warm=True)
+        plain_out, plain_times, _, plain_wall = _drive_prefix_mix(
+            ServingClient(plain_server.url, timeout=300), plain, requests)
+        plain_after = plain.describe()["shapes_after_warm"]
+    finally:
+        plain_drained = plain_server.stop()
+    if plain_after or not plain_drained:
+        raise SystemExit("chip_smoke: the store-less engine ran an unwarmed "
+                         "shape or did not drain")
+    greedy_hits = [i for i, r in enumerate(requests)
+                   if r["temperature"] == 0.0 and hit[i]]
+    tie_splits = 0
+    for i in greedy_hits:
+        want = plain_out[i]
+        if outputs[i] == want:
+            continue
+        if not _first_divergence_is_a_tie(model, variables, dev,
+                                          requests[i]["prompt"], outputs[i],
+                                          want):
+            raise SystemExit("chip_smoke: a prefix hit's greedy tokens "
+                             "differ from the store-less engine's")
+        tie_splits += 1
+    log(f"[gpt_prefix_serve] {checked} greedy tokens against the full "
+        f"forward's argmax: {ties} ties within {TOL_GREEDY_TIE:.0e} (worst "
+        f"gap {worst_gap:.3e}); {len(greedy_hits)} greedy hits against the "
+        f"store-less engine: {len(greedy_hits) - tie_splits} equal, "
+        f"{tie_splits} parting at a tie")
+
+    client_ttft = np.array([(s[0] - t) * 1e3 for t, s in times])
+    plain_ttft = np.array([(s[0] - t) * 1e3 for t, s in plain_times])
+    server_ttft = np.array([(h.t_first - h.t_submit) * 1e3
+                            for h in handles])
+    feeds = np.array([h.prompt_len - h.prefix_len
+                      for h, is_hit in zip(handles, hit) if is_hit])
+    hit_a = np.array(hit)
+
+    def pct(a):
+        return {"p50": float(np.percentile(a, 50)),
+                "p99": float(np.percentile(a, 99)), "n": int(a.size)}
+
+    out = {"model": "gpt2_small", "requests": PREFIX_REQUESTS,
+           "client_threads": GEN_CLIENTS, "system_prompts": PREFIX_SYSTEMS,
+           "system_prompt_tokens": PREFIX_T,
+           "suffix_tokens": list(PREFIX_SUFFIX), "num_slots": GEN_SLOTS,
+           "max_len": GEN_MAX_LEN, "max_new_tokens": GEN_NEW,
+           "wall_s": wall, "hits": hits, "misses": store["misses"],
+           "publishes": publishes, "store": store, "scrape": counters,
+           "ttft_ms_hit": pct(client_ttft[hit_a]),
+           "ttft_ms_miss": pct(client_ttft[~hit_a]),
+           "server_ttft_ms_hit": pct(server_ttft[hit_a]),
+           "server_ttft_ms_miss": pct(server_ttft[~hit_a]),
+           "suffix_feeds_per_hit": {"min": int(feeds.min()),
+                                    "mean": float(feeds.mean()),
+                                    "max": int(feeds.max())},
+           "shapes_after_warm": after["shapes_after_warm"],
+           "kernel_launches": launches,
+           "greedy_tokens_checked": checked, "greedy_ties": ties,
+           "greedy_worst_gap": worst_gap,
+           "greedy_hits_vs_storeless": len(greedy_hits),
+           "greedy_hits_parting_at_a_tie": tie_splits,
+           "generated_tokens_per_s": sum(map(len, outputs)) / wall,
+           "ttft_ms_all": pct(client_ttft),
+           "storeless": {"wall_s": plain_wall,
+                         "ttft_ms_all": pct(plain_ttft),
+                         "generated_tokens_per_s":
+                             sum(map(len, plain_out)) / plain_wall},
+           "manifest_entries": len(manifest["entries"]), "card": smi}
+    log(f"[gpt_prefix_serve] ttft (client) hit p50 "
+        f"{out['ttft_ms_hit']['p50']:.2f} p99 {out['ttft_ms_hit']['p99']:.2f}"
+        f" ms over {out['ttft_ms_hit']['n']}, miss p50 "
+        f"{out['ttft_ms_miss']['p50']:.2f} p99 "
+        f"{out['ttft_ms_miss']['p99']:.2f} ms over "
+        f"{out['ttft_ms_miss']['n']}; suffix feeds a hit "
+        f"{out['suffix_feeds_per_hit']}; store {store['bytes'] / 2**20:.1f} "
+        f"MiB in {store['entries']} slabs; "
+        f"{out['generated_tokens_per_s']:.1f} tokens/s, on {smi}")
+    log(f"[gpt_prefix_serve] the same {PREFIX_REQUESTS} requests from "
+        f"{GEN_CLIENTS} clients, with the store against without it: ttft "
+        f"(client, all) p50 {out['ttft_ms_all']['p50']:.2f} against "
+        f"{out['storeless']['ttft_ms_all']['p50']:.2f} ms, p99 "
+        f"{out['ttft_ms_all']['p99']:.2f} against "
+        f"{out['storeless']['ttft_ms_all']['p99']:.2f} ms; "
+        f"{out['generated_tokens_per_s']:.1f} against "
+        f"{out['storeless']['generated_tokens_per_s']:.1f} tokens/s; wall "
+        f"{wall:.3f} against {plain_wall:.3f} s, on {smi}")
+    return out
+
+
+# -- 25. warm restart from a traffic-derived manifest --------------------------
+
+# BERT-base (phase 4's server, max batch 8) and GPT-2-small (the gpt_serve
+# engine) behind one ModelServer with a warmup manifest: a traffic mix
+# that touches a strict subset of the buckets (sequential BERT requests of
+# 1-2 rows; sequential greedy generations of 8-16-id prompts), then stop;
+# a fresh server from the same manifest file with warm_async=True, polled
+# at /readyz until 200, replays the mix.
+RESTART_BERT = [1 + i % 2 for i in range(12)]   # buckets 1 and 2
+RESTART_GPT = [8, 13, 16, 11]                   # prompt buckets 8 and 16
+
+
+def _restart_server(bert, gpt_model, gpt_vars, manifest_path):
+    from deeplearning4j_tpu_torch.serving import (
+        GenerationEngine,
+        ModelRegistry,
+        ModelServer,
+        spec,
+    )
+
+    cfg = bert.config
+    reg = ModelRegistry()
+    entry = reg.register(
+        "bert_base", _nsp_softmax, bert,
+        input_spec={"token_ids": spec((T,), np.int32, high=cfg.vocab_size),
+                    "segment_ids": spec((T,), np.int32, high=cfg.type_vocab),
+                    "mask": spec((T,), np.float32)},
+        mode="batched", max_batch_size=8)
+    engine = GenerationEngine(gpt_model, gpt_vars, num_slots=GEN_SLOTS,
+                              max_len=GEN_MAX_LEN, max_new_tokens=GEN_NEW,
+                              seed=SEED)
+    server = ModelServer(reg, port=0, generators={"gpt2": engine},
+                         warmup_manifest=str(manifest_path))
+    return server, entry, engine
+
+
+def _restart_mix(client, vocab_bert, vocab_gpt):
+    """The traffic mix, sequential (so each BERT request is its own
+    batch): BERT outputs and greedy GPT tokens."""
+    bert_out = []
+    for i, rows in enumerate(RESTART_BERT):
+        req = {k: v[:rows] for k, v in _request(i, vocab_bert).items()}
+        bert_out.append(client.predict("bert_base", req)["outputs"])
+    gpt_out = [client.generate_tokens(
+        "gpt2", np.random.default_rng(8000 + i).integers(0, vocab_gpt, n),
+        temperature=0.0)["tokens"] for i, n in enumerate(RESTART_GPT)]
+    return bert_out, gpt_out
+
+
+def _poll_ready(server, client, vocab_bert, limit_s=120.0):
+    """Poll /readyz until 200: the 503 progress bodies on the way, what a
+    predict made while warming got, and the 200 body."""
+    import urllib.error
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.serving import NotReadyError
+
+    progress, shed = [], None
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < limit_s:
+        try:
+            with urllib.request.urlopen(server.url + "/readyz",
+                                        timeout=60) as r:
+                return progress, shed, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            body = json.loads(e.read())
+            if e.code != 503 or "total" not in body:
+                raise SystemExit(f"chip_smoke: /readyz said {e.code} {body}")
+            progress.append({k: body[k] for k in
+                             ("warmed", "total", "retry_after_ms")})
+            if shed is None:
+                try:
+                    client.predict("bert_base", {
+                        k: v[:1] for k, v in _request(0, vocab_bert).items()})
+                    shed = "served"
+                except NotReadyError as err:
+                    shed = f"NotReadyError retryable={err.retryable}"
+        # a busy poll would take the interpreter lock from the warm thread
+        time.sleep(0.01)
+    raise SystemExit("chip_smoke: the restarted server never turned ready")
+
+
+def phase_warm_restart(dev, smi, gpt_model, gpt_vars):
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.models.bert import bert_base
+    from deeplearning4j_tpu_torch.nn import config as nnconfig
+    from deeplearning4j_tpu_torch.observability.metrics import (
+        get_warmstart_metrics,
+    )
+    from deeplearning4j_tpu_torch.serving import ServingClient
+    from deeplearning4j_tpu_torch.serving.warmup import bucket_sizes
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    bert = bert_base(device=dev, net=nnconfig.NeuralNetConfiguration(
+        seed=SEED, updater=Adam(1e-4)))
+    vb, vg = bert.config.vocab_size, gpt_model.config.vocab_size
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_restart_"))
+    path = tmp / "warmup_manifest.json"
+    wm = get_warmstart_metrics()
+
+    def after_warm():
+        return {p: wm.recompiles_after_warm_total.value(plane=p)
+                for p in ("predict", "generation")}
+
+    try:
+        # 1. the first server: the full vocabulary warmed, then the mix
+        server, entry, engine = _restart_server(bert, gpt_model, gpt_vars,
+                                                path)
+        full = (len(bucket_sizes(8)) + len(engine.prompt_buckets)
+                + len(engine.slot_buckets) * len(engine.kv_buckets))
+        t0 = time.monotonic()
+        server.start(warm=True)
+        full_s = time.monotonic() - t0
+        try:
+            bert_1, gpt_1 = _restart_mix(
+                ServingClient(server.url, timeout=300), vb, vg)
+        finally:
+            server.stop()
+        rows = json.loads(path.read_text())["entries"]
+        log(f"[warm_restart] first server: full warm of {full} shapes in "
+            f"{full_s:.3f} s; the mix left {len(rows)} manifest entries: "
+            f"{[(r['plane'], r['model'], r['shape']) for r in rows]}")
+
+        # 2. a fresh server from the same file, warming in the background
+        server, entry, engine = _restart_server(bert, gpt_model, gpt_vars,
+                                                path)
+        before = after_warm()
+        client = ServingClient(server.url, timeout=300)
+        t0 = time.monotonic()
+        server.start(warm=True, warm_async=True)
+        try:
+            progress, shed, ready = _poll_ready(server, client, vb)
+            manifest_s = time.monotonic() - t0
+            total = len(entry.warmed_buckets) + \
+                engine.describe()["shapes_run"]
+            log(f"[warm_restart] restarted server ready in "
+                f"{manifest_s:.3f} s after warming {total} of {full} shapes "
+                f"(BERT buckets {sorted(entry.warmed_buckets)}); "
+                f"{len(progress)} 503 progress bodies on the way, first "
+                f"{progress[:1]}, last {progress[-1:]}; a predict while "
+                f"warming: {shed}; /readyz {ready}")
+            # 3. the mix again: no shape first run after warm, the same
+            # BERT outputs bit for bit, 12 flash_fwd a dispatched batch
+            _dispatch.reset_launch_counts()
+            b0 = entry.batch_stats()["batches"]
+            bert_2, gpt_2 = _restart_mix(client, vb, vg)
+            batches = entry.batch_stats()["batches"] - b0
+            launches = _dispatch.launch_counts().get("flash_fwd", 0)
+            shapes_after = engine.describe()["shapes_after_warm"]
+        finally:
+            drained = server.stop()
+        delta = {p: v - before[p] for p, v in after_warm().items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[warm_restart] replay: {batches} BERT batches, flash_fwd launches "
+        f"{launches} (= 12 x {launches / max(batches, 1):.2f}); shapes first "
+        f"run after warm: predict {delta['predict']:.0f}, generation "
+        f"{delta['generation']:.0f} (engine {shapes_after}); BERT outputs "
+        f"bit-equal {bert_2 == bert_1}; GPT greedy tokens equal "
+        f"{gpt_2 == gpt_1}; drained={drained}")
+    if not total < full:
+        raise SystemExit("chip_smoke: the manifest warm ran the full "
+                         "vocabulary")
+    if delta["predict"] or delta["generation"] or shapes_after:
+        raise SystemExit("chip_smoke: the replay ran a shape the manifest "
+                         "warm left out")
+    if bert_2 != bert_1 or gpt_2 != gpt_1:
+        raise SystemExit("chip_smoke: the restarted server's outputs differ")
+    if batches != len(RESTART_BERT) or launches != 12 * batches:
+        raise SystemExit(f"chip_smoke: {launches} flash_fwd launches for "
+                         f"{batches} BERT batches; want 12 a batch")
+    if not drained:
+        raise SystemExit("chip_smoke: the restarted server did not drain")
+    log(f"[warm_restart] warm {full_s:.3f} s for the full vocabulary "
+        f"({full} shapes) against {manifest_s:.3f} s to ready from the "
+        f"manifest ({total} shapes), on {smi}")
+    return {"models": ["bert_base", "gpt2_small"],
+            "bert_requests": len(RESTART_BERT),
+            "gpt_requests": len(RESTART_GPT), "manifest_entries": len(rows),
+            "full_shapes": full, "manifest_shapes": total,
+            "bert_buckets_warmed": sorted(entry.warmed_buckets),
+            "full_warm_s": full_s, "manifest_warm_to_ready_s": manifest_s,
+            "readyz_503_bodies": len(progress),
+            "readyz_first": progress[:1], "predict_while_warming": shed,
+            "replay_shapes_after_warm": {**delta, "engine": shapes_after},
+            "replay_bert_batches": batches, "flash_fwd_launches": launches,
+            "bert_bit_equal": bert_2 == bert_1,
+            "gpt_tokens_equal": gpt_2 == gpt_1, "card": smi}
+
+
+# -- 26. the sparse loss on out-of-range class ids -----------------------------
+
+# In a child process: sparse_softmax_cross_entropy on CUDA tensors with
+# class ids -1 and C must raise cleanly ("out of bounds"), and the card
+# must go on computing in that process. A device-side assert would break
+# the child's CUDA context, not this run's.
+LOSS_CHILD = """
+import torch
+from deeplearning4j_tpu_torch.ops.loss import sparse_softmax_cross_entropy
+
+dev = torch.device("cuda", 0)
+logits = torch.randn(4, 7, device=dev)
+for bad in (-1, 7):
+    try:
+        sparse_softmax_cross_entropy(logits, torch.tensor([0, 6, bad, 3],
+                                                          device=dev))
+    except RuntimeError as e:
+        assert "out of bounds" in str(e), e
+        print(f"id {bad}: {e}")
+    else:
+        raise SystemExit(f"no error for class id {bad}")
+loss = sparse_softmax_cross_entropy(logits, torch.tensor([0, 6, 2, 3],
+                                                         device=dev))
+x = torch.randn(256, 256, device=dev)
+torch.cuda.synchronize()
+print(f"the card goes on: loss {loss.item():.4f}, "
+      f"matmul {float((x @ x).sum().item()):.2f}")
+"""
+
+
+def phase_loss_guard():
+    import subprocess
+
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-c", LOSS_CHILD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    lines = res.stdout.strip().splitlines()
+    log(f"[loss_guard] child exit {res.returncode} in "
+        f"{time.monotonic() - t0:.1f} s: {lines}")
+    if res.returncode != 0 or not lines or "goes on" not in lines[-1]:
+        raise SystemExit(f"chip_smoke: the sparse loss did not raise "
+                         f"cleanly on a CUDA tensor: {res.stderr[-2000:]}")
+    return {"exit": res.returncode, "child_stdout": lines}
+
+
+def _unchecked_sparse_ce(logits, label_ids, weights=None, reduction="mean"):
+    """``sparse_softmax_cross_entropy`` as it was before its range check:
+    the gather alone (the comparison that times the check)."""
+    from deeplearning4j_tpu_torch.ops.loss import _reduce
+
+    logp = F.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, -1, label_ids.long()[..., None])[..., 0]
+    return _reduce(ce, reduction, weights)
+
+
+def _time_loss_check(trainer, ts, batch, pairs=40) -> dict:
+    """A train step's wall ms (synchronised) with the sparse loss's range
+    check and without it, alternating step by step over ``pairs`` pairs
+    (check first in every other pair): each one's median and the median
+    of the paired differences, which host drift across the run cancels
+    out of. Then each one's ``_step_breakdown`` in turns (check,
+    unchecked, unchecked, check): wall, device busy ms and the device's
+    idle share, which a host sync that stalls the queue raises."""
+    from deeplearning4j_tpu_torch.ops import loss as loss_mod
+
+    def unchecked():
+        return mock.patch.object(loss_mod, "sparse_softmax_cross_entropy",
+                                 _unchecked_sparse_ce)
+
+    def step_ms(checked):
+        with contextlib.nullcontext() if checked else unchecked():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(ts, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+    walls = {True: [], False: []}
+    for n in range(pairs):
+        for checked in ((True, False) if n % 2 == 0 else (False, True)):
+            walls[checked].append(step_ms(checked))
+    diffs = np.array(walls[True]) - np.array(walls[False])
+
+    def breakdown(checked):
+        with contextlib.nullcontext() if checked else unchecked():
+            b = _step_breakdown(trainer, ts, batch, [])
+        return {k: b[k] for k in ("wall_ms", "device_ms",
+                                  "device_idle_share")}
+
+    idle = {True: [], False: []}
+    for checked in (True, False, False, True):
+        idle[checked].append(breakdown(checked))
+    return {"pairs": pairs,
+            "checked_median_ms": float(np.median(walls[True])),
+            "unchecked_median_ms": float(np.median(walls[False])),
+            "paired_diff_ms": {q: float(np.percentile(diffs, p)) for q, p in
+                               (("p25", 25), ("p50", 50), ("p75", 75))},
+            "checked_breakdown": idle[True],
+            "unchecked_breakdown": idle[False]}
 
 
 # -- 18. kernels at the seq2seq slice's shapes ---------------------------------
@@ -4735,6 +5361,7 @@ def _delta_entry(bwd_cases, training, gpt_training, s2s_training,
 def main() -> int:
     t_start = time.monotonic()
     dev, smi = phase_device()
+    loss_guard = phase_loss_guard()
     phase_build()
     from deeplearning4j_tpu_torch.kernels import _dispatch
 
@@ -4772,6 +5399,8 @@ def main() -> int:
     del resnet_model, resnet_vars
     gpt_training, gpt_model, gpt_vars = phase_gpt_train(dev, smi)
     gpt_serving = phase_gpt_serve(dev, smi, gpt_model, gpt_vars)
+    gpt_prefix = phase_gpt_prefix_serve(dev, smi, gpt_model, gpt_vars)
+    warm_restart = phase_warm_restart(dev, smi, gpt_model, gpt_vars)
     del gpt_model, gpt_vars
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
@@ -4788,7 +5417,11 @@ def main() -> int:
                              "seq2seq_training":
                                  s2s_training["launches"]["flash_fwd"],
                              "seq2seq_serving":
-                                 s2s_serving["launches"]["flash_fwd"]},
+                                 s2s_serving["launches"]["flash_fwd"],
+                             "gpt_prefix_serving": gpt_prefix[
+                                 "kernel_launches"].get("flash_fwd", 0),
+                             "warm_restart_replay":
+                                 warm_restart["flash_fwd_launches"]},
         "launches_per_forward": (serving["flash_fwd_launches"]
                                  / serving["batches"]),
         "max_abs_err": main_case["max_abs_err"],
@@ -4888,6 +5521,9 @@ def main() -> int:
     print(json.dumps({"resnet_serving": resnet_serving}), flush=True)
     print(json.dumps({"gpt_training": gpt_training}), flush=True)
     print(json.dumps({"gpt_serving": gpt_serving}), flush=True)
+    print(json.dumps({"gpt_prefix_serving": gpt_prefix}), flush=True)
+    print(json.dumps({"warm_restart": warm_restart}), flush=True)
+    print(json.dumps({"loss_guard": loss_guard}), flush=True)
     print(json.dumps({"seq2seq_training": s2s_training}), flush=True)
     print(json.dumps({"seq2seq_serving": s2s_serving}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "

@@ -63,7 +63,22 @@ def softmax_cross_entropy(logits, labels, weights=None, reduction="mean",
 @register_loss("sparse_softmax_cross_entropy")
 def sparse_softmax_cross_entropy(logits, label_ids, weights=None,
                                  reduction="mean"):
-    """Cross-entropy of ``logits`` [..., C] against integer class ids [...]."""
+    """Cross-entropy of ``logits`` [..., C] against integer class ids [...].
+
+    Ids outside [0, C) raise a ``RuntimeError`` ("out of bounds") on any
+    device, checked before the gather with one host sync: on a CUDA
+    tensor the gather itself would fail by a device-side assert, which
+    breaks the CUDA context for the rest of the process. (The JAX
+    package's ``take_along_axis`` reads −1 as the last class and gives
+    NaN for an id ≥ C.)"""
+    ids = label_ids.long()
+    n_classes = logits.shape[-1]
+    if ids.numel():
+        lo, hi = torch.aminmax(ids)
+        if int(lo) < 0 or int(hi) >= n_classes:
+            raise RuntimeError(
+                f"class ids out of bounds: must lie in [0, {n_classes}), "
+                f"got [{int(lo)}, {int(hi)}]")
     logp = F.log_softmax(logits, dim=-1)
-    ce = -torch.gather(logp, -1, label_ids.long()[..., None])[..., 0]
+    ce = -torch.gather(logp, -1, ids[..., None])[..., 0]
     return _reduce(ce, reduction, weights)

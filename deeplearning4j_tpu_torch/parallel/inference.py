@@ -82,8 +82,11 @@ class ParallelInference:
     ``forward(replica, features)`` computes outputs from one replica of
     ``variables`` (an ``nn.Module``, or a tree of tensors) and a features
     tree of tensors on that replica's device. ``devices=None`` means every
-    CUDA card (``runtime.device.devices``). ``on_batch(rows)`` is called
-    after every dispatch with the real (unpadded) rows it served.
+    CUDA card (``runtime.device.devices``). ``on_batch(n_requests, rows,
+    bucket_rows, seconds)`` is called after every dispatch with the
+    requests it served, their real (unpadded) rows, the padded bucket and
+    the dispatch's wall seconds (the JAX package's hook); an exception it
+    raises is dropped, so metrics never fail serving.
 
     Usage::
 
@@ -101,7 +104,7 @@ class ParallelInference:
         mode: str = "instant",
         max_batch_size: int = 32,
         queue_limit: int = 256,
-        on_batch: Optional[Callable[[int], None]] = None,
+        on_batch: Optional[Callable[[int, int, int, float], None]] = None,
     ):
         if mode not in ("instant", "batched"):
             raise ValueError(f"mode {mode!r}; valid: instant|batched")
@@ -263,11 +266,16 @@ class ParallelInference:
             if bucket > rows:
                 feats = tree_map(lambda a: torch.cat(
                     [a, a.new_zeros((bucket - rows, *a.shape[1:]))]), feats)
+        t0 = time.monotonic()
         with torch.inference_mode():
             out = _to_numpy(self._fn(
                 replica, tree_map(lambda a: a.to(device), feats)))
         if self._on_batch is not None:
-            self._on_batch(rows)
+            try:
+                self._on_batch(len(batch), rows, bucket,
+                               time.monotonic() - t0)
+            except Exception:  # noqa: BLE001 — metrics never fail serving
+                pass
         offs = np.cumsum([0] + sizes)
         for r, lo, hi in zip(batch, offs[:-1], offs[1:]):
             r.result = tree_map(lambda a: a[int(lo):int(hi)], out)

@@ -62,7 +62,7 @@ def _file_sha256(path: Path) -> str:
     return h.hexdigest()
 
 
-def _atomic_write_text(path: Path, text: str):
+def atomic_write_text(path: Path, text: str):
     """tmp sibling + ``os.replace``: readers never see a partial file."""
     tmp = path.with_name(path.name + ".tmp")
     tmp.write_text(text)
@@ -119,13 +119,13 @@ def save_state_tree(directory, tree: Any, extra_meta: Optional[dict] = None):
             for name, a in arrays.items()
         },
     }
-    _atomic_write_text(d / _MANIFEST, json.dumps(manifest, indent=2))
+    atomic_write_text(d / _MANIFEST, json.dumps(manifest, indent=2))
     meta = {"version": __version__, "time": time.time(),
             "leaves": sorted(arrays), "key_paths": key_paths,
             "key_impls": key_impls}
     if extra_meta:
         meta.update(extra_meta)
-    _atomic_write_text(d / "meta.json", json.dumps(meta, indent=2))
+    atomic_write_text(d / "meta.json", json.dumps(meta, indent=2))
 
 
 def load_state_tree(directory, template: Any, alias=None) -> Any:
@@ -177,7 +177,7 @@ def _finalize_checkpoint(root: Path, name: str, step: int, tag: str,
     (the JAX package's index format; one writer per directory)."""
     ckpt_dir = root / name
     if config_json is not None:
-        _atomic_write_text(ckpt_dir / "config.json", config_json)
+        atomic_write_text(ckpt_dir / "config.json", config_json)
     with _index_lock:
         idx_path = root / _INDEX
         index = (json.loads(idx_path.read_text()) if idx_path.exists()
@@ -191,7 +191,7 @@ def _finalize_checkpoint(root: Path, name: str, step: int, tag: str,
             for old in index["checkpoints"][:-keep_last]:
                 shutil.rmtree(root / old["name"], ignore_errors=True)
             index["checkpoints"] = index["checkpoints"][-keep_last:]
-        _atomic_write_text(idx_path, json.dumps(index, indent=2))
+        atomic_write_text(idx_path, json.dumps(index, indent=2))
     return str(ckpt_dir)
 
 

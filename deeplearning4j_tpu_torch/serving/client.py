@@ -176,3 +176,13 @@ class ServingClient:
                 return json.loads(r.read())
         except urllib.error.HTTPError as e:
             return json.loads(e.read())
+
+    def metrics_text(self) -> str:
+        """The server's ``/metrics`` scrape in the Prometheus text
+        format."""
+        req = urllib.request.Request(self.base_url + "/metrics")
+        with urllib.request.urlopen(req, timeout=self.timeout) as r:
+            return r.read().decode()
+
+    def metrics_json(self) -> dict:
+        return self._request("/metrics?format=json")

@@ -18,20 +18,43 @@ streaming decode (↔ deeplearning4j_tpu/serving/generation.py).
   ``ModelServer`` writes them to the client as ndjson lines.
 - **priorities**: a waiting ``critical`` request evicts the lowest-class
   active slot; the victim fails retryably with ``SLOT_PREEMPTED``.
+- **prefix-KV reuse** (``prefix_cache=``, serving/prefixkv.py): after a
+  normal prefill the slot's KV columns for the largest prompt bucket
+  below the prompt length are published as a shared slab; a later
+  request whose prompt starts with the same tokens grafts the slab into
+  its slot row (one copy per layer's K and V) and feeds only its suffix,
+  token by token, through the warmed single-row decode step at bucket
+  (1, kv). Each feed writes KV column j as prefill would; the last
+  feed's sample is the first generated token. On an H100 this makes
+  shared-prompt traffic slower today, not faster: each suffix token is
+  one eager, host-bound decode step, where a miss's whole prompt is one
+  prefill. A captured decode step (ROADMAP queue 1 item 1) is what would
+  make a graft pay; until then leave ``prefix_cache`` off for speed.
+- **warm start** (``attach_manifest``, serving/warmstart.py): every
+  prefill bucket and decode pair that runs is noted in the warmup
+  manifest; ``manifest_warm_plan`` gives the shapes a restart warms.
+- **telemetry**: the ``generation_*`` families of ``ServingMetrics``
+  (``metrics=`` or ``attach_metrics``; TTFT, latency, tokens, decode
+  steps, slot occupancy, queue depth, slots, KV bytes, preemptions,
+  sheds), ``warmup_*`` of ``WarmstartMetrics``, and
+  ``generation.join``/``leave``/``preempt``/``shed``/``warmup``/
+  ``compile`` flight events.
 
 One scheduler thread owns the slabs and makes every device call;
 ``submit``/``cancel`` only touch the waiting queue and the slot table under
 the engine's lock. The JAX package compiles each bucket's prefill and
-decode step into one program; here each runs eagerly (``warm`` runs every
-shape once so the first request finds the allocator primed). Neither
-path launches a hand kernel: the JAX package attends with plain einsums
-there, and the port with ``torch.matmul``.
+decode step (and each graft) into one program; here each runs eagerly
+(``warm`` runs every shape once so the first request finds the allocator
+primed; a shape first run after ``warm`` counts in ``shapes_after_warm``
+and ``warmup_recompiles_after_warm_total{plane="generation"}``, the eager
+counterpart of the JAX package's compile after warmup). No path launches
+a hand kernel: the JAX package attends with plain einsums there, and the
+port with ``torch.matmul``.
 
-Not ported (each constructor argument raises when it is not None):
-``prefix_cache`` and the graft path (ROADMAP queue 1 item 6), the
-serving metrics bundle (item 9), the overload plane's slot clamp, tenant
-quotas and the token-brownout rung (item 9), and the warmup manifest,
-request ledger, tracing and flight-recorder hooks (items 6 and 12).
+Not ported: the overload plane's slot clamp, tenant quotas and the
+token-brownout rung (``brownout_max_new_tokens`` raises; ROADMAP queue 1
+item 9), the request ledger, tracing and correlation-id exemplars
+(item 12).
 """
 
 from __future__ import annotations
@@ -40,12 +63,16 @@ import itertools
 import queue
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.generation import sample_token
+from deeplearning4j_tpu_torch.observability.flightrecorder import record_event
+from deeplearning4j_tpu_torch.observability.metrics import (
+    warmstart_metrics_or_none,
+)
 from deeplearning4j_tpu_torch.serving.errors import (
     BadRequestError,
     NotReadyError,
@@ -53,6 +80,7 @@ from deeplearning4j_tpu_torch.serving.errors import (
     SlotPreemptedError,
 )
 from deeplearning4j_tpu_torch.serving.overload import PRIORITIES
+from deeplearning4j_tpu_torch.serving.prefixkv import resolve_prefix_store
 from deeplearning4j_tpu_torch.serving.warmup import bucket_sizes
 from deeplearning4j_tpu_torch.utils.pytree import tree_map
 
@@ -87,6 +115,7 @@ class GenerationStream:
         self.priority = priority
         self.t_submit = t_submit
         self.t_first: Optional[float] = None
+        self.prefix_len = 0     # the grafted prefix's length on a hit
         # scheduler state (engine lock)
         self.state = _WAITING
         self.slot: Optional[int] = None
@@ -202,11 +231,14 @@ class GenerationEngine:
     """The continuous-batching decode scheduler for one ``Gpt`` model.
 
     Deploy: build, :meth:`warm` (runs every prompt bucket and every
-    (slot bucket, kv bucket) decode step once), :meth:`start` (the
-    scheduler thread), then :meth:`submit` from any thread.
+    (slot bucket, kv bucket) decode step once, and the graft of every
+    prompt bucket with a prefix store), :meth:`start` (the scheduler
+    thread), then :meth:`submit` from any thread.
     ``ModelServer(generators={name: engine})`` does all of this.
     ``variables`` are the model's (``{"params": tree}``, tensors or numpy
     arrays); the engine keeps its own copy on the model's device.
+    ``prefix_cache``: False, None (the ``DL4J_TPU_PREFIX_CACHE`` env), True
+    or a ``PrefixKVStore``; ``metrics``: a ``ServingMetrics`` bundle.
     """
 
     def __init__(self, model, variables, *, name: str = "model",
@@ -217,14 +249,10 @@ class GenerationEngine:
                  temperature: float = 1.0, seed: int = 0,
                  brownout_max_new_tokens: Optional[int] = None,
                  prefix_cache=None, metrics=None):
-        for arg, value, item in (
-                ("prefix_cache", prefix_cache, "ROADMAP queue 1 item 6"),
-                ("metrics", metrics, "ROADMAP queue 1 item 9"),
-                ("brownout_max_new_tokens", brownout_max_new_tokens,
-                 "the overload plane, ROADMAP queue 1 item 9")):
-            if value is not None:
-                raise NotImplementedError(
-                    f"GenerationEngine({arg}=...) is not ported yet ({item})")
+        if brownout_max_new_tokens is not None:
+            raise NotImplementedError(
+                "GenerationEngine(brownout_max_new_tokens=...) is not ported "
+                "yet (the overload plane, ROADMAP queue 1 item 9)")
         cfg = model.config
         self._model = model
         self.device = model.device
@@ -261,6 +289,8 @@ class GenerationEngine:
         self.kv_bytes = int(sum(a.numel() * a.element_size()
                                 for a in self._kslabs) * 2)
         self._gen = torch.Generator(self.device).manual_seed(int(seed))
+        # None defers to DL4J_TPU_PREFIX_CACHE; default off
+        self.prefix_cache = resolve_prefix_store(prefix_cache, model=name)
         self.warmed = False
         # shapes (prefill buckets, decode pairs) run so far; one run for
         # the first time after warm() is the eager counterpart of the JAX
@@ -281,6 +311,10 @@ class GenerationEngine:
         self._draining = False
         self._thread: Optional[threading.Thread] = None
         self.last_error: Optional[str] = None
+        self._metrics = None
+        self._manifest = None
+        if metrics is not None:
+            self.attach_metrics(metrics)
 
     def _alloc_slabs(self):
         """(Re)build the zeroed KV slab pool: construction and the
@@ -294,11 +328,51 @@ class GenerationEngine:
         self._vslabs = [torch.zeros(shape, dtype=dtype, device=self.device)
                         for _ in range(cfg.num_layers)]
 
+    # -- wiring --------------------------------------------------------------
+
+    def attach_metrics(self, metrics):
+        """Wire the ``ServingMetrics`` bundle (``generation_*`` families)."""
+        self._metrics = metrics
+        if metrics is not None:
+            metrics.generation_kv_bytes.set(self.kv_bytes, model=self.name)
+            metrics.generation_max_new_tokens.set(
+                self.default_max_new_tokens, model=self.name)
+            metrics.generation_slot_limit.set(self.num_slots,
+                                              model=self.name)
+
+    def attach_manifest(self, manifest):
+        """Wire a warmup manifest (serving/warmstart.py): every prefill
+        bucket and (slot, kv) decode pair that runs feeds the live
+        traffic mix a restarted server warms against."""
+        self._manifest = manifest
+
+    def _note_traffic(self, kind: str, *args):
+        wm = self._manifest
+        if wm is None:
+            return
+        try:
+            if kind == "prefill":
+                wm.note_prefill(self.name, args[0])
+            else:
+                wm.note_decode(self.name, args[0], args[1])
+        except Exception:  # noqa: BLE001 — recording traffic never
+            pass           # fails the scheduler
+
     def _note_shape(self, key: tuple):
-        if key not in self._shapes:
-            self._shapes.add(key)
-            if self.warmed:
-                self.shapes_after_warm += 1
+        if key in self._shapes:
+            return
+        self._shapes.add(key)
+        if self.warmed:
+            # the bucket sets are closed and warmed in full unless a
+            # manifest restricted the warm: this is the stall warm-up
+            # exists to prevent
+            self.shapes_after_warm += 1
+            record_event("generation.compile", model=self.name,
+                         kind=key[0], key="x".join(map(str, key[1:])),
+                         after_warm=True)
+            wm = warmstart_metrics_or_none()
+            if wm is not None:
+                wm.recompiles_after_warm_total.inc(plane="generation")
 
     # -- device steps (scheduler thread, or warm() before start) -------------
 
@@ -321,6 +395,17 @@ class GenerationEngine:
         temp = self._on_device([temperature], torch.float32)
         return int(sample_token(logits[0, t0 - 1][None], self._gen,
                                 temp)[0])
+
+    @torch.inference_mode()
+    def run_graft(self, slot: int, kvs) -> None:
+        """Copy a prefix slab (per layer ``(k, v)`` [heads, P, head_dim])
+        into the first P columns of slab row ``slot``: one copy per
+        layer's K and V."""
+        p = int(kvs[0][0].shape[1])
+        self._note_shape(("graft", p))
+        for ks, vs, (k, v) in zip(self._kslabs, self._vslabs, kvs):
+            ks[slot, :, :p].copy_(k)
+            vs[slot, :, :p].copy_(v)
 
     @torch.inference_mode()
     def run_decode(self, kv: int, slot_idx, ids, pos, temps) -> torch.Tensor:
@@ -346,25 +431,95 @@ class GenerationEngine:
 
     # -- warmup --------------------------------------------------------------
 
-    def warm(self) -> dict:
-        """Run every prompt bucket and every (slot bucket, kv bucket)
-        decode step once against the scratch row, before any traffic, and
-        set ``warmed``. Returns {kind: {bucket: seconds}}."""
+    def manifest_warm_plan(self, manifest=None) -> Tuple[
+            List[int], List[Tuple[int, int]]]:
+        """The (prompt buckets, decode pairs) a warm pass should run: the
+        manifest's observed shapes when it has data for this engine, the
+        full bucket vocabulary otherwise. Observed shapes outside the
+        vocabulary are dropped, and an empty intersection falls back to
+        the full set: a stale manifest never yields a warm of no shapes
+        that declares a cold engine ready."""
+        p_list = list(self.prompt_buckets)
+        pairs = [(b, kv) for b in self.slot_buckets
+                 for kv in self.kv_buckets]
+        if manifest is None:
+            manifest = self._manifest
+        if manifest is not None:
+            obs_p = manifest.prefill_buckets(self.name)
+            if obs_p:
+                keep = [p for p in p_list if p in set(obs_p)]
+                if keep:
+                    p_list = keep
+            obs_d = manifest.decode_pairs(self.name)
+            if obs_d:
+                keep = [pr for pr in pairs if pr in set(obs_d)]
+                if keep:
+                    pairs = keep
+        return p_list, pairs
+
+    def warm(self, *, prompt_buckets: Optional[List[int]] = None,
+             decode_pairs: Optional[List[Tuple[int, int]]] = None,
+             progress=None, source: str = "full") -> dict:
+        """Run prompt buckets and (slot bucket, kv bucket) decode steps
+        once against the scratch row, before any traffic, and set
+        ``warmed``. Defaults to the full bucket vocabulary; pass
+        ``prompt_buckets`` / ``decode_pairs`` (e.g. from
+        :meth:`manifest_warm_plan`) to warm exactly the live traffic mix.
+        With a prefix store, the graft of every warmed prompt bucket runs
+        too. ``progress`` is an optional ``(key, seconds)`` callback a
+        shape (the ``/readyz`` progress body); ``source`` labels
+        ``warmup_shapes_total`` (manifest | full). Returns {kind: {bucket:
+        seconds}}."""
         if self.running:
             raise RuntimeError(
                 "warm() must run before start() (or after stop())")
+        if prompt_buckets is None:
+            prompt_buckets = list(self.prompt_buckets)
+        if decode_pairs is None:
+            decode_pairs = [(b, kv) for b in self.slot_buckets
+                            for kv in self.kv_buckets]
+        wm = warmstart_metrics_or_none()
         stats: Dict[str, Dict[str, float]] = {"prefill": {}, "decode": {}}
-        for p in self.prompt_buckets:
+
+        def note(kind, key, t0):
+            seconds = round(time.monotonic() - t0, 4)
+            stats[kind][key] = seconds
+            if wm is not None:
+                wm.warmup_shapes_total.inc(plane="generation",
+                                           source=source)
+                wm.warmup_seconds.observe(seconds, plane="generation")
+            if progress is not None:
+                progress(key if kind != "graft" else f"graft:{key}",
+                         seconds)
+
+        t_all = time.monotonic()
+        for p in prompt_buckets:
             t0 = time.monotonic()
             self.run_prefill(self._scratch, np.zeros(p, np.int64), p, 0.0)
-            stats["prefill"][str(p)] = round(time.monotonic() - t0, 4)
-        for b, kv in ((b, kv) for b in self.slot_buckets
-                      for kv in self.kv_buckets):
+            note("prefill", str(p), t0)
+        for b, kv in decode_pairs:
             t0 = time.monotonic()
             self.run_decode(kv, [self._scratch] * b, [0] * b, [0] * b,
                             [0.0] * b).cpu()
-            stats["decode"][f"{b}x{kv}"] = round(time.monotonic() - t0, 4)
+            note("decode", f"{b}x{kv}", t0)
+        if self.prefix_cache is not None:
+            # the first prefix hit after readiness must not be a shape
+            # first run after warm
+            stats["graft"] = {}
+            ks = self._kslabs[0]
+            for p in prompt_buckets:
+                t0 = time.monotonic()
+                zero = torch.zeros((ks.shape[1], p, ks.shape[3]),
+                                   dtype=ks.dtype, device=self.device)
+                self.run_graft(self._scratch, [(zero, zero)]
+                               * len(self._kslabs))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                note("graft", str(p), t0)
         self.warmed = True
+        record_event("generation.warmup", model=self.name,
+                     programs=len(self._shapes),
+                     seconds=round(time.monotonic() - t_all, 3))
         return stats
 
     # -- submit path (any thread) --------------------------------------------
@@ -432,6 +587,7 @@ class GenerationEngine:
                 raise NotReadyError("generation engine is draining")
             waiting = len(self._waiting)
             if waiting >= self.max_waiting:
+                self._shed("queue_full", priority)
                 raise QueueFullError(
                     f"generation queue full ({waiting} waiting)",
                     retry_after_ms=self._retry_hint_ms(waiting))
@@ -447,8 +603,16 @@ class GenerationEngine:
                     at = i
                     break
             self._waiting.insert(at, req)
+            self._report_queue_locked()
             self._cv.notify_all()
         return req
+
+    def _shed(self, reason: str, priority: str):
+        m = self._metrics
+        if m is not None:
+            m.generation_requests_total.inc(model=self.name, outcome="shed")
+        record_event("generation.shed", model=self.name, reason=reason,
+                     priority=priority)
 
     def _cancel(self, req: GenerationStream, outcome: str = "cancelled"):
         with self._cv:
@@ -460,6 +624,33 @@ class GenerationEngine:
                 self._slots[req.slot] = None
             req.state = _DONE
             req.finish_reason = outcome
+            m = self._metrics
+            if m is not None:
+                m.generation_requests_total.inc(model=self.name,
+                                                outcome=outcome)
+            self._report_queue_locked()
+        record_event("generation.leave", model=self.name, req=req.id,
+                     slot=req.slot, step=self.steps, reason=outcome,
+                     tokens=req.generated)
+        self._close_request(req, outcome)
+
+    def _close_request(self, req: GenerationStream, outcome: str):
+        """The end-to-end latency of a stream the server finished (client
+        cancels excluded), once a stream: every caller flips ``state`` to
+        done under the lock first."""
+        m = self._metrics
+        if m is not None and outcome != "cancelled":
+            m.generation_latency.observe(
+                max(0.0, time.monotonic() - req.t_submit), model=self.name)
+
+    def _report_queue_locked(self):
+        m = self._metrics
+        if m is not None:
+            m.generation_queue_depth.set(len(self._waiting), model=self.name)
+            m.generation_active_slots.set(
+                sum(1 for s in self._slots if s is not None),
+                model=self.name)
+            m.generation_slot_limit.set(self.num_slots, model=self.name)
 
     # -- scheduler (single thread) -------------------------------------------
 
@@ -492,6 +683,8 @@ class GenerationEngine:
                 # survive a bad step: fail the in-flight work truthfully
                 # and keep serving
                 self.last_error = f"{type(e).__name__}: {e}"[:300]
+                record_event("generation.error", model=self.name,
+                             error=str(e)[:200])
                 self._fail_active(e)
 
     def _admit(self):
@@ -508,6 +701,7 @@ class GenerationEngine:
                     head.slot = free[0]
                     head.state = _ACTIVE
                     self._slots[head.slot] = head
+                    self._report_queue_locked()
                     req = head
                 elif head.priority == "critical":
                     victim = self._preempt_locked()
@@ -516,6 +710,12 @@ class GenerationEngine:
                 else:
                     return
             if victim is not None:
+                record_event("generation.preempt", model=self.name,
+                             victim=victim.id, slot=victim.slot,
+                             step=self.steps,
+                             victim_priority=victim.priority,
+                             tokens=victim.generated)
+                self._close_request(victim, "preempted")
                 victim._push_error(victim.error)
                 continue  # a slot was freed; admit again
             self._prefill(req)
@@ -543,24 +743,97 @@ class GenerationEngine:
             f"decode slot preempted by a critical request after "
             f"{victim.generated} tokens",
             retry_after_ms=self._retry_hint_ms(len(self._waiting)))
+        m = self._metrics
+        if m is not None:
+            m.generation_preemptions_total.inc(model=self.name,
+                                               priority=victim.priority)
+            m.generation_requests_total.inc(model=self.name,
+                                            outcome="preempted")
+        self._report_queue_locked()
         return victim
 
     def _prefill(self, req: GenerationStream):
         t0v = req.prompt_len
+        pc = self.prefix_cache
+        if pc is not None:
+            entry = pc.acquire(self.version, req.prompt,
+                               self.prompt_buckets)
+            if entry is not None:
+                try:
+                    self._prefill_from_prefix(req, entry)
+                finally:
+                    pc.release(entry)
+                return
         p = _bucket(self.prompt_buckets, t0v)
+        self._note_traffic("prefill", p)
         prompt = np.zeros(p, np.int64)
         prompt[:t0v] = req.prompt
         tok = self.run_prefill(req.slot, prompt, t0v, req.temperature)
+        if pc is not None:
+            self._publish_prefix(req, t0v)
+        self._first_token(req, tok)
+
+    def _prefill_from_prefix(self, req: GenerationStream, entry):
+        """Prefix-hit prefill: graft the shared slab into the slot's first
+        P KV columns, then feed the suffix tokens one by one through the
+        warmed single-row decode step: the feed of ``prompt[j]`` at
+        position ``j`` writes KV column ``j`` as prefill would (the column
+        depends only on the input token and its position); the last
+        feed's sample is the first generated token."""
+        t0v = req.prompt_len
+        P = entry.length
+        self.run_graft(req.slot, entry.kvs)
+        b = _bucket(self.slot_buckets, 1)
+        toks = None
+        for j in range(P, t0v):
+            kv = _bucket(self.kv_buckets, min(j + 1, self.max_len))
+            self._note_traffic("decode", b, kv)
+            slot_idx = [self._scratch] * b
+            ids, pos, temps = [0] * b, [0] * b, [0.0] * b
+            slot_idx[0], ids[0] = req.slot, int(req.prompt[j])
+            pos[0], temps[0] = j, req.temperature
+            toks = self.run_decode(kv, slot_idx, ids, pos, temps)
+        req.prefix_len = P
+        self._first_token(req, int(toks[0]))
+
+    def _first_token(self, req: GenerationStream, tok: int):
         with self._cv:
             # a client that went away while the prefill ran gets nothing
             if req.state != _ACTIVE:
                 return
-            req.pos = t0v
+            req.pos = req.prompt_len
             req.last_tok = tok
             req.generated = 1
             req.t_first = time.monotonic()
+        m = self._metrics
+        if m is not None:
+            m.generation_ttft.observe(req.t_first - req.t_submit,
+                                      model=self.name)
+            m.generation_tokens_total.inc(model=self.name)
+        record_event("generation.join", model=self.name, req=req.id,
+                     slot=req.slot, step=self.steps,
+                     prompt_len=req.prompt_len, prefix_len=req.prefix_len,
+                     priority=req.priority)
         req._push_token(tok)
         self._maybe_finish(req, tok)
+
+    def _publish_prefix(self, req: GenerationStream, t0v: int):
+        """After a normal prefill: clone the slot's KV columns for the
+        largest prompt bucket strictly below the prompt length (a hit
+        needs at least one suffix token to feed) and publish them as a
+        shared slab; the slot row keeps decoding over its own copy."""
+        pc = self.prefix_cache
+        cands = [p for p in self.prompt_buckets
+                 if p < t0v and p >= pc.min_tokens]
+        if not cands:
+            return
+        P = max(cands)
+        prefix = np.asarray(req.prompt[:P], dtype=np.int64)
+        if pc.has(self.version, prefix):
+            return
+        kvs = [(ks[req.slot, :, :P].clone(), vs[req.slot, :, :P].clone())
+               for ks, vs in zip(self._kslabs, self._vslabs)]
+        pc.insert(self.version, prefix, kvs)
 
     def _decode_once(self):
         with self._cv:
@@ -575,10 +848,17 @@ class GenerationEngine:
         for i, r in enumerate(active):
             slot_idx[i], ids[i] = r.slot, r.last_tok
             pos[i], temps[i] = r.pos, r.temperature
+        self._note_traffic("decode", b, kv)
         toks = self.run_decode(kv, slot_idx, ids, pos, temps).tolist()
         self.steps += 1
         self.active_rows_total += len(active)
         self.bucket_rows_total += b
+        m = self._metrics
+        if m is not None:
+            m.generation_decode_steps_total.inc(model=self.name)
+            m.generation_slot_occupancy.observe(len(active) / b,
+                                               model=self.name)
+        pushed = 0
         for r, tok in zip(active, toks):
             with self._cv:
                 if r.state != _ACTIVE:  # cancelled or preempted mid-step
@@ -587,7 +867,11 @@ class GenerationEngine:
                 r.generated += 1
                 r.last_tok = tok
             r._push_token(tok)
+            pushed += 1
             self._maybe_finish(r, tok)
+        # only tokens actually streamed, never a cancel-race phantom
+        if m is not None and pushed:
+            m.generation_tokens_total.inc(pushed, model=self.name)
 
     def _maybe_finish(self, req: GenerationStream, tok: int):
         reason = None
@@ -611,6 +895,15 @@ class GenerationEngine:
                 self._stream_ewma_s = dur
             else:
                 self._stream_ewma_s += 0.3 * (dur - self._stream_ewma_s)
+            m = self._metrics
+            if m is not None:
+                m.generation_requests_total.inc(model=self.name,
+                                                outcome="completed")
+            self._report_queue_locked()
+        record_event("generation.leave", model=self.name, req=req.id,
+                     slot=req.slot, step=self.steps, reason=reason,
+                     tokens=req.generated)
+        self._close_request(req, "completed")
         req._push_done()
 
     def _fail_active(self, exc: Exception):
@@ -626,7 +919,14 @@ class GenerationEngine:
                     r.finish_reason = "failed"
                     r.error = exc
                     failed.append(r)
+            m = self._metrics
+            if m is not None:
+                for _ in failed:
+                    m.generation_requests_total.inc(model=self.name,
+                                                    outcome="failed")
+            self._report_queue_locked()
         for r in failed:
+            self._close_request(r, "failed")
             r._push_error(RuntimeError(f"generation step failed: {exc}"))
 
     # -- lifecycle / rendering ------------------------------------------------
@@ -659,8 +959,15 @@ class GenerationEngine:
             for r in victims:
                 r.state = _DONE
                 r.finish_reason = "failed"
+            m = self._metrics
+            if m is not None:
+                for _ in victims:
+                    m.generation_requests_total.inc(model=self.name,
+                                                    outcome="failed")
+            self._report_queue_locked()
             self._cv.notify_all()
         for r in victims:
+            self._close_request(r, "failed")
             r._push_error(NotReadyError("generation engine stopped"))
         if self._thread is not None:
             self._thread.join(timeout=30)
@@ -689,6 +996,9 @@ class GenerationEngine:
                 "shapes_after_warm": self.shapes_after_warm,
                 "stream_ewma_s": self._stream_ewma_s,
                 "last_error": self.last_error,
+                "prefix_cache": (self.prefix_cache.describe()
+                                 if self.prefix_cache is not None
+                                 else None),
             }
 
 

@@ -4,8 +4,17 @@ One ``ModelRegistry`` holds named entries; each ``ModelEntry`` owns the
 ``ParallelInference`` replica set of its deployed version and turns
 JSON-decoded request inputs into feature arrays that match its input spec.
 
-Not yet ported: hot-swap deploy/rollback, brownout fallbacks, the warmup
-manifest and checkpoint registration.
+Every dispatched batch calls back into the registry: the serving bundle
+(``attach_metrics``) records its occupancy and device latency, a warmup
+manifest (``attach_manifest``, serving/warmstart.py) notes its bucket for
+live batches only (warmup's own batches run before the entry is warmed),
+and a bucket outside the warmed set counts once into
+``warmup_recompiles_after_warm_total{plane="predict"}``.
+``ModelEntry.warm(sizes=)`` warms the manifest's buckets where the
+server's warm plan restricts it.
+
+Not yet ported: hot-swap deploy/rollback, brownout fallbacks and
+checkpoint registration (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -15,6 +24,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.observability.flightrecorder import record_event
+from deeplearning4j_tpu_torch.observability.metrics import (
+    warmstart_metrics_or_none,
+)
 from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
 from deeplearning4j_tpu_torch.serving.errors import (
     BadRequestError,
@@ -31,10 +44,12 @@ from deeplearning4j_tpu_torch.serving.warmup import (
 class ModelEntry:
     """One named model: its replica set, version and batch counts."""
 
-    def __init__(self, name: str, forward: Callable[[Any, Any], Any],
-                 input_spec: Any, *, mode: str = "batched",
-                 max_batch_size: int = 32, queue_limit: int = 256,
+    def __init__(self, registry: "ModelRegistry", name: str,
+                 forward: Callable[[Any, Any], Any], input_spec: Any, *,
+                 mode: str = "batched", max_batch_size: int = 32,
+                 queue_limit: int = 256,
                  devices: Optional[Sequence] = None):
+        self._registry = registry
         self.name = name
         self.forward = forward
         self.input_spec = input_spec
@@ -44,6 +59,9 @@ class ModelEntry:
         self.devices = devices
         self.version = ""
         self.warmed = False
+        # the buckets the last warm() ran: a live batch outside this set
+        # is a shape first run after warm
+        self.warmed_buckets: set = set()
         self._pi: Optional[ParallelInference] = None
         self._stats_lock = threading.Lock()
         self._batches = 0
@@ -56,10 +74,13 @@ class ModelEntry:
             on_batch=self._on_batch)
         self.version = version
 
-    def _on_batch(self, rows: int):
+    def _on_batch(self, n_requests: int, rows: int, bucket: int,
+                  seconds: float):
         with self._stats_lock:
             self._batches += 1
             self._rows += rows
+        self._registry._record_batch(self.name, n_requests, rows, bucket,
+                                     seconds)
 
     def batch_stats(self) -> Dict[str, int]:
         """Device batches dispatched and real (unpadded) rows served,
@@ -67,15 +88,46 @@ class ModelEntry:
         with self._stats_lock:
             return {"batches": self._batches, "rows": self._rows}
 
-    def warm(self) -> Dict[int, float]:
-        """Drive every batch bucket once (expects no concurrent traffic on
-        this entry: a live request coalescing with a warmup batch would
-        move it into another bucket)."""
+    def _manifest_warm_sizes(self) -> List[int]:
+        """Manifest-restricted buckets when traffic data exists, the full
+        vocabulary otherwise (observed buckets outside the vocabulary are
+        dropped; none left means the full set)."""
+        manifest = self._registry._warm_manifest
+        all_sizes = bucket_sizes(self.max_batch_size, self.mode)
+        if manifest is not None:
+            observed = manifest.predict_buckets(self.name)
+            if observed:
+                sizes = [s for s in all_sizes if s in set(observed)]
+                if sizes:
+                    return sizes
+        return all_sizes
+
+    def warm(self, sizes: Optional[Sequence[int]] = None, progress=None,
+             source: str = "full") -> Dict[int, float]:
+        """Drive batch buckets once: ``sizes`` (e.g. a warmup manifest's
+        observed buckets) or the full vocabulary. ``progress`` is an
+        optional ``(rows, seconds)`` callback a bucket; ``source`` labels
+        ``warmup_shapes_total`` (manifest | full). Expects no concurrent
+        traffic on this entry: a live request coalescing with a warmup
+        batch would move it into another bucket."""
         if self._pi is None:
             raise NotReadyError(f"model '{self.name}' is shut down")
-        stats = warmup_inference(self._pi, self.input_spec, bucket_sizes(
-            self.max_batch_size, self.mode))
+        if sizes is None:
+            sizes = bucket_sizes(self.max_batch_size, self.mode)
+        wm = warmstart_metrics_or_none()
+
+        def note(rows, seconds):
+            if wm is not None:
+                wm.warmup_shapes_total.inc(plane="predict", source=source)
+                wm.warmup_seconds.observe(seconds, plane="predict")
+            if progress is not None:
+                progress(rows, seconds)
+
+        stats = warmup_inference(self._pi, self.input_spec, sizes,
+                                 progress=note)
         self.warmed = True
+        self.warmed_buckets = set(sizes)
+        self._registry._record_ready(self.name, True)
         return stats
 
     # -- serving -----------------------------------------------------------
@@ -165,6 +217,51 @@ class ModelRegistry:
     def __init__(self):
         self._entries: Dict[str, ModelEntry] = {}
         self._lock = threading.Lock()
+        self._metrics = None
+        self._warm_manifest = None
+
+    def attach_metrics(self, metrics):
+        """Wire a ``ServingMetrics`` bundle: every dispatched batch
+        records its occupancy and device latency."""
+        self._metrics = metrics
+
+    def attach_manifest(self, manifest):
+        """Wire a :class:`~deeplearning4j_tpu_torch.serving.warmstart.
+        WarmupManifest`: every live batch's bucket feeds the traffic mix
+        the next restart warms against."""
+        self._warm_manifest = manifest
+
+    def _record_batch(self, name: str, n_requests: int, rows: int,
+                      bucket: int, seconds: float):
+        m = self._metrics
+        if m is not None:
+            m.batch_occupancy.observe(rows / max(bucket, 1), model=name)
+            m.device_latency.observe(seconds, model=name)
+        with self._lock:
+            entry = self._entries.get(name)
+        wm = self._warm_manifest
+        if wm is not None and (entry is None or entry.warmed):
+            # live traffic only: warmup's own zero batches run before the
+            # entry is warmed, and noting them would teach the manifest
+            # the full vocabulary
+            try:
+                wm.note_batch(name, bucket)
+            except Exception:  # noqa: BLE001 — recording traffic never
+                pass           # fails serving
+        if entry is not None and entry.warmed and entry.warmed_buckets \
+                and bucket not in entry.warmed_buckets:
+            # a bucket first run after warm, counted once
+            entry.warmed_buckets.add(bucket)
+            wsm = warmstart_metrics_or_none()
+            if wsm is not None:
+                wsm.recompiles_after_warm_total.inc(plane="predict")
+            record_event("serving.recompile_after_warm", model=name,
+                         bucket=bucket)
+
+    def _record_ready(self, name: str, ready: bool):
+        m = self._metrics
+        if m is not None:
+            m.model_ready.set(1.0 if ready else 0.0, model=name)
 
     def register(self, name: str, forward: Callable[[Any, Any], Any],
                  variables: Any, *, input_spec: Any, version: str = "v1",
@@ -176,7 +273,7 @@ class ModelRegistry:
         with self._lock:
             if name in self._entries:
                 raise ValueError(f"model '{name}' already registered")
-        entry = ModelEntry(name, forward, input_spec, mode=mode,
+        entry = ModelEntry(self, name, forward, input_spec, mode=mode,
                            max_batch_size=max_batch_size,
                            queue_limit=queue_limit, devices=devices)
         entry._deploy(variables, version)
@@ -185,6 +282,7 @@ class ModelRegistry:
                 entry.shutdown()
                 raise ValueError(f"model '{name}' already registered")
             self._entries[name] = entry
+        self._record_ready(name, False)
         return entry
 
     def get(self, name: str) -> ModelEntry:

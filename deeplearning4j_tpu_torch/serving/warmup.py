@@ -67,14 +67,18 @@ def zeros_batch(input_spec: Any, rows: int):
         lambda s: np.zeros((rows,) + tuple(s.shape), s.dtype), input_spec)
 
 
-def warmup_inference(pi, input_spec: Any,
-                     sizes: Sequence[int]) -> Dict[int, float]:
+def warmup_inference(pi, input_spec: Any, sizes: Sequence[int], *,
+                     progress: Optional[Any] = None) -> Dict[int, float]:
     """Push one zero batch per bucket through ``pi``; returns
     {rows: seconds}. Sequential on purpose: concurrent warmup requests
-    would coalesce into one batch and skip buckets."""
+    would coalesce into one batch and skip buckets. ``progress`` is an
+    optional ``(rows, seconds)`` callback fired after each bucket (the
+    ``/readyz`` warmup-progress body reads it)."""
     stats: Dict[int, float] = {}
     for rows in sizes:
         t0 = time.monotonic()
         pi.output(zeros_batch(input_spec, rows))
         stats[rows] = time.monotonic() - t0
+        if progress is not None:
+            progress(rows, stats[rows])
     return stats

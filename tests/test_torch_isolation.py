@@ -70,6 +70,13 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.nn.layers",
     "deeplearning4j_tpu_torch.nn.layers.attention",
     "deeplearning4j_tpu_torch.nn.constraints",
+    "deeplearning4j_tpu_torch.observability",
+    "deeplearning4j_tpu_torch.observability.metrics",
+    "deeplearning4j_tpu_torch.observability.flightrecorder",
+    "deeplearning4j_tpu_torch.serving.cache",
+    "deeplearning4j_tpu_torch.serving.metrics",
+    "deeplearning4j_tpu_torch.serving.prefixkv",
+    "deeplearning4j_tpu_torch.serving.warmstart",
 ]
 
 
