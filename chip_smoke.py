@@ -216,11 +216,46 @@ caught:
    without it, step by step in alternating pairs, and reads one step of
    each in turns through the profiler (device busy ms, idle share).
 
-No TPU kernel lies on phases 13–15, 17 and 24: the convolutions run in cuDNN
-(as the JAX package leaves them to XLA), and generation's prefill and
-decode attend with plain matmuls (as the JAX package's einsums,
-models/gpt.py:298-304, :370-375); they launch none of the port's hand
-kernels.
+27. Xception training — the zoo's xception (299x299x3, 1000 classes,
+   22,855,952 parameters, 34 SeparableConv2D), batch 32 of
+   bench_resnet50's data at 299, Adam 1e-3: one step against the float64
+   copy with ResNet-50's limits, 30 float32 and 30 mixed-precision steps
+   of fit (falling loss, checkpoint restored bit-equal; the first mixed
+   step's loss to 2e-2 of float32's), step time, images/s, peak memory,
+   idle share, device time by class; then the CUDA kernels that run the
+   34 depthwise convs (forward, dx, dW by input shape, from the profiler)
+   and their share of a step.
+28. Xception serving — the trained model behind ModelServer (max batch
+   8), 40 requests of 1–2 images from 4 clients, every response against
+   output_single to 1e-5; requests/s, rows/s, p50/p99, a 2-image
+   request's JSON host time (536,406 numbers).
+29. U-Net training — the zoo's unet at its defaults (128x128x3,
+   base_filters 32, depth 4, one class: sigmoid / binary cross-entropy
+   through PixelOutput), batch 16 of N(0, 1) images with one disc each,
+   the disc's mask the label: one step against the float64 copy (LeNet-5's
+   limits), 30 float32 steps of fit with the last loss below the first,
+   pixel accuracy, step time, images/s, peak memory, idle share.
+30. U-Net serving — behind ModelServer (max batch 8), 100 requests of 1–4
+   disc images from 8 clients; every mask [n, 128, 128, 1] against
+   output_single to 1e-5; requests/s, p50/p99, JSON host time.
+31. zoo_cnn — alexnet, vgg16, vgg19, simplecnn, darknet19 and squeezenet
+   at their zoo defaults, batch 4: the output (1e-4 of its max) and one
+   step against a float64 copy on the card (the same dropout masks in both
+   copies; LeNet-5's limits for AlexNet and SqueezeNet, ResNet-50's for
+   the BatchNorm models and VGG16/19: see ZOO_PER_LEAF), then 3 steps of
+   fit: median step ms, peak memory, one step's breakdown.
+32. conv_layers — every layer class of nn/layers/conv.py the CNN slice
+   ported, LayerNorm, LocalResponseNormalization, Dropout (eval) and
+   PixelOutput once on the card at a small shape: forward and backward
+   against the same layer in float64 on the card, to 1e-5 of the max, the
+   outputs on the card. Phases 27–32 run last.
+
+No TPU kernel lies on phases 13–15, 17, 24 and 27–32: the convolutions,
+transposed convs and pools run in cuDNN and PyTorch (as the JAX package
+leaves them to XLA: lax.conv_general_dilated, conv_transpose,
+reduce_window), and generation's prefill and decode attend with plain
+matmuls (as the JAX package's einsums, models/gpt.py:298-304, :370-375);
+they launch none of the port's hand kernels.
 
 On the recurrent paths the plain ops/rnn.lstm and ops/rnn.gru must never
 see a CUDA tensor (they are the plain paths the kernels are held against,
@@ -229,7 +264,7 @@ run separately).
 It prints the kernels line ({"kernels": [...]}), the serving, training,
 char-RNN (TBPTT and sampling too), char-GRU (TBPTT too), bitmap, LeNet-5,
 ResNet-50, GPT-2-small (prefix serving and the warm restart too), loss
-guard and seq2seq lines,
+guard, seq2seq, Xception, U-Net, zoo_cnn and conv_layers lines,
 the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
 """
@@ -3516,12 +3551,23 @@ def _float64_copy(tree):
     return _tree_map(lambda a: a.to(torch.float64), tree)
 
 
-def _grads_by_name(trainer, params, state, batch):
+def _dropout_generator(batch, seed):
+    """None (no dropout), or a generator from ``seed`` on the batch's
+    device: two copies of a model handed generators of one seed draw the
+    same dropout masks (the draws are float32 whatever the dtype)."""
+    if seed is None:
+        return None
+    return torch.Generator(batch["features"].device).manual_seed(seed)
+
+
+def _grads_by_name(trainer, params, state, batch, dropout_seed=None):
     """Loss, new layer state and every gradient leaf (by name) of the
-    train step's differentiated function, no dropout."""
+    train step's differentiated function; dropout off, or drawn from
+    ``dropout_seed``."""
     from deeplearning4j_tpu_torch.utils.pytree import flatten_with_names
 
-    loss, new_state, _, grads = trainer._grad_of(params, state, batch, None)
+    loss, new_state, _, grads = trainer._grad_of(
+        params, state, batch, _dropout_generator(batch, dropout_seed))
     return (float(loss), dict(flatten_with_names(new_state)),
             dict(flatten_with_names(grads)))
 
@@ -3537,10 +3583,12 @@ def _l2_errors(got, want):
     return leaf, (num / den) ** 0.5
 
 
-def _vs_float64(tag, trainer, ts, batch, *, per_leaf_max: bool) -> dict:
+def _vs_float64(tag, trainer, ts, batch, *, per_leaf_max: bool,
+                dropout_seed=None) -> dict:
     """One loss, BatchNorm state and gradient of the float32 train step
     against the same model run in float64 on the card (cuDNN's float64
-    convolutions), on the same batch. The loss to TOL_LOSS_REL and the
+    convolutions), on the same batch (and, with ``dropout_seed``, the
+    same dropout masks in both copies). The loss to TOL_LOSS_REL and the
     layer state to TOL_STATE of max(1, |float64|) always; the gradients
     either per leaf to TOL_GRAD_FRAC of the leaf's floored max
     (``per_leaf_max``, as _check_grads does) or, for a net too deep for
@@ -3550,8 +3598,10 @@ def _vs_float64(tag, trainer, ts, batch, *, per_leaf_max: bool) -> dict:
     p64, s64 = _float64_copy(ts.params), _float64_copy(ts.model_state)
     b64 = dict(batch, features=batch["features"].double())
     loss32, state32, g32 = _grads_by_name(trainer, ts.params,
-                                          ts.model_state, batch)
-    loss64, state64, g64 = _grads_by_name(trainer, p64, s64, b64)
+                                          ts.model_state, batch,
+                                          dropout_seed)
+    loss64, state64, g64 = _grads_by_name(trainer, p64, s64, b64,
+                                          dropout_seed)
     loss_rel = abs(loss32 - loss64) / abs(loss64)
     state_err = max((float((state32[n].double() - w).abs().max())
                      / max(1.0, float(w.abs().max())) for n, w in
@@ -3583,7 +3633,7 @@ def _vs_float64(tag, trainer, ts, batch, *, per_leaf_max: bool) -> dict:
 
         _, _, g_noise = _grads_by_name(
             trainer, _tree_map(nudge, p64), s64,
-            dict(b64, features=nudge(b64["features"])))
+            dict(b64, features=nudge(b64["features"])), dropout_seed)
         noise_leaf, noise_all = _l2_errors(g_noise, g64)
         out.update(noise_l2_err=noise_all,
                    noise_worst_l2_err=max(noise_leaf.values()))
@@ -3698,28 +3748,35 @@ TOL_STATE = 1e-5
 TOL_GRAD_L2 = 1e-1
 
 
-def _resnet_batches():
-    """bench_resnet50's batch: N(0, 1) images, one-hot labels, here one per
-    seed."""
+def _image_batches(n_batches, batch, size, classes, seed=SEED):
+    """bench_resnet50's batches: N(0, 1) NHWC images of ``size`` and
+    one-hot labels of ``classes``, one batch per seed."""
     out = []
-    for i in range(RESNET_BATCHES):
-        r = np.random.default_rng(SEED + i)
+    for i in range(n_batches):
+        r = np.random.default_rng(seed + i)
         out.append({
-            "features": r.normal(size=(RESNET_BATCH, 224, 224, 3)).astype(
+            "features": r.normal(size=(batch, size, size, 3)).astype(
                 np.float32),
-            "labels": np.eye(1000, dtype=np.float32)[
-                r.integers(0, 1000, RESNET_BATCH)]})
+            "labels": np.eye(classes, dtype=np.float32)[
+                r.integers(0, classes, batch)]})
     return out
 
 
-def _train_resnet(tag, trainer, ts0, on_dev, dev):
-    """30 steps of fit with checkpoints (the loss must fall over them),
-    then one step's breakdown: the fit's record."""
-    fit = _fit_and_restore(tag, trainer, ts0, on_dev, RESNET_EPOCHS, dev)
+def _resnet_batches():
+    """bench_resnet50's batch at 224 × 224, 1000 classes."""
+    return _image_batches(RESNET_BATCHES, RESNET_BATCH, 224, 1000)
+
+
+def _train_resnet(tag, trainer, ts0, on_dev, dev, batch=RESNET_BATCH,
+                  epochs=RESNET_EPOCHS):
+    """``epochs`` × len(on_dev) steps of fit with checkpoints (the loss
+    must fall over them), then one step's breakdown: the fit's record
+    (samples/s at ``batch`` images a step)."""
+    fit = _fit_and_restore(tag, trainer, ts0, on_dev, epochs, dev)
     losses = fit["losses"]
-    first, last = (np.mean(losses[:RESNET_BATCHES]),
-                   np.mean(losses[-RESNET_BATCHES:]))
-    if fit["ts"].step != RESNET_BATCHES * RESNET_EPOCHS or not (
+    n = len(on_dev)
+    first, last = np.mean(losses[:n]), np.mean(losses[-n:])
+    if fit["ts"].step != n * epochs or not (
             np.all(np.isfinite(losses)) and last < first):
         raise SystemExit(f"chip_smoke: {tag}: the loss did not fall "
                          f"({first:.4f} -> {last:.4f})")
@@ -3729,7 +3786,7 @@ def _train_resnet(tag, trainer, ts0, on_dev, dev):
               for c, v in breakdown["class_share_of_device"].items()}
     log(f"[{tag}] one step: {breakdown}")
     log(f"[{tag}] {fit['ts'].step} steps: loss {first:.4f} -> {last:.4f}; "
-        f"median step {step_ms:.2f} ms ({RESNET_BATCH / (step_ms / 1e3):.1f}"
+        f"median step {step_ms:.2f} ms ({batch / (step_ms / 1e3):.1f}"
         f" samples/s), peak memory {fit['peak_memory_gib']:.2f} GiB; one "
         f"step {breakdown['wall_ms']:.2f} ms wall, "
         f"{breakdown['device_ms']:.2f} device, idle "
@@ -3740,7 +3797,7 @@ def _train_resnet(tag, trainer, ts0, on_dev, dev):
         "losses": losses, "loss_first_epoch": float(first),
         "loss_last_epoch": float(last), "median_step_ms": step_ms,
         "step_ms_gaps": fit["step_ms_gaps"],
-        "samples_per_s": RESNET_BATCH / (step_ms / 1e3),
+        "samples_per_s": batch / (step_ms / 1e3),
         "peak_memory_gib": fit["peak_memory_gib"],
         "fit_seconds": fit["fit_seconds"],
         "checkpoint_next_loss": fit["checkpoint_next_loss"],
@@ -3800,12 +3857,15 @@ def phase_resnet_train(dev, smi):
 # Closed loop: RESNET_CLIENTS client threads, requests of 1-2 NHWC float
 # images (224x224x3, sent as JSON numbers), batched mode, max batch 8.
 RESNET_REQUESTS, RESNET_CLIENTS, RESNET_MAX_BATCH = 100, 4, 8
-TOL_RESNET_PROBS = 1e-5
+# served outputs against output_single on the same card, both float32 (the
+# same function, run at another batch bucket)
+TOL_SERVED = 1e-5
 
 
-def _resnet_probs(model, variables, images):
-    """The served function: NHWC images → softmax probabilities."""
-    return model.output_single(variables, images)
+def _output_single(model):
+    """The served function of a single-output graph: NHWC images → its
+    output (``output_single``)."""
+    return lambda variables, images: model.output_single(variables, images)
 
 
 def _image_request(i):
@@ -3813,9 +3873,15 @@ def _image_request(i):
     return r.normal(size=(1 + i % 2, 224, 224, 3)).astype(np.float32)
 
 
-def phase_resnet_serve(dev, smi, model, variables):
-    import functools
-
+def _serve_images(tag, dev, smi, name, forward, variables, requests, *,
+                  clients, max_batch, tol, check):
+    """``forward(variables, NHWC images)`` behind ModelServer →
+    ModelRegistry → ParallelInference (batched, buckets up to
+    ``max_batch``), ``requests`` sent as JSON by ``clients`` closed-loop
+    threads; every response ``check``ed (shape, range) and held against
+    ``forward`` on its request to ``tol`` (max |difference|); the host
+    cost of one 2-image request's JSON; one bucket-``max_batch``
+    forward's breakdown."""
     from deeplearning4j_tpu_torch.kernels import _dispatch
     from deeplearning4j_tpu_torch.serving import (
         ModelRegistry,
@@ -3824,55 +3890,55 @@ def phase_resnet_serve(dev, smi, model, variables):
         spec,
     )
 
+    shape = requests[0].shape[1:]
     reg = ModelRegistry()
-    entry = reg.register(
-        "resnet50", functools.partial(_resnet_probs, model), variables,
-        input_spec=spec((224, 224, 3), np.float32), mode="batched",
-        max_batch_size=RESNET_MAX_BATCH)
+    entry = reg.register(name, forward, variables,
+                         input_spec=spec(shape, np.float32), mode="batched",
+                         max_batch_size=max_batch, devices=[dev])
     server = ModelServer(reg, port=0)
     t0 = time.monotonic()
     server.start(warm=True)
     client = ServingClient(server.url, timeout=120)
     if not client.ready()["ready"]:
         raise SystemExit("chip_smoke: /readyz not ready after warm start")
-    log(f"[resnet_serve] server warm and ready in {time.monotonic() - t0:.2f}"
+    log(f"[{tag}] server warm and ready in {time.monotonic() - t0:.2f}"
         f" s (buckets {sorted(entry.batch_stats().items())})")
-    requests = [_image_request(i) for i in range(RESNET_REQUESTS)]
-    latencies = [0.0] * RESNET_REQUESTS
+    n_req = len(requests)
+    latencies = [0.0] * n_req
 
     def call(i):
         t_start = time.monotonic()
-        resp = client.predict("resnet50", requests[i])
+        resp = client.predict(name, requests[i])
         latencies[i] = time.monotonic() - t_start
         return resp
 
     _dispatch.reset_launch_counts()
     before = entry.batch_stats()
     t0 = time.monotonic()
-    with ThreadPoolExecutor(RESNET_CLIENTS) as pool:
-        responses = list(pool.map(call, range(RESNET_REQUESTS)))
+    with ThreadPoolExecutor(clients) as pool:
+        responses = list(pool.map(call, range(n_req)))
     wall = time.monotonic() - t0
     launches = _dispatch.launch_counts()
     after = entry.batch_stats()
     batches = after["batches"] - before["batches"]
     rows = after["rows"] - before["rows"]
     drained = server.stop()
-    log(f"[resnet_serve] {RESNET_REQUESTS} requests ({rows} rows) in "
-        f"{wall:.3f} s over {batches} batches; hand-kernel launches "
-        f"{launches} (the path has none); drained={drained}")
+    log(f"[{tag}] {n_req} requests ({rows} rows) in {wall:.3f} s over "
+        f"{batches} batches; hand-kernel launches {launches} (the path has "
+        f"none); drained={drained}")
     if batches < 1 or not drained:
-        raise SystemExit("chip_smoke: the ResNet-50 server did not serve "
-                         "and drain")
+        raise SystemExit(f"chip_smoke: the {tag} server did not serve and "
+                         "drain")
     worst = 0.0
     for req, resp in zip(requests, responses):
         out = np.asarray(resp["outputs"], dtype=np.float64)
-        if out.shape != (req.shape[0], 1000) or not np.all(
-                np.isfinite(out)) or np.abs(out.sum(-1) - 1).max() > 1e-5:
-            raise SystemExit(f"chip_smoke: bad served output {out.shape}")
-        want = _resnet_probs(model, variables, req).double().cpu().numpy()
+        if not np.all(np.isfinite(out)) or not check(out, req):
+            raise SystemExit(f"chip_smoke: {tag}: bad served output "
+                             f"{out.shape}")
+        want = forward(variables, req).double().cpu().numpy()
         worst = max(worst, float(np.abs(out - want).max()))
     # host cost of one 2-image request's JSON: encode (client), decode and
-    # coerce to the input spec (server), 301,056 numbers
+    # coerce to the input spec (server)
     req2 = requests[1]
     t0 = time.perf_counter()
     body = json.dumps({"inputs": req2.tolist()})
@@ -3880,33 +3946,48 @@ def phase_resnet_serve(dev, smi, model, variables):
     parsed = entry.parse_inputs(json.loads(body)["inputs"])
     t2 = time.perf_counter()
     json_ms = {"encode_ms": (t1 - t0) * 1e3, "decode_and_coerce_ms":
-               (t2 - t1) * 1e3, "body_mib": len(body) / 2**20}
+               (t2 - t1) * 1e3, "body_mib": len(body) / 2**20,
+               "numbers": int(req2.size)}
     if not np.array_equal(parsed, req2):
         raise SystemExit("chip_smoke: a request did not survive JSON")
-    x8 = torch.from_numpy(np.concatenate(requests[:6])[:8]).to(dev)
-    breakdown = _forward_breakdown(
-        lambda: _resnet_probs(model, variables, x8))
+    x8 = torch.from_numpy(
+        np.concatenate(requests[:max_batch])[:max_batch]).to(dev)
+    breakdown = _forward_breakdown(lambda: forward(variables, x8))
     lat_ms = np.asarray(latencies) * 1e3
-    log(f"[resnet_serve] one bucket-8 forward: {breakdown}")
-    log(f"[resnet_serve] a 2-image request's JSON: {json_ms}")
-    log(f"[resnet_serve] served probabilities vs output_single: max_abs_err "
-        f"{worst:.3e} (tol {TOL_RESNET_PROBS:.0e}); "
-        f"{RESNET_REQUESTS / wall:.1f} requests/s ({rows / wall:.1f} "
-        f"images/s), p50 {np.percentile(lat_ms, 50):.2f} ms, p99 "
-        f"{np.percentile(lat_ms, 99):.2f} ms, {RESNET_CLIENTS} clients, on "
-        f"{smi}")
-    if worst > TOL_RESNET_PROBS:
-        raise SystemExit("chip_smoke: served ResNet-50 probabilities "
-                         "disagree with output_single")
-    return {"model": "resnet50", "requests": RESNET_REQUESTS, "rows": rows,
-            "client_threads": RESNET_CLIENTS, "batches": batches,
-            "kernel_launches": launches,
-            "requests_per_s": RESNET_REQUESTS / wall,
-            "images_per_s": rows / wall,
+    log(f"[{tag}] one bucket-{max_batch} forward: {breakdown}")
+    log(f"[{tag}] a 2-image request's JSON: {json_ms}")
+    log(f"[{tag}] served outputs vs the same forward: max_abs_err "
+        f"{worst:.3e} (tol {tol:.0e}); {n_req / wall:.1f} requests/s "
+        f"({rows / wall:.1f} images/s), p50 {np.percentile(lat_ms, 50):.2f}"
+        f" ms, p99 {np.percentile(lat_ms, 99):.2f} ms, {clients} clients, "
+        f"on {smi}")
+    if worst > tol:
+        raise SystemExit(f"chip_smoke: {tag}: served outputs disagree with "
+                         "the forward")
+    return {"requests": n_req, "rows": rows, "client_threads": clients,
+            "batches": batches, "kernel_launches": launches,
+            "requests_per_s": n_req / wall, "images_per_s": rows / wall,
             "p50_ms": float(np.percentile(lat_ms, 50)),
             "p99_ms": float(np.percentile(lat_ms, 99)),
-            "max_abs_err_probs": worst, "json_2_images": json_ms,
+            "max_abs_err": worst, "json_2_images": json_ms,
             "forward_bucket8": breakdown, "card": smi}
+
+
+def _softmax_rows(classes):
+    """A served-output check: [rows, classes] probabilities summing to 1."""
+    return lambda out, req: out.shape == (req.shape[0], classes) and \
+        np.abs(out.sum(-1) - 1).max() <= 1e-5
+
+
+def phase_resnet_serve(dev, smi, model, variables):
+    requests = [_image_request(i) for i in range(RESNET_REQUESTS)]
+    out = _serve_images(
+        "resnet_serve", dev, smi, "resnet50",
+        _output_single(model), variables, requests,
+        clients=RESNET_CLIENTS, max_batch=RESNET_MAX_BATCH,
+        tol=TOL_SERVED, check=_softmax_rows(1000))
+    out["max_abs_err_probs"] = out.pop("max_abs_err")
+    return {"model": "resnet50", **out}
 
 
 # -- 16. GPT-2-small training ---------------------------------------------
@@ -5312,6 +5393,460 @@ def phase_seq2seq_serve(dev, smi, model, variables):
             "card": smi}
 
 
+# -- 27. Xception training ----------------------------------------------
+
+# Xception (the JAX zoo's: 299x299x3, 1000 classes, 22,855,952 parameters,
+# 34 SeparableConv2D), batch 32, Adam 1e-3, bench_resnet50's data at 299:
+# float32 (TF32 off) and mixed precision, 3 fixed batches cycled by 10
+# epochs each (30 steps). The float64 check and the fit helpers are
+# ResNet-50's (its tolerances: a BatchNorm ReLU net of this depth).
+XCEPTION_BATCH, XCEPTION_BATCHES, XCEPTION_EPOCHS = 32, 3, 10
+XCEPTION_SIZE, XCEPTION_CLASSES = 299, 1000
+XCEPTION_PARAMS = 22_855_952
+
+
+def _depthwise_groups(model):
+    """The model's SeparableConv2D vertices grouped by what their
+    depthwise half computes: {(input (H, W, C), kernel, stride,
+    multiplier): [vertex names]}."""
+    groups = {}
+    for name in model.order:
+        layer = model.config.vertices[name].layer
+        if type(layer).__name__ == "SeparableConv2D":
+            key = (tuple(model.shapes[model.config.vertices[name].inputs[0]]),
+                   layer.kernel, layer.stride, layer.depth_multiplier)
+            groups.setdefault(key, []).append(name)
+    return groups
+
+
+def _depthwise_census(model, dev, batch) -> dict:
+    """The CUDA kernels that run the model's depthwise convs at ``batch``
+    images, forward and backward (dx and dW), by group of
+    ``_depthwise_groups``: each kernel's name and device µs a call from
+    the profiler, and the group's total times its layers. The names say
+    whether cuDNN (or PyTorch's own depthwise kernels) runs them, or a
+    grouped GEMM."""
+    from deeplearning4j_tpu_torch.ops import cnn as opscnn
+
+    rows, total_us = [], 0.0
+    for (shape, kernel, stride, mult), names in _depthwise_groups(
+            model).items():
+        gen = torch.Generator(dev).manual_seed(SEED)
+        x = torch.randn((batch, *shape), generator=gen, device=dev,
+                        requires_grad=True)
+        w = torch.randn((*opscnn._pair(kernel), shape[-1], mult),
+                        generator=gen, device=dev, requires_grad=True)
+        with torch.no_grad():
+            dy = torch.randn_like(opscnn.depthwise_conv2d(
+                x, w, stride=stride, padding="SAME"))
+
+        def fn():
+            y = opscnn.depthwise_conv2d(x, w, stride=stride, padding="SAME")
+            torch.autograd.grad(y, (x, w), dy)
+
+        by_kernel = _device_us_by_kernel(fn, iters=5)
+        us = sum(by_kernel.values())
+        total_us += us * len(names)
+        named = {}
+        for k, v in by_kernel.items():  # variants that share a prefix
+            named[k[:100]] = named.get(k[:100], 0.0) + v
+        rows.append({"input_hwc": list(shape), "kernel": kernel,
+                     "stride": stride, "layers": len(names),
+                     "us_per_layer": us,
+                     "kernels_us": {k: round(v, 1) for k, v in sorted(
+                         named.items(), key=lambda kv: -kv[1])}})
+        del x, w, dy
+    return {"layers": sum(r["layers"] for r in rows),
+            "ms_per_step": total_us / 1e3, "groups": rows}
+
+
+def phase_xception_train(dev, smi):
+    from deeplearning4j_tpu_torch.models.zoo.graphs import xception
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    from deeplearning4j_tpu_torch.utils.pytree import tree_leaves
+
+    t0 = time.monotonic()
+    model = xception(device=dev, updater=Adam(1e-3), seed=SEED)
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    on_dev = [batch_to_device(b, dev) for b in _image_batches(
+        XCEPTION_BATCHES, XCEPTION_BATCH, XCEPTION_SIZE, XCEPTION_CLASSES)]
+    n_params = model.num_params(trainer.variables(ts0))
+    log(f"[xception_train] xception: {n_params:,} parameters, "
+        f"{len(model.order)} vertices, {len(_depthwise_groups(model))} "
+        f"depthwise shapes, Adam(1e-3), batches "
+        f"{XCEPTION_BATCH}x{XCEPTION_SIZE}x{XCEPTION_SIZE}x3, built in "
+        f"{time.monotonic() - t0:.1f} s")
+    if n_params != XCEPTION_PARAMS:
+        raise SystemExit(f"chip_smoke: xception has {n_params} parameters")
+    f64 = _vs_float64("xception_train", trainer, ts0, on_dev[0],
+                      per_leaf_max=False)
+    fit, fp32 = _train_resnet("xception_train", trainer, ts0, on_dev, dev,
+                              batch=XCEPTION_BATCH, epochs=XCEPTION_EPOCHS)
+    trained = trainer.variables(fit["ts"])
+    census = _depthwise_census(model, dev, XCEPTION_BATCH)
+    device_ms = fp32["step_breakdown"]["device_ms"]
+    census["share_of_step_device"] = census["ms_per_step"] / device_ms
+    for row in census["groups"]:
+        log(f"[xception_train] depthwise {row['input_hwc']} k{row['kernel']}"
+            f" s{row['stride']} x{row['layers']}: {row['us_per_layer']:.1f}"
+            f" us a layer (forward + dx + dW): {row['kernels_us']}")
+    log(f"[xception_train] the {census['layers']} depthwise convs: "
+        f"{census['ms_per_step']:.2f} ms of a step's {device_ms:.2f} device "
+        f"ms ({census['share_of_step_device']:.1%})")
+
+    mp_model = xception(device=dev, updater=Adam(1e-3), seed=SEED)
+    mp_model.net.mixed_precision = True
+    mp_trainer = Trainer(mp_model)
+    mts0 = mp_trainer.init_state(trainer.variables(ts0))
+    mts1, m = mp_trainer.train_step(mts0, on_dev[0])
+    mp_loss = float(m["total_loss"])
+    mp_rel = abs(mp_loss - f64["loss_float32"]) / abs(f64["loss_float32"])
+    state_f32 = all(a.dtype == torch.float32 for a in tree_leaves(
+        (mts1.params, mts1.model_state, mts1.opt_state)))
+    log(f"[xception_mixed] first step's loss {mp_loss:.6f} vs float32 "
+        f"{f64['loss_float32']:.6f} (rel {mp_rel:.2e}, tol "
+        f"{TOL_MIXED_REL:.0e}); params, BatchNorm and updater state float32:"
+        f" {state_f32}")
+    if mp_rel > TOL_MIXED_REL or not state_f32:
+        raise SystemExit("chip_smoke: the mixed-precision Xception step "
+                         "failed")
+    del mts1
+    _, mixed = _train_resnet("xception_mixed", mp_trainer, mts0, on_dev, dev,
+                             batch=XCEPTION_BATCH, epochs=XCEPTION_EPOCHS)
+    mixed["first_loss_vs_float32_rel"] = mp_rel
+    del mts0, ts0, mp_trainer, mp_model, on_dev
+    return {"model": "xception", "batch": XCEPTION_BATCH,
+            "image": XCEPTION_SIZE, "num_params": n_params,
+            "vs_float64": f64, "float32": fp32, "mixed_precision": mixed,
+            "depthwise": census, "card": smi}, model, trained
+
+
+# -- 28. Xception serving --------------------------------------------------
+
+# Closed loop: 4 client threads, 40 requests of 1-2 299x299x3 images as
+# JSON (268,203 numbers an image), batched mode, max batch 8.
+XCEPTION_REQUESTS, XCEPTION_CLIENTS, XCEPTION_MAX_BATCH = 40, 4, 8
+
+
+def _xception_request(i):
+    r = np.random.default_rng(3000 + i)
+    return r.normal(size=(1 + i % 2, XCEPTION_SIZE, XCEPTION_SIZE,
+                          3)).astype(np.float32)
+
+
+def phase_xception_serve(dev, smi, model, variables):
+    requests = [_xception_request(i) for i in range(XCEPTION_REQUESTS)]
+    out = _serve_images(
+        "xception_serve", dev, smi, "xception", _output_single(model),
+        variables, requests, clients=XCEPTION_CLIENTS,
+        max_batch=XCEPTION_MAX_BATCH, tol=TOL_SERVED,
+        check=_softmax_rows(XCEPTION_CLASSES))
+    return {"model": "xception", **out}
+
+
+# -- 29. U-Net training -----------------------------------------------------
+
+# The JAX zoo's U-Net at its defaults: 128x128x3, base_filters 32, depth 4,
+# one class (sigmoid / binary cross-entropy through PixelOutput), 7,846,657
+# parameters; batch 16, Adam 1e-3, 3 fixed batches of N(0, 1) images with
+# one disc each (DISC_SHIFT added inside it) whose mask is the label,
+# cycled by 10 epochs (30 steps). No BatchNorm: LeNet-5's float64 limits.
+UNET_BATCH, UNET_BATCHES, UNET_EPOCHS, UNET_SIZE = 16, 3, 10, 128
+UNET_PARAMS = 7_846_657
+DISC_SHIFT = 2.0
+
+
+def _disc_batch(n, size, seed):
+    """``n`` images N(0, 1) of ``size``² × 3, each plus DISC_SHIFT inside
+    one disc, and the discs' masks [n, size, size, 1] as labels. Radii in
+    [size/16, size/4) and centres that keep the disc inside the image,
+    from ``seed``."""
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(n, size, size, 3)).astype(np.float32)
+    rad = r.uniform(size / 16, size / 4, n)
+    cy, cx = (r.uniform(rad, size - rad) for _ in range(2))
+    yy, xx = np.mgrid[:size, :size]
+    mask = ((yy[None] - cy[:, None, None]) ** 2
+            + (xx[None] - cx[:, None, None]) ** 2
+            <= rad[:, None, None] ** 2).astype(np.float32)[..., None]
+    return {"features": x + DISC_SHIFT * mask, "labels": mask}
+
+
+def _pixel_accuracy(model, variables, batch) -> float:
+    """The share of pixels whose thresholded mask (p > 0.5) is the
+    label's."""
+    probs = model.output_single(variables, batch["features"])
+    return float(((probs > 0.5).float() == batch["labels"]).float().mean())
+
+
+def phase_unet_train(dev, smi):
+    from deeplearning4j_tpu_torch.models.zoo.graphs import unet
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    t0 = time.monotonic()
+    model = unet(device=dev, updater=Adam(1e-3), seed=SEED)
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    on_dev = [batch_to_device(_disc_batch(UNET_BATCH, UNET_SIZE, SEED + i),
+                              dev) for i in range(UNET_BATCHES)]
+    n_params = model.num_params(trainer.variables(ts0))
+    fg = float(torch.stack([b["labels"].mean() for b in on_dev]).mean())
+    log(f"[unet_train] unet: {n_params:,} parameters, {len(model.order)} "
+        f"vertices, Adam(1e-3), batches {UNET_BATCH}x{UNET_SIZE}x"
+        f"{UNET_SIZE}x3 with one disc each ({fg:.1%} of pixels), built in "
+        f"{time.monotonic() - t0:.1f} s")
+    if n_params != UNET_PARAMS:
+        raise SystemExit(f"chip_smoke: unet has {n_params} parameters")
+    f64 = _vs_float64("unet_train", trainer, ts0, on_dev[0],
+                      per_leaf_max=True)
+    acc0 = _pixel_accuracy(model, trainer.variables(ts0), on_dev[0])
+    fit, fp32 = _train_resnet("unet_train", trainer, ts0, on_dev, dev,
+                              batch=UNET_BATCH, epochs=UNET_EPOCHS)
+    losses = fit["losses"]
+    trained = trainer.variables(fit["ts"])
+    acc = _pixel_accuracy(model, trained, on_dev[0])
+    log(f"[unet_train] loss first step {losses[0]:.4f}, last "
+        f"{losses[-1]:.4f}; pixel accuracy {acc0:.4f} -> {acc:.4f} "
+        f"(background share {1 - fg:.4f}); on {smi}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit("chip_smoke: the U-Net's last loss is not below "
+                         "its first")
+    del ts0, on_dev
+    return {"model": "unet", "batch": UNET_BATCH, "image": UNET_SIZE,
+            "num_params": n_params, "vs_float64": f64, "float32": fp32,
+            "pixel_accuracy_first": acc0, "pixel_accuracy": acc,
+            "foreground_share": fg, "card": smi}, model, trained
+
+
+# -- 30. U-Net serving ------------------------------------------------------
+
+# Closed loop: 8 client threads, 100 requests of 1-4 disc images
+# (128x128x3) as JSON, batched mode, max batch 8; each answer a mask of
+# probabilities [n, 128, 128, 1], the first rank-4 output served.
+UNET_REQUESTS, UNET_CLIENTS, UNET_MAX_BATCH = 100, 8, 8
+
+
+def _unet_request(i):
+    return _disc_batch(1 + i % 4, UNET_SIZE, 4000 + i)["features"]
+
+
+def _masks(out, req):
+    """A served-output check: [rows, H, W, 1] probabilities."""
+    return out.shape == (*req.shape[:3], 1) and out.min() >= 0 and \
+        out.max() <= 1
+
+
+def phase_unet_serve(dev, smi, model, variables):
+    requests = [_unet_request(i) for i in range(UNET_REQUESTS)]
+    out = _serve_images(
+        "unet_serve", dev, smi, "unet", _output_single(model), variables,
+        requests, clients=UNET_CLIENTS, max_batch=UNET_MAX_BATCH,
+        tol=TOL_SERVED, check=_masks)
+    return {"model": "unet", **out}
+
+
+# -- 31. the classic CNN zoo entries -----------------------------------------
+
+# Each at its zoo default input shape and class count (224x224x3 and 1000,
+# SimpleCNN 48x48x3 and 10), batch 4 of bench_resnet50's data, Adam 1e-3:
+# the output and one step (Dropout's masks drawn alike in both copies)
+# against a float64 copy on the card, then ZOO_STEPS steps of fit and one
+# step's breakdown. The gradients per leaf (LeNet-5's limits) for the
+# shallow nets without BatchNorm, by relative L2 (ResNet-50's) for the
+# BatchNorm models and for VGG16/19: 13-16 ReLU convs without BatchNorm
+# at the JAX zoo's init, whose float32 step on an H100 put 1.18e-2 of a
+# bias leaf's max between float32 and float64 (VGG16, 11_conv2d/b; the
+# trace's float32 convs include cuDNN's FFT algorithms, cf32 GEMMs),
+# where AlexNet held 3.4e-6.
+ZOO_CNN = ("alexnet", "vgg16", "vgg19", "simplecnn", "darknet19",
+           "squeezenet")
+ZOO_PER_LEAF = ("alexnet", "squeezenet")
+ZOO_BATCH, ZOO_STEPS = 4, 3
+# the float32 output (softmax probabilities) against float64's, as a
+# fraction of its largest entry: float32 rounding carried through up to
+# 19 layers (VGG16 read 9.9e-6 on an H100)
+TOL_ZOO_OUT = 1e-4
+
+
+def _zoo_case(model):
+    """(input size, classes) of a zoo model's config."""
+    cfg = model.config
+    shape = (cfg.input_shape if hasattr(cfg, "input_shape")
+             else cfg.input_shapes["input"])
+    out = (model.shapes[-1] if isinstance(model.shapes, list)
+           else model.shapes["output"])
+    return shape[0], out[-1]
+
+
+def _model_output(model, variables, x):
+    out = model.output(variables, x)
+    return out if torch.is_tensor(out) else out["output"]
+
+
+def phase_zoo_cnn(dev, smi):
+    from deeplearning4j_tpu_torch.models.zoo import get_model
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    results = {}
+    for name in ZOO_CNN:
+        t0 = time.monotonic()
+        model = get_model(name, device=dev, updater=Adam(1e-3), seed=SEED)
+        trainer = Trainer(model)
+        ts0 = trainer.init_state()
+        size, classes = _zoo_case(model)
+        on_dev = [batch_to_device(b, dev) for b in _image_batches(
+            ZOO_STEPS, ZOO_BATCH, size, classes)]
+        variables = trainer.variables(ts0)
+        n_params = model.num_params(variables)
+        x = on_dev[0]["features"]
+        out32 = _model_output(model, variables, x)
+        out64 = _model_output(model, _float64_copy(variables), x.double())
+        out_err = float((out32.double() - out64).abs().max()
+                        / out64.abs().max())
+        log(f"[zoo_cnn] {name}: {n_params:,} parameters, {size}x{size}x3, "
+            f"{classes} classes, built in {time.monotonic() - t0:.1f} s; "
+            f"output vs float64 {out_err:.2e} of its max (tol "
+            f"{TOL_ZOO_OUT:.0e})")
+        if not out_err <= TOL_ZOO_OUT:
+            raise SystemExit(f"chip_smoke: zoo {name}: the output disagrees "
+                             "with float64")
+        f64 = _vs_float64(f"zoo_{name}", trainer, ts0, on_dev[0],
+                          per_leaf_max=name in ZOO_PER_LEAF,
+                          dropout_seed=SEED)
+        steps = _step_events()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ts = trainer.fit(ts0, on_dev, epochs=1, listeners=[steps])
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        losses = [float(v) for v in steps.losses]
+        gaps = [a.elapsed_time(b) for a, b in zip(steps.events,
+                                                  steps.events[1:])]
+        step_ms = float(np.median(gaps))
+        log(f"[zoo_cnn] {name}: {ts.step} steps, losses "
+            f"{[round(v, 4) for v in losses]}, median step {step_ms:.2f} ms "
+            f"({ZOO_BATCH / (step_ms / 1e3):.1f} images/s), peak memory "
+            f"{peak_gib:.2f} GiB")
+        if ts.step != ZOO_STEPS or not np.all(np.isfinite(losses)):
+            raise SystemExit(f"chip_smoke: zoo {name} did not train")
+        breakdown = _step_breakdown(trainer, ts, on_dev[0], ())
+        log(f"[zoo_cnn] {name}: one step {breakdown['wall_ms']:.2f} ms "
+            f"wall, {breakdown['device_ms']:.2f} device, idle "
+            f"{breakdown['device_idle_share']:.1%}; top kernels "
+            f"{breakdown['top_kernels_us']}")
+        results[name] = {"num_params": n_params, "image": size,
+                         "classes": classes, "batch": ZOO_BATCH,
+                         "output_vs_float64": out_err, "vs_float64": f64,
+                         "losses": losses, "median_step_ms": step_ms,
+                         "step_ms_gaps": gaps, "peak_memory_gib": peak_gib,
+                         "step_breakdown": breakdown}
+        del model, trainer, ts0, ts, on_dev, variables, out32, out64
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"models": results, "card": smi}
+
+
+# -- 32. every new layer once on the card ------------------------------------
+
+# (layer class, its fields, batchless input shape): every layer class the
+# CNN slice ported (nn/layers/conv.py), LayerNorm,
+# LocalResponseNormalization, Dropout (eval mode) and PixelOutput, at small
+# shapes. Forward and the gradients of Σ y·c (input and every param) in
+# float32 against the same layer in float64 on the card, each to
+# TOL_LAYER_F64 of its float64 max.
+CONV_LAYER_CASES = [
+    ("Conv1D", dict(filters=8, kernel=3, stride=2, dilation=1), (33, 5)),
+    ("Conv3D", dict(filters=6, kernel=(2, 3, 3), stride=(1, 2, 2)),
+     (6, 9, 10, 4)),
+    ("Deconv2D", dict(filters=6, kernel=3, stride=2), (9, 10, 4)),
+    ("DepthwiseConv2D", dict(depth_multiplier=2, kernel=3, stride=2),
+     (15, 14, 8)),
+    ("SeparableConv2D", dict(filters=12, kernel=3, depth_multiplier=1),
+     (15, 14, 8)),
+    ("Upsampling2D", dict(scale=(2, 3)), (5, 6, 4)),
+    ("ZeroPadding2D", dict(padding=(1, 2, 0, 3)), (5, 6, 4)),
+    ("Cropping2D", dict(cropping=(1, 0, 2, 1)), (7, 8, 4)),
+    ("SpaceToDepth", dict(block_size=2), (8, 10, 4)),
+    ("Pooling1D", dict(pool_type="max", window=3, stride=2,
+                       padding="SAME"), (17, 6)),
+    ("ZeroPadding1D", dict(padding=(1, 2)), (9, 6)),
+    ("Cropping1D", dict(cropping=(1, 2)), (9, 6)),
+    ("Upsampling1D", dict(size=3), (9, 6)),
+    ("Deconv3D", dict(filters=4, kernel=2, stride=2), (4, 5, 6, 3)),
+    ("Pooling3D", dict(pool_type="avg", window=2, padding="SAME"),
+     (5, 6, 7, 3)),
+    ("Upsampling3D", dict(scale=(1, 2, 2)), (3, 4, 5, 3)),
+    ("ZeroPadding3D", dict(padding=(1, 0, 2, 1, 0, 1)), (3, 4, 5, 3)),
+    ("Cropping3D", dict(cropping=(1, 0, 0, 1, 1, 0)), (4, 5, 6, 3)),
+    ("DepthToSpace", dict(block_size=2), (4, 5, 12)),
+    ("LocallyConnected2D", dict(filters=6, kernel=3, stride=2), (9, 10, 4)),
+    ("LocallyConnected1D", dict(filters=6, kernel=3), (12, 5)),
+    ("LayerNorm", dict(), (7, 16)),
+    ("LocalResponseNormalization", dict(), (5, 6, 32)),
+    ("Dropout", dict(rate=0.5), (7, 16)),
+    ("PixelOutput", dict(num_classes=1), (9, 10, 8)),
+    ("PixelOutput", dict(num_classes=3), (9, 10, 8)),
+]
+TOL_LAYER_F64 = 1e-5
+
+
+def _layer_vs_float64(name, kw, shape, dev, seed=SEED) -> dict:
+    """One layer (by ``@class`` name) on ``dev`` in float32 against itself
+    in float64 on ``dev``: its forward (inference) and the gradients of
+    Σ y·c for a cotangent c, into the input and every param; every param
+    leaf drawn from the seed. Errors as fractions of the float64 max."""
+    import deeplearning4j_tpu_torch.models.zoo.pixel  # noqa: F401
+    import deeplearning4j_tpu_torch.nn.layers  # noqa: F401
+    from deeplearning4j_tpu_torch.nn.config import CONFIG_REGISTRY
+
+    layer = CONFIG_REGISTRY[name](**kw)
+    gen = torch.Generator().manual_seed(seed)
+    params, state = layer.init(gen, shape, torch.float32)
+    params = {k: 0.5 * torch.randn(p.shape, generator=gen)
+              for k, p in params.items()}
+    x = torch.randn((2, *shape), generator=gen)
+    ct = torch.randn((2, *layer.output_shape(shape)), generator=gen)
+
+    def run(dtype):
+        p = {k: a.to(dev, dtype).requires_grad_() for k, a in params.items()}
+        xd = x.to(dev, dtype).requires_grad_()
+        y, _ = layer.apply(p, state, xd, train=False)
+        grads = torch.autograd.grad((y * ct.to(dev, dtype)).sum(),
+                                    [xd, *p.values()])
+        return y, dict(zip(["x", *p], grads))
+
+    y32, g32 = run(torch.float32)
+    y64, g64 = run(torch.float64)
+
+    def frac(a, b):
+        a, b = a.detach().double(), b.detach()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    errors = {"y": frac(y32, y64),
+              **{f"d{k}": frac(g32[k], g64[k]) for k in g64}}
+    return {"out_shape": list(y32.shape), "device": str(y32.device),
+            "max_err": max(errors.values()), "errors": errors}
+
+
+def phase_conv_layers(dev, smi):
+    cases = {}
+    for name, kw, shape in CONV_LAYER_CASES:
+        tag = f"{name}({', '.join(f'{k}={v}' for k, v in kw.items())})"
+        row = _layer_vs_float64(name, kw, shape, dev)
+        cases[tag] = row
+        log(f"[conv_layers] {tag} on {row['device']}: out "
+            f"{row['out_shape']}, float32 vs float64 {row['max_err']:.2e} of"
+            f" the max (tol {TOL_LAYER_F64:.0e})")
+        if not row["device"].startswith("cuda") or \
+                not row["max_err"] <= TOL_LAYER_F64:
+            raise SystemExit(f"chip_smoke: conv_layers: {tag} failed")
+    return {"cases": cases, "card": smi}
+
+
 def _delta_entry(bwd_cases, training, gpt_training, s2s_training,
                  smi) -> dict:
     """The kernels line's entry of flash_bwd_delta: the main row is the
@@ -5402,6 +5937,16 @@ def main() -> int:
     gpt_prefix = phase_gpt_prefix_serve(dev, smi, gpt_model, gpt_vars)
     warm_restart = phase_warm_restart(dev, smi, gpt_model, gpt_vars)
     del gpt_model, gpt_vars
+    xception_training, xception_model, xception_vars = phase_xception_train(
+        dev, smi)
+    xception_serving = phase_xception_serve(dev, smi, xception_model,
+                                            xception_vars)
+    del xception_model, xception_vars
+    unet_training, unet_model, unet_vars = phase_unet_train(dev, smi)
+    unet_serving = phase_unet_serve(dev, smi, unet_model, unet_vars)
+    del unet_model, unet_vars
+    zoo_cnn = phase_zoo_cnn(dev, smi)
+    conv_layers = phase_conv_layers(dev, smi)
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
         "name": "flash_fwd", "route": "cuda",
@@ -5526,6 +6071,12 @@ def main() -> int:
     print(json.dumps({"loss_guard": loss_guard}), flush=True)
     print(json.dumps({"seq2seq_training": s2s_training}), flush=True)
     print(json.dumps({"seq2seq_serving": s2s_serving}), flush=True)
+    print(json.dumps({"xception_training": xception_training}), flush=True)
+    print(json.dumps({"xception_serving": xception_serving}), flush=True)
+    print(json.dumps({"unet_training": unet_training}), flush=True)
+    print(json.dumps({"unet_serving": unet_serving}), flush=True)
+    print(json.dumps({"zoo_cnn": zoo_cnn}), flush=True)
+    print(json.dumps({"conv_layers": conv_layers}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

@@ -1,8 +1,7 @@
 """Model zoo (↔ deeplearning4j_tpu.models.zoo): the entries ported so far.
 
-Not ported yet (ROADMAP queue 1 item 10): alexnet, vgg16/19, simplecnn,
-darknet19, squeezenet, unet, xception, the YOLO models,
-inception_resnet_v1 and nasnet.
+Not ported yet (ROADMAP queue 1 item 10): the YOLO models (tiny_yolo,
+yolo2), inception_resnet_v1 and nasnet.
 """
 
 from __future__ import annotations
@@ -11,8 +10,26 @@ from typing import Callable, Dict
 
 from deeplearning4j_tpu_torch.models.lenet import lenet, lenet_config
 from deeplearning4j_tpu_torch.models.zoo.classic import (
+    alexnet,
+    alexnet_config,
+    darknet19,
+    darknet19_config,
+    simplecnn,
+    simplecnn_config,
     text_generation_lstm,
     text_generation_lstm_config,
+    vgg16,
+    vgg16_config,
+    vgg19,
+    vgg19_config,
+)
+from deeplearning4j_tpu_torch.models.zoo.graphs import (
+    squeezenet,
+    squeezenet_config,
+    unet,
+    unet_config,
+    xception,
+    xception_config,
 )
 from deeplearning4j_tpu_torch.models.zoo.resnet import (
     resnet50,
@@ -23,6 +40,14 @@ from deeplearning4j_tpu_torch.models.zoo.resnet import (
 
 ZOO: Dict[str, Callable] = {
     "lenet": lenet,
+    "alexnet": alexnet,
+    "vgg16": vgg16,
+    "vgg19": vgg19,
+    "simplecnn": simplecnn,
+    "darknet19": darknet19,
+    "squeezenet": squeezenet,
+    "unet": unet,
+    "xception": xception,
     "resnet50": resnet50,
     "resnet101": resnet101,
     "resnet152": resnet152,
@@ -40,5 +65,5 @@ def get_model(name: str, **kw):
     return fn(**kw)
 
 
-__all__ = ["ZOO", "get_model", "lenet_config", "resnet_config",
-           "text_generation_lstm_config", *ZOO]
+__all__ = ["ZOO", "get_model"] + sorted(
+    n for n in dir() if n.endswith("_config") or n in ZOO)

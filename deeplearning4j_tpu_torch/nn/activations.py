@@ -18,6 +18,7 @@ ACTIVATIONS: dict[str, Callable] = {
     "gelu": opsnn.gelu,
     "sigmoid": opsnn.sigmoid,
     "softmax": opsnn.softmax,
+    "leakyrelu": opsnn.leaky_relu,
 }
 
 

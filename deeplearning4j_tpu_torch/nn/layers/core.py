@@ -1,4 +1,4 @@
-"""Core feed-forward layers (↔ deeplearning4j_tpu/nn/layers/core.py): ``Dense``, ``Embedding``, ``ActivationLayer``, ``Flatten``.
+"""Core feed-forward layers (↔ deeplearning4j_tpu/nn/layers/core.py): ``Dense``, ``Embedding``, ``ActivationLayer``, ``Dropout``, ``Flatten``.
 
 Param names follow the reference: ``Dense`` "W" [in, out] and "b" [out],
 applied as ``x @ W + b`` then the activation; ``Embedding`` "W" [vocab,
@@ -91,6 +91,32 @@ class ActivationLayer(LayerConfig):
                 return opsnn.thresholded_relu(x, self.alpha), state
             raise ValueError(f"activation {name!r} takes no alpha")
         return get_activation(self.activation)(x), state
+
+
+@register_config
+@dataclass
+class Dropout(LayerConfig):
+    """↔ DropoutLayer. ``rate`` is the DROP probability (the reference's
+    Dropout(x) value is the retain probability). ``kind``: 'standard',
+    'alpha', 'gaussian_dropout' or 'gaussian_noise' (``stddev``). The
+    identity unless training with a generator, as in the JAX package."""
+
+    rate: float = 0.5
+    kind: str = "standard"
+    stddev: float = 1.0  # for gaussian_noise
+
+    def apply(self, params, state, x, *, train=False, generator=None):
+        if not train or generator is None:
+            return x, state
+        if self.kind == "standard":
+            return opsnn.dropout(x, self.rate, generator), state
+        if self.kind == "alpha":
+            return opsnn.alpha_dropout(x, self.rate, generator), state
+        if self.kind == "gaussian_dropout":
+            return opsnn.gaussian_dropout(x, self.rate, generator), state
+        if self.kind == "gaussian_noise":
+            return opsnn.gaussian_noise(x, self.stddev, generator), state
+        raise ValueError(f"unknown dropout kind {self.kind}")
 
 
 @register_config

@@ -1,4 +1,4 @@
-"""Normalization layers (↔ deeplearning4j_tpu/nn/layers/norm.py): ``BatchNorm``.
+"""Normalization layers (↔ deeplearning4j_tpu/nn/layers/norm.py): ``BatchNorm``, ``LayerNorm``, ``LocalResponseNormalization``.
 
 BatchNorm keeps its running statistics as layer *state* ("mean", "var",
 float32 under float32 and bf16 compute), its scale and shift as params
@@ -8,9 +8,8 @@ values with DL4J's ``decay`` convention; both are written as plain tensor
 ops because ``F.batch_norm(training=True)`` computes another function (its
 momentum is ``1 - decay`` and its running variance is the unbiased one).
 
-Not ported yet (ROADMAP queue 1 item 5): ``LayerNorm`` as a layer and
-``LocalResponseNormalization``; cross-replica statistics (``axis_name``)
-wait for the distributed slice.
+Cross-replica statistics (``axis_name``) wait for the distributed slice
+(ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -75,3 +74,40 @@ class BatchNorm(LayerConfig):
             x, state["mean"].to(x.dtype), state["var"].to(x.dtype),
             gamma, beta, eps=self.eps)
         return get_activation(self.activation)(y), state
+
+
+@register_config
+@dataclass
+class LayerNorm(LayerConfig):
+    """Layer normalization over the feature (last) axis, population
+    variance; "gamma"/"beta" when ``use_gamma_beta``."""
+
+    eps: float = 1e-5
+    use_gamma_beta: bool = True
+
+    def init(self, generator, input_shape, dtype):
+        if not self.use_gamma_beta:
+            return {}, {}
+        c = input_shape[-1]
+        return {"gamma": torch.ones((c,), dtype=dtype),
+                "beta": torch.zeros((c,), dtype=dtype)}, {}
+
+    def apply(self, params, state, x, *, train=False, generator=None):
+        return opsnn.layer_norm(x, params.get("gamma"), params.get("beta"),
+                                eps=self.eps), state
+
+
+@register_config
+@dataclass
+class LocalResponseNormalization(LayerConfig):
+    """↔ LocalResponseNormalization: ``ops/nn.lrn`` over the channels of
+    NHWC (TensorFlow's form, AlexNet's defaults)."""
+
+    depth_radius: int = 5
+    bias: float = 1.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def apply(self, params, state, x, *, train=False, generator=None):
+        return opsnn.lrn(x, self.depth_radius, self.bias, self.alpha,
+                         self.beta), state

@@ -1,10 +1,11 @@
-"""Output layers (↔ deeplearning4j_tpu/nn/layers/output.py): ``OutputLayer``, ``RnnOutputLayer``.
+"""Output layers (↔ deeplearning4j_tpu/nn/layers/output.py): ``OutputLayer``, ``RnnOutputLayer``, ``LossLayer``, ``RnnLossLayer``, ``CnnLossLayer``.
 
 An output layer is a dense layer fused with a loss: ``apply`` gives the
 activations (``output()``), ``compute_loss(params, state, x, labels, *,
 mask, weights)`` the scalar training loss, on pre-activation logits where
 the (loss, activation) pair fuses (softmax cross-entropy), as in the JAX
-package.
+package. A loss layer is the same without params: its input is the
+pre-activation.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from dataclasses import dataclass
 import torch
 
 from deeplearning4j_tpu_torch.nn.activations import get_activation
-from deeplearning4j_tpu_torch.nn.config import register_config
+from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_config
 from deeplearning4j_tpu_torch.nn.layers.core import Dense
 from deeplearning4j_tpu_torch.ops import loss as losses
 from deeplearning4j_tpu_torch.ops import nn as opsnn
@@ -87,3 +88,49 @@ class RnnOutputLayer(Dense):
         pre = opsnn.linear(x, params["W"], params.get("b"))
         return _masked_mean_loss(self.loss, self.activation, pre, labels,
                                  mask=mask, weights=weights)
+
+
+@register_config
+@dataclass
+class LossLayer(LayerConfig):
+    """↔ LossLayer: activation + loss, no params; ``mask`` (else
+    ``weights``) weights the per-example losses of the mean."""
+
+    activation: str = "identity"
+    loss: str = "mse"
+
+    def apply(self, params, state, x, *, train=False, generator=None):
+        return get_activation(self.activation)(x), state
+
+    def compute_loss(self, params, state, x, labels, *, mask=None,
+                     weights=None):
+        fn = losses.get_loss(self.loss)
+        w = mask if mask is not None else weights
+        if (self.loss.lower(), self.activation.lower()) in _LOGIT_LOSSES:
+            return fn(x, labels, weights=w)
+        return fn(get_activation(self.activation)(x), labels, weights=w)
+
+
+@register_config
+@dataclass
+class RnnLossLayer(LayerConfig):
+    """↔ RnnLossLayer: per-timestep activation + loss over [N,T,F], no
+    params; ``mask`` [N,T] excludes padded steps."""
+
+    activation: str = "identity"
+    loss: str = "mcxent"
+
+    def apply(self, params, state, x, *, train=False, generator=None):
+        return get_activation(self.activation)(x), state
+
+    def compute_loss(self, params, state, x, labels, *, mask=None,
+                     weights=None):
+        return _masked_mean_loss(self.loss, self.activation, x, labels,
+                                 mask=mask, weights=weights)
+
+
+@register_config
+@dataclass
+class CnnLossLayer(RnnLossLayer):
+    """↔ CnnLossLayer: per-pixel activation + loss over [N,H,W,C], no
+    params; ``mask`` [N,H,W] (or broadcastable) excludes pixels."""

@@ -23,7 +23,8 @@ window from the recurrent layers' carries and hand back the final ones
 (``train.trainer.Trainer`` drives them under ``backprop_type="tbptt"``);
 ``GraphModel`` has neither, as in the JAX package.
 
-Not ported yet: ``summary`` of either model and the build-time name
+``summary`` gives the JAX package's table, character for character, for
+the same config and variables. Not ported yet: the build-time name
 validation (``_validate_registry_names``) (ROADMAP queue 1 item 5).
 """
 
@@ -319,6 +320,27 @@ class SequentialModel:
 
     def num_params(self, variables) -> int:
         return sum(p.numel() for p in tree_leaves(variables["params"]))
+
+    def summary(self, variables=None) -> str:
+        """↔ MultiLayerNetwork.summary(): index, layer class, output shape
+        and param count per layer."""
+        lines = [f"{'idx':<4}{'layer':<28}{'out shape':<20}{'params':<12}",
+                 "=" * 64]
+        total = 0
+        for i, (name, layer) in enumerate(zip(self.layer_names,
+                                              self.layers)):
+            n = _param_count(variables, name)
+            total += n
+            lines.append(f"{i:<4}{type(layer).__name__:<28}"
+                         f"{str(self.shapes[i + 1]):<20}{n:<12}")
+        lines += ["=" * 64, f"total params: {total}"]
+        return "\n".join(lines)
+
+
+def _param_count(variables, name) -> int:
+    if variables is None or name not in variables["params"]:
+        return 0
+    return sum(p.numel() for p in tree_leaves(variables["params"][name]))
 
 
 # --- DAG model ---------------------------------------------------------
@@ -618,3 +640,23 @@ class GraphModel:
 
     def num_params(self, variables) -> int:
         return sum(p.numel() for p in tree_leaves(variables["params"]))
+
+    def summary(self, variables=None) -> str:
+        """↔ ComputationGraph.summary(): the inputs, then every vertex in
+        topological order: kind, inputs, output shape, param count."""
+        lines = [f"{'vertex':<20}{'kind':<18}{'inputs':<24}"
+                 f"{'out shape':<16}{'params':<10}", "=" * 88]
+        for name in self.config.inputs:
+            lines.append(f"{name:<20}{'input':<18}{'-':<24}"
+                         f"{str(self.shapes[name]):<16}{0:<10}")
+        total = 0
+        for name in self.order:
+            v = self.config.vertices[name]
+            kind = type(v.layer).__name__ if v.kind == "layer" else v.kind
+            n = _param_count(variables, name)
+            total += n
+            lines.append(f"{name:<20}{kind:<18}{','.join(v.inputs):<24}"
+                         f"{str(self.shapes[name]):<16}{n:<10}")
+        lines += ["=" * 88, f"total params: {total}   outputs: "
+                            f"{', '.join(self.config.outputs)}"]
+        return "\n".join(lines)

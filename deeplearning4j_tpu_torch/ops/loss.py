@@ -82,3 +82,34 @@ def sparse_softmax_cross_entropy(logits, label_ids, weights=None,
     logp = F.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, ids[..., None])[..., 0]
     return _reduce(ce, reduction, weights)
+
+
+@register_loss("xent")
+@register_loss("binary_cross_entropy")
+def binary_cross_entropy(logits, labels, weights=None, reduction="mean",
+                         eps=1e-7):
+    """Binary cross-entropy on logits, the sigmoid fused (ref:
+    LossBinaryXENT), summed over the last axis. The JAX package writes
+    max(l, 0) − l·y + log1p(exp(−|l|)); ``F.binary_cross_entropy_with_logits``
+    is the same value, and its gradient σ(l) − y holds at l = 0 too, where
+    that expression's would follow the op's tie rule (torch's ``clamp``
+    passes 1, JAX's ``maximum`` 0.5, the right value)."""
+    ce = F.binary_cross_entropy_with_logits(logits, labels.to(logits.dtype),
+                                            reduction="none")
+    return _reduce(torch.sum(ce, dim=-1), reduction, weights)
+
+
+@register_loss("binary_cross_entropy_probs")
+def binary_cross_entropy_probs(probs, labels, weights=None,
+                               reduction="mean", eps=1e-7):
+    """Binary cross-entropy on probabilities clipped to [eps, 1 − eps]."""
+    p = torch.clamp(probs, eps, 1.0 - eps)
+    ce = -(labels * torch.log(p) + (1.0 - labels) * torch.log1p(-p))
+    return _reduce(torch.sum(ce, dim=-1), reduction, weights)
+
+
+@register_loss("mse")
+def mse(pred, target, weights=None, reduction="mean"):
+    """Mean squared error over the last axis per example (ref: LossMSE)."""
+    v = torch.mean(torch.square(pred - target), dim=-1)
+    return _reduce(v, reduction, weights)

@@ -10,9 +10,16 @@ Layouts and numerics follow the JAX package:
   ``x·(γ·rsqrt(var+eps)) + (β − mean·γ·rsqrt(var+eps))``;
 - ``embedding_lookup`` raises on an out-of-range id, where ``jnp.take``
   clamps it (a CUDA gather with a bad index would poison the context);
-- ``dropout`` draws its mask from an explicit ``torch.Generator`` (on the
-  tensor's device) where the JAX version takes a key; the two give
-  different masks from the same seed, the same inverted scaling ``x/keep``.
+- ``lrn`` is TensorFlow's form over the last (channel) axis of NHWC:
+  ``x / (bias + alpha·Σ x²)^beta`` over 2·depth_radius + 1 channels,
+  alpha not divided by the window (``F.local_response_norm`` averages,
+  over NCHW: another function);
+- the random ops (``dropout``, ``alpha_dropout``, ``gaussian_dropout``,
+  ``gaussian_noise``) draw from an explicit ``torch.Generator`` (on the
+  tensor's device) where the JAX versions take a key; the two give
+  different draws from the same seed, from the same distributions. The
+  draws are float32 whatever the activation's dtype, so a float64 copy
+  of a model sees the same mask from the same generator state.
 """
 
 from __future__ import annotations
@@ -90,11 +97,57 @@ def embedding_lookup(table, ids):
     return F.embedding(ids, table)
 
 
+def lrn(x, depth_radius=5, bias=1.0, alpha=1.0, beta=0.5):
+    """Local response normalization over the last (channel) axis."""
+    sq = F.pad(torch.square(x), (depth_radius, depth_radius))
+    window = sq.unfold(-1, 2 * depth_radius + 1, 1).sum(-1)
+    return x / torch.pow(bias + alpha * window, beta)
+
+
+def _keep_mask(x, keep, generator):
+    return torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < keep
+
+
+def _normal(x, generator):
+    return torch.randn(x.shape, generator=generator, device=x.device,
+                       dtype=torch.float32).to(x.dtype)
+
+
 def dropout(x, rate, generator, deterministic=False):
     """Zero each element with probability ``rate`` and scale the kept ones
     by ``1/keep``; a no-op when ``deterministic`` or ``rate == 0``."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0)
+    return torch.where(_keep_mask(x, keep, generator), x / keep, 0.0)
+
+
+def alpha_dropout(x, rate, generator, deterministic=False):
+    """SELU-preserving dropout (ref: DL4J AlphaDropout): dropped elements
+    become SELU's negative saturation, then an affine map restores the
+    mean and variance."""
+    if deterministic or rate == 0.0:
+        return x
+    alpha = 1.6732632423543772
+    scale = 1.0507009873554805
+    alpha_p = -alpha * scale
+    keep = 1.0 - rate
+    a = (keep + alpha_p ** 2 * keep * (1 - keep)) ** -0.5
+    b = -a * alpha_p * (1 - keep)
+    return a * torch.where(_keep_mask(x, keep, generator), x, alpha_p) + b
+
+
+def gaussian_dropout(x, rate, generator, deterministic=False):
+    """Multiplicative N(1, rate/(1 − rate)) noise."""
+    if deterministic or rate == 0.0:
+        return x
+    stddev = (rate / (1.0 - rate)) ** 0.5
+    return x * (1.0 + stddev * _normal(x, generator))
+
+
+def gaussian_noise(x, stddev, generator, deterministic=False):
+    """Additive N(0, stddev²) noise."""
+    if deterministic or stddev == 0.0:
+        return x
+    return x + stddev * _normal(x, generator)

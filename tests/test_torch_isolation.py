@@ -77,6 +77,8 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.serving.metrics",
     "deeplearning4j_tpu_torch.serving.prefixkv",
     "deeplearning4j_tpu_torch.serving.warmstart",
+    "deeplearning4j_tpu_torch.models.zoo.graphs",
+    "deeplearning4j_tpu_torch.models.zoo.pixel",
 ]
 
 
