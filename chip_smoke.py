@@ -248,14 +248,35 @@ caught:
    ported, LayerNorm, LocalResponseNormalization, Dropout (eval) and
    PixelOutput once on the card at a small shape: forward and backward
    against the same layer in float64 on the card, to 1e-5 of the max, the
-   outputs on the card. Phases 27–32 run last.
+   outputs on the card. Phases 27–32 run after the rest.
+33. samediff_bert — a frozen full-width BERT-base GraphDef (the port's
+   bert_base weights from the seed as Const nodes, laid out as
+   TensorFlow's convert_variables_to_constants_v2 lays out a tf.function
+   of Bert.encode; 1,302 nodes) written with the port's codec
+   (modelimport/tf_proto), decoded and imported with import_tf_graph onto
+   the card (node count, op histogram, decode and import seconds);
+   served by sd.output at batch 32 x 128 under
+   torch.cuda.set_sync_debug_mode("error") (nothing copied to the host),
+   the cached plan and the interpreter equal, the hidden states against
+   the native Bert.encode and a float64 run of the same graph (TOL_HIDDEN
+   each way); the weights promoted to VARIABLEs, a [CLS] head and the
+   sparse cross-entropy added through the SameDiff API;
+   calculate_gradients in float32 against float64 (ResNet-50's limits,
+   each leaf's norm floored at TOL_GRAD_FLOOR of the largest); 20 Adam
+   steps of sd.fit on one batch with a falling loss; save -> load with
+   identical outputs and updater state, and the next fit step the same
+   on both; serving and training tokens/s beside the native forward's,
+   idle shares. No hand kernel runs on it (launch counts {}, read for
+   serving and for fit). It runs last.
 
-No TPU kernel lies on phases 13–15, 17, 24 and 27–32: the convolutions,
+No TPU kernel lies on phases 13–15, 17, 24 and 27–33: the convolutions,
 transposed convs and pools run in cuDNN and PyTorch (as the JAX package
 leaves them to XLA: lax.conv_general_dilated, conv_transpose,
 reduce_window), and generation's prefill and decode attend with plain
 matmuls (as the JAX package's einsums, models/gpt.py:298-304, :370-375);
-they launch none of the port's hand kernels.
+they launch none of the port's hand kernels. An imported graph's
+attention (phase 33) is BatchMatMulV2 + Softmax, computed by
+torch.matmul, as the JAX package's SameDiff leaves it to XLA.
 
 On the recurrent paths the plain ops/rnn.lstm and ops/rnn.gru must never
 see a CUDA tensor (they are the plain paths the kernels are held against,
@@ -264,7 +285,8 @@ run separately).
 It prints the kernels line ({"kernels": [...]}), the serving, training,
 char-RNN (TBPTT and sampling too), char-GRU (TBPTT too), bitmap, LeNet-5,
 ResNet-50, GPT-2-small (prefix serving and the warm restart too), loss
-guard, seq2seq, Xception, U-Net, zoo_cnn and conv_layers lines,
+guard, seq2seq, Xception, U-Net, zoo_cnn, conv_layers and samediff_bert
+lines,
 the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
 """
@@ -1499,12 +1521,15 @@ def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev,
 
 
 # Kernel classes of a step's device time, by the CUDA kernel's name: the
-# convolutions (cuDNN's implicit-GEMM, xmma, FFT and Winograd kernels), the
+# convolutions (cuDNN's implicit-GEMM, FFT and Winograd kernels), the
 # dense layers' GEMMs, reductions (BatchNorm's statistics, pools' sums,
 # the loss), pooling, and the elementwise kernels (BatchNorm's normalise,
 # activations, adds, casts, the updater); the rest as "other".
+# cuBLAS names its Hopper/Ampere GEMMs ``sm80_xmma_gemm_*``, and cuDNN its
+# implicit-GEMM convs ``*_xmma_fprop_implicit_gemm_*``: a conv is told by its
+# conv keys, matched first, and ``xmma`` alone says nothing of the class.
 KERNEL_CLASSES = (
-    ("conv", ("conv", "fprop", "dgrad", "wgrad", "xmma", "implicit",
+    ("conv", ("conv", "fprop", "dgrad", "wgrad", "implicit",
               "cudnn", "winograd", "fft")),
     ("gemm", ("gemm", "cutlass", "cublas")),
     ("pool", ("pool",)),
@@ -5847,6 +5872,525 @@ def phase_conv_layers(dev, smi):
     return {"cases": cases, "card": smi}
 
 
+# -- 33. samediff_bert: a frozen BERT-base GraphDef through SameDiff --------
+
+# The frozen graph's feeds and output: the names of Bert.encode's features
+BERT_GRAPH_INPUTS = ("token_ids", "segment_ids", "mask")
+BERT_GRAPH_OUTPUT = "hidden"
+# masked keys: the additive bias of the original BERT (exp(-1e4) is 0 in
+# float32 and float64, as the flash kernel's masked keys are)
+BERT_MASK_BIAS = -10000.0
+GELU_C = 0.7978845608028654  # sqrt(2/pi): the tanh form, jax.nn.gelu's
+SD_BATCH, SD_T = 32, 128      # bench.py bench_bert's shape (:483)
+SD_CALLS = 20                 # timed sd.output calls
+SD_FIT_STEPS = 20
+# Adam's first step moves every weight of the random encoder by ~lr (a
+# sign step) and lifts the loss before it falls: at 1e-5 to 1.54 from
+# 0.79, at 2e-5 to 2.61, ending 0.43 and 0.66 (on an H100)
+SD_LR = 1e-5
+SD_CLASSES = 2
+SD_MARKERS = (1, 2)           # the token at [CLS]'s position names the class
+TOL_SD_INTERP = 1e-6          # interpreted vs the cached plan, max |diff|
+# calculate_gradients' relative L2 over all leaves, beside ResNet-50's
+# TOL_GRAD_L2: float32 reads ~7e-7 against float64 (the float64 copy's own
+# noise ~7e-7 on an H100), a TF32 or bf16 backward 1e-3 or more
+TOL_SD_GRAD_L2 = 1e-4
+
+
+def bert_encoder_params(model) -> dict:
+    """The encoder's weights of a port ``Bert`` as host float32 arrays,
+    under the JAX package's names (the MLM, pooler and NSP heads left
+    out)."""
+    from deeplearning4j_tpu_torch.utils.pytree import flatten_with_names
+
+    return {n: p.detach().float().cpu().numpy()
+            for n, p in flatten_with_names(model.variables()["params"])
+            if n.startswith(("embeddings/", "layer_"))}
+
+
+class _GraphWriter:
+    """NodeDefs in creation order, named as TensorFlow names them (a name
+    taken twice gets ``_1``, ``_2``...)."""
+
+    def __init__(self):
+        from deeplearning4j_tpu_torch.modelimport import tf_proto
+
+        self.pb = tf_proto
+        self.nodes = []
+        self.taken = {}
+        self.reads = []
+
+    def _name(self, base):
+        n = self.taken.get(base, 0)
+        self.taken[base] = n + 1
+        return base if n == 0 else f"{base}_{n}"
+
+    def attr(self, kind, value):
+        return self.pb.AttrValue(kind, value)
+
+    def type_(self, dt):
+        return self.attr("type", dt)
+
+    def node(self, op, inputs, attrs=None, name=None):
+        name = name or self._name(op)
+        self.nodes.append(self.pb.NodeDef(name=name, op=op, input=list(inputs),
+                                          attr=dict(attrs or {})))
+        return name
+
+    def const(self, name, arr):
+        """A Const node: a scalar in its typed field (as TensorFlow writes
+        a Python number), an array in tensor_content."""
+        arr = np.asarray(arr)
+        if arr.ndim == 0:
+            dt = self.pb.NUMPY_DT[str(arr.dtype)]
+            field = {1: "float_val", 3: "int_val"}[dt]
+            t = self.pb.TensorProto(dtype=dt, vals={field: arr.reshape(1)})
+        else:
+            t = self.pb.make_tensor_proto(arr)
+        return self.node("Const", [], {
+            "value": self.attr("tensor", t), "dtype": self.type_(t.dtype)},
+            name=self._name(name))
+
+    def weight(self, name, arr):
+        """A frozen variable read: Const → Identity, as TensorFlow's
+        convert_variables_to_constants_v2 leaves a ReadVariableOp."""
+        c = self.const(name, arr)
+        read = self.node("Identity", [c], {"T": self.type_(1)},
+                         name=self._name(f"{name}/read"))
+        self.reads.append(read)
+        return read
+
+    def op(self, op, *inputs, **attrs):
+        a = {"T": self.type_(1)}
+        a.update(attrs)
+        return self.node(op, inputs, a)
+
+
+def bert_graph_def(params, *, num_heads, eps, batch, seq_len) -> bytes:
+    """A frozen GraphDef of ``Bert.encode`` with ``params`` (numpy, the
+    JAX package's names) as Const nodes: the graph TensorFlow's
+    ``convert_variables_to_constants_v2`` gives for a ``tf.function`` of
+    the same encoder at a fixed [batch, seq_len] (the test
+    tests/test_torch_tfimport.py holds the two to the same ops and
+    outputs). Embedding tables are gathered straight from their Const
+    (ResourceGather → GatherV2), every other weight read through an
+    Identity; positions are ``GatherV2(Range)``; masked keys get
+    BERT_MASK_BIAS; LayerNorm is the population-variance decomposition;
+    gelu the tanh form. The one output, ``hidden`` [batch, seq_len,
+    width], hangs off a NoOp that holds every read, as in TF's graph."""
+    g = _GraphWriter()
+    pb = g.pb
+    n, t = batch, seq_len
+    width = params["embeddings/word"].shape[1]
+    head = width // num_heads
+    layers = sorted({k.split("/")[0] for k in params
+                     if k.startswith("layer_")}, key=lambda s: int(s[6:]))
+    f32, i32 = np.float32, np.int32
+
+    def shape_attr(dims):
+        return g.attr("shape", pb.TensorShapeProto([pb.Dim(d) for d in dims]))
+
+    ids = g.node("Placeholder", [], {"dtype": g.type_(3),
+                                     "shape": shape_attr((n, t))},
+                 name=BERT_GRAPH_INPUTS[0])
+    seg = g.node("Placeholder", [], {"dtype": g.type_(3),
+                                     "shape": shape_attr((n, t))},
+                 name=BERT_GRAPH_INPUTS[1])
+    mask = g.node("Placeholder", [], {"dtype": g.type_(1),
+                                      "shape": shape_attr((n, t))},
+                  name=BERT_GRAPH_INPUTS[2])
+
+    def gather(table, idx):
+        return g.node("GatherV2", [table, idx,
+                                   g.const("Gather/axis", i32(0))],
+                      {"Tparams": g.type_(1), "Tindices": g.type_(3),
+                       "Taxis": g.type_(3), "batch_dims": g.attr("i", 0)})
+
+    def matmul(a, b, adj_y=False):
+        return g.op("BatchMatMulV2", a, b, adj_x=g.attr("b", False),
+                    adj_y=g.attr("b", adj_y))
+
+    def mean(x):
+        return g.op("Mean", x, g.const("Mean/reduction_indices", i32(-1)),
+                    keep_dims=g.attr("b", True), Tidx=g.type_(3))
+
+    def layer_norm(x, prefix, gamma, beta):
+        m = mean(x)
+        centred = g.op("Sub", x, m)
+        var = mean(g.op("SquaredDifference", x, m))
+        inv = g.op("Rsqrt", g.op("AddV2", var, g.const("add/y", f32(eps))))
+        scaled = g.op("Mul", g.op("Mul", centred, inv),
+                      g.weight(f"{prefix}{gamma}", params[f"{prefix}{gamma}"]))
+        return g.op("AddV2", scaled,
+                    g.weight(f"{prefix}{beta}", params[f"{prefix}{beta}"]))
+
+    def reshape(x, dims):
+        return g.op("Reshape", x, g.const("Reshape/shape", i32(dims)),
+                    Tshape=g.type_(3))
+
+    def transpose(x, perm):
+        return g.op("Transpose", x, g.const("transpose/perm", i32(perm)),
+                    Tperm=g.type_(3))
+
+    def dense(x, w, b):
+        return g.op("AddV2", matmul(x, g.weight(w, params[w])),
+                    g.weight(b, params[b]))
+
+    def heads(x):
+        return transpose(reshape(x, [n, t, num_heads, head]), [0, 2, 1, 3])
+
+    def gelu(x):
+        cube = g.op("Mul", g.const("Gelu/Cast/x", f32(0.044715)),
+                    g.op("Pow", x, g.const("Gelu/Pow/y", f32(3.0))))
+        inner = g.op("Mul", g.const("Gelu/mul_2/x", f32(GELU_C)),
+                     g.op("AddV2", x, cube))
+        half = g.op("Mul", g.const("Gelu/mul/x", f32(0.5)), x)
+        return g.op("Mul", half, g.op("AddV2", g.const("Gelu/add_1/x",
+                                                       f32(1.0)),
+                                      g.op("Tanh", inner)))
+
+    positions = g.node("Range", [g.const("range/start", i32(0)),
+                                 g.const("range/limit", i32(t)),
+                                 g.const("range/delta", i32(1))],
+                       {"Tidx": g.type_(3)}, name="range")
+    x = g.op("AddV2", gather(g.const("embeddings/word",
+                                     params["embeddings/word"]), ids),
+             gather(g.const("embeddings/position",
+                            params["embeddings/position"]), positions))
+    x = g.op("AddV2", x, gather(g.const("embeddings/type",
+                                        params["embeddings/type"]), seg))
+    x = layer_norm(x, "embeddings/", "ln_gamma", "ln_beta")
+    bias = g.op("Mul", g.op("Sub", g.const("sub/x", f32(1.0)),
+                            reshape(mask, [n, 1, 1, t])),
+                g.const("mul/y", f32(BERT_MASK_BIAS)))
+    for layer in layers:
+        p = f"{layer}/attention/"
+        q = heads(dense(x, p + "Wq", p + "bq"))
+        k = heads(dense(x, p + "Wk", p + "bk"))
+        v = heads(dense(x, p + "Wv", p + "bv"))
+        scores = g.op("Mul", matmul(q, k, adj_y=True),
+                      g.const("mul/y", f32(head ** -0.5)))
+        probs = g.op("Softmax", g.op("AddV2", scores, bias))
+        ctx = reshape(transpose(matmul(probs, v), [0, 2, 1, 3]), [n, t, width])
+        x = layer_norm(g.op("AddV2", x, dense(ctx, p + "Wo", p + "bo")),
+                       f"{layer}/", "ln1_gamma", "ln1_beta")
+        ffn = dense(gelu(dense(x, f"{layer}/W1", f"{layer}/b1")),
+                    f"{layer}/W2", f"{layer}/b2")
+        x = layer_norm(g.op("AddV2", x, ffn), f"{layer}/", "ln2_gamma",
+                       "ln2_beta")
+    hold = g.node("NoOp", [f"^{r}" for r in g.reads])
+    g.node("Identity", [x, f"^{hold}"], {"T": g.type_(1)},
+           name=BERT_GRAPH_OUTPUT)
+    return pb.GraphDef(node=g.nodes).encode()
+
+
+def _sd_batch(vocab, seed=SEED):
+    """[SD_BATCH, SD_T] ids, segments and a key mask (lengths 8..T, no row
+    fully masked: the flash kernel gives such a row zeros, the graph's
+    softmax a uniform row), and class labels, learnable from the batch:
+    the first token (where [CLS] stands) is SD_MARKERS[label]."""
+    r = np.random.default_rng(seed)
+    lengths = r.integers(8, SD_T + 1, SD_BATCH)
+    pos = np.arange(SD_T)[None, :]
+    labels = r.integers(0, SD_CLASSES, SD_BATCH).astype(np.int32)
+    ids = r.integers(0, vocab, (SD_BATCH, SD_T)).astype(np.int32)
+    ids[:, 0] = np.asarray(SD_MARKERS, np.int32)[labels]
+    return {
+        "token_ids": ids,
+        "segment_ids": (pos >= lengths[:, None] // 2).astype(np.int32),
+        "mask": (pos < lengths[:, None]).astype(np.float32),
+        "labels": labels,
+    }
+
+
+def _sd_float64(sd):
+    """The same graph with every floating value in float64, on the same
+    device (built from to_dict; under enable_x64 the values keep 64
+    bits)."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, enable_x64
+
+    with enable_x64():
+        sd64 = SameDiff.from_dict(sd.to_dict(), device=sd.device)
+        for name, value in sd._values.items():
+            sd64.set_value(name, value.double() if value.is_floating_point()
+                           else value)
+    return sd64
+
+
+def _sd_timed(fn, calls=SD_CALLS):
+    """Per-call wall ms of ``fn`` (synchronised), after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return np.asarray(ms)
+
+
+def phase_samediff_bert(dev, smi):
+    """A frozen full-width BERT-base GraphDef, written with the port's
+    codec from ``Bert.init(SEED)``'s weights, decoded and imported with
+    ``import_tf_graph`` onto the card; served with ``sd.output`` (against
+    the native ``Bert.encode`` and a float64 run of the same graph),
+    then fine-tuned with ``sd.fit`` through a [CLS] head, saved and
+    loaded."""
+    from collections import Counter
+
+    from deeplearning4j_tpu_torch.autodiff import (
+        SameDiff,
+        TrainingConfig,
+        enable_x64,
+    )
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.modelimport import import_tf_graph, tf_proto
+    from deeplearning4j_tpu_torch.models.bert import bert_base
+    from deeplearning4j_tpu_torch.nn import config as nnconfig
+    from deeplearning4j_tpu_torch.utils.pytree import tree_leaves
+
+    model = bert_base(device=dev, net=nnconfig.NeuralNetConfiguration(
+        seed=SEED))
+    cfg = model.config
+    params = bert_encoder_params(model)
+    t0 = time.monotonic()
+    blob = bert_graph_def(params, num_heads=cfg.num_heads, eps=cfg.eps,
+                          batch=SD_BATCH, seq_len=SD_T)
+    write_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    gd = tf_proto.GraphDef.decode(blob)
+    decode_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    sd, in_map, out_map = import_tf_graph(gd, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.monotonic() - t0
+    hist = dict(sorted(Counter(nd.op for nd in gd.node).items(),
+                       key=lambda kv: -kv[1]))
+    hidden = out_map[BERT_GRAPH_OUTPUT]
+    n_params = sum(a.size for a in params.values())
+    log(f"[samediff_bert] frozen BERT-base GraphDef ({n_params:,} encoder "
+        f"parameters): {len(blob):,} bytes, "
+        f"{len(gd.node)} nodes {hist}; written in {write_s:.2f} s, decoded "
+        f"in {decode_s:.3f} s, imported in {import_s:.2f} s "
+        f"({len(sd.ops())} SameDiff ops)")
+    graph_bytes = len(blob)
+    del blob
+
+    batch = _sd_batch(cfg.vocab_size)
+    feeds = {in_map[k]: torch.from_numpy(batch[k]).to(dev)
+             for k in BERT_GRAPH_INPUTS}
+    tokens = SD_BATCH * SD_T
+
+    # -- serve: the path, with every count at 0 before it ------------------
+    _dispatch.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")  # a copy to the host raises
+    try:
+        h_plan = sd.output(feeds, [hidden])[hidden]
+        h_interp = sd.output(feeds, [hidden], interpreted=True)[hidden]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    serve_ms = _sd_timed(lambda: sd.output(feeds, [hidden]))
+    launches = {"serving": dict(_dispatch.launch_counts())}
+    interp_err = float((h_plan - h_interp).abs().max())
+
+    # -- against the native encoder and a float64 run of the same graph ----
+    with torch.inference_mode():
+        fb = {k: torch.from_numpy(batch[k]).to(dev) for k in BERT_GRAPH_INPUTS}
+        h_native = model.encode(fb)
+        native_ms = _sd_timed(lambda: model.encode(fb))
+    sd64 = _sd_float64(sd)
+    with enable_x64():
+        h64 = sd64.output(feeds, [hidden])[hidden]
+    del sd64
+    err_native = float((h_plan - h_native).abs().max())
+    err_64 = float((h_plan.double() - h64).abs().max())
+    err_native_64 = float((h_native.double() - h64).abs().max())
+    width = cfg.hidden
+    log(f"[samediff_bert] sd.output hidden [{SD_BATCH},{SD_T},{width}] vs "
+        f"Bert.encode {err_native:.3e}, vs float64 {err_64:.3e}, Bert.encode "
+        f"vs float64 {err_native_64:.3e} (tol {TOL_HIDDEN:.0e}); interpreted"
+        f" vs cached plan {interp_err:.3e} (tol {TOL_SD_INTERP:.0e})")
+    if not (h_plan.dtype == torch.float32 and h64.dtype == torch.float64
+            and tuple(h_plan.shape) == (SD_BATCH, SD_T, width)
+            and bool(torch.isfinite(h_plan).all())):
+        raise SystemExit("chip_smoke: samediff_bert: bad served hidden "
+                         "states")
+    if max(err_native, err_64, err_native_64) > TOL_HIDDEN or \
+            interp_err > TOL_SD_INTERP:
+        raise SystemExit("chip_smoke: samediff_bert: outputs disagree")
+    del h_native, h64, h_interp
+
+    # -- fine-tune: weights promoted, a [CLS] head and the sparse loss ------
+    weights = [n for n in params if n in sd._vars]
+    for name in weights:
+        sd.convert_to_variable(name)
+    h = sd.get_variable(hidden)
+    select = np.zeros((1, SD_T), np.float32)
+    select[0, 0] = 1.0  # [CLS]: row 0 of every sequence
+    cls = sd.constant("cls_select", select).mmul(h).reshape(SD_BATCH, width)
+    rng = np.random.default_rng(SEED)
+    w_cls = sd.var("classifier/W", (0.02 * rng.standard_normal(
+        (width, SD_CLASSES))).astype(np.float32))
+    b_cls = sd.var("classifier/b", np.zeros(SD_CLASSES, np.float32))
+    labels = sd.placeholder("labels", (SD_BATCH,), "int32")
+    loss = sd.loss.sparse_softmax_cross_entropy(cls.mmul(w_cls) + b_cls,
+                                                labels)
+    train_feeds = dict(feeds, labels=torch.from_numpy(
+        batch["labels"]).to(dev))
+    tcfg = TrainingConfig(
+        loss_variable=loss.name, feature_placeholders=list(feeds),
+        label_placeholders=["labels"], updater="adam",
+        updater_args={"learning_rate": SD_LR})
+    events = _step_events()
+    _dispatch.reset_launch_counts()
+    t0 = time.monotonic()
+    history = sd.fit([train_feeds], tcfg, epochs=SD_FIT_STEPS,
+                     listeners=[events])
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches["fit"] = dict(_dispatch.launch_counts())
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in
+                          zip(events.events, events.events[1:])])
+    log(f"[samediff_bert] hand-kernel launches serving and over "
+        f"{SD_FIT_STEPS} fit steps: {launches} (this path runs none)")
+    if launches["serving"] or launches["fit"]:
+        raise SystemExit("chip_smoke: samediff_bert launched a hand kernel")
+
+    # -- no fallback: every value, state leaf and output on the card -------
+    off = [n for n, v in sd._values.items() if v.device.type != "cuda"]
+    off += [f"updater leaf {i}" for i, v in
+            enumerate(tree_leaves(sd._updater_state))
+            if v.device.type != "cuda"]
+    if off or h_plan.device.type != "cuda":
+        raise SystemExit(f"chip_smoke: samediff_bert: off the card: "
+                         f"{off[:5]}")
+
+    # gradients of the trained graph, float32 against float64
+    loss32 = float(sd.output(train_feeds, [loss.name])[loss.name])
+    g32 = sd.calculate_gradients(train_feeds, loss.name)
+    sd64 = _sd_float64(sd)
+    with enable_x64():
+        loss64 = float(sd64.output(train_feeds, [loss.name])[loss.name])
+        g64 = sd64.calculate_gradients(train_feeds, loss.name)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        for name in g64:  # the float64 copy's own spread (params moved by 2^-24)
+            w = sd64._values[name]
+            sd64.set_value(name, w * (1 + 2.0 ** -24 * torch.randn(
+                w.shape, generator=gen, device=dev, dtype=w.dtype)))
+        g_noise = sd64.calculate_gradients(train_feeds, loss.name)
+    del sd64
+    loss_rel = abs(loss32 - loss64) / abs(loss64)
+    # ResNet-50's relative L2 limits, each leaf's norm floored at
+    # TOL_GRAD_FLOOR of the largest leaf's (as _check_grads floors a max):
+    # the key biases' gradient is zero but for rounding (softmax ignores a
+    # shift of a query's scores), and an error over zero has no scale
+    top = max(float(w.norm()) for w in g64.values())
+    floors = {n: max(float(w.norm()), TOL_GRAD_FLOOR * top)
+              for n, w in g64.items()}
+    floored = sorted(n for n, w in g64.items()
+                     if float(w.norm()) < TOL_GRAD_FLOOR * top)
+    _, all_l2 = _l2_errors(g32, g64)
+    leaf_l2 = {n: float((g32[n].double() - w).norm()) / floors[n]
+               for n, w in g64.items()}
+    worst = max(leaf_l2, key=leaf_l2.get)
+    noise_all = _l2_errors(g_noise, g64)[1]
+    noise_worst = max(float((g_noise[n] - w).norm()) / floors[n]
+                      for n, w in g64.items())
+    del g32, g64, g_noise
+    log(f"[samediff_bert] calculate_gradients float32 vs float64 over "
+        f"{len(leaf_l2)} variables: loss {loss32:.7f} vs {loss64:.7f} (rel "
+        f"{loss_rel:.2e}, tol {TOL_LOSS_REL:.0e}); relative L2 {all_l2:.2e} "
+        f"(tol {TOL_SD_GRAD_L2:.0e}), worst {worst} {leaf_l2[worst]:.2e} "
+        f"(tol {TOL_GRAD_L2:.0e}); the "
+        f"float64 copy's own under 2^-24 noise {noise_all:.2e}, worst leaf "
+        f"{noise_worst:.2e}; {len(floored)} leaves floored at "
+        f"{TOL_GRAD_FLOOR:.0e} of the largest norm ({floored[:4]}...)")
+    if loss_rel > TOL_LOSS_REL or all_l2 > min(TOL_GRAD_L2, TOL_SD_GRAD_L2) \
+            or leaf_l2[worst] > TOL_GRAD_L2:
+        raise SystemExit("chip_smoke: samediff_bert: float32 gradients "
+                         "disagree with float64")
+    if not (np.all(np.isfinite(history)) and history[-1] < history[0]):
+        raise SystemExit(f"chip_smoke: samediff_bert: the loss did not fall "
+                         f"over {SD_FIT_STEPS} fit steps: {history}")
+    log(f"[samediff_bert] sd.fit {SD_FIT_STEPS} Adam({SD_LR}) steps on one "
+        f"batch: loss {' '.join(f'{h:.4f}' for h in history)}; step "
+        f"{np.median(step_ms):.2f} ms median "
+        f"({tokens / np.median(step_ms) * 1e3:.0f} tokens/s), fit wall "
+        f"{fit_s:.2f} s")
+
+    # -- save -> load: the same outputs, and fit resumes its Adam state ----
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "bert_base.sdz"
+        t0 = time.monotonic()
+        sd.save(path)
+        save_s = time.monotonic() - t0
+        size = path.stat().st_size
+        t0 = time.monotonic()
+        sd2 = SameDiff.load(path, device=dev)
+        load_s = time.monotonic() - t0
+    outs = [hidden, loss.name]
+    a, b = sd.output(train_feeds, outs), sd2.output(train_feeds, outs)
+    same_out = all(torch.equal(a[k], b[k]) for k in outs)
+    saved = [v.cpu().numpy() for v in tree_leaves(sd._updater_state)]
+    same_state = len(saved) == len(sd2._updater_leaves) and all(
+        np.array_equal(x, y) for x, y in zip(saved, sd2._updater_leaves))
+    next_a = sd.fit([train_feeds], epochs=1)[0]
+    next_b = sd2.fit([train_feeds], epochs=1)[0]
+    step_gap = max(float((sd._values[n] - sd2._values[n]).abs().max())
+                   for n in weights)
+    log(f"[samediff_bert] save {size / 2**20:.1f} MiB in {save_s:.2f} s, "
+        f"load {load_s:.2f} s: outputs identical {same_out}, updater leaves "
+        f"identical {same_state}; the next step's loss {next_a:.7f} vs "
+        f"{next_b:.7f}, weights after it {step_gap:.2e} apart (limit "
+        f"{0.01 * SD_LR:.0e}: a fresh Adam state moves them by ~{SD_LR:.0e})")
+    if not (same_out and same_state and sd2._iteration == sd._iteration
+            and next_a == next_b and step_gap <= 0.01 * SD_LR):
+        raise SystemExit("chip_smoke: samediff_bert: save/load did not "
+                         "resume")
+    del sd2
+
+    serve_bd = _step_breakdown(None, None, None, (),
+                               step=lambda: sd.output(feeds, [hidden]))
+    train_bd = _step_breakdown(None, None, None, (),
+                               step=lambda: sd.fit([train_feeds], epochs=1))
+    out = {
+        "graph_bytes": graph_bytes, "nodes": len(gd.node),
+        "encoder_params": n_params,
+        "op_histogram": hist, "samediff_ops": len(sd.ops()),
+        "write_s": write_s, "decode_s": decode_s, "import_s": import_s,
+        "batch": SD_BATCH, "seq_len": SD_T, "calls": SD_CALLS,
+        "serve_tokens_per_s": tokens / (np.median(serve_ms) / 1e3),
+        "serve_p50_ms": float(np.percentile(serve_ms, 50)),
+        "serve_p99_ms": float(np.percentile(serve_ms, 99)),
+        "native_tokens_per_s": tokens / (np.median(native_ms) / 1e3),
+        "native_p50_ms": float(np.percentile(native_ms, 50)),
+        "native_p99_ms": float(np.percentile(native_ms, 99)),
+        "max_abs_err_vs_native": err_native, "max_abs_err_vs_float64": err_64,
+        "native_max_abs_err_vs_float64": err_native_64,
+        "interpreted_vs_plan": interp_err,
+        "loss_rel_vs_float64": loss_rel, "grad_l2_vs_float64": all_l2,
+        "worst_grad_leaf": worst, "worst_grad_l2": leaf_l2[worst],
+        "noise_grad_l2": noise_all, "noise_worst_grad_l2": noise_worst,
+        "grad_leaves_floored": floored,
+        "fit_steps": SD_FIT_STEPS, "fit_lr": SD_LR, "loss_history": history,
+        "train_step_ms": float(np.median(step_ms)),
+        "train_tokens_per_s": tokens / (np.median(step_ms) / 1e3),
+        "save_s": save_s, "load_s": load_s, "saved_bytes": size,
+        "launches": launches, "serve_breakdown": serve_bd,
+        "train_breakdown": train_bd, "card": smi,
+    }
+    log(f"[samediff_bert] serving {out['serve_tokens_per_s']:.0f} tokens/s "
+        f"(p50 {out['serve_p50_ms']:.2f} ms, p99 {out['serve_p99_ms']:.2f} ms"
+        f" a call) beside the native Bert.encode's "
+        f"{out['native_tokens_per_s']:.0f} (p50 {out['native_p50_ms']:.2f} ms)"
+        f"; training {out['train_tokens_per_s']:.0f} tokens/s; idle share "
+        f"serving {serve_bd['device_idle_share']:.1%}, training "
+        f"{train_bd['device_idle_share']:.1%}, on {smi}")
+    return out
+
+
 def _delta_entry(bwd_cases, training, gpt_training, s2s_training,
                  smi) -> dict:
     """The kernels line's entry of flash_bwd_delta: the main row is the
@@ -5947,6 +6491,7 @@ def main() -> int:
     del unet_model, unet_vars
     zoo_cnn = phase_zoo_cnn(dev, smi)
     conv_layers = phase_conv_layers(dev, smi)
+    samediff_bert = phase_samediff_bert(dev, smi)
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
         "name": "flash_fwd", "route": "cuda",
@@ -6077,6 +6622,7 @@ def main() -> int:
     print(json.dumps({"unet_serving": unet_serving}), flush=True)
     print(json.dumps({"zoo_cnn": zoo_cnn}), flush=True)
     print(json.dumps({"conv_layers": conv_layers}), flush=True)
+    print(json.dumps({"samediff_bert": samediff_bert}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

@@ -68,12 +68,13 @@ def sparse_softmax_cross_entropy(logits, label_ids, weights=None,
     Ids outside [0, C) raise a ``RuntimeError`` ("out of bounds") on any
     device, checked before the gather with one host sync: on a CUDA
     tensor the gather itself would fail by a device-side assert, which
-    breaks the CUDA context for the rest of the process. (The JAX
+    breaks the CUDA context for the rest of the process. A ``meta``
+    tensor (shape inference) holds no ids to check. (The JAX
     package's ``take_along_axis`` reads −1 as the last class and gives
     NaN for an id ≥ C.)"""
     ids = label_ids.long()
     n_classes = logits.shape[-1]
-    if ids.numel():
+    if ids.numel() and ids.device.type != "meta":
         lo, hi = torch.aminmax(ids)
         if int(lo) < 0 or int(hi) >= n_classes:
             raise RuntimeError(

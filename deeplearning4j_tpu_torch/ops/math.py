@@ -1,11 +1,38 @@
 """Math ops (↔ deeplearning4j_tpu/ops/math.py) — the clipping that gradient
-normalization uses."""
+normalization uses, and the elementwise ops that the TF importer records
+(``math.sign`` … ``math.one_hot``) and ``SDVariable.norm2`` calls."""
 
 from __future__ import annotations
 
 import torch
 
 from deeplearning4j_tpu_torch.utils.pytree import tree_leaves, tree_map
+
+sign = torch.sign
+floor = torch.floor
+ceil = torch.ceil
+round = torch.round  # noqa: A001 - half to even, as jnp.round
+sin = torch.sin
+cos = torch.cos
+logical_and = torch.logical_and
+
+
+def norm2(x, axis=None, keepdims=False):
+    dims = tuple(range(x.dim())) if axis is None else axis
+    return torch.sqrt(torch.sum(torch.square(x), dim=dims, keepdim=keepdims))
+
+
+def one_hot(indices, depth, dtype=torch.float32, axis=-1, on_value=1.0,
+            off_value=0.0):
+    """↔ ``jax.nn.one_hot``: an id outside [0, depth) gives a row of zeros
+    (``F.one_hot`` would raise)."""
+    classes = torch.arange(depth, device=indices.device)
+    oh = (indices[..., None] == classes).to(dtype)
+    if axis != -1:
+        oh = torch.movedim(oh, -1, axis)
+    if on_value != 1.0 or off_value != 0.0:
+        oh = oh * (on_value - off_value) + off_value
+    return oh
 
 
 def clip_by_norm(x, max_norm, axes=None):

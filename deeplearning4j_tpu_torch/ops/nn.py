@@ -86,9 +86,10 @@ def safe_sq_norm(x, axis=-1, keepdims=True, eps=1e-8):
 
 
 def embedding_lookup(table, ids):
-    """Rows of ``table`` [V, E] for integer ``ids`` (any shape)."""
+    """Rows of ``table`` [V, E] for integer ``ids`` (any shape); a
+    ``meta`` tensor (shape inference) holds no ids to check."""
     ids = ids.long()
-    if ids.numel():
+    if ids.numel() and ids.device.type != "meta":
         lo, hi = torch.aminmax(ids)
         if int(lo) < 0 or int(hi) >= table.shape[0]:
             raise IndexError(

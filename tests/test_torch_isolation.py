@@ -79,6 +79,12 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.serving.warmstart",
     "deeplearning4j_tpu_torch.models.zoo.graphs",
     "deeplearning4j_tpu_torch.models.zoo.pixel",
+    "deeplearning4j_tpu_torch.autodiff",
+    "deeplearning4j_tpu_torch.autodiff.samediff",
+    "deeplearning4j_tpu_torch.autodiff.validation",
+    "deeplearning4j_tpu_torch.modelimport",
+    "deeplearning4j_tpu_torch.modelimport.tf",
+    "deeplearning4j_tpu_torch.modelimport.tf_proto",
 ]
 
 
@@ -91,7 +97,9 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'deeplearning4j_tpu' "
-        "or m.startswith('deeplearning4j_tpu.'))\n"
+        "or m.startswith('deeplearning4j_tpu.') or m == 'tensorflow' "
+        "or m.startswith('tensorflow.') or m == 'google.protobuf' "
+        "or m.startswith('google.protobuf.'))\n"
         "print(bad)\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
@@ -111,7 +119,13 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         "text_generation_lstm\n"
         "from deeplearning4j_tpu_torch.models.zoo import lenet, resnet50\n"
         "from deeplearning4j_tpu_torch.models.gpt import gpt_tiny\n"
+        "import numpy as np\n"
+        "from deeplearning4j_tpu_torch.autodiff import SameDiff, "
+        "check_gradients\n"
         "calls = [default_device, lambda: bert_tiny(), lambda: gpt_tiny(),\n"
+        "         lambda: SameDiff.create(),\n"
+        "         lambda: check_gradients(lambda p: p['w'].sum(),\n"
+        "                                 {'w': np.ones(2)}),\n"
         "         lambda: text_generation_lstm(),\n"
         "         lambda: lenet(), lambda: resnet50(),\n"
         "         lambda: ParallelInference(lambda v, x: x, {}),\n"
@@ -127,7 +141,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         "print('refused', len(calls))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr + out.stdout
-    assert out.stdout.strip() == "refused 8"
+    assert out.stdout.strip() == "refused 10"
 
 
 def test_explicit_cpu_is_honoured():
