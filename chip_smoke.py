@@ -108,7 +108,7 @@ caught:
    loss; step time, samples/s, peak memory, idle share and device time
    by kernel class (conv, elementwise, reduce, ...).
 15. ResNet-50 serving — the trained ResNet-50 behind ModelServer
-   (batched, max batch 8), 100 requests of 1–2 NHWC images as JSON from
+   (batched, max batch 8), 50 requests of 1–2 NHWC images as JSON from
    4 client threads; every response against output_single to 1e-5;
    requests/s, p50/p99, a bucket-8 forward's wall and device time, and
    the host time of one request's JSON.
@@ -235,7 +235,7 @@ caught:
    the disc's mask the label: one step against the float64 copy (LeNet-5's
    limits), 30 float32 steps of fit with the last loss below the first,
    pixel accuracy, step time, images/s, peak memory, idle share.
-30. U-Net serving — behind ModelServer (max batch 8), 100 requests of 1–4
+30. U-Net serving — behind ModelServer (max batch 8), 50 requests of 1–4
    disc images from 8 clients; every mask [n, 128, 128, 1] against
    output_single to 1e-5; requests/s, p50/p99, JSON host time.
 31. zoo_cnn — alexnet, vgg16, vgg19, simplecnn, darknet19 and squeezenet
@@ -267,16 +267,45 @@ caught:
    identical outputs and updater state, and the next fit step the same
    on both; serving and training tokens/s beside the native forward's,
    idle shares. No hand kernel runs on it (launch counts {}, read for
-   serving and for fit). It runs last.
+   serving and for fit).
+34. convlstm_train — Keras 2's examples/conv_lstm.py next-frame model at
+   its full width (4 × [ConvLSTM2D(40, 3×3, SAME) → BatchNorm], Conv3D(1,
+   3×3×3) with sigmoid + binary cross-entropy, AdaDelta(rho 0.95, eps
+   1e-7); 406,681 parameters) on the example's generate_movies (15 frames
+   of 40 × 40, moving squares with noise rings, the next frame the
+   target), batch 10: one step against the float64 copy (U-Net's limits),
+   30 float32 steps of fit with a falling loss and a checkpoint restored
+   bit-equal; step time, movies/s, frames/s, peak memory, idle share,
+   device time by class.
+35. convlstm_tbptt — the same model with backprop_type "tbptt" and
+   tbptt_length 5 (3 windows a movie): one batch window by window in
+   float32 and in the float64 copy from one state (each window's loss 1e-5
+   relative, the carries handed on TOL_CARRY of their max); tbptt_length
+   15 (one window) against the standard step, bit for bit (cuDNN held to
+   its deterministic algorithms on both sides); 10 batches of fit with a
+   checkpoint restored bit-equal; batch time, windows/s, a window's
+   breakdown.
+36. convlstm_serve — the trained model behind ModelServer (max batch 8),
+   100 requests of 1–2 held-out movies from 4 clients, the frames back as
+   JSON, each against output to 1e-5; requests/s, movies/s, p50/p99, the
+   JSON host time of a 2-movie request beside a bucket-8 forward; then
+   the example's rollout: 7 frames of a held-out movie, 8 more predicted
+   one at a time by sending the whole track to the served model (an entry
+   a track length), each new frame within TOL_ROLLOUT of its max of the
+   float64 copy's rollout. Phases 34–36 run last; their launch counts
+   must be {}.
 
-No TPU kernel lies on phases 13–15, 17, 24 and 27–33: the convolutions,
+No TPU kernel lies on phases 13–15, 17, 24 and 27–36: the convolutions,
 transposed convs and pools run in cuDNN and PyTorch (as the JAX package
 leaves them to XLA: lax.conv_general_dilated, conv_transpose,
 reduce_window), and generation's prefill and decode attend with plain
 matmuls (as the JAX package's einsums, models/gpt.py:298-304, :370-375);
 they launch none of the port's hand kernels. An imported graph's
 attention (phase 33) is BatchMatMulV2 + Softmax, computed by
-torch.matmul, as the JAX package's SameDiff leaves it to XLA.
+torch.matmul, as the JAX package's SameDiff leaves it to XLA. ConvLSTM2D
+(phases 34–36) is, in the JAX package, a lax.scan over XLA convs
+(deeplearning4j_tpu/nn/layers/recurrent.py:316-432); in the port an eager
+loop over cuDNN convs.
 
 On the recurrent paths the plain ops/rnn.lstm and ops/rnn.gru must never
 see a CUDA tensor (they are the plain paths the kernels are held against,
@@ -285,8 +314,8 @@ run separately).
 It prints the kernels line ({"kernels": [...]}), the serving, training,
 char-RNN (TBPTT and sampling too), char-GRU (TBPTT too), bitmap, LeNet-5,
 ResNet-50, GPT-2-small (prefix serving and the warm restart too), loss
-guard, seq2seq, Xception, U-Net, zoo_cnn, conv_layers and samediff_bert
-lines,
+guard, seq2seq, Xception, U-Net, zoo_cnn, conv_layers, samediff_bert and
+convlstm (training, TBPTT, serving) lines,
 the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
 """
@@ -354,8 +383,13 @@ TOL_PROBS = 1e-4
 TOL_HIDDEN = 5e-4
 
 
+_T_START = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, stamped with the seconds since the script
+    started."""
+    print(f"[{time.monotonic() - _T_START:6.1f} s] {msg}", flush=True)
 
 
 # -- 1. device ----------------------------------------------------------------
@@ -1521,16 +1555,20 @@ def _fit_and_restore(tag, trainer, ts0, batches, epochs, dev,
 
 
 # Kernel classes of a step's device time, by the CUDA kernel's name: the
-# convolutions (cuDNN's implicit-GEMM, FFT and Winograd kernels), the
+# layout copies (PyTorch's copy kernels, cuDNN's NCHW<->NHWC transforms),
+# the convolutions (cuDNN's implicit-GEMM, FFT and Winograd kernels), the
 # dense layers' GEMMs, reductions (BatchNorm's statistics, pools' sums,
 # the loss), pooling, and the elementwise kernels (BatchNorm's normalise,
 # activations, adds, casts, the updater); the rest as "other".
 # cuBLAS names its Hopper/Ampere GEMMs ``sm80_xmma_gemm_*``, and cuDNN its
 # implicit-GEMM convs ``*_xmma_fprop_implicit_gemm_*``: a conv is told by its
-# conv keys, matched first, and ``xmma`` alone says nothing of the class.
+# conv keys, matched after the copies, and ``xmma`` alone says nothing of
+# the class. cuDNN's FFT convs run complex products (cuBLAS's ``cf32``
+# GEMMs, ``pointwise_mult_and_sum_complex``): they count as convs.
 KERNEL_CLASSES = (
+    ("copy", ("copy_kernel", "nchwtonhwc", "nhwctonchw")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "implicit",
-              "cudnn", "winograd", "fft")),
+              "cudnn", "winograd", "fft", "cf32", "complex")),
     ("gemm", ("gemm", "cutlass", "cublas")),
     ("pool", ("pool",)),
     ("reduce", ("reduce",)),
@@ -3880,8 +3918,10 @@ def phase_resnet_train(dev, smi):
 # -- 15. ResNet-50 serving ----------------------------------------------------
 
 # Closed loop: RESNET_CLIENTS client threads, requests of 1-2 NHWC float
-# images (224x224x3, sent as JSON numbers), batched mode, max batch 8.
-RESNET_REQUESTS, RESNET_CLIENTS, RESNET_MAX_BATCH = 100, 4, 8
+# images (224x224x3, sent as JSON numbers), batched mode, max batch 8. 50
+# requests (100 before the ConvLSTM phases joined the script: the phase
+# is bound by JSON on the host at ~2 requests/s).
+RESNET_REQUESTS, RESNET_CLIENTS, RESNET_MAX_BATCH = 50, 4, 8
 # served outputs against output_single on the same card, both float32 (the
 # same function, run at another batch bucket)
 TOL_SERVED = 1e-5
@@ -5648,10 +5688,11 @@ def phase_unet_train(dev, smi):
 
 # -- 30. U-Net serving ------------------------------------------------------
 
-# Closed loop: 8 client threads, 100 requests of 1-4 disc images
-# (128x128x3) as JSON, batched mode, max batch 8; each answer a mask of
-# probabilities [n, 128, 128, 1], the first rank-4 output served.
-UNET_REQUESTS, UNET_CLIENTS, UNET_MAX_BATCH = 100, 8, 8
+# Closed loop: 8 client threads, 50 requests of 1-4 disc images
+# (128x128x3) as JSON (100 before the ConvLSTM phases joined the script;
+# JSON-bound at ~3 requests/s), batched mode, max batch 8; each answer a
+# mask of probabilities [n, 128, 128, 1], the first rank-4 output served.
+UNET_REQUESTS, UNET_CLIENTS, UNET_MAX_BATCH = 50, 8, 8
 
 
 def _unet_request(i):
@@ -6391,6 +6432,412 @@ def phase_samediff_bert(dev, smi):
     return out
 
 
+# -- 34-36. the Keras next-frame ConvLSTM model ------------------------------
+
+# Keras 2's examples/conv_lstm.py ("next-frame prediction of artificially
+# generated movies with moving squares"): 4 × [ConvLSTM2D(40, 3×3, same,
+# return_sequences) → BatchNormalization], Conv3D(1, 3×3×3, same) with a
+# sigmoid and binary cross-entropy, adadelta (rho 0.95, epsilon 1e-7), batch
+# 10 of 15-frame 40×40 movies; 406,681 parameters, nothing of the width
+# cut. BatchNorm at the JAX package's defaults (decay 0.9, eps 1e-5; Keras'
+# 0.99 and 1e-3). Cut: 30 steps on 100 movies (the example: 300 epochs of
+# 950).
+CONVLSTM_T, CONVLSTM_SIZE, CONVLSTM_FILTERS, CONVLSTM_DEPTH = 15, 40, 40, 4
+CONVLSTM_PARAMS = 406_681
+CONVLSTM_BATCH, CONVLSTM_BATCHES, CONVLSTM_EPOCHS = 10, 10, 3  # 30 steps
+CONVLSTM_TBPTT = 5       # 3 windows a batch of 15 frames
+CONVLSTM_REQUESTS, CONVLSTM_CLIENTS, CONVLSTM_MAX_BATCH = 100, 4, 8
+# the example's rollout: 7 frames seen, then each new frame predicted from
+# the whole track so far, 8 times
+ROLLOUT_SEEN, ROLLOUT_NEW = 7, 8
+TOL_ROLLOUT = 1e-4
+
+
+def generate_movies(n_samples, n_frames=CONVLSTM_T, seed=SEED):
+    """A numpy port of the example's ``generate_movies``: on 80×80
+    canvases, 3–7 squares each (side 2w, w = 2 or 3: ``randint(2, 4)``)
+    start in [20, 60)², move by −1, 0 or +1 pixel a frame on each axis;
+    each frame of each square gets, with probability 1/2, a ±0.1 ring one
+    pixel wider; the target is the same squares one frame later, without
+    noise. Both cropped to [20:60]² and clipped at 1 → (noisy movies,
+    next frames), float32 [n, n_frames, 40, 40, 1], from ``seed``."""
+    r = np.random.default_rng(seed)
+    noisy = np.zeros((n_samples, n_frames, 80, 80, 1))
+    shifted = np.zeros_like(noisy)
+    for i in range(n_samples):
+        for _ in range(r.integers(3, 8)):
+            x0, y0 = r.integers(20, 60, 2)
+            dx, dy = r.integers(0, 3, 2) - 1
+            w = r.integers(2, 4)
+            for t in range(n_frames):
+                xs, ys = x0 + dx * t, y0 + dy * t
+                noisy[i, t, xs - w:xs + w, ys - w:ys + w, 0] += 1
+                if r.integers(0, 2):
+                    sign = (-1) ** r.integers(0, 2)
+                    noisy[i, t, xs - w - 1:xs + w + 1,
+                          ys - w - 1:ys + w + 1, 0] += sign * 0.1
+                xs, ys = x0 + dx * (t + 1), y0 + dy * (t + 1)
+                shifted[i, t, xs - w:xs + w, ys - w:ys + w, 0] += 1
+    noisy = np.minimum(noisy[:, :, 20:60, 20:60], 1.0)
+    shifted = np.minimum(shifted[:, :, 20:60, 20:60], 1.0)
+    return noisy.astype(np.float32), shifted.astype(np.float32)
+
+
+def next_frame_config(t=CONVLSTM_T, size=CONVLSTM_SIZE,
+                      filters=CONVLSTM_FILTERS, depth=CONVLSTM_DEPTH,
+                      seed=SEED):
+    """The example's model as a SequentialConfig of the port's layers."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.config import (
+        NeuralNetConfiguration,
+        SequentialConfig,
+    )
+    from deeplearning4j_tpu_torch.train.updaters import AdaDelta
+
+    layers = []
+    for _ in range(depth):
+        layers += [L.ConvLSTM2D(filters=filters, kernel=3, padding="SAME",
+                                return_sequences=True), L.BatchNorm()]
+    layers += [L.Conv3D(filters=1, kernel=3, padding="SAME"),
+               L.LossLayer(activation="sigmoid", loss="xent")]
+    return SequentialConfig(
+        net=NeuralNetConfiguration(seed=seed,
+                                   updater=AdaDelta(rho=0.95, eps=1e-7)),
+        layers=layers, input_shape=(t, size, size, 1))
+
+
+def _next_frame_model(dev, **kw):
+    from deeplearning4j_tpu_torch.nn.model import SequentialModel
+
+    return SequentialModel(next_frame_config(**kw), device=dev)
+
+
+def _movie_batches(n_batches, batch, seed=SEED, **kw):
+    """``n_batches`` batches of ``batch`` movies (features) and their next
+    frames (labels), one draw of ``generate_movies``."""
+    x, y = generate_movies(n_batches * batch, seed=seed, **kw)
+    return [{"features": x[i * batch:(i + 1) * batch],
+             "labels": y[i * batch:(i + 1) * batch]}
+            for i in range(n_batches)]
+
+
+def _no_hand_kernels(tag, counts):
+    """No Pallas kernel lies on the ConvLSTM path (the JAX layer is a
+    lax.scan over XLA convs): the launch counts must stay {}."""
+    if counts:
+        raise SystemExit(f"chip_smoke: {tag} launched hand kernels "
+                         f"{counts}; the path has none")
+
+
+def phase_convlstm_train(dev, smi):
+    """Returns the phase's line, the model and its trained variables (for
+    phase 36)."""
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+
+    t0 = time.monotonic()
+    model = _next_frame_model(dev)
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    on_dev = [batch_to_device(b, dev) for b in
+              _movie_batches(CONVLSTM_BATCHES, CONVLSTM_BATCH)]
+    n_params = model.num_params(trainer.variables(ts0))
+    fg = float(torch.stack([b["labels"].mean() for b in on_dev]).mean())
+    log(f"[convlstm_train] next-frame ConvLSTM: {n_params:,} parameters, "
+        f"{CONVLSTM_DEPTH} x ConvLSTM2D({CONVLSTM_FILTERS}) + BatchNorm, "
+        f"Conv3D(1), AdaDelta(rho 0.95, eps 1e-7), batches "
+        f"{CONVLSTM_BATCH}x{CONVLSTM_T}x{CONVLSTM_SIZE}x{CONVLSTM_SIZE}x1 "
+        f"({fg:.1%} of target pixels on), built in "
+        f"{time.monotonic() - t0:.1f} s")
+    if n_params != CONVLSTM_PARAMS:
+        raise SystemExit(f"chip_smoke: the next-frame model has {n_params} "
+                         "parameters")
+    f64 = _vs_float64("convlstm_train", trainer, ts0, on_dev[0],
+                      per_leaf_max=True)
+    fit, fp32 = _train_resnet("convlstm_train", trainer, ts0, on_dev, dev,
+                              batch=CONVLSTM_BATCH, epochs=CONVLSTM_EPOCHS)
+    _no_hand_kernels("convlstm_train", fit["launches"])
+    movies_s = fp32["samples_per_s"]
+    log(f"[convlstm_train] {movies_s:.1f} movies/s, "
+        f"{movies_s * CONVLSTM_T:.1f} frames/s; phase "
+        f"{time.monotonic() - t0:.1f} s, on {smi}")
+    trained = trainer.variables(fit["ts"])
+    del ts0
+    return {"model": "keras_conv_lstm_next_frame", "batch": CONVLSTM_BATCH,
+            "frames": CONVLSTM_T, "image": CONVLSTM_SIZE,
+            "num_params": n_params, "target_on_share": fg,
+            "vs_float64": f64, "float32": fp32, "movies_per_s": movies_s,
+            "frames_per_s": movies_s * CONVLSTM_T,
+            "phase_seconds": time.monotonic() - t0, "card": smi}, \
+        model, trained
+
+
+def _cudnn_deterministic():
+    """cuDNN held to its deterministic algorithms (and TF32 off) inside a
+    ``with``: where a check compares two runs of the same work bit for
+    bit, not the atomic reductions of cuDNN's faster backward
+    algorithms."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+def _float64_state(ts):
+    """The TrainState with every floating leaf in float64."""
+    def f64(a):
+        return a.double() if a.is_floating_point() else a
+
+    return dataclasses.replace(ts, params=_tree_map(f64, ts.params),
+                               model_state=_tree_map(f64, ts.model_state),
+                               opt_state=_tree_map(f64, ts.opt_state))
+
+
+def _windows_vs_float64(trainer, ts0, windows) -> dict:
+    """A batch's TBPTT windows in float32 against the float64 copy. Gated
+    (by the caller): each window run by both from one state, the float32
+    run's state before it (params, layer and updater state, the carries
+    it was handed) promoted for the float64 copy: the window's loss and
+    the carries it hands on. Reported beside them: the two run apart from
+    the first state (``_run_windows``), whose gap also carries the float32
+    rounding of every earlier window's update forward."""
+    def f64(a):
+        return a.double() if a.is_floating_point() else a
+
+    ts, carries = ts0, trainer._zero_carries(ts0, windows[0]["features"])
+    loss_rel, carry_frac, losses = [], [], []
+    for wb in windows:
+        nxt, c32, m32 = trainer.train_step_tbptt(ts, wb, carries)
+        _, c64, m64 = trainer.train_step_tbptt(
+            _float64_state(ts), dict(wb, features=wb["features"].double()),
+            _tree_map(f64, carries))
+        a, b = float(m32["total_loss"]), float(m64["total_loss"])
+        losses.append(a)
+        loss_rel.append(abs(a - b) / abs(b))
+        carry_frac.append(_carry_frac(c32, c64))
+        ts, carries = nxt, c32
+    _, l32, h32 = _run_windows(trainer, ts0, windows)
+    _, l64, h64 = _run_windows(trainer, _float64_state(ts0), [
+        dict(w, features=w["features"].double()) for w in windows])
+    return {"losses": losses, "loss_rel": loss_rel,
+            "carry_err_frac": carry_frac,
+            "apart_loss_rel": [abs(a - b) / abs(b) for a, b in zip(l32, l64)],
+            "apart_carry_err_frac": [_carry_frac(a, b) for a, b in
+                                     zip(h32, h64)]}
+
+
+def phase_convlstm_tbptt(dev, smi):
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.utils.pytree import tree_leaves
+
+    t0 = time.monotonic()
+    model = _with_tbptt(_next_frame_model(dev), CONVLSTM_TBPTT)
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    on_dev = [batch_to_device(b, dev) for b in
+              _movie_batches(CONVLSTM_BATCHES, CONVLSTM_BATCH)]
+    n_win = -(-CONVLSTM_T // CONVLSTM_TBPTT)
+
+    # 1. one batch window by window, float32 against the float64 copy
+    windows = _tbptt_windows(on_dev[0], CONVLSTM_TBPTT)
+    _dispatch.reset_launch_counts()
+    vs64 = _windows_vs_float64(trainer, ts0, windows)
+    counts = _dispatch.launch_counts()
+    log(f"[convlstm_tbptt] one batch, {len(windows)} windows "
+        f"({[w['features'].shape[1] for w in windows]} frames), float32 vs "
+        f"float64, each window from one state: losses rel "
+        f"{[f'{x:.2e}' for x in vs64['loss_rel']]} (tol "
+        f"{TOL_LOSS_REL:.0e}), carries handed on "
+        f"{[f'{x:.2e}' for x in vs64['carry_err_frac']]} of their max (tol "
+        f"{TOL_CARRY:.0e}); the two run apart from the first state: losses "
+        f"rel {[f'{x:.2e}' for x in vs64['apart_loss_rel']]}, carries "
+        f"{[f'{x:.2e}' for x in vs64['apart_carry_err_frac']]} of their "
+        f"max; launches {counts}")
+    _no_hand_kernels("convlstm_tbptt", counts)
+    if len(windows) != n_win or max(vs64["loss_rel"] + vs64[
+            "apart_loss_rel"]) > TOL_LOSS_REL or max(
+            vs64["carry_err_frac"]) > TOL_CARRY:
+        raise SystemExit("chip_smoke: convlstm_tbptt: the float32 windows "
+                         "disagree with float64")
+
+    # 2. tbptt_length >= T: one window, the standard step bit for bit
+    whole = Trainer(_with_tbptt(model, CONVLSTM_T))
+    std = Trainer(_next_frame_model(dev))
+    with _cudnn_deterministic():
+        ts_w, wm = whole._fit_tbptt_batch(ts0, on_dev[0])
+        ts_s, m_s = std.train_step(ts0, on_dev[0])
+    whole_diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves((ts_w.params, ts_w.model_state)),
+        tree_leaves((ts_s.params, ts_s.model_state))))
+    log(f"[convlstm_tbptt] tbptt_length {CONVLSTM_T} (one window): loss "
+        f"{float(wm[0]['total_loss']):.6f} vs the standard step's "
+        f"{float(m_s['total_loss']):.6f}, params and BatchNorm state max "
+        f"diff {whole_diff:.3e}")
+    if len(wm) != 1 or whole_diff != 0.0:
+        raise SystemExit("chip_smoke: convlstm_tbptt: one window over the "
+                         "whole movie is not the standard step")
+    del whole, std, ts_w, ts_s
+
+    # 3. Trainer.fit, 10 batches of 3 windows, checkpoint restore (the
+    # next batch after it, live and restored, with deterministic cuDNN: its
+    # second and third windows run on params the first's backward moved)
+    batch_step = _tbptt_batch_step(trainer)
+
+    def next_batch_step(ts, batch):
+        with _cudnn_deterministic():
+            return batch_step(ts, batch)
+
+    fit = _fit_and_restore("convlstm_tbptt", trainer, ts0, on_dev, 1, dev,
+                           per_batch=n_win, step=next_batch_step)
+    ts, losses = fit["ts"], fit["losses"]
+    _no_hand_kernels("convlstm_tbptt", fit["launches"])
+    if ts.step != n_win * CONVLSTM_BATCHES or len(losses) != ts.step or \
+            not np.all(np.isfinite(losses)):
+        raise SystemExit(f"chip_smoke: convlstm_tbptt: fit made "
+                         f"{len(losses)} iterations, step {ts.step}; want "
+                         f"{n_win * CONVLSTM_BATCHES}, finite losses")
+
+    # 4. one window's time, from the carries the first left
+    _, carries, _ = trainer.train_step_tbptt(
+        ts, windows[0], trainer._zero_carries(ts, windows[0]["features"]))
+    breakdown = _step_breakdown(
+        trainer, ts, None, (),
+        step=lambda: trainer.train_step_tbptt(ts, windows[1], carries))
+    batch_ms = fit["median_step_ms"]
+    log(f"[convlstm_tbptt] one window ({CONVLSTM_TBPTT} frames): "
+        f"{breakdown}")
+    log(f"[convlstm_tbptt] {len(losses)} windows over {CONVLSTM_BATCHES} "
+        f"batches: loss {np.mean(losses[:n_win]):.4f} (first batch) -> "
+        f"{np.mean(losses[-n_win:]):.4f} (last); median batch "
+        f"{batch_ms:.2f} ms ({n_win} windows), "
+        f"{n_win / (batch_ms / 1e3):,.1f} windows/s, "
+        f"{CONVLSTM_BATCH / (batch_ms / 1e3):,.1f} movies/s, peak memory "
+        f"{fit['peak_memory_gib']:.2f} GiB, phase "
+        f"{time.monotonic() - t0:.1f} s, on {smi}")
+    return {"model": "keras_conv_lstm_next_frame", "backprop_type": "tbptt",
+            "tbptt_length": CONVLSTM_TBPTT, "windows_per_batch": n_win,
+            "batches": CONVLSTM_BATCHES, "steps": ts.step,
+            "launches": fit["launches"], "vs_float64": vs64,
+            "whole_sequence_window_vs_standard_max_diff": whole_diff,
+            "losses": losses, "median_batch_ms": batch_ms,
+            "batch_ms_gaps": fit["step_ms_gaps"],
+            "windows_per_s": n_win / (batch_ms / 1e3),
+            "movies_per_s": CONVLSTM_BATCH / (batch_ms / 1e3),
+            "peak_memory_gib": fit["peak_memory_gib"],
+            "fit_seconds": fit["fit_seconds"],
+            "checkpoint_next_loss": fit["checkpoint_next_loss"],
+            "window_breakdown": breakdown,
+            "phase_seconds": time.monotonic() - t0, "card": smi}
+
+
+def _movie_request(i):
+    """1–2 held-out movies [n, 15, 40, 40, 1] (seeds apart from the
+    training movies')."""
+    return generate_movies(1 + i % 2, seed=6000 + i)[0]
+
+
+def _frames(out, req):
+    """A served-output check: next-frame probabilities of the request's
+    shape."""
+    return out.shape == req.shape and out.min() >= 0 and out.max() <= 1
+
+
+def _rollout(tag, dev, model, variables, movie):
+    """The example's rollout behind ModelServer: the first ROLLOUT_SEEN
+    frames of ``movie``, then ROLLOUT_NEW times the whole track so far
+    sent to the served model and its last frame's prediction appended;
+    one registry entry a track length (the input spec is fixed-shape)
+    → (the predicted frames [ROLLOUT_NEW, 40, 40, 1], seconds)."""
+    from deeplearning4j_tpu_torch.serving import (
+        ModelRegistry,
+        ModelServer,
+        ServingClient,
+        spec,
+    )
+
+    reg = ModelRegistry()
+    size = movie.shape[1:]
+    for t in range(ROLLOUT_SEEN, ROLLOUT_SEEN + ROLLOUT_NEW):
+        reg.register(f"next_frame_t{t}", _sequential_output(model),
+                     variables, input_spec=spec((t, *size), np.float32),
+                     mode="instant", devices=[dev])
+    server = ModelServer(reg, port=0)
+    server.start(warm=True)
+    try:
+        client = ServingClient(server.url, timeout=120)
+        track = movie[:ROLLOUT_SEEN]
+        t0 = time.monotonic()
+        for _ in range(ROLLOUT_NEW):
+            resp = client.predict(f"next_frame_t{len(track)}", track[None])
+            new = np.asarray(resp["outputs"], dtype=np.float32)[0, -1]
+            track = np.concatenate([track, new[None]])
+        seconds = time.monotonic() - t0
+    finally:
+        drained = server.stop()
+    if not drained:
+        raise SystemExit(f"chip_smoke: the {tag} rollout server did not "
+                         "drain")
+    return track[ROLLOUT_SEEN:], seconds
+
+
+def _rollout_direct(model, variables, movie, dtype):
+    """The same rollout through ``model.output`` on the card in ``dtype``
+    (the float64 copy's)."""
+    track = torch.from_numpy(movie[:ROLLOUT_SEEN]).to(model.device, dtype)
+    for _ in range(ROLLOUT_NEW):
+        new = model.output(variables, track[None])[0, -1]
+        track = torch.cat([track, new[None]])
+    return track[ROLLOUT_SEEN:].cpu().numpy()
+
+
+def _sequential_output(model):
+    """The served function of a SequentialModel: its ``output``."""
+    return lambda variables, x: model.output(variables, x)
+
+
+def phase_convlstm_serve(dev, smi, model, variables):
+    t0 = time.monotonic()
+    requests = [_movie_request(i) for i in range(CONVLSTM_REQUESTS)]
+    out = _serve_images(
+        "convlstm_serve", dev, smi, "next_frame", _sequential_output(model),
+        variables, requests, clients=CONVLSTM_CLIENTS,
+        max_batch=CONVLSTM_MAX_BATCH, tol=TOL_SERVED, check=_frames)
+    _no_hand_kernels("convlstm_serve", out["kernel_launches"])
+    rows_s = out.pop("images_per_s")
+    out["json_2_movies"] = out.pop("json_2_images")
+
+    movies, nxt = generate_movies(1, seed=7000)
+    got, roll_s = _rollout("convlstm_serve", dev, model, variables,
+                           movies[0])
+    want = _rollout_direct(model, _float64_copy(variables), movies[0],
+                           torch.float64)
+    fracs = [float(np.abs(g - w).max() / np.abs(w).max())
+             for g, w in zip(got, want)]
+    # how near the 30-step model's rollout comes to the movie's own future
+    # (reported: the example trains 300 epochs)
+    truth = nxt[0, ROLLOUT_SEEN - 1:ROLLOUT_SEEN - 1 + ROLLOUT_NEW]
+    hit = [float(((g > 0.5) == (y > 0.5)).mean()) for g, y in
+           zip(got, truth)]
+    background = [float((y <= 0.5).mean()) for y in truth]
+    log(f"[convlstm_serve] rollout: {ROLLOUT_SEEN} frames seen, "
+        f"{ROLLOUT_NEW} predicted one at a time through the served model "
+        f"in {roll_s:.3f} s; each against the float64 copy's rollout "
+        f"{[f'{f:.1e}' for f in fracs]} of its max (tol {TOL_ROLLOUT:.0e}); "
+        f"pixels thresholded at 0.5 equal to the movie's own frames "
+        f"{[round(h, 3) for h in hit]} (background "
+        f"{[round(b, 3) for b in background]}); phase "
+        f"{time.monotonic() - t0:.1f} s, on {smi}")
+    if max(fracs) > TOL_ROLLOUT or not np.all(np.isfinite(got)):
+        raise SystemExit("chip_smoke: convlstm_serve: the served rollout "
+                         "disagrees with the float64 copy's")
+    return {"model": "keras_conv_lstm_next_frame", **out,
+            "movies_per_s": rows_s,
+            "frames_per_s": rows_s * CONVLSTM_T,
+            "rollout_seen": ROLLOUT_SEEN, "rollout_new": ROLLOUT_NEW,
+            "rollout_seconds": roll_s, "rollout_err_frac_vs_float64": fracs,
+            "rollout_pixel_agreement_with_the_movie": hit,
+            "rollout_movie_background_share": background,
+            "phase_seconds": time.monotonic() - t0}
+
+
 def _delta_entry(bwd_cases, training, gpt_training, s2s_training,
                  smi) -> dict:
     """The kernels line's entry of flash_bwd_delta: the main row is the
@@ -6492,6 +6939,16 @@ def main() -> int:
     zoo_cnn = phase_zoo_cnn(dev, smi)
     conv_layers = phase_conv_layers(dev, smi)
     samediff_bert = phase_samediff_bert(dev, smi)
+    convlstm_training, convlstm_model, convlstm_vars = phase_convlstm_train(
+        dev, smi)
+    convlstm_tbptt = phase_convlstm_tbptt(dev, smi)
+    convlstm_serving = phase_convlstm_serve(dev, smi, convlstm_model,
+                                            convlstm_vars)
+    del convlstm_model, convlstm_vars
+    log("[convlstm] phase seconds: train "
+        f"{convlstm_training['phase_seconds']:.1f}, tbptt "
+        f"{convlstm_tbptt['phase_seconds']:.1f}, serve "
+        f"{convlstm_serving['phase_seconds']:.1f}")
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
         "name": "flash_fwd", "route": "cuda",
@@ -6623,6 +7080,9 @@ def main() -> int:
     print(json.dumps({"zoo_cnn": zoo_cnn}), flush=True)
     print(json.dumps({"conv_layers": conv_layers}), flush=True)
     print(json.dumps({"samediff_bert": samediff_bert}), flush=True)
+    print(json.dumps({"convlstm_training": convlstm_training}), flush=True)
+    print(json.dumps({"convlstm_tbptt": convlstm_tbptt}), flush=True)
+    print(json.dumps({"convlstm_serving": convlstm_serving}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

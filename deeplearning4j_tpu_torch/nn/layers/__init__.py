@@ -66,6 +66,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     GRU,
     LSTM,
     Bidirectional,
+    ConvLSTM2D,
     GravesLSTM,
     LastTimeStep,
     SimpleRnn,
@@ -73,9 +74,9 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
 )
 
 __all__ = ["GRU", "LSTM", "ActivationLayer", "BatchNorm", "Bidirectional",
-           "CnnLossLayer", "Conv1D", "Conv2D", "Conv3D", "Cropping1D",
-           "Cropping2D", "Cropping3D", "CrossAttention", "Deconv2D",
-           "Deconv3D", "Dense", "DepthToSpace", "DepthwiseConv2D",
+           "CnnLossLayer", "Conv1D", "Conv2D", "Conv3D", "ConvLSTM2D",
+           "Cropping1D", "Cropping2D", "Cropping3D", "CrossAttention",
+           "Deconv2D", "Deconv3D", "Dense", "DepthToSpace", "DepthwiseConv2D",
            "Dropout", "Embedding", "Flatten", "GlobalPooling", "GravesLSTM",
            "LastTimeStep", "LayerNorm", "LearnedSelfAttention",
            "LocalResponseNormalization", "LocallyConnected1D",

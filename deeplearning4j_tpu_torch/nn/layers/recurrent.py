@@ -1,4 +1,4 @@
-"""Recurrent layers (↔ deeplearning4j_tpu/nn/layers/recurrent.py): ``LSTM``, ``GravesLSTM``, ``GRU``, ``SimpleRnn``, ``Bidirectional``, ``LastTimeStep``.
+"""Recurrent layers (↔ deeplearning4j_tpu/nn/layers/recurrent.py): ``LSTM``, ``GravesLSTM``, ``GRU``, ``SimpleRnn``, ``Bidirectional``, ``LastTimeStep``, ``ConvLSTM2D``.
 
 Sequence layout [N, T, C] (batch, time, features), as in the JAX package.
 LSTM params: "W" input weights [in, 4H], "RW" recurrent weights [H, 4H],
@@ -33,7 +33,17 @@ ops, as the JAX package's step is plain ``jnp``. ``apply_window`` runs a
 whole window from a carry and returns the final one (truncated BPTT,
 and several steps of rnnTimeStep at once).
 
-Not ported yet: ``ConvLSTM2D``.
+``ConvLSTM2D`` runs over [N, T, H, W, C] with conv gates (params "W"
+[kh, kw, C, 4F], "RW" [kh, kw, F, 4F], "b" [4F], Keras gate order i, f,
+c, o): the input-to-gate conv of all T steps is one ``ops/cnn.conv2d``
+over the folded [N·T, H, W, C] batch, and the eager time loop carries
+only the stride-1 SAME recurrent conv on h, as the JAX layer's
+``lax.scan`` does; on the card both are cuDNN's convs, as the JAX package
+leaves them to XLA (no Pallas kernel lies under it). It has ``apply`` and
+``apply_window`` and, as in the JAX package, no ``init_carry``/``step``.
+Under ``Bidirectional`` its [N, T, H, W, F] backward output is not
+flipped back to forward time: the wrapper flips 3-D outputs only, in
+both packages.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ from deeplearning4j_tpu_torch.kernels import gru_scan, lstm_scan
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_config
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
+from deeplearning4j_tpu_torch.ops import cnn as opscnn
+from deeplearning4j_tpu_torch.ops import nn as opsnn
 from deeplearning4j_tpu_torch.ops import rnn as opsrnn
 
 # The backend names that run the fused sweeps: the JAX package's two.
@@ -321,3 +333,119 @@ def graves_bidirectional_lstm(units: int, *, merge: str = "concat",
     LSTM."""
     return Bidirectional(layer=GravesLSTM(units=units, **lstm_kwargs),
                          merge=merge)
+
+
+def _gate_activation(name):
+    """A gate activation of ConvLSTM2D applied to an NCHW tensor: the
+    activations act elementwise, but ``softmax``/``log_softmax`` act over
+    the last axis, the channels of the JAX layer's NHWC gates."""
+    fn = get_activation(name)
+    if fn in (opsnn.softmax, opsnn.log_softmax):
+        return lambda v: fn(v.movedim(1, -1)).movedim(-1, 1)
+    return fn
+
+
+@register_config
+@dataclass
+class ConvLSTM2D(LayerConfig):
+    """↔ ConvLSTM2D: a convolutional LSTM over [N, T, H, W, C] (Shi et al.
+    2015, Keras semantics)::
+
+        i, f, g, o = split(conv(x_t, W, stride, padding)
+                           + conv(h_{t-1}, RW, 1, SAME) + b)
+        c_t = rec(f)·c_{t-1} + rec(i)·act(g);  h_t = rec(o)·act(c_t)
+
+    with ``act`` = ``activation`` and ``rec`` = ``recurrent_activation``.
+    With ``unit_forget_bias`` the f slice of "b" starts at 1."""
+
+    filters: int = 0
+    kernel: Any = 3  # int or (kh, kw)
+    stride: Any = 1
+    padding: str = "VALID"
+    activation: str = "tanh"
+    recurrent_activation: str = "sigmoid"
+    weight_init: Optional[str] = None
+    use_bias: bool = True
+    unit_forget_bias: bool = True
+    return_sequences: bool = True
+
+    def _pairs(self):
+        k = self.kernel if isinstance(self.kernel, (tuple, list)) \
+            else (self.kernel, self.kernel)
+        s = self.stride if isinstance(self.stride, (tuple, list)) \
+            else (self.stride, self.stride)
+        return tuple(k), tuple(s)
+
+    def output_shape(self, input_shape):
+        from deeplearning4j_tpu_torch.nn.layers.conv import _conv_out
+
+        t, h, w, _ = input_shape
+        (kh, kw), (sh, sw) = self._pairs()
+        mode = self.padding.upper()
+        out = (_conv_out(h, kh, sh, mode), _conv_out(w, kw, sw, mode),
+               self.filters)
+        return (t, *out) if self.return_sequences else out
+
+    def init(self, generator, input_shape, dtype):
+        c, f = input_shape[-1], self.filters
+        (kh, kw), _ = self._pairs()
+        w_init = get_initializer(self.weight_init or "xavier")
+        params = {"W": w_init((kh, kw, c, 4 * f), generator, dtype),
+                  "RW": w_init((kh, kw, f, 4 * f), generator, dtype)}
+        if self.use_bias:
+            b = torch.zeros((4 * f,), dtype=dtype)
+            if self.unit_forget_bias:
+                b[f:2 * f] = 1.0
+            params["b"] = b
+        return params, {}
+
+    def _forward(self, params, x, initial_state):
+        """→ (h of every step [N, T, OH, OW, F], (h_T, c_T))."""
+        act = _gate_activation(self.activation)
+        rec_act = _gate_activation(self.recurrent_activation)
+        n, t, h, w, c = x.shape
+        f = self.filters
+        (kh, kw), (sh, sw) = self._pairs()
+        # Inside, time-major NCHW: one copy of the input makes every step's
+        # gates and the carry contiguous NCHW, the layout cuDNN's float32
+        # convs take without a transform (an NHWC carry cost two layout
+        # kernels a step), and unbinding the steps keeps each step's
+        # gradient its own (indexing one [T, ...] tensor a step would
+        # accumulate a zero-filled full-size gradient every step).
+        xc = x.permute(1, 0, 4, 2, 3).reshape(t * n, c, h, w)
+        # the input conv of all T steps at once
+        xg = opscnn.conv2d(xc, params["W"], params.get("b"), stride=(sh, sw),
+                           padding=self.padding, data_format="NCHW")
+        oh, ow = xg.shape[2], xg.shape[3]
+        steps = xg.reshape(t, n, 4 * f, oh, ow).unbind(0)
+        if initial_state is not None:
+            h_t, c_t = (s.permute(0, 3, 1, 2).contiguous()
+                        for s in initial_state)
+        else:
+            h_t = torch.zeros((n, f, oh, ow), dtype=x.dtype, device=x.device)
+            c_t = torch.zeros_like(h_t)
+        rw = params["RW"].permute(3, 2, 0, 1).contiguous()  # OIHW, once
+        pads = [opscnn._same_pads(oh, kh, 1, 1),
+                opscnn._same_pads(ow, kw, 1, 1)]
+        ys = []
+        for xg_t in steps:
+            gates = xg_t + opscnn._conv_nd(h_t, rw, None, (1, 1), pads,
+                                           (1, 1))
+            i, fg, g, o = torch.split(gates, f, dim=1)
+            c_t = rec_act(fg) * c_t + rec_act(i) * act(g)
+            h_t = rec_act(o) * act(c_t)
+            ys.append(h_t)
+        ys = torch.stack(ys, dim=1).permute(0, 1, 3, 4, 2).contiguous()
+        return ys, (h_t.permute(0, 2, 3, 1), c_t.permute(0, 2, 3, 1))
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              initial_state=None):
+        ys, (h_t, _) = self._forward(params, x, initial_state)
+        return (ys if self.return_sequences else h_t), state
+
+    def apply_window(self, params, state, x, carry, *, train=False,
+                     generator=None):
+        """Forward from ``carry`` ((h, c), each [N, OH, OW, F]; None =
+        zeros) → (y, new_state, final (h, c))."""
+        ys, final = self._forward(params, x, carry)
+        return (ys if self.return_sequences else final[0]), state, final

@@ -24,8 +24,9 @@ window from the recurrent layers' carries and hand back the final ones
 ``GraphModel`` has neither, as in the JAX package.
 
 ``summary`` gives the JAX package's table, character for character, for
-the same config and variables. Not ported yet: the build-time name
-validation (``_validate_registry_names``) (ROADMAP queue 1 item 5).
+the same config and variables. Both models resolve every activation and
+loss name of their layers when they are built (``_validate_registry_names``),
+as the JAX package does, so a typo fails at build with the layer's name.
 """
 
 from __future__ import annotations
@@ -58,6 +59,38 @@ from deeplearning4j_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 def _layer_name(i: int, cfg: LayerConfig) -> str:
     return f"{i}_{cfg.name or type(cfg).__name__.lower()}"
+
+
+def _validate_registry_names(named_layers):
+    """Resolve every activation and loss name at model build: each
+    dataclass field whose name ends in ``activation`` (``activation``,
+    ``recurrent_activation``, ...), every ``loss``, and the layer a
+    wrapper holds one level down (``Bidirectional``'s ``layer``). An
+    unknown name raises ``ValueError`` prefixed with the layer's name."""
+    from deeplearning4j_tpu_torch.nn.activations import get_activation
+    from deeplearning4j_tpu_torch.ops.loss import get_loss
+
+    def resolve(name, get, val):
+        try:
+            get(val)
+        except ValueError as e:
+            raise ValueError(f"layer '{name}': {e}") from None
+
+    def check(name, layer):
+        fields = ([f.name for f in dataclasses.fields(layer)]
+                  if dataclasses.is_dataclass(layer) else
+                  ["activation", "loss"])
+        for fname in fields:
+            val = getattr(layer, fname, None)
+            if fname.endswith("activation") and isinstance(val, str):
+                resolve(name, get_activation, val)
+            elif fname == "loss" and isinstance(val, str):
+                resolve(name, get_loss, val)
+            elif fname == "layer" and dataclasses.is_dataclass(val):
+                check(f"{name}.{type(val).__name__.lower()}", val)
+
+    for name, layer in named_layers:
+        check(name, layer)
 
 
 def _with_net_weight_init(layer: LayerConfig, net: NeuralNetConfiguration):
@@ -117,6 +150,7 @@ class SequentialModel:
         self.shapes = [tuple(config.input_shape)]
         for l in self.layers:
             self.shapes.append(tuple(l.output_shape(self.shapes[-1])))
+        _validate_registry_names(self.named_layers())
 
     # -- construction ------------------------------------------------------
 
@@ -465,6 +499,7 @@ class GraphModel:
             v = config.vertices[name]
             self.shapes[name] = self._vertex_out_shape(
                 name, v, [self.shapes[i] for i in v.inputs])
+        _validate_registry_names(self.named_layers())
 
     @staticmethod
     def _is_multi(v: GraphVertex) -> bool:

@@ -1,7 +1,16 @@
-"""NN ops (↔ deeplearning4j_tpu/ops/nn.py) — the ones the ported models use.
+"""NN ops (↔ deeplearning4j_tpu/ops/nn.py): activations, normalization, dropout, linear and embedding.
 
 Layouts and numerics follow the JAX package:
 
+- each activation computes the JAX op's own definition in plain torch
+  ops, with its gradient at the kinks: ``relu6`` (``F.relu6``) passes
+  none at 0 and 6, as ``jax.nn.relu6``'s custom JVP; ``hard_sigmoid`` is
+  ``relu6(x + 3) / 6`` (``jax.nn.hard_sigmoid``, not Keras 2's
+  ``0.2·x + 0.5``); ``hard_tanh`` is the JAX ``where`` chain, whose
+  gradient at ±1 is 1 (``F.hardtanh``'s is 0); ``softplus`` is
+  ``logaddexp(x, 0)`` (``F.softplus`` switches to ``x`` above 20);
+  ``rectified_tanh``'s ``maximum`` splits the gradient at 0, as
+  ``jnp.maximum`` does;
 - ``linear`` weights are ``[in, out]`` and applied as ``x @ W + b``;
 - ``gelu`` is the tanh approximation (``jax.nn.gelu``'s default; torch's
   default is the exact erf form);
@@ -31,6 +40,15 @@ relu = torch.relu
 tanh = torch.tanh
 sigmoid = torch.sigmoid
 
+# SELU's constants, as jax.nn.selu writes them
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_SCALE = 1.0507009873554804934193349852946
+
+
+def relu6(x):
+    """min(max(x, 0), 6); no gradient at 0 and 6."""
+    return F.relu6(x)
+
 
 def leaky_relu(x, negative_slope=0.01):
     return F.leaky_relu(x, negative_slope)
@@ -40,13 +58,73 @@ def elu(x, alpha=1.0):
     return F.elu(x, alpha)
 
 
+def selu(x):
+    return _SELU_SCALE * elu(x, _SELU_ALPHA)
+
+
+def softplus(x):
+    """log(1 + eˣ) as ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def soft_sign(x):
+    return x / (torch.abs(x) + 1)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+swish = silu
+
+
+def mish(x):
+    return x * torch.tanh(softplus(x))
+
+
+def hard_sigmoid(x):
+    """relu6(x + 3) / 6."""
+    return relu6(x + 3.0) / 6.0
+
+
+def hard_tanh(x):
+    """−1 below −1, 1 above 1, x between (gradient 1 at ±1)."""
+    return torch.where(x > 1, 1.0, torch.where(x < -1, -1.0, x))
+
+
+def hard_swish(x):
+    return x * relu6(x + 3.0) / 6.0
+
+
 def thresholded_relu(x, theta=1.0):
     return torch.where(x > theta, x, 0.0)
+
+
+def rational_tanh(x):
+    """libnd4j's RationalTanh: 1.7159·ta(2x/3), ta(y) = sign(y)·(1 −
+    1/(1 + |y| + y² + 1.41645·y⁴))."""
+    y = 2.0 * x / 3.0
+    ay = torch.abs(y)
+    ta = torch.sign(y) * (1.0 - 1.0 / (1.0 + ay + y * y + 1.41645 * y ** 4))
+    return 1.7159 * ta
+
+
+def rectified_tanh(x):
+    return torch.maximum(torch.tanh(x), torch.zeros_like(x))
+
+
+def cube(x):
+    return x * x * x
 
 
 def softmax(x):
     """Over the last axis (``jax.nn.softmax``'s default)."""
     return torch.softmax(x, dim=-1)
+
+
+def log_softmax(x):
+    """Over the last axis (``jax.nn.log_softmax``'s default)."""
+    return torch.log_softmax(x, dim=-1)
 
 
 def gelu(x):

@@ -374,10 +374,22 @@ class Trainer:
         n = tree_leaves(x_window)[0].shape[0]
         params = _to_bf16(ts.params) if self._mixed else ts.params
         out = {}
-        for name, layer in self.model.named_layers():
-            if hasattr(layer, "apply_window"):
-                p = params.get(name, {})
+        for i, (name, layer) in enumerate(self.model.named_layers()):
+            if not hasattr(layer, "apply_window"):
+                continue
+            p = params.get(name, {})
+            if hasattr(layer, "init_carry"):
                 out[name] = layer.init_carry(p, n, p["RW"].dtype)
+                continue
+            # a layer without init_carry (ConvLSTM2D, as in the JAX
+            # package): the carry's shapes from one step on the meta
+            # device, as the JAX Trainer takes every carry's from eval_shape
+            meta = tree_map(lambda a: torch.empty_like(a, device="meta"), p)
+            x1 = torch.empty((n, 1, *self.model.shapes[i][1:]),
+                             dtype=p["RW"].dtype, device="meta")
+            _, _, carry = layer.apply_window(meta, {}, x1, None)
+            out[name] = tree_map(lambda a: torch.zeros(
+                a.shape, dtype=a.dtype, device=self.device), carry)
         return out
 
     def make_tbptt_step(self, n_windows: int, window_len: int):

@@ -191,3 +191,153 @@ def test_layer_vs_float64_on_the_cpu(case):
     assert row["device"] == "cpu"
     assert row["max_err"] <= chip_smoke.TOL_LAYER_F64, row["errors"]
     assert "dx" in row["errors"]
+
+
+# --- the next-frame ConvLSTM phases' helpers --------------------------------
+
+def test_movies_are_seeded_and_the_target_is_the_next_frame():
+    x, y = chip_smoke.generate_movies(6, seed=3)
+    again = chip_smoke.generate_movies(6, seed=3)
+    np.testing.assert_array_equal(x, again[0])
+    np.testing.assert_array_equal(y, again[1])
+    assert not np.array_equal(chip_smoke.generate_movies(6, seed=4)[0], x)
+    assert x.shape == y.shape == (6, 15, 40, 40, 1)
+    assert x.dtype == y.dtype == np.float32
+    assert set(np.unique(y)) <= {0.0, 1.0} and y.max() == 1.0
+    # the ±0.1 noise rings: values off {0, 1} in the inputs only
+    assert np.any((x != 0) & (x != 1)) and x.max() <= 1.0
+    # frame t + 1 of the input, its noise thresholded away, is target t
+    np.testing.assert_array_equal((x[:, 1:] > 0.5).astype(np.float32),
+                                  y[:, :-1])
+    # squares of side 4 or 6 that move at most a pixel a frame
+    moved = np.abs(y[:, 1:] - y[:, :-1]).sum(axis=(2, 3, 4))
+    assert moved.max() <= 2 * 7 * 2 * 6
+
+
+def test_next_frame_config_is_the_examples_model_and_crosses_to_jax():
+    import jax
+
+    from deeplearning4j_tpu.nn.config import SequentialConfig as JaxSeqConfig
+    from deeplearning4j_tpu.nn.model import SequentialModel as JaxModel
+    from deeplearning4j_tpu.train import updaters  # noqa: F401 (registers)
+    from deeplearning4j_tpu_torch.nn.model import SequentialModel
+
+    cfg = chip_smoke.next_frame_config()
+    model = SequentialModel(cfg, device="cpu")
+    assert model.num_params(model.init()) == chip_smoke.CONVLSTM_PARAMS
+    assert [type(l).__name__ for l in model.layers] == [
+        "ConvLSTM2D", "BatchNorm"] * 4 + ["Conv3D", "LossLayer"]
+    assert model.shapes[0] == model.shapes[-1] == (15, 40, 40, 1)
+    assert type(cfg.net.updater).__name__ == "AdaDelta"
+    assert (cfg.net.updater.rho, cfg.net.updater.eps) == (0.95, 1e-7)
+    jm = JaxModel(JaxSeqConfig.from_json(cfg.to_json()))
+    assert [tuple(s) for s in jm.shapes] == model.shapes
+    n_jax = sum(a.size for a in jax.tree_util.tree_leaves(
+        jax.eval_shape(jm.init)["params"]))
+    assert n_jax == chip_smoke.CONVLSTM_PARAMS
+
+
+@pytest.fixture(scope="module")
+def tiny_next_frame():
+    from deeplearning4j_tpu_torch.nn.model import SequentialModel
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+
+    model = SequentialModel(chip_smoke.next_frame_config(
+        t=5, filters=3, depth=2), device="cpu")
+    trainer = Trainer(model)
+    x, y = chip_smoke.generate_movies(2, seed=11)
+    batch = batch_to_device({"features": x[:, :5], "labels": y[:, :5]},
+                            "cpu")
+    return model, trainer, trainer.init_state(), batch
+
+
+def test_next_frame_float64_check_on_the_cpu(tiny_next_frame):
+    _, trainer, ts, batch = tiny_next_frame
+    out = chip_smoke._vs_float64("cpu", trainer, ts, batch,
+                                 per_leaf_max=True)
+    assert out["loss_rel"] <= chip_smoke.TOL_LOSS_REL
+    assert out["worst_grad_frac"] <= chip_smoke.TOL_GRAD_FRAC
+    assert 0 < out["state_err"] <= chip_smoke.TOL_STATE
+
+
+def test_next_frame_tbptt_windows_against_float64_on_the_cpu(
+        tiny_next_frame):
+    """The TBPTT phase's checks at a tiny size: each window in float32 and
+    in the float64 copy from one state (and the two run apart), and one
+    window over the whole movie against the standard step, bit for bit."""
+    from deeplearning4j_tpu_torch.train.trainer import Trainer
+    from deeplearning4j_tpu_torch.utils.pytree import tree_leaves
+
+    model, _, ts, batch = tiny_next_frame
+    trainer = Trainer(chip_smoke._with_tbptt(model, 2))
+    windows = chip_smoke._tbptt_windows(batch, 2)
+    assert [w["features"].shape[1] for w in windows] == [2, 2, 1]
+    ts64 = chip_smoke._float64_state(ts)
+    assert all(a.dtype == torch.float64 for a in tree_leaves(
+        (ts64.params, ts64.model_state, ts64.opt_state)))
+    out = chip_smoke._windows_vs_float64(trainer, ts, windows)
+    for key in ("loss_rel", "carry_err_frac", "apart_loss_rel",
+                "apart_carry_err_frac"):
+        assert len(out[key]) == 3 and all(0 < x for x in out[key]), key
+    assert max(out["loss_rel"] + out["apart_loss_rel"]) <= \
+        chip_smoke.TOL_LOSS_REL
+    assert max(out["carry_err_frac"]) <= chip_smoke.TOL_CARRY
+    # the first window starts from one state in both readings
+    assert out["carry_err_frac"][0] == out["apart_carry_err_frac"][0]
+    _, losses, _ = chip_smoke._run_windows(trainer, ts, windows)
+    assert out["losses"] == losses
+    whole = Trainer(chip_smoke._with_tbptt(model, 5))
+    ts_w, wm = whole._fit_tbptt_batch(ts, batch)
+    ts_s, _ = Trainer(model).train_step(ts, batch)
+    assert len(wm) == 1
+    for a, b in zip(tree_leaves((ts_w.params, ts_w.model_state)),
+                    tree_leaves((ts_s.params, ts_s.model_state))):
+        assert torch.equal(a, b)
+
+
+def test_next_frame_rollout_behind_the_server_on_the_cpu(tiny_next_frame):
+    """The example's rollout through ModelServer (an entry a track length)
+    against the float64 copy's, and the served-output check."""
+    model, trainer, ts, _ = tiny_next_frame
+    variables = trainer.variables(ts)
+    movie = chip_smoke.generate_movies(1, seed=12)[0][0]
+    got, seconds = chip_smoke._rollout("cpu", torch.device("cpu"), model,
+                                       variables, movie)
+    assert got.shape == (chip_smoke.ROLLOUT_NEW, 40, 40, 1) and seconds > 0
+    want = chip_smoke._rollout_direct(model, chip_smoke._float64_copy(
+        variables), movie, torch.float64)
+    assert want.dtype == np.float64
+    for g, w in zip(got, want):
+        assert np.abs(g - w).max() <= chip_smoke.TOL_ROLLOUT * np.abs(
+            w).max()
+    # the first predicted frame is the plain forward's last on 7 frames
+    first = chip_smoke._sequential_output(model)(
+        variables, movie[None, :chip_smoke.ROLLOUT_SEEN])[0, -1]
+    np.testing.assert_array_equal(got[0], first.numpy())
+    req = chip_smoke._movie_request(1)
+    assert req.shape == (2, 15, 40, 40, 1)
+    assert chip_smoke._movie_request(0).shape[0] == 1
+    assert chip_smoke._frames(np.full(req.shape, 0.5), req)
+    assert not chip_smoke._frames(np.full(req.shape, 1.5), req)
+    assert not chip_smoke._frames(np.full(req.shape, 0.5)[:1], req)
+
+
+def test_convlstm_ab_nhwc_carry_variant_is_the_same_function():
+    """``convlstm_ab.py`` times the port's ConvLSTM2D forward against one
+    with an NHWC carry: both compute the same outputs and carries."""
+    import convlstm_ab
+    from deeplearning4j_tpu_torch.nn import layers
+
+    layer = layers.ConvLSTM2D(filters=3, kernel=(3, 2), padding="SAME")
+    params, _ = layer.init(torch.Generator().manual_seed(0), (4, 6, 7, 2),
+                           torch.float32)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 4, 6, 7, 2)).astype(np.float32))
+    state = tuple(torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (2, 6, 7, 3)).astype(np.float32)) for s in (1, 2))
+    for init in (None, state):
+        got, (h, c) = layer._forward(params, x, init)
+        want, (hw, cw) = convlstm_ab.forward_nhwc_carry(layer, params, x,
+                                                        init)
+        for a, b in ((got, want), (h, hw), (c, cw)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
