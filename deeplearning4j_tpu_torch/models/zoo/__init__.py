@@ -1,7 +1,7 @@
 """Model zoo (↔ deeplearning4j_tpu.models.zoo): the entries ported so far.
 
-Not ported yet (ROADMAP queue 1 item 10): the YOLO models (tiny_yolo,
-yolo2), inception_resnet_v1 and nasnet.
+Not ported yet (ROADMAP queue 1 item 10): inception_resnet_v1 and
+nasnet.
 """
 
 from __future__ import annotations
@@ -37,6 +37,16 @@ from deeplearning4j_tpu_torch.models.zoo.resnet import (
     resnet152,
     resnet_config,
 )
+from deeplearning4j_tpu_torch.models.zoo.yolo import (
+    Yolo2OutputLayer,
+    decode_predictions,
+    make_yolo_labels,
+    non_max_suppression,
+    tiny_yolo,
+    tiny_yolo_config,
+    yolo2,
+    yolo2_config,
+)
 
 ZOO: Dict[str, Callable] = {
     "lenet": lenet,
@@ -52,6 +62,8 @@ ZOO: Dict[str, Callable] = {
     "resnet101": resnet101,
     "resnet152": resnet152,
     "text_generation_lstm": text_generation_lstm,
+    "tiny_yolo": tiny_yolo,
+    "yolo2": yolo2,
 }
 
 

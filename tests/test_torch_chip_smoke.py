@@ -341,3 +341,189 @@ def test_convlstm_ab_nhwc_carry_variant_is_the_same_function():
                                                         init)
         for a, b in ((got, want), (h, hw), (c, cw)):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+# --- the YOLO phases' host-side helpers -------------------------------------
+
+
+def test_box_batch_is_seeded_and_labelled_on_the_stride_32_grid():
+    b = chip_smoke._box_batch(5, 96, 7, 3)
+    again = chip_smoke._box_batch(5, 96, 7, 3)
+    np.testing.assert_array_equal(b["features"], again["features"])
+    x, y, objects = b["features"], b["labels"], b["objects"]
+    assert x.shape == (5, 96, 96, 3) and x.dtype == np.float32
+    assert y.shape == (5, 3, 3, 5 + 7) and y.dtype == np.float32
+    assert [len(o) for o in objects] and all(1 <= len(o) <= 3
+                                             for o in objects)
+    from deeplearning4j_tpu_torch.models.zoo.yolo import make_yolo_labels
+
+    np.testing.assert_array_equal(y, make_yolo_labels(objects, grid=(3, 3),
+                                                      num_classes=7))
+    r = np.random.default_rng(3)
+    noise = r.normal(size=x.shape).astype(np.float32)
+    for i, objs in enumerate(objects):
+        cells = {(min(int(cy * 3), 2), min(int(cx * 3), 2))
+                 for cx, cy, _, _, _ in objs}
+        assert int(y[i, ..., 0].sum()) == len(cells)
+        for cx, cy, w, h, cls in objs:
+            assert 0.1 <= w <= 0.4 and 0.1 <= h <= 0.4 and 0 <= cls < 7
+            assert w / 2 <= cx <= 1 - w / 2 and h / 2 <= cy <= 1 - h / 2
+            # the shift sits on the class's channel inside the box
+            row, col = int(cy * 96), int(cx * 96)
+            assert x[i, row, col, cls % 3] - noise[i, row, col, cls % 3] \
+                >= chip_smoke.DISC_SHIFT
+    assert [chip_smoke._yolo_request(i).shape[0] for i in range(4)] == [
+        1, 2, 1, 2]
+    assert chip_smoke._yolo_request(1).shape[1:] == (608, 608, 3)
+
+
+def _decoded(seed, n=3, grid=3, classes=6, tied=False):
+    from deeplearning4j_tpu_torch.models.zoo.yolo import (
+        YOLO2_ANCHORS,
+        Yolo2OutputLayer,
+    )
+
+    r = np.random.default_rng(seed)
+    x = (2 * r.standard_normal((n, grid, grid, 5, 5 + classes))).astype(
+        np.float32)
+    if tied:   # a few confidences and whole class vectors: exact ties
+        x[..., 4] = r.choice([-1.0, 0.5], size=x.shape[:-1])
+        vecs = r.standard_normal((2, classes)).astype(np.float32)
+        x[..., 5:] = vecs[r.integers(0, 2, size=x.shape[:-1])]
+    layer = Yolo2OutputLayer(anchors=YOLO2_ANCHORS, num_classes=classes)
+    return layer.apply({}, {}, torch.from_numpy(
+        x.reshape(n, grid, grid, -1)))[0].numpy()
+
+
+def test_yolo_grid_check():
+    out = _decoded(1)
+    req = np.zeros((3, 96, 96, 3), np.float32)
+    check = chip_smoke._yolo_grids(3, 5, 6)
+    assert check(out, req)
+    assert not chip_smoke._yolo_grids(3, 5, 7)(out, req)
+    assert not check(out[:2], req)
+    for channel, value in ((0, 1.5), (3, 0.0), (4, -0.1), (6, 0.9)):
+        bad = out.copy()
+        bad[0, 0, 0, 0, channel] = value
+        assert not check(bad, req), channel
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_detections_cpu_against_cpu_and_numpy(tied):
+    det = chip_smoke._detections(_decoded(2, tied=tied), torch.device("cpu"))
+    assert det["ok"], det
+    assert all(det["equal"].values())
+    assert (det["tied_scores"] > 0) == tied
+    assert 0 < det["kept_per_image"] <= chip_smoke.YOLO_TOP_K
+
+
+def test_numpy_decode_and_nms_are_the_jax_packages():
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.models.zoo import yolo as jyolo
+
+    import jax
+
+    decoded = _decoded(4, tied=True)
+    boxes, scores, classes = chip_smoke._decode_numpy(decoded, 20)
+    jboxes, jscores, jclasses = jax.jit(lambda d: jyolo.decode_predictions(
+        d, top_k=20))(jnp.asarray(decoded))
+    np.testing.assert_array_equal(classes, np.asarray(jclasses))
+    np.testing.assert_allclose(boxes, np.asarray(jboxes), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(scores, np.asarray(jscores), rtol=1e-6)
+    np.testing.assert_array_equal(
+        chip_smoke._nms_numpy(boxes, scores),
+        np.asarray(jax.jit(jyolo.non_max_suppression)(boxes, scores)))
+
+
+def test_planted_box_on_the_cpu():
+    planted = chip_smoke._planted_box(torch.device("cpu"))
+    assert planted["ok"], planted
+    assert planted["class"] == 3 and planted["decode"]["tied_scores"] > 0
+
+
+@pytest.fixture(scope="module")
+def small_yolos():
+    """YOLOv2 and Tiny-YOLO at 64² with 4 classes on the CPU, their
+    trainers and init states, and two batches of synthetic boxes."""
+    from deeplearning4j_tpu_torch.models.zoo.yolo import tiny_yolo, yolo2
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+
+    batches = [batch_to_device({k: v for k, v in chip_smoke._box_batch(
+        2, 64, 4, s).items() if k != "objects"}, "cpu") for s in (0, 1)]
+    out = {}
+    for name, build in (("yolo2", yolo2), ("tiny_yolo", tiny_yolo)):
+        model = build(device="cpu", num_classes=4, input_shape=(64, 64, 3),
+                      seed=chip_smoke.SEED)
+        trainer = Trainer(model)
+        out[name] = (model, trainer, trainer.init_state(), batches)
+    return out
+
+
+@pytest.mark.parametrize("name", [pytest.param("yolo2", marks=pytest.mark.slow),
+                                  "tiny_yolo"])
+def test_yolo_float64_check_in_parts_on_the_cpu(small_yolos, name):
+    model, trainer, ts, batches = small_yolos[name]
+    f64 = chip_smoke._vs_float64(name, trainer, ts, batches[0],
+                                 per_leaf_max=False, gate_loss=False)
+    assert f64["noise_loss_rel"] < 1e-5
+    parts = chip_smoke._yolo_loss_parts(name, model, ts, batches[0])
+    assert parts["feature_err_frac"] <= chip_smoke.TOL_ZOO_OUT
+    assert parts["layer_loss_rel"] <= chip_smoke.TOL_LOSS_REL
+    feat, layer = chip_smoke._head_input(
+        model, trainer.variables(ts), batches[0]["features"])
+    assert type(layer).__name__ == "Yolo2OutputLayer"
+    assert feat.shape == (2, 2, 2, 5 * 9)
+    # the layer's loss of that map is the model's training loss
+    assert float(layer.compute_loss({}, {}, feat, batches[0]["labels"])) \
+        == pytest.approx(f64["loss_float32"], rel=1e-6)
+
+
+def test_mixed_vs_float32_by_batch_on_the_cpu(small_yolos):
+    from deeplearning4j_tpu_torch.models.zoo.yolo import yolo2
+    from deeplearning4j_tpu_torch.train.trainer import Trainer
+
+    model, _, ts, batches = small_yolos["yolo2"]
+    mp = yolo2(device="cpu", num_classes=4, input_shape=(64, 64, 3))
+    mp.net.mixed_precision = True
+    rel = chip_smoke._mixed_vs_float32(model, Trainer(mp), ts, batches)
+    assert len(rel) == 2 and all(0 < r < 0.5 for r in rel)
+
+
+def test_served_grid_errors():
+    out = _decoded(3)
+    req = np.zeros((3, 96, 96, 3), np.float32)
+    forward = lambda v, x: torch.from_numpy(out)  # noqa: E731
+    errs = chip_smoke._served_grid_errors([out], [req], forward, None, 8)
+    assert errs == {"max_abs_err_bounded": 0.0, "max_rel_err_wh": 0.0,
+                    "matched_buckets": {4: 1},
+                    "alone_max_abs_err_bounded": 0.0,
+                    "alone_max_rel_err_wh": 0.0}
+    bad = out.copy()
+    bad[0, 0, 0, 0, 2] *= 1 + 1e-3
+    bad[1, 0, 0, 0, 5] += 1e-4
+    errs = chip_smoke._served_grid_errors([bad], [req], forward, None, 8)
+    assert errs["max_rel_err_wh"] == pytest.approx(1e-3, rel=1e-3)
+    assert errs["max_abs_err_bounded"] == pytest.approx(1e-4, rel=1e-2)
+
+
+def test_served_grid_errors_match_the_servers_bucket():
+    """A forward whose rounding depends on the batch size (cuDNN picks its
+    algorithm by shape): the served grid is held at the bucket the server
+    ran, and the request alone is reported apart."""
+    out = _decoded(1, n=1)
+    req = np.zeros((1, 96, 96, 3), np.float32)
+
+    def forward(v, x):
+        y = out.copy()
+        if x.shape[0] != 4:
+            y[..., 2:4] *= 1 + 1e-4
+            y[..., 4] += 2e-5
+        return torch.from_numpy(np.repeat(y, x.shape[0], 0))
+
+    errs = chip_smoke._served_grid_errors([out], [req], forward, None, 8)
+    assert errs["matched_buckets"] == {4: 1}
+    assert errs["max_abs_err_bounded"] == errs["max_rel_err_wh"] == 0.0
+    assert errs["alone_max_abs_err_bounded"] == pytest.approx(2e-5, rel=1e-2)
+    assert errs["alone_max_rel_err_wh"] == pytest.approx(1e-4, rel=1e-2)

@@ -86,6 +86,7 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.modelimport.tf",
     "deeplearning4j_tpu_torch.modelimport.tf_proto",
     "deeplearning4j_tpu_torch.nn.activations",
+    "deeplearning4j_tpu_torch.models.zoo.yolo",
 ]
 
 

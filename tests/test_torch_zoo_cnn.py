@@ -17,7 +17,9 @@ checkpoints across both ways. Xception's one-step gradient check is
 ``_gradient_check``); tier-1 holds the gradients of its stem and first
 entry block, cut from each package's own ``xception_config``, per leaf. ``summary()`` equals the
 JAX string. Full-size variable trees against ``jax.eval_shape`` of the
-JAX init.
+JAX init. Tiny-YOLO and YOLOv2 at 64² with 4 classes (a 2×2 grid) take
+dense grid labels of 1–3 boxes an image from ``make_yolo_labels``
+(``tests/test_torch_yolo.py`` holds the rest of the YOLO family).
 """
 
 import jax
@@ -59,6 +61,8 @@ ZOO_CASES = {
     "squeezenet": (dict(num_classes=7, input_shape=(64, 64, 3)), 7),
     "xception": (dict(num_classes=5, input_shape=(71, 71, 3)), 5),
     "unet": (dict(input_shape=(32, 32, 3), base_filters=4, depth=2), 1),
+    "tiny_yolo": (dict(num_classes=4, input_shape=(64, 64, 3)), 4),
+    "yolo2": (dict(num_classes=4, input_shape=(64, 64, 3)), 4),
 }
 UNET = ZOO_CASES["unet"][0]
 
@@ -139,28 +143,65 @@ def _input_shape(cfg):
     return tuple(cfg.input_shape)
 
 
+def _output_layer(cfg):
+    if isinstance(cfg, (jax_config.GraphConfig, nnconfig.GraphConfig)):
+        return cfg.vertices[cfg.outputs[0]].layer
+    return cfg.layers[-1]
+
+
+def _is_yolo(cfg):
+    return type(_output_layer(cfg)).__name__ == "Yolo2OutputLayer"
+
+
+def _yolo_labels(r, n, shape, n_out):
+    """Dense grid labels of 1–3 boxes an image (w, h in [0.1, 0.4] of the
+    image, centres inside it) on the stride-32 grid."""
+    objects = [[(float(r.uniform(0.05, 0.95)), float(r.uniform(0.05, 0.95)),
+                 float(r.uniform(0.1, 0.4)), float(r.uniform(0.1, 0.4)),
+                 int(r.integers(0, n_out)))
+                for _ in range(int(r.integers(1, 4)))] for _ in range(n)]
+    return zoo.make_yolo_labels(objects, grid=(shape[0] // 32,
+                                               shape[1] // 32),
+                                num_classes=n_out)
+
+
 def _batch(cfg, n_out, seed, n=N):
     r = np.random.default_rng(seed)
     shape = _input_shape(cfg)
     x = r.standard_normal((n, *shape)).astype(np.float32)
-    if n_out == 1:  # U-Net: a binary mask per pixel
+    if _is_yolo(cfg):
+        y = _yolo_labels(r, n, shape, n_out)
+    elif n_out == 1:  # U-Net: a binary mask per pixel
         y = (r.random((n, *shape[:2], 1)) < 0.4).astype(np.float32)
     else:
         y = np.eye(n_out, dtype=np.float32)[r.integers(0, n_out, n)]
     return {"features": x, "labels": y}
 
 
+def _out_shape(cfg, n_out, n=N):
+    shape = _input_shape(cfg)
+    if _is_yolo(cfg):
+        return (n, shape[0] // 32, shape[1] // 32,
+                len(_output_layer(cfg).anchors), 5 + n_out)
+    return (n, *shape[:2], 1) if n_out == 1 else (n, n_out)
+
+
+def _single(out):
+    """The one output of a model (a graph's by its name)."""
+    return next(iter(out.values())) if isinstance(out, dict) else out
+
+
 def _output(model, variables, x):
-    out = model.output(variables, x)
-    return out if torch.is_tensor(out) else out["output"]
+    return _single(model.output(variables, x))
 
 
 def _jax_output(jmodel, variables, x):
-    out, _ = jmodel.apply(variables, x, train=False)
-    return out if not isinstance(out, dict) else out["output"]
+    return _single(jmodel.apply(variables, x, train=False)[0])
 
 
-@pytest.mark.parametrize("name", list(ZOO_CASES))
+# YOLOv2's float32 loss is held apart, through its feature map
+# (tests/test_torch_yolo.py::test_yolo2_forward_train_features_and_loss_match_jax)
+@pytest.mark.parametrize("name", [n for n in ZOO_CASES if n != "yolo2"])
 def test_zoo_entry_forward_and_loss_match_jax(name):
     kw, n_out = ZOO_CASES[name]
     jmodel = jax_zoo.get_model(name, **kw)
@@ -177,9 +218,7 @@ def test_zoo_entry_forward_and_loss_match_jax(name):
     want = np.asarray(jax.jit(lambda v, x: _jax_output(jmodel, v, x))(
         v, batch["features"]))
     got = _output(model, tv, batch["features"]).numpy()
-    shape = (N, *_input_shape(jmodel.config)[:2], 1) if n_out == 1 else (
-        N, n_out)
-    assert got.shape == want.shape == shape
+    assert got.shape == want.shape == _out_shape(jmodel.config, n_out)
     _close({"out": got}, {"out": want})
     jloss = jax.jit(lambda v, b: jmodel.loss_fn(v["params"], v["state"],
                                                 b)[0])(v, batch)
@@ -195,7 +234,8 @@ def test_zoo_entry_forward_and_loss_match_jax(name):
 
 @pytest.mark.parametrize("name,n_params", [
     ("xception", 22_855_952), ("unet", 7_846_657), ("squeezenet", 1_235_496),
-    ("darknet19", 20_842_376), ("simplecnn", 608_090)])
+    ("darknet19", 20_842_376), ("simplecnn", 608_090),
+    ("tiny_yolo", 15_861_773), ("yolo2", 67_445_065)])
 def test_full_size_variables_are_the_jax_packages(name, n_params):
     want = jax.eval_shape(lambda: jax_zoo.get_model(name).init())
     want = {n: (tuple(a.shape), str(a.dtype))
@@ -227,7 +267,8 @@ def test_large_classic_parameter_counts(name):
     assert total == want == jmodel.num_params(jax.eval_shape(jmodel.init))
 
 
-@pytest.mark.parametrize("name", ["unet", "squeezenet"])
+@pytest.mark.parametrize("name", ["unet", "squeezenet", "tiny_yolo",
+                                  "yolo2"])
 def test_summary_is_the_jax_packages(name):
     kw, _ = ZOO_CASES[name]
     jmodel = jax_zoo.get_model(name, **kw)
