@@ -108,7 +108,7 @@ caught:
    loss; step time, samples/s, peak memory, idle share and device time
    by kernel class (conv, elementwise, reduce, ...).
 15. ResNet-50 serving — the trained ResNet-50 behind ModelServer
-   (batched, max batch 8), 25 requests of 1–2 NHWC images as JSON from
+   (batched, max batch 8), 12 requests of 1–2 NHWC images as JSON from
    4 client threads; every response against output_single to 1e-5;
    requests/s, p50/p99, a bucket-8 forward's wall and device time, and
    the host time of one request's JSON.
@@ -226,7 +226,7 @@ caught:
    34 depthwise convs (forward, dx, dW by input shape, from the profiler)
    and their share of a step.
 28. Xception serving — the trained model behind ModelServer (max batch
-   8), 20 requests of 1–2 images from 4 clients, every response against
+   8), 10 requests of 1–2 images from 4 clients, every response against
    output_single to 1e-5; requests/s, rows/s, p50/p99, a 2-image
    request's JSON host time (536,406 numbers).
 29. U-Net training — the zoo's unet at its defaults (128x128x3,
@@ -235,7 +235,7 @@ caught:
    the disc's mask the label: one step against the float64 copy (LeNet-5's
    limits), 30 float32 steps of fit with the last loss below the first,
    pixel accuracy, step time, images/s, peak memory, idle share.
-30. U-Net serving — behind ModelServer (max batch 8), 50 requests of 1–4
+30. U-Net serving — behind ModelServer (max batch 8), 25 requests of 1–4
    disc images from 8 clients; every mask [n, 128, 128, 1] against
    output_single to 1e-5; requests/s, p50/p99, JSON host time.
 31. zoo_cnn — alexnet, vgg16, vgg19, simplecnn, darknet19 and squeezenet
@@ -286,7 +286,7 @@ caught:
    checkpoint restored bit-equal; batch time, windows/s, a window's
    breakdown.
 36. convlstm_serve — the trained model behind ModelServer (max batch 8),
-   50 requests of 1–2 held-out movies from 4 clients, the frames back as
+   25 requests of 1–2 held-out movies from 4 clients, the frames back as
    JSON, each against output to 1e-5; requests/s, movies/s, p50/p99, the
    JSON host time of a 2-movie request beside a bucket-8 forward; then
    the example's rollout: 7 frames of a held-out movie, 8 more predicted
@@ -309,7 +309,7 @@ caught:
 38. tiny_yolo_train — the zoo's tiny_yolo (416x416x3, 20 classes,
    15,861,773 parameters), batch 8 of the same data: the same float64
    check and 30 steps; step time and idle share.
-39. yolo2_serve — the trained YOLOv2 behind ModelServer (max batch 8), 12
+39. yolo2_serve — the trained YOLOv2 behind ModelServer (max batch 8), 6
    requests of 1–2 images from 4 clients, every grid [n, 19, 19, 5, 85]
    checked (xy and confidence in [0, 1], wh > 0, class probabilities
    summing to 1) and held against output_single on the request padded to
@@ -319,8 +319,45 @@ caught:
    scores to TOL_DECODE) and against a numpy decode and greedy sweep in
    stable order; tests/test_yolo.py's
    planted box found on the card; requests/s, p50/p99, JSON host time,
-   a bucket-8 forward, detections kept an image. Phases 34–39 run last;
-   their launch counts must be {}.
+   a bucket-8 forward, detections kept an image. Phases 34–39 run after
+   phase 33; their launch counts must be {}.
+40. nasnet_train — NASNet-A Mobile (advanced.py's mobile reference
+   config, NASNet-A 4@1056: 224x224x3, 1000 classes, dropout 0.5;
+   4,165,560 parameters, 616 vertices), batch 16 of bench_resnet50's data
+   at 224, Adam 1e-3: one step against the float64 copy (ResNet-50's
+   limits, the same dropout masks, the whole batch), 30 float32 steps of
+   fit (the last loss below the first, a checkpoint restored bit-equal),
+   the first mixed step within 2e-2 of the first float32 step, 10 mixed
+   steps (2 batches); step
+   time, images/s, idle share, device time by class, the depthwise convs'
+   kernels and share of a step (_depthwise_census), peak memory.
+41. nasnet_serve — the trained model behind ModelServer (max batch 8), 10
+   requests of 1–2 images from 4 clients: softmax rows, each held against
+   output_single on the request zero-padded to the server's bucket it
+   matches (TOL_SERVED; against the request alone reported).
+42. facenet_train — Inception-ResNet-v1 at the reference zoo's A/B counts
+   (width 32, 5 A and 10 B blocks, 160², a 128-d bottleneck, dropout 0.2;
+   3,303,040 parameters) made trainable as advanced.py says, through
+   GraphTransferLearning: an l2norm vertex "embeddings" and a
+   CenterLossOutputLayer "loss" (64 identities) on it. Synthetic
+   identities (a fixed N(0, 1) template each plus N(0, 0.5²) noise),
+   batch 32, Adam 1e-3: one step against the float64 copy (ResNet-50's
+   limits; the centers' gradient reported apart), 30 steps of fit with
+   the last loss below the first.
+43. facenet_finetune — GraphTransferLearning(trained)
+   .fine_tune_configuration(Adam(1e-4)).set_feature_extractor("red_a_cat")
+   .n_out_replace("loss", 32): the frozen list the vertices upstream of
+   red_a_cat with params; 10 steps on 32 new identities with every frozen
+   param bit-equal to the trained model's and a falling loss; how far the
+   frozen vertices' BatchNorm running state moved (the Trainer masks
+   gradients and updates, as the JAX package does).
+44. facenet_serve — the fine-tuned model with its head stripped
+   (remove_vertex("loss"), set_outputs("embeddings")) behind ModelServer
+   (max batch 8), 20 requests of 1–2 images from 4 clients: every row of
+   norm 1 to TOL_UNIT, every answer against output_single on the padded
+   request to TOL_SERVED; the mean cosine distance within an identity and
+   between identities. Phases 40–44 run last; their launch counts must
+   be {}.
 
 No TPU kernel lies on phases 13–15, 17, 24 and 27–39: the convolutions,
 transposed convs and pools run in cuDNN and PyTorch (as the JAX package
@@ -335,6 +372,10 @@ torch.matmul, as the JAX package's SameDiff leaves it to XLA. ConvLSTM2D
 loop over cuDNN convs. The YOLO family's output layer, decode and NMS
 (phases 37–39) are plain jnp in the JAX package
 (deeplearning4j_tpu/models/zoo/yolo.py:56-224) and plain torch here.
+NASNet-A and Inception-ResNet-v1 (phases 40–44) are XLA convs, pools and
+BatchNorm in the JAX package (deeplearning4j_tpu/models/zoo/advanced.py),
+cuDNN and plain torch here; transfer learning is host-side graph surgery
+and the Trainer's gradient mask.
 
 On the recurrent paths the plain ops/rnn.lstm and ops/rnn.gru must never
 see a CUDA tensor (they are the plain paths the kernels are held against,
@@ -344,8 +385,9 @@ It prints the kernels line ({"kernels": [...]}), the serving, training,
 char-RNN (TBPTT and sampling too), char-GRU (TBPTT too), bitmap, LeNet-5,
 ResNet-50, GPT-2-small (prefix serving and the warm restart too), loss
 guard, seq2seq, Xception, U-Net, zoo_cnn, conv_layers, samediff_bert,
-convlstm (training, TBPTT, serving) and YOLO (yolo2 training, tiny_yolo
-training, yolo2 serving) lines,
+convlstm (training, TBPTT, serving), YOLO (yolo2 training, tiny_yolo
+training, yolo2 serving), NASNet (training, serving) and FaceNet
+(training, fine-tune, serving) lines,
 the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
 """
@@ -1274,10 +1316,11 @@ def phase_slice(dev, smi):
             "card": smi}
 
 
-def _forward_breakdown(fwd, kernel=None) -> dict:
+def _forward_breakdown(fwd, kernel=None, iters=10) -> dict:
     """Where one forward's time goes: host wall time (synchronised,
-    median of 10), device busy time (the union of its kernels' intervals),
-    its kernel classes and ``kernel``'s part of it (where named)."""
+    median of 10), device busy time (the union of its kernels' intervals,
+    a mean over ``iters`` traced forwards), its kernel classes and
+    ``kernel``'s part of it (where named)."""
     with torch.inference_mode():
         walls = []
         for _ in range(13):
@@ -1286,17 +1329,17 @@ def _forward_breakdown(fwd, kernel=None) -> dict:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         spans = []
-        by_kernel = _device_us_by_kernel(fwd, iters=10, spans=spans)
+        by_kernel = _device_us_by_kernel(fwd, iters=iters, spans=spans)
     wall_ms = float(np.median(walls[3:])) * 1e3
     # busy time: kernels that overlap (dependent launches) count once
-    device_ms = _busy_us(spans, "", 10) / 1e3
+    device_ms = _busy_us(spans, "", iters) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-           "classes_ms": _kernel_classes(spans, 10),
+           "classes_ms": _kernel_classes(spans, iters),
            "top_kernels_us": {k[:60]: round(us, 1) for k, us in top}}
     if kernel is not None:
-        kernel_ms = _busy_us(spans, f"{kernel}_", 10) / 1e3
+        kernel_ms = _busy_us(spans, f"{kernel}_", iters) / 1e3
         out[f"{kernel}_ms"] = kernel_ms
         out[f"{kernel}_share_of_device"] = kernel_ms / device_ms
     return out
@@ -1623,12 +1666,13 @@ def _kernel_classes(spans, calls) -> dict:
             for cls, sp in sorted(by_class.items())}
 
 
-def _step_breakdown(trainer, ts, batch, kernels, step=None) -> dict:
+def _step_breakdown(trainer, ts, batch, kernels, step=None,
+                    iters=3) -> dict:
     """One train step (or ``step()``, a callable): host wall time
     (synchronised, median of 5 after 2 warm-up), device busy time from the
-    profiler (the union of its kernels' intervals), the device's idle
-    share of the wall time, and each named kernel's share of the device
-    time."""
+    profiler (the union of its kernels' intervals, a mean over ``iters``
+    traced steps), the device's idle share of the wall time, and each
+    named kernel's share of the device time."""
     step = step or (lambda: trainer.train_step(ts, batch))
     walls = []
     for _ in range(7):
@@ -1639,15 +1683,15 @@ def _step_breakdown(trainer, ts, batch, kernels, step=None) -> dict:
         walls.append(time.perf_counter() - t0)
     wall_ms = float(np.median(walls[2:])) * 1e3
     spans = []
-    by_kernel = _device_us_by_kernel(step, iters=3, spans=spans)
+    by_kernel = _device_us_by_kernel(step, iters=iters, spans=spans)
     # busy time: kernels that overlap (dependent launches) count once
-    device_ms = _busy_us(spans, "", 3) / 1e3
+    device_ms = _busy_us(spans, "", iters) / 1e3
     shares = {}
     for kernel in kernels:
-        k_ms = _busy_us(spans, f"{kernel}_", 3) / 1e3
+        k_ms = _busy_us(spans, f"{kernel}_", iters) / 1e3
         shares[kernel] = {"ms": k_ms, "share_of_device": k_ms / device_ms}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    classes = _kernel_classes(spans, 3)
+    classes = _kernel_classes(spans, iters)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "kernels": shares,
@@ -3677,7 +3721,7 @@ def _l2_errors(got, want):
 
 
 def _vs_float64(tag, trainer, ts, batch, *, per_leaf_max: bool,
-                dropout_seed=None, gate_loss=True) -> dict:
+                dropout_seed=None, gate_loss=True, leaves=()) -> dict:
     """One loss, BatchNorm state and gradient of the float32 train step
     against the same model run in float64 on the card (cuDNN's float64
     convolutions), on the same batch (and, with ``dropout_seed``, the
@@ -3688,7 +3732,9 @@ def _vs_float64(tag, trainer, ts, batch, *, per_leaf_max: bool,
     that (ResNet-50: see TOL_GRAD_L2), by relative L2 error, beside the
     float64 copy's own change under float32-sized noise on its features
     and params (its loss's change reported too). ``gate_loss=False``: the
-    loss is reported and the caller holds it (YOLO: _yolo_loss_parts)."""
+    loss is reported and the caller holds it (YOLO: _yolo_loss_parts).
+    ``leaves``: gradient leaves whose errors are reported apart (relative
+    L2 and max |error| over the leaf's max)."""
     p64, s64 = _float64_copy(ts.params), _float64_copy(ts.model_state)
     b64 = dict(batch, features=batch["features"].double())
     loss32, state32, g32 = _grads_by_name(trainer, ts.params,
@@ -3712,7 +3758,10 @@ def _vs_float64(tag, trainer, ts, batch, *, per_leaf_max: bool,
            "worst_grad_leaf": worst_name,
            "worst_grad_frac": fracs[worst_name],
            "worst_l2_leaf": worst_l2, "worst_l2_err": leaf_l2[worst_l2],
-           "l2_err": all_l2}
+           "l2_err": all_l2,
+           "leaves": {n: {"l2_err": leaf_l2[n], "max_err_frac": float(
+               (g32[n].double() - g64[n]).abs().max()
+               / g64[n].abs().max().clamp_min(1e-300))} for n in leaves}}
     ok = (loss_rel <= TOL_LOSS_REL or not gate_loss) and \
         state_err <= TOL_STATE
     if per_leaf_max:
@@ -3750,6 +3799,9 @@ def _vs_float64(tag, trainer, ts, batch, *, per_leaf_max: bool,
                       f"{TOL_GRAD_L2:.0e}); the float64 copy's own under "
                       f"2^-24 noise {out['noise_l2_err']:.2e}, worst leaf "
                       f"{out['noise_worst_l2_err']:.2e}"))
+    if leaves:
+        log(f"[{tag}] gradient leaves apart, float32 vs float64: "
+            f"{out['leaves']}")
     if not ok:
         raise SystemExit(f"chip_smoke: {tag}: the float32 step disagrees "
                          "with float64")
@@ -3868,10 +3920,11 @@ def _resnet_batches():
 
 
 def _train_resnet(tag, trainer, ts0, on_dev, dev, batch=RESNET_BATCH,
-                  epochs=RESNET_EPOCHS):
+                  epochs=RESNET_EPOCHS, profile_iters=3):
     """``epochs`` × len(on_dev) steps of fit with checkpoints (the loss
-    must fall over them), then one step's breakdown: the fit's record
-    (samples/s at ``batch`` images a step)."""
+    must fall over them), then one step's breakdown (``profile_iters``
+    steps traced): the fit's record (samples/s at ``batch`` images a
+    step)."""
     fit = _fit_and_restore(tag, trainer, ts0, on_dev, epochs, dev)
     losses = fit["losses"]
     n = len(on_dev)
@@ -3880,7 +3933,8 @@ def _train_resnet(tag, trainer, ts0, on_dev, dev, batch=RESNET_BATCH,
             np.all(np.isfinite(losses)) and last < first):
         raise SystemExit(f"chip_smoke: {tag}: the loss did not fall "
                          f"({first:.4f} -> {last:.4f})")
-    breakdown = _step_breakdown(trainer, fit["ts"], on_dev[0], ())
+    breakdown = _step_breakdown(trainer, fit["ts"], on_dev[0], (),
+                                iters=profile_iters)
     step_ms = fit["median_step_ms"]
     shares = {c: round(v, 3)
               for c, v in breakdown["class_share_of_device"].items()}
@@ -3955,11 +4009,11 @@ def phase_resnet_train(dev, smi):
 # -- 15. ResNet-50 serving ----------------------------------------------------
 
 # Closed loop: RESNET_CLIENTS client threads, requests of 1-2 NHWC float
-# images (224x224x3, sent as JSON numbers), batched mode, max batch 8. 25
+# images (224x224x3, sent as JSON numbers), batched mode, max batch 8. 12
 # requests (100 before the ConvLSTM phases joined the script, 50 before
-# the YOLO phases: the phase is bound by JSON on the host at ~2
-# requests/s).
-RESNET_REQUESTS, RESNET_CLIENTS, RESNET_MAX_BATCH = 25, 4, 8
+# the YOLO phases, 25 before the advanced zoo's: the phase is bound by
+# JSON on the host at ~2 requests/s).
+RESNET_REQUESTS, RESNET_CLIENTS, RESNET_MAX_BATCH = 12, 4, 8
 # served outputs against output_single on the same card, both float32 (the
 # same function, run at another batch bucket)
 TOL_SERVED = 1e-5
@@ -4057,7 +4111,7 @@ def _serve_images(tag, dev, smi, name, forward, variables, requests, *,
         raise SystemExit("chip_smoke: a request did not survive JSON")
     x8 = torch.from_numpy(
         np.concatenate(requests[:max_batch])[:max_batch]).to(dev)
-    breakdown = _forward_breakdown(lambda: forward(variables, x8))
+    breakdown = _forward_breakdown(lambda: forward(variables, x8), iters=3)
     lat_ms = np.asarray(latencies) * 1e3
     log(f"[{tag}] one bucket-{max_batch} forward: {breakdown}")
     log(f"[{tag}] a 2-image request's JSON: {json_ms}")
@@ -4919,7 +4973,7 @@ def _unchecked_sparse_ce(logits, label_ids, weights=None, reduction="mean"):
     return _reduce(ce, reduction, weights)
 
 
-def _time_loss_check(trainer, ts, batch, pairs=40) -> dict:
+def _time_loss_check(trainer, ts, batch, pairs=20) -> dict:
     """A train step's wall ms (synchronised) with the sparse loss's range
     check and without it, alternating step by step over ``pairs`` pairs
     (check first in every other pair): each one's median and the median
@@ -5557,7 +5611,10 @@ def _depthwise_census(model, dev, batch) -> dict:
             y = opscnn.depthwise_conv2d(x, w, stride=stride, padding="SAME")
             torch.autograd.grad(y, (x, w), dy)
 
-        by_kernel = _device_us_by_kernel(fn, iters=5)
+        for _ in range(3):  # a trace now and then comes back empty
+            by_kernel = _device_us_by_kernel(fn, iters=5)
+            if by_kernel:
+                break
         us = sum(by_kernel.values())
         total_us += us * len(names)
         named = {}
@@ -5638,10 +5695,11 @@ def phase_xception_train(dev, smi):
 
 # -- 28. Xception serving --------------------------------------------------
 
-# Closed loop: 4 client threads, 20 requests of 1-2 299x299x3 images as
+# Closed loop: 4 client threads, 10 requests of 1-2 299x299x3 images as
 # JSON (268,203 numbers an image; 40 before the YOLO phases joined the
-# script, JSON-bound at ~1.7 requests/s), batched mode, max batch 8.
-XCEPTION_REQUESTS, XCEPTION_CLIENTS, XCEPTION_MAX_BATCH = 20, 4, 8
+# script, 20 before the advanced zoo's, JSON-bound at ~1.7 requests/s),
+# batched mode, max batch 8.
+XCEPTION_REQUESTS, XCEPTION_CLIENTS, XCEPTION_MAX_BATCH = 10, 4, 8
 
 
 def _xception_request(i):
@@ -5737,11 +5795,11 @@ def phase_unet_train(dev, smi):
 
 # -- 30. U-Net serving ------------------------------------------------------
 
-# Closed loop: 8 client threads, 50 requests of 1-4 disc images
-# (128x128x3) as JSON (100 before the ConvLSTM phases joined the script;
-# JSON-bound at ~3 requests/s), batched mode, max batch 8; each answer a
+# Closed loop: 8 client threads, 25 requests of 1-4 disc images
+# (128x128x3) as JSON (100 before the ConvLSTM phases joined the script,
+# 50 before the advanced zoo's; JSON-bound at ~3 requests/s), batched mode, max batch 8; each answer a
 # mask of probabilities [n, 128, 128, 1], the first rank-4 output served.
-UNET_REQUESTS, UNET_CLIENTS, UNET_MAX_BATCH = 50, 8, 8
+UNET_REQUESTS, UNET_CLIENTS, UNET_MAX_BATCH = 25, 8, 8
 
 
 def _unet_request(i):
@@ -6495,8 +6553,9 @@ CONVLSTM_T, CONVLSTM_SIZE, CONVLSTM_FILTERS, CONVLSTM_DEPTH = 15, 40, 40, 4
 CONVLSTM_PARAMS = 406_681
 CONVLSTM_BATCH, CONVLSTM_BATCHES, CONVLSTM_EPOCHS = 10, 10, 3  # 30 steps
 CONVLSTM_TBPTT = 5       # 3 windows a batch of 15 frames
-# 50 requests (100 before the YOLO phases joined the script: JSON-bound)
-CONVLSTM_REQUESTS, CONVLSTM_CLIENTS, CONVLSTM_MAX_BATCH = 50, 4, 8
+# 25 requests (100 before the YOLO phases joined the script, 50 before the
+# advanced zoo's: JSON-bound)
+CONVLSTM_REQUESTS, CONVLSTM_CLIENTS, CONVLSTM_MAX_BATCH = 25, 4, 8
 # the example's rollout: 7 frames seen, then each new frame predicted from
 # the whole track so far, 8 times
 ROLLOUT_SEEN, ROLLOUT_NEW = 7, 8
@@ -6574,8 +6633,9 @@ def _movie_batches(n_batches, batch, seed=SEED, **kw):
 def _no_hand_kernels(tag, counts):
     """No Pallas kernel lies on the ConvLSTM path (the JAX layer is a
     lax.scan over XLA convs) nor on the YOLO family's (XLA convs, pools
-    and plain jnp for the output layer, decode and NMS): the launch counts
-    must stay {}."""
+    and plain jnp for the output layer, decode and NMS) nor on the
+    advanced zoo's (XLA convs, pools and BatchNorm; transfer learning is
+    graph surgery): the launch counts must stay {}."""
     if counts:
         raise SystemExit(f"chip_smoke: {tag} launched hand kernels "
                          f"{counts}; the path has none")
@@ -6916,10 +6976,11 @@ TINY_YOLO_SIZE, TINY_YOLO_CLASSES, TINY_YOLO_PARAMS = 416, 20, 15_861_773
 # loss 4.2e-2 from float32, float32 with the weights rounded to bf16
 # alone 2.7e-3; after 30 steps 2.6e-4 to 2.5e-3 on an H100). The init
 # step's is reported.
-# Closed loop: 4 client threads, 12 requests of 1-2 608x608x3 images as
-# JSON (1,108,992 numbers an image), batched mode, max batch 8; each
+# Closed loop: 4 client threads, 6 requests of 1-2 608x608x3 images as
+# JSON (1,108,992 numbers an image; 12 before the advanced zoo's phases
+# joined the script, JSON-bound at ~0.3 requests/s), batched mode, max batch 8; each
 # answer the decoded grid [n, 19, 19, 5, 85].
-YOLO_REQUESTS, YOLO_CLIENTS, YOLO_MAX_BATCH = 12, 4, 8
+YOLO_REQUESTS, YOLO_CLIENTS, YOLO_MAX_BATCH = 6, 4, 8
 # Served grids against output_single on the request zero-padded to the
 # server's bucket it matches, every channel to TOL_SERVED: xy, confidence
 # and class probabilities absolutely, wh (anchor × exp(logit), grid units)
@@ -7277,17 +7338,17 @@ def _grid_errors(out, want) -> tuple:
             float((err[..., 2:4] / want[..., 2:4]).max()))
 
 
-def _served_grid_errors(served, requests, forward, variables,
-                        max_batch) -> dict:
-    """Each served grid against ``forward`` on its request, zero-padded
+def _served_bucket_errors(served, requests, forward, variables, max_batch,
+                          errors) -> dict:
+    """Each served answer against ``forward`` on its request, zero-padded
     as the batched server pads it to each bucket it can ride in (the
-    powers of two from its own bucket up to ``max_batch``): the errors at
-    the bucket it matches best, worst over the requests, the buckets
-    matched, and the errors against ``forward`` on the request alone
-    (another batch size, so other cuDNN algorithms)."""
+    powers of two from its own bucket up to ``max_batch``): ``errors(out,
+    want)``, a tuple, at the bucket it matches best, worst over the
+    requests, the buckets matched, and the errors against ``forward`` on
+    the request alone (another batch size, so other cuDNN algorithms)."""
     from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
 
-    bounded = wh = alone_bounded = alone_wh = 0.0
+    worst = alone = None
     matched = {}
     for out, req in zip(served, requests):
         n = req.shape[0]
@@ -7297,20 +7358,30 @@ def _served_grid_errors(served, requests, forward, variables,
             x = np.concatenate([req, np.zeros((bucket - n, *req.shape[1:]),
                                               req.dtype)])
             want = forward(variables, x)[:n].double().cpu().numpy()
-            errs[bucket] = _grid_errors(out, want)
+            errs[bucket] = errors(out, want)
             bucket *= 2
         best = min(errs, key=lambda b: max(errs[b]))
         matched[best] = matched.get(best, 0) + 1
-        bounded = max(bounded, errs[best][0])
-        wh = max(wh, errs[best][1])
-        a_b, a_wh = (errs[n] if n in errs else _grid_errors(
+        a = (errs[n] if n in errs else errors(
             out, forward(variables, req).double().cpu().numpy()))
-        alone_bounded, alone_wh = max(alone_bounded, a_b), max(alone_wh,
-                                                                a_wh)
-    return {"max_abs_err_bounded": bounded, "max_rel_err_wh": wh,
-            "matched_buckets": dict(sorted(matched.items())),
-            "alone_max_abs_err_bounded": alone_bounded,
-            "alone_max_rel_err_wh": alone_wh}
+        worst = errs[best] if worst is None else tuple(map(max, worst,
+                                                           errs[best]))
+        alone = a if alone is None else tuple(map(max, alone, a))
+    return {"max_err": worst, "matched_buckets": dict(sorted(
+        matched.items())), "alone_max_err": alone}
+
+
+def _served_grid_errors(served, requests, forward, variables,
+                        max_batch) -> dict:
+    """``_served_bucket_errors`` of YOLO grids (``_grid_errors``: xy,
+    confidence and class probabilities absolutely, wh relatively)."""
+    e = _served_bucket_errors(served, requests, forward, variables,
+                              max_batch, _grid_errors)
+    return {"max_abs_err_bounded": e["max_err"][0],
+            "max_rel_err_wh": e["max_err"][1],
+            "matched_buckets": e["matched_buckets"],
+            "alone_max_abs_err_bounded": e["alone_max_err"][0],
+            "alone_max_rel_err_wh": e["alone_max_err"][1]}
 
 
 def phase_yolo2_serve(dev, smi, model, variables):
@@ -7360,6 +7431,475 @@ def phase_yolo2_serve(dev, smi, model, variables):
     return {"model": "yolo2", **out, "detections": det,
             "planted_box": planted, "decode_seconds": det_s,
             "phase_seconds": time.monotonic() - t0}
+
+
+# -- 40. NASNet-A Mobile training --------------------------------------------
+
+# NASNet-A Mobile, advanced.py's mobile reference config (Zoph et al.
+# 2018, NASNet-A 4@1056): penultimate_filters 1056, 4 cells a stack, stem
+# 32, 224x224x3, 1000 classes, dropout 0.5; 4,165,560 parameters, 616
+# vertices (the JAX package's cells: its stem has no reduction cells, so
+# the first stack runs at 112²). Batch 16: a float32 step peaks at ~24
+# GiB on an H100, so 32 would fit too, but the float64 check of a whole
+# batch of 32 (about twice that step's ~49 GiB) would not. Adam 1e-3,
+# bench_resnet50's data at 224, 3 fixed batches cycled by 10 epochs (30
+# float32 steps), then 2 of those batches by 5 epochs (10 steps, one
+# checkpoint) in mixed precision: the mixed step is host-bound like the
+# float32 one, and 10 steps show its loss fall.
+# The float64 check is Xception's (ResNet-50's limits) with the same
+# dropout masks in both copies, on the whole of batch 0 (its float64 copy
+# fits on the card).
+NASNET_KW = dict(penultimate_filters=1056, cells_per_stack=4,
+                 stem_filters=32, num_classes=1000, input_shape=(224, 224, 3),
+                 dropout=0.5)
+NASNET_BATCH, NASNET_BATCHES, NASNET_EPOCHS, NASNET_SIZE = 16, 3, 10, 224
+NASNET_MIXED_BATCHES, NASNET_MIXED_EPOCHS = 2, 5
+NASNET_CLASSES, NASNET_PARAMS = 1000, 4_165_560
+
+
+def _check_params(tag, n_params, want):
+    if n_params != want:
+        raise SystemExit(f"chip_smoke: {tag}: {n_params:,} parameters, not "
+                         f"{want:,}")
+
+
+def phase_nasnet_train(dev, smi):
+    """Returns the phase's line, the model and its trained variables (for
+    phase 41)."""
+    from deeplearning4j_tpu_torch.models.zoo import nasnet
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    from deeplearning4j_tpu_torch.utils.pytree import tree_leaves
+
+    t0 = time.monotonic()
+    model = nasnet(device=dev, updater=Adam(1e-3), seed=SEED, **NASNET_KW)
+    trainer = Trainer(model)
+    ts0 = trainer.init_state()
+    on_dev = [batch_to_device(b, dev) for b in _image_batches(
+        NASNET_BATCHES, NASNET_BATCH, NASNET_SIZE, NASNET_CLASSES)]
+    n_params = model.num_params(trainer.variables(ts0))
+    log(f"[nasnet_train] nasnet (NASNet-A 4@1056): {n_params:,} parameters, "
+        f"{len(model.order)} vertices, {len(_depthwise_groups(model))} "
+        f"depthwise shapes, Adam(1e-3), batches {NASNET_BATCH}x{NASNET_SIZE}"
+        f"x{NASNET_SIZE}x3, built in {time.monotonic() - t0:.1f} s")
+    _check_params("nasnet_train", n_params, NASNET_PARAMS)
+    f64 = _vs_float64("nasnet_train", trainer, ts0, on_dev[0],
+                      per_leaf_max=False, dropout_seed=SEED)
+    fit, fp32 = _train_resnet("nasnet_train", trainer, ts0, on_dev, dev,
+                              batch=NASNET_BATCH, epochs=NASNET_EPOCHS,
+                              profile_iters=1)
+    _no_hand_kernels("nasnet_train", fit["launches"])
+    losses = fit["losses"]
+    if not losses[-1] < losses[0]:
+        raise SystemExit("chip_smoke: nasnet_train: the last loss is not "
+                         "below the first")
+    trained = trainer.variables(fit["ts"])
+    census = _depthwise_census(model, dev, NASNET_BATCH)
+    device_ms = fp32["step_breakdown"]["device_ms"]
+    census["share_of_step_device"] = census["ms_per_step"] / device_ms
+    for row in census["groups"]:
+        log(f"[nasnet_train] depthwise {row['input_hwc']} k{row['kernel']}"
+            f" s{row['stride']} x{row['layers']}: {row['us_per_layer']:.1f}"
+            f" us a layer (forward + dx + dW): {row['kernels_us']}")
+    log(f"[nasnet_train] the {census['layers']} depthwise convs: "
+        f"{census['ms_per_step']:.2f} ms of a step's {device_ms:.2f} device "
+        f"ms ({census['share_of_step_device']:.1%})")
+
+    # the first mixed step against the first float32 step of the fit: the
+    # same variables, batch and dropout masks (one seed, step 0)
+    mp_model = nasnet(device=dev, updater=Adam(1e-3), seed=SEED, **NASNET_KW)
+    mp_model.net.mixed_precision = True
+    mp_trainer = Trainer(mp_model)
+    mts0 = mp_trainer.init_state(trainer.variables(ts0))
+    mts1, m = mp_trainer.train_step(mts0, on_dev[0])
+    mp_loss = float(m["total_loss"])
+    mp_rel = abs(mp_loss - losses[0]) / abs(losses[0])
+    state_f32 = all(a.dtype == torch.float32 for a in tree_leaves(
+        (mts1.params, mts1.model_state, mts1.opt_state)))
+    log(f"[nasnet_mixed] first step's loss {mp_loss:.6f} vs float32 "
+        f"{losses[0]:.6f} (rel {mp_rel:.2e}, tol {TOL_MIXED_REL:.0e}); "
+        f"params, BatchNorm and updater state float32: {state_f32}")
+    if mp_rel > TOL_MIXED_REL or not state_f32:
+        raise SystemExit("chip_smoke: the mixed-precision NASNet step "
+                         "failed")
+    del mts1
+    mfit, mixed = _train_resnet("nasnet_mixed", mp_trainer, mts0,
+                                on_dev[:NASNET_MIXED_BATCHES], dev,
+                                batch=NASNET_BATCH,
+                                epochs=NASNET_MIXED_EPOCHS,
+                                profile_iters=1)
+    _no_hand_kernels("nasnet_mixed", mfit["launches"])
+    mixed["first_loss_vs_float32_rel"] = mp_rel
+    del mts0, ts0, mp_trainer, mp_model, on_dev, mfit
+    log(f"[nasnet_train] phase {time.monotonic() - t0:.1f} s, on {smi}")
+    return {"model": "nasnet", "config": NASNET_KW, "batch": NASNET_BATCH,
+            "image": NASNET_SIZE, "num_params": n_params,
+            "vertices": len(model.order), "vs_float64": f64,
+            "float32": fp32, "mixed_precision": mixed, "depthwise": census,
+            "phase_seconds": time.monotonic() - t0, "card": smi}, \
+        model, trained
+
+
+# -- 41. NASNet-A Mobile serving ---------------------------------------------
+
+# Closed loop: 4 client threads, 10 requests of 1-2 224x224x3 images as
+# JSON (JSON-bound at ~2 requests/s), batched mode, max batch 8. Each answer (softmax rows) against
+# output_single on the request zero-padded to the server's bucket it
+# matches, to TOL_SERVED; against the request alone reported (another
+# batch size, so other cuDNN algorithms).
+NASNET_REQUESTS, NASNET_CLIENTS, NASNET_MAX_BATCH = 10, 4, 8
+
+
+def _nasnet_request(i):
+    r = np.random.default_rng(4000 + i)
+    return r.normal(size=(1 + i % 2, NASNET_SIZE, NASNET_SIZE, 3)).astype(
+        np.float32)
+
+
+def _abs_errors(out, want) -> tuple:
+    return (float(np.abs(out - want).max()),)
+
+
+def _serve_at_buckets(tag, dev, smi, name, model, variables, requests,
+                      check, clients, max_batch) -> dict:
+    """``_serve_images`` of ``output_single`` (no hand kernel on the
+    path), every answer held against the forward of its request padded to
+    the bucket it matches (``_served_bucket_errors``) to TOL_SERVED;
+    the answers handed back under "outputs"."""
+    forward = _output_single(model)
+    out = _serve_images(tag, dev, smi, name, forward, variables, requests,
+                        clients=clients, max_batch=max_batch, tol=None,
+                        check=check)
+    _no_hand_kernels(tag, out["kernel_launches"])
+    errs = _served_bucket_errors(out["outputs"], requests, forward,
+                                 variables, max_batch, _abs_errors)
+    out.update(max_abs_err=errs["max_err"][0],
+               matched_buckets=errs["matched_buckets"],
+               alone_max_abs_err=errs["alone_max_err"][0])
+    log(f"[{tag}] served answers vs output_single on the request padded to "
+        f"the bucket it matches ({errs['matched_buckets']} requests a "
+        f"bucket): {out['max_abs_err']:.3e} (tol {TOL_SERVED:.0e}); against "
+        f"the request alone {out['alone_max_abs_err']:.3e} (reported)")
+    if not out["max_abs_err"] <= TOL_SERVED:
+        raise SystemExit(f"chip_smoke: {tag}: served answers disagree with "
+                         "the forward")
+    return out
+
+
+def phase_nasnet_serve(dev, smi, model, variables):
+    t0 = time.monotonic()
+    requests = [_nasnet_request(i) for i in range(NASNET_REQUESTS)]
+    out = _serve_at_buckets("nasnet_serve", dev, smi, "nasnet", model,
+                            variables, requests,
+                            _softmax_rows(NASNET_CLASSES),
+                            NASNET_CLIENTS, NASNET_MAX_BATCH)
+    del out["outputs"]
+    return {"model": "nasnet", **out,
+            "phase_seconds": time.monotonic() - t0}
+
+
+# -- 42. FaceNet training ----------------------------------------------------
+
+# Inception-ResNet-v1, the FaceNet backbone, at the reference zoo's A/B
+# counts (width 32, 5 A and 10 B blocks; the JAX package has no C tower):
+# 160x160x3, a 128-d linear bottleneck, dropout 0.2, 3,303,040
+# parameters. advanced.py's recipe through GraphTransferLearning: an
+# l2norm vertex "embeddings" on "bottleneck", a CenterLossOutputLayer
+# "loss" over FACENET_IDS identities on it (16,448 more parameters).
+# Synthetic identities: a fixed N(0, 1) 160² template each, plus N(0,
+# FACENET_NOISE²) per image, one-hot labels; batch 32, Adam 1e-3, 3 fixed
+# batches cycled by 10 epochs (30 steps), float32. The float64 check with
+# ResNet-50's limits and the same dropout masks; the centers' gradient
+# reported apart.
+FACENET_KW = dict(width=32, blocks_a=5, blocks_b=10,
+                  input_shape=(160, 160, 3), embedding=128, dropout=0.2)
+FACENET_SIZE, FACENET_BATCH, FACENET_BATCHES, FACENET_EPOCHS = 160, 32, 3, 10
+FACENET_IDS, FACENET_PARAMS, FACENET_NOISE = 64, 3_303_040, 0.5
+# the fine-tune: a frozen backbone up to Reduction-A, a new head over
+# FINETUNE_IDS identities, Adam 1e-4, 2 batches cycled by 5 epochs (10
+# steps)
+FINETUNE_FRONTIER, FINETUNE_IDS, FINETUNE_LR = "red_a_cat", 32, 1e-4
+FINETUNE_BATCHES, FINETUNE_EPOCHS = 2, 5
+
+
+def _identities(n_ids, seed):
+    """``n_ids`` fixed N(0, 1) templates [n_ids, 160, 160, 3] from
+    ``seed``."""
+    return np.random.default_rng(seed).normal(
+        size=(n_ids, FACENET_SIZE, FACENET_SIZE, 3)).astype(np.float32)
+
+
+def _identity_batch(templates, n, seed):
+    """``n`` images: a template each (identity drawn from ``seed``) plus
+    N(0, FACENET_NOISE²) noise, one-hot labels → (batch, identities)."""
+    r = np.random.default_rng(seed)
+    ids = r.integers(0, len(templates), n)
+    x = templates[ids] + FACENET_NOISE * r.normal(
+        size=(n, *templates.shape[1:])).astype(np.float32)
+    return {"features": x.astype(np.float32),
+            "labels": np.eye(len(templates), dtype=np.float32)[ids]}, ids
+
+
+def _facenet_head(base, variables, n_ids):
+    """advanced.py's FaceNet recipe: the bottleneck graph with an
+    ``l2norm`` vertex "embeddings" and a CenterLossOutputLayer "loss" on
+    it → GraphTransferLearning's (model, variables, frozen)."""
+    from deeplearning4j_tpu_torch.nn.config import GraphVertex
+    from deeplearning4j_tpu_torch.nn.layers import CenterLossOutputLayer
+    from deeplearning4j_tpu_torch.train.transfer import GraphTransferLearning
+
+    return (GraphTransferLearning(base, variables)
+            .add_vertex("embeddings", GraphVertex(kind="l2norm",
+                                                  inputs=["bottleneck"]))
+            .add_vertex("loss", GraphVertex(
+                kind="layer", inputs=["embeddings"],
+                layer=CenterLossOutputLayer(units=n_ids)))
+            .set_outputs("loss").build())
+
+
+def _head_params(n_ids, embedding=128):
+    """The center-loss head's parameters: W, b and the centers."""
+    return 2 * embedding * n_ids + n_ids
+
+
+def phase_facenet_train(dev, smi):
+    """Returns the phase's line, the model and its trained variables (for
+    phase 43)."""
+    from deeplearning4j_tpu_torch.models.zoo import inception_resnet_v1
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    t0 = time.monotonic()
+    base = inception_resnet_v1(device=dev, updater=Adam(1e-3), seed=SEED,
+                               **FACENET_KW)
+    base_vars = base.init()
+    n_base = base.num_params(base_vars)
+    _check_params("facenet_train", n_base, FACENET_PARAMS)
+    model, variables, frozen = _facenet_head(base, base_vars, FACENET_IDS)
+    del base_vars
+    trainer = Trainer(model)
+    ts0 = trainer.init_state(variables)
+    n_params = model.num_params(variables)
+    _check_params("facenet_train", n_params,
+                  FACENET_PARAMS + _head_params(FACENET_IDS))
+    templates = _identities(FACENET_IDS, SEED)
+    on_dev = [batch_to_device(_identity_batch(templates, FACENET_BATCH,
+                                              SEED + 1 + i)[0], dev)
+              for i in range(FACENET_BATCHES)]
+    log(f"[facenet_train] inception_resnet_v1 {n_base:,} parameters + the "
+        f"center-loss head {n_params - n_base:,}, {len(model.order)} "
+        f"vertices (frozen {frozen}), Adam(1e-3), {FACENET_IDS} identities, "
+        f"batches {FACENET_BATCH}x{FACENET_SIZE}x{FACENET_SIZE}x3, built in "
+        f"{time.monotonic() - t0:.1f} s")
+    f64 = _vs_float64("facenet_train", trainer, ts0, on_dev[0],
+                      per_leaf_max=False, dropout_seed=SEED,
+                      leaves=("loss/centers",))
+    fit, fp32 = _train_resnet("facenet_train", trainer, ts0, on_dev, dev,
+                              batch=FACENET_BATCH, epochs=FACENET_EPOCHS,
+                              profile_iters=1)
+    _no_hand_kernels("facenet_train", fit["launches"])
+    losses = fit["losses"]
+    if not losses[-1] < losses[0]:
+        raise SystemExit("chip_smoke: facenet_train: the last loss is not "
+                         "below the first")
+    log(f"[facenet_train] loss first step {losses[0]:.4f}, last "
+        f"{losses[-1]:.4f}; phase {time.monotonic() - t0:.1f} s, on {smi}")
+    return {"model": "inception_resnet_v1", "config": FACENET_KW,
+            "identities": FACENET_IDS, "batch": FACENET_BATCH,
+            "image": FACENET_SIZE, "num_params": n_params,
+            "backbone_params": n_base, "vertices": len(model.order),
+            "vs_float64": f64, "float32": fp32,
+            "phase_seconds": time.monotonic() - t0, "card": smi}, \
+        model, trainer.variables(fit["ts"])
+
+
+# -- 43. FaceNet fine-tune with a frozen backbone ----------------------------
+
+
+def _upstream_with_params(model, variables, frontier):
+    """Sorted: ``frontier`` and every vertex it reads through others,
+    those that hold params (the list setFeatureExtractor(frontier) must
+    freeze)."""
+    seen, stack = set(), [frontier]
+    while stack:
+        name = stack.pop()
+        if name in seen or name in model.config.inputs:
+            continue
+        seen.add(name)
+        stack.extend(model.config.vertices[name].inputs)
+    return sorted(n for n in seen if n in variables["params"])
+
+
+def _moved(before, after) -> float:
+    """The largest |after − before| over max(1, |before|), leaf by leaf."""
+    return max((float((after[n] - b).abs().max()) / max(
+        1.0, float(b.abs().max())) for n, b in before.items()), default=0.0)
+
+
+def phase_facenet_finetune(dev, smi, model, variables):
+    """Returns the phase's line, the fine-tuned model, its variables and
+    the new identities' templates (for phase 44)."""
+    from deeplearning4j_tpu_torch.train import (
+        FineTuneConfiguration,
+        GraphTransferLearning,
+        Trainer,
+    )
+    from deeplearning4j_tpu_torch.train.trainer import batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    from deeplearning4j_tpu_torch.utils.pytree import flatten_with_names
+
+    t0 = time.monotonic()
+    ft_model, ft_vars, frozen = (
+        GraphTransferLearning(model, variables)
+        .fine_tune_configuration(FineTuneConfiguration(
+            updater=Adam(FINETUNE_LR)))
+        .set_feature_extractor(FINETUNE_FRONTIER)
+        .n_out_replace("loss", FINETUNE_IDS).build())
+    want = _upstream_with_params(ft_model, ft_vars, FINETUNE_FRONTIER)
+    if frozen != want:
+        raise SystemExit(f"chip_smoke: facenet_finetune: frozen {frozen}, "
+                         f"not {want}")
+    trainer = Trainer(ft_model, frozen_layers=frozen)
+    ts0 = trainer.init_state(ft_vars)
+    old_params = dict(flatten_with_names(variables["params"]))
+    old_state = {n: a.clone() for n, a in flatten_with_names(
+        ts0.model_state) if n.split("/")[0] in frozen}
+    templates = _identities(FINETUNE_IDS, SEED + 500)
+    on_dev = [batch_to_device(_identity_batch(templates, FACENET_BATCH,
+                                              SEED + 501 + i)[0], dev)
+              for i in range(FINETUNE_BATCHES)]
+    n_frozen = sum(a.numel() for n, a in flatten_with_names(ts0.params)
+                   if n.split("/")[0] in frozen)
+    log(f"[facenet_finetune] {len(frozen)} frozen vertices up to "
+        f"{FINETUNE_FRONTIER} ({n_frozen:,} of "
+        f"{ft_model.num_params(ft_vars):,} parameters), a new head over "
+        f"{FINETUNE_IDS} identities, Adam({FINETUNE_LR})")
+    fit = _fit_and_restore("facenet_finetune", trainer, ts0, on_dev,
+                           FINETUNE_EPOCHS, dev)
+    _no_hand_kernels("facenet_finetune", fit["launches"])
+    ts, losses = fit["ts"], fit["losses"]
+    after = dict(flatten_with_names(ts.params))
+    frozen_leaves = [n for n in after if n.split("/")[0] in frozen]
+    equal = all(torch.equal(after[n], old_params[n]) for n in frozen_leaves)
+    trained_moved = sum(not torch.equal(after[n], ts0_leaf) for n, ts0_leaf
+                        in flatten_with_names(ts0.params)
+                        if n.split("/")[0] not in frozen)
+    state_after = dict(flatten_with_names(ts.model_state))
+    bn_moved = _moved(old_state, state_after)
+    log(f"[facenet_finetune] {len(frozen_leaves)} frozen leaves bit-equal "
+        f"to the trained model's after {ts.step} steps: {equal}; "
+        f"{trained_moved} trainable leaves moved; the frozen BatchNorm "
+        f"running state moved by up to {bn_moved:.3e} of max(1, |before|) "
+        f"(gradients and updates are masked, the forward trains); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; median step "
+        f"{fit['median_step_ms']:.2f} ms; phase "
+        f"{time.monotonic() - t0:.1f} s, on {smi}")
+    if not (equal and trained_moved and losses[-1] < losses[0]):
+        raise SystemExit("chip_smoke: facenet_finetune: the frozen backbone "
+                         "moved or the head did not learn")
+    out = {"frontier": FINETUNE_FRONTIER, "identities": FINETUNE_IDS,
+           "frozen_vertices": len(frozen), "frozen_params": n_frozen,
+           "frozen_bit_equal": equal, "trainable_leaves_moved": trained_moved,
+           "frozen_bn_state_moved": bn_moved, "steps": ts.step,
+           "losses": losses, "launches": fit["launches"],
+           "median_step_ms": fit["median_step_ms"],
+           "samples_per_s": FACENET_BATCH / (fit["median_step_ms"] / 1e3),
+           "peak_memory_gib": fit["peak_memory_gib"],
+           "checkpoint_next_loss": fit["checkpoint_next_loss"],
+           "phase_seconds": time.monotonic() - t0, "card": smi}
+    return out, ft_model, trainer.variables(ts), templates
+
+
+# -- 44. FaceNet embeddings served -------------------------------------------
+
+# The fine-tuned model with its head stripped (remove_vertex("loss"),
+# set_outputs("embeddings")) behind ModelServer, max batch 8: 20 requests
+# of 1-2 160² images of the fine-tune's identities (new noise) from 4
+# clients. Every answer row a unit vector to TOL_UNIT, every answer
+# against output_single on the request padded to its bucket to TOL_SERVED;
+# the mean cosine distance within an identity and between identities.
+FACENET_REQUESTS, FACENET_CLIENTS, FACENET_MAX_BATCH = 20, 4, 8
+TOL_UNIT = 1e-5
+
+
+def _facenet_request(templates, i):
+    """1–2 images of the identities from seed 5000 + i → (images, ids)."""
+    x, ids = _identity_batch(templates, 1 + i % 2, 5000 + i)
+    return x["features"], ids
+
+
+def _unit_rows(dim):
+    """A served-output check: [rows, dim] of norm 1 to TOL_UNIT."""
+    return lambda out, req: out.shape == (req.shape[0], dim) and np.abs(
+        np.linalg.norm(out, axis=-1) - 1).max() <= TOL_UNIT
+
+
+def _cosine_distances(emb, ids) -> dict:
+    """Mean 1 − cos over the pairs of rows of one identity and of two."""
+    e = np.asarray(emb, np.float64)
+    e = e / np.linalg.norm(e, axis=-1, keepdims=True)
+    d = 1.0 - e @ e.T
+    ids = np.asarray(ids)
+    same = ids[:, None] == ids[None, :]
+    off = ~np.eye(len(ids), dtype=bool)
+    return {"within": float(d[same & off].mean()),
+            "between": float(d[~same].mean()),
+            "pairs_within": int((same & off).sum() // 2),
+            "pairs_between": int((~same).sum() // 2)}
+
+
+def phase_facenet_serve(dev, smi, model, variables, templates):
+    from deeplearning4j_tpu_torch.train import GraphTransferLearning
+
+    t0 = time.monotonic()
+    emb, emb_vars, _ = (GraphTransferLearning(model, variables)
+                        .remove_vertex("loss").set_outputs("embeddings")
+                        .build())
+    if "loss" in emb_vars["params"] or emb.config.outputs != ["embeddings"]:
+        raise SystemExit("chip_smoke: facenet_serve: the head was not "
+                         "stripped")
+    pairs = [_facenet_request(templates, i) for i in range(FACENET_REQUESTS)]
+    requests = [x for x, _ in pairs]
+    out = _serve_at_buckets("facenet_serve", dev, smi, "facenet", emb,
+                            emb_vars, requests,
+                            _unit_rows(FACENET_KW["embedding"]),
+                            FACENET_CLIENTS, FACENET_MAX_BATCH)
+    served = np.concatenate(out.pop("outputs"))
+    norm_err = float(np.abs(np.linalg.norm(served, axis=-1) - 1).max())
+    cos = _cosine_distances(served, np.concatenate([i for _, i in pairs]))
+    log(f"[facenet_serve] {len(served)} embeddings, |norm − 1| up to "
+        f"{norm_err:.2e} (tol {TOL_UNIT:.0e}); mean cosine distance within "
+        f"an identity {cos['within']:.4f} ({cos['pairs_within']} pairs), "
+        f"between identities {cos['between']:.4f} ({cos['pairs_between']} "
+        f"pairs); phase {time.monotonic() - t0:.1f} s")
+    return {"model": "inception_resnet_v1 embeddings", **out,
+            "norm_max_err": norm_err, "cosine_distance": cos,
+            "phase_seconds": time.monotonic() - t0}
+
+
+def phase_advanced_zoo(dev, smi) -> dict:
+    """Phases 40–44 in order → their lines by name. To run them alone:
+    ``python3 -c "import chip_smoke as c; d, s = c.phase_device();
+    c.phase_advanced_zoo(d, s)"``."""
+    t0 = time.monotonic()
+    nasnet_training, model, variables = phase_nasnet_train(dev, smi)
+    nasnet_serving = phase_nasnet_serve(dev, smi, model, variables)
+    del model, variables
+    facenet_training, model, variables = phase_facenet_train(dev, smi)
+    facenet_finetune, ft_model, ft_vars, templates = phase_facenet_finetune(
+        dev, smi, model, variables)
+    del model, variables
+    facenet_serving = phase_facenet_serve(dev, smi, ft_model, ft_vars,
+                                          templates)
+    lines = {"nasnet_training": nasnet_training,
+             "nasnet_serving": nasnet_serving,
+             "facenet_training": facenet_training,
+             "facenet_finetune": facenet_finetune,
+             "facenet_serving": facenet_serving}
+    log("[advanced] phase seconds: " + ", ".join(
+        f"{k} {v['phase_seconds']:.1f}" for k, v in lines.items())
+        + f"; all {time.monotonic() - t0:.1f}")
+    return lines
 
 
 def _delta_entry(bwd_cases, training, gpt_training, s2s_training,
@@ -7481,6 +8021,7 @@ def main() -> int:
         f"{yolo2_training['phase_seconds']:.1f}, tiny_yolo_train "
         f"{tiny_yolo_training['phase_seconds']:.1f}, yolo2_serve "
         f"{yolo2_serving['phase_seconds']:.1f}")
+    advanced = phase_advanced_zoo(dev, smi)
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
         "name": "flash_fwd", "route": "cuda",
@@ -7619,6 +8160,8 @@ def main() -> int:
     print(json.dumps({"tiny_yolo_training": tiny_yolo_training}),
           flush=True)
     print(json.dumps({"yolo2_serving": yolo2_serving}), flush=True)
+    for key, line in advanced.items():
+        print(json.dumps({key: line}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

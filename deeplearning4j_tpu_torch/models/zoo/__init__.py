@@ -1,8 +1,6 @@
-"""Model zoo (↔ deeplearning4j_tpu.models.zoo): the entries ported so far.
-
-Not ported yet (ROADMAP queue 1 item 10): inception_resnet_v1 and
-nasnet.
-"""
+"""Model zoo (↔ deeplearning4j_tpu.models.zoo): every entry of the JAX
+package's registry, architecture builders only (weights come from
+checkpoints through ``serde/``)."""
 
 from __future__ import annotations
 
@@ -37,6 +35,12 @@ from deeplearning4j_tpu_torch.models.zoo.resnet import (
     resnet152,
     resnet_config,
 )
+from deeplearning4j_tpu_torch.models.zoo.advanced import (
+    inception_resnet_v1,
+    inception_resnet_v1_config,
+    nasnet,
+    nasnet_config,
+)
 from deeplearning4j_tpu_torch.models.zoo.yolo import (
     Yolo2OutputLayer,
     decode_predictions,
@@ -64,6 +68,8 @@ ZOO: Dict[str, Callable] = {
     "text_generation_lstm": text_generation_lstm,
     "tiny_yolo": tiny_yolo,
     "yolo2": yolo2,
+    "inception_resnet_v1": inception_resnet_v1,
+    "nasnet": nasnet,
 }
 
 

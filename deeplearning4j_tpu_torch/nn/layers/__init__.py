@@ -56,6 +56,7 @@ from deeplearning4j_tpu_torch.nn.layers.norm import (
     LocalResponseNormalization,
 )
 from deeplearning4j_tpu_torch.nn.layers.output import (
+    CenterLossOutputLayer,
     CnnLossLayer,
     LossLayer,
     OutputLayer,
@@ -74,8 +75,9 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
 )
 
 __all__ = ["GRU", "LSTM", "ActivationLayer", "BatchNorm", "Bidirectional",
-           "CnnLossLayer", "Conv1D", "Conv2D", "Conv3D", "ConvLSTM2D",
-           "Cropping1D", "Cropping2D", "Cropping3D", "CrossAttention",
+           "CenterLossOutputLayer", "CnnLossLayer", "Conv1D", "Conv2D",
+           "Conv3D", "ConvLSTM2D", "Cropping1D", "Cropping2D", "Cropping3D",
+           "CrossAttention",
            "Deconv2D", "Deconv3D", "Dense", "DepthToSpace", "DepthwiseConv2D",
            "Dropout", "Embedding", "Flatten", "GlobalPooling", "GravesLSTM",
            "LastTimeStep", "LayerNorm", "LearnedSelfAttention",

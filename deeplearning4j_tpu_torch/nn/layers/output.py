@@ -1,4 +1,4 @@
-"""Output layers (↔ deeplearning4j_tpu/nn/layers/output.py): ``OutputLayer``, ``RnnOutputLayer``, ``LossLayer``, ``RnnLossLayer``, ``CnnLossLayer``.
+"""Output layers (↔ deeplearning4j_tpu/nn/layers/output.py): ``OutputLayer``, ``RnnOutputLayer``, ``LossLayer``, ``RnnLossLayer``, ``CnnLossLayer``, ``CenterLossOutputLayer``.
 
 An output layer is a dense layer fused with a loss: ``apply`` gives the
 activations (``output()``), ``compute_loss(params, state, x, labels, *,
@@ -72,6 +72,52 @@ class OutputLayer(Dense):
         if (self.loss.lower(), self.activation.lower()) in _LOGIT_LOSSES:
             return fn(pre, labels, weights=w)
         return fn(get_activation(self.activation)(pre), labels, weights=w)
+
+
+@register_config
+@dataclass
+class CenterLossOutputLayer(Dense):
+    """↔ CenterLossOutputLayer: softmax CE + λ·½‖f − c_y‖² (Wen et al.
+    2016, FaceNet-style training). The class centers are an ordinary
+    trainable param ``centers`` [units, in_features], zero at init: the
+    gradient of the center term w.r.t. c_y is λ·(c_y − f), so an SGD step
+    on it is the reference's moving-average center update with α = lr·λ.
+    ``alpha`` is kept for the config's JSON; ``lambda_`` weighs the term.
+    Under a mask (else weights) the center term is Σ d·w / max(Σ w, 1),
+    so padded rows pull no center. ``c_y = labels @ centers`` computes in
+    the wider of the two dtypes, as JAX promotes bf16 centers against
+    float32 labels."""
+
+    loss: str = "mcxent"
+    activation: str = "softmax"
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+
+    def init(self, generator, input_shape, dtype):
+        params, state = super().init(generator, input_shape, dtype)
+        params["centers"] = torch.zeros((self.units, int(input_shape[-1])),
+                                        dtype=dtype)
+        return params, state
+
+    def compute_loss(self, params, state, x, labels, *, mask=None,
+                     weights=None):
+        pre = opsnn.linear(x, params["W"], params.get("b"))
+        fn = losses.get_loss(self.loss)
+        w = mask if mask is not None else weights
+        if (self.loss.lower(), self.activation.lower()) in _LOGIT_LOSSES:
+            ce = fn(pre, labels, weights=w)
+        else:
+            ce = fn(get_activation(self.activation)(pre), labels, weights=w)
+        centers = params["centers"]
+        dtype = torch.promote_types(labels.dtype, centers.dtype)
+        cy = labels.to(dtype) @ centers.to(dtype)
+        d = 0.5 * torch.sum((x - cy) ** 2, dim=-1)  # [N]
+        if w is not None:
+            d = d * w
+            center = torch.sum(d) / torch.clamp(torch.sum(w), min=1.0)
+        else:
+            center = torch.mean(d)
+        return ce + self.lambda_ * center
 
 
 @register_config

@@ -638,7 +638,9 @@ class GraphModel:
             if not hasattr(v.layer, "compute_loss"):
                 raise TypeError(
                     f"output vertex {name!r} ({type(v.layer).__name__}) is "
-                    "not an output layer; add a loss head for training")
+                    "not an output layer — inference-only heads (e.g. an "
+                    "embedding bottleneck) cannot be trained directly; add "
+                    "a loss head for training")
             out_params = apply_weight_noise(v.layer, params.get(name, {}),
                                             generator, True)
             loss = v.layer.compute_loss(

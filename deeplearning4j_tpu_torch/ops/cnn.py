@@ -300,8 +300,18 @@ def _pool(x, init, op, window, stride, padding, data_format="NHWC"):
     if op == "max":
         y = F.max_pool2d(xc, window, stride, pad)
     else:
-        y = F.avg_pool2d(xc, window, stride, pad, count_include_pad=True,
-                         divisor_override=1)
+        # CUDA's avg_pool2d backward over channels-last memory returns a
+        # wrong gradient (torch 2.11, an H100 at [4, 176, 28, 28]: off by
+        # ~1.2 of its max; tests/test_torch_pool_cuda.py, pool_ab.py): pool
+        # an NCHW-contiguous copy and hand the window sums back in the
+        # input's memory layout (both no-ops on NCHW-contiguous input)
+        fmt = (torch.channels_last
+               if not xc.is_contiguous()
+               and xc.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        y = F.avg_pool2d(xc.contiguous(), window, stride, pad,
+                         count_include_pad=True,
+                         divisor_override=1).contiguous(memory_format=fmt)
     return _back(y, data_format)
 
 

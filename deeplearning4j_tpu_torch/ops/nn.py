@@ -163,6 +163,14 @@ def safe_sq_norm(x, axis=-1, keepdims=True, eps=1e-8):
                                  keepdim=keepdims), min=eps * eps)
 
 
+def l2_normalize(x, axis=-1, eps=1e-12):
+    """``x · rsqrt(max(Σ x², eps))`` over ``axis`` (↔ the JAX package's
+    ``ops/nn.l2_normalize``). ``torch.maximum`` splits the gradient at a
+    tie as ``jnp.maximum`` does; at x = 0 the gradient is rsqrt(eps)."""
+    sq = torch.sum(torch.square(x), dim=axis, keepdim=True)
+    return x * torch.rsqrt(torch.maximum(sq, sq.new_tensor(eps)))
+
+
 def embedding_lookup(table, ids):
     """Rows of ``table`` [V, E] for integer ``ids`` (any shape); a
     ``meta`` tensor (shape inference) holds no ids to check."""

@@ -189,7 +189,9 @@ class Trainer:
 
     ``frozen_layers``: top-level param-tree keys excluded from training.
     Their gradients are zeroed before the updater (moments stay zero) and
-    their updates after it (decoupled weight decay cannot move them).
+    their updates after it (decoupled weight decay cannot move them). A
+    model with ``layer_names`` (``SequentialModel``) raises ``ValueError``
+    on a name it lacks; a ``GraphModel``'s are not checked.
 
     ``grad_accum``: the batch's leading dim splits into that many
     microbatches, run one after another; the update sees their gradient
@@ -222,6 +224,12 @@ class Trainer:
                 "'tbptt' (↔ BackpropType.{Standard,TruncatedBPTT})")
         self.device = model.device
         self.frozen_layers = frozenset(frozen_layers or ())
+        # a model with layer_names (SequentialModel) refuses a name it does
+        # not have; a GraphModel's names are not checked (the JAX rule)
+        known = set(getattr(model, "layer_names", []))
+        unknown = self.frozen_layers - known if known else set()
+        if unknown:
+            raise ValueError(f"frozen_layers not in model: {sorted(unknown)}")
         self._upd_init, self._upd_update = resolve_updater(
             self.net.updater).make()
         self._extra_metrics = extra_metrics

@@ -527,3 +527,137 @@ def test_served_grid_errors_match_the_servers_bucket():
     assert errs["max_abs_err_bounded"] == errs["max_rel_err_wh"] == 0.0
     assert errs["alone_max_abs_err_bounded"] == pytest.approx(2e-5, rel=1e-2)
     assert errs["alone_max_rel_err_wh"] == pytest.approx(1e-4, rel=1e-2)
+
+
+# --- the advanced zoo's phases (NASNet-A, the FaceNet recipe) ------------
+
+
+def test_identity_batches_are_templates_plus_seeded_noise():
+    t = chip_smoke._identities(5, 3)
+    assert t.shape == (5, 160, 160, 3) and t.dtype == np.float32
+    np.testing.assert_array_equal(t, chip_smoke._identities(5, 3))
+    assert abs(float(t.std()) - 1) < 0.01
+    b, ids = chip_smoke._identity_batch(t, 40, 7)
+    again, ids2 = chip_smoke._identity_batch(t, 40, 7)
+    np.testing.assert_array_equal(b["features"], again["features"])
+    assert ids.tolist() == ids2.tolist() and set(ids) == set(range(5))
+    assert b["features"].shape == (40, 160, 160, 3)
+    assert b["features"].dtype == b["labels"].dtype == np.float32
+    np.testing.assert_array_equal(b["labels"], np.eye(5)[ids])
+    noise = b["features"] - t[ids]
+    assert abs(float(noise.std()) - chip_smoke.FACENET_NOISE) < 0.01
+    assert abs(float(noise.mean())) < 0.01
+    other, _ = chip_smoke._identity_batch(t, 40, 8)
+    assert not np.array_equal(other["features"], b["features"])
+    x, ids = chip_smoke._facenet_request(t, 3)
+    assert x.shape == (2, 160, 160, 3) and len(ids) == 2
+    assert chip_smoke._facenet_request(t, 4)[0].shape[0] == 1
+    assert [chip_smoke._nasnet_request(i).shape for i in range(2)] == [
+        (1, 224, 224, 3), (2, 224, 224, 3)]
+
+
+def test_unit_rows_and_cosine_distances():
+    req = np.zeros((3, 8, 8, 3), np.float32)
+    e = np.random.default_rng(0).standard_normal((3, 16))
+    e /= np.linalg.norm(e, axis=-1, keepdims=True)
+    assert chip_smoke._unit_rows(16)(e, req)
+    assert not chip_smoke._unit_rows(16)(e * (1 + 1e-4), req)
+    assert not chip_smoke._unit_rows(8)(e[:, :8], req)
+    assert not chip_smoke._unit_rows(16)(e[:2], req)
+    a, b = np.eye(4)[0], np.eye(4)[1]
+    emb = np.stack([a, a, b, (a + b) / 2 ** 0.5])
+    cos = chip_smoke._cosine_distances(emb, [0, 0, 1, 1])
+    assert cos["within"] == pytest.approx((0 + (1 - 0.5 ** 0.5)) / 2)
+    assert cos["between"] == pytest.approx((1 + 1 + 2 * (1 - 0.5 ** 0.5))
+                                           / 4)
+    assert (cos["pairs_within"], cos["pairs_between"]) == (2, 4)
+
+
+def test_served_bucket_errors_hold_the_bucket_the_server_ran():
+    """A forward whose rounding depends on the batch size: each answer is
+    held at the bucket it matches, the request alone reported apart."""
+    rows = np.random.default_rng(1).random((8, 10))
+
+    def forward(v, x):
+        y = rows[:x.shape[0]].copy()
+        if x.shape[0] != 4:
+            y += 3e-6
+        return torch.from_numpy(y)
+
+    reqs = [np.zeros((3, 2), np.float32), np.zeros((1, 2), np.float32)]
+    served = [rows[:3], rows[:1] + 3e-6]
+    errs = chip_smoke._served_bucket_errors(served, reqs, forward, None, 8,
+                                            chip_smoke._abs_errors)
+    assert errs["matched_buckets"] == {1: 1, 4: 1}
+    assert errs["max_err"] == (0.0,)
+    assert errs["alone_max_err"][0] == pytest.approx(3e-6, rel=1e-6)
+    bad = [rows[:3] + 1e-4, served[1]]
+    errs = chip_smoke._served_bucket_errors(bad, reqs, forward, None, 8,
+                                            chip_smoke._abs_errors)
+    assert errs["max_err"][0] == pytest.approx(1e-4 - 3e-6, rel=1e-6)
+
+
+def test_nasnet_mobile_config_and_depthwise_groups():
+    from deeplearning4j_tpu_torch.models.zoo import nasnet
+
+    model = nasnet(device="cpu", **chip_smoke.NASNET_KW)
+    assert len(model.order) == 616
+    v = model.init()
+    assert model.num_params(v) == chip_smoke.NASNET_PARAMS
+    groups = chip_smoke._depthwise_groups(model)
+    n_sep = sum(type(layer).__name__ == "SeparableConv2D"
+                for _, layer in model.named_layers())
+    # 5 separable blocks of 2 a normal cell (12 cells), 4 a reduction
+    # cell (2 cells)
+    assert sum(len(g) for g in groups.values()) == n_sep == \
+        12 * 10 + 2 * 8 == 136
+    assert {k[1] for k in groups} == {3, 5, 7}
+
+
+def test_facenet_recipe_and_frozen_list_are_the_jax_packages():
+    """The full-size recipe of phases 42–43 in both packages: the head's
+    parameters, and the frozen list of set_feature_extractor("red_a_cat")
+    equal to ``_upstream_with_params`` and to the JAX package's."""
+    import jax
+
+    from deeplearning4j_tpu.models import zoo as jax_zoo
+    from deeplearning4j_tpu.nn import config as jax_config
+    from deeplearning4j_tpu.nn import layers as jax_layers
+    from deeplearning4j_tpu.train import transfer as jax_transfer
+    from deeplearning4j_tpu_torch.models.zoo import inception_resnet_v1
+    from deeplearning4j_tpu_torch.train import (
+        FineTuneConfiguration,
+        GraphTransferLearning,
+    )
+
+    kw = chip_smoke.FACENET_KW
+    base = inception_resnet_v1(device="cpu", **kw)
+    model, v, frozen = chip_smoke._facenet_head(base, base.init(), 64)
+    assert frozen == [] and model.config.outputs == ["loss"]
+    assert model.num_params(v) == chip_smoke.FACENET_PARAMS + \
+        chip_smoke._head_params(64) == 3_303_040 + 16_448
+    ft, fv, frozen = (GraphTransferLearning(model, v)
+                      .fine_tune_configuration(FineTuneConfiguration())
+                      .set_feature_extractor(chip_smoke.FINETUNE_FRONTIER)
+                      .n_out_replace("loss", chip_smoke.FINETUNE_IDS)
+                      .build())
+    assert frozen == chip_smoke._upstream_with_params(
+        ft, fv, chip_smoke.FINETUNE_FRONTIER)
+
+    jbase = jax_zoo.inception_resnet_v1(**kw)
+    jv = jax.eval_shape(lambda: jbase.init(seed=0))
+    jm, jmv, _ = (jax_transfer.GraphTransferLearning(jbase, jv)
+                  .add_vertex("embeddings", jax_config.GraphVertex(
+                      kind="l2norm", inputs=["bottleneck"]))
+                  .add_vertex("loss", jax_config.GraphVertex(
+                      kind="layer", inputs=["embeddings"],
+                      layer=jax_layers.CenterLossOutputLayer(units=64)))
+                  .set_outputs("loss").build())
+    _, _, jfrozen = (jax_transfer.GraphTransferLearning(jm, jmv)
+                     .set_feature_extractor(chip_smoke.FINETUNE_FRONTIER)
+                     .n_out_replace("loss", chip_smoke.FINETUNE_IDS)
+                     .build())
+    assert frozen == jfrozen
+    # the stem (5 conv + BatchNorm pairs), 5 A blocks (6 pairs and the
+    # projection each) and Reduction-A's 3 pairs
+    assert len(frozen) == 10 + 5 * 13 + 6 == 81 and "red_a_d2_bn" in frozen

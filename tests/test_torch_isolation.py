@@ -87,6 +87,9 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.modelimport.tf_proto",
     "deeplearning4j_tpu_torch.nn.activations",
     "deeplearning4j_tpu_torch.models.zoo.yolo",
+    "deeplearning4j_tpu_torch.models.zoo.advanced",
+    "deeplearning4j_tpu_torch.train",
+    "deeplearning4j_tpu_torch.train.transfer",
 ]
 
 
