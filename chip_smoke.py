@@ -356,8 +356,33 @@ caught:
    (max batch 8), 20 requests of 1–2 images from 4 clients: every row of
    norm 1 to TOL_UNIT, every answer against output_single on the padded
    request to TOL_SERVED; the mean cosine distance within an identity and
-   between identities. Phases 40–44 run last; their launch counts must
-   be {}.
+   between identities. Phases 40–44 run after the rest; their launch
+   counts must be {}.
+45. dp_resnet_train — ResNet-50 at full width (bench_resnet50: 224², 1000
+   classes, batch 32, Adam 1e-3) through Trainer(mesh=...) at world size
+   1 over NCCL, joined by runtime.distributed.initialize in this process:
+   the first data-parallel step against the plain Trainer's step from the
+   same variables and batch (loss, every gradient leaf, BatchNorm state;
+   the gradients to TOL_DP_SAME_L2, near the plain step's own run-to-run
+   spread, printed beside it); the step's collectives as the host issued
+   them (gradient buckets + BatchNorm's all-reduces forward and backward,
+   all of them) and the NCCL kernels the profiler sees (none: NCCL
+   launches no kernel for a sum on one rank); the host self time of a
+   traced step by op against the plain step's; DP_TURNS steps of each in
+   turns (step time, idle share, the collectives' device time); fit through
+   ShardedDataSetIterator with a falling loss and a checkpoint (through
+   checkpoint_sync) restored bit-equal; evaluate_model(mesh=) equal to
+   evaluate_model. The process group is torn down at the end.
+46. dp_two_ranks — two processes (DP_CHILD) on cuda:0 over gloo (NCCL
+   refuses two ranks on one device), ResNet-50 at full width, global
+   batch 32: which gloo collectives take CUDA tensors on this card; each
+   rank's data-parallel step, and an FSDP step (MeshSpec(data=1, fsdp=2))
+   where gloo all-gathers and reduce-scatters CUDA tensors, against the
+   plain step over the same global batch here (ResNet-50's float64
+   limits); both ranks' params after a step bit-identical. Each child
+   under DP_CHILD_TIMEOUT_S; a failed child fails the phase. Phases 45–46
+   run last; their launch counts must be {}. Neither gives a multi-GPU
+   number.
 
 No TPU kernel lies on phases 13–15, 17, 24 and 27–39: the convolutions,
 transposed convs and pools run in cuDNN and PyTorch (as the JAX package
@@ -375,7 +400,10 @@ loop over cuDNN convs. The YOLO family's output layer, decode and NMS
 NASNet-A and Inception-ResNet-v1 (phases 40–44) are XLA convs, pools and
 BatchNorm in the JAX package (deeplearning4j_tpu/models/zoo/advanced.py),
 cuDNN and plain torch here; transfer learning is host-side graph surgery
-and the Trainer's gradient mask.
+and the Trainer's gradient mask. Data-parallel training (phases 45–46) is
+placement in the JAX package (deeplearning4j_tpu/parallel/specs.py:48,
+train/trainer.py:324-326) and NCCL or gloo collectives here, around the
+same ResNet-50.
 
 On the recurrent paths the plain ops/rnn.lstm and ops/rnn.gru must never
 see a CUDA tensor (they are the plain paths the kernels are held against,
@@ -387,7 +415,7 @@ ResNet-50, GPT-2-small (prefix serving and the warm restart too), loss
 guard, seq2seq, Xception, U-Net, zoo_cnn, conv_layers, samediff_bert,
 convlstm (training, TBPTT, serving), YOLO (yolo2 training, tiny_yolo
 training, yolo2 serving), NASNet (training, serving) and FaceNet
-(training, fine-tune, serving) lines,
+(training, fine-tune, serving) and dp (both phases) lines,
 the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
 """
@@ -398,6 +426,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import json
 import shutil
 import sys
@@ -7902,6 +7931,614 @@ def phase_advanced_zoo(dev, smi) -> dict:
     return lines
 
 
+# -- 45. data-parallel ResNet-50 at world size 1 ------------------------------
+
+# bench_resnet50's ResNet-50 (224², 1000 classes, batch 32, Adam 1e-3)
+# through Trainer(mesh=...) over NCCL at world size 1: every collective of
+# the data-parallel step is issued (gradient buckets; BatchNorm's [Σx, Σx²]
+# all-reduce forward and backward), all sums, for which NCCL launches no
+# kernel on one rank; the step computes the plain step's formulas, so it
+# is held to the plain step at TOL_DP_SAME_L2, near the plain step's own
+# run-to-run spread (9.4e-6 relative L2, its worst leaf 2.4e-5). DP_TURNS steps of each in turns; DP_EPOCHS over the first 2
+# batches through ShardedDataSetIterator: 10 steps, the last of them
+# checkpointed (_fit_and_restore checkpoints every 10 steps).
+DP_TURNS, DP_EPOCHS, DP_BATCHES = 10, 5, 2
+TOL_DP_SAME_L2 = 2e-4
+# host ops listed by self time in the traced steps, and their differences
+DP_HOST_TOP = 12
+# the two-rank phase: two processes on cuda:0 over gloo (NCCL refuses two
+# ranks on one device), each child under a hard timeout
+DP_CHILD_TIMEOUT_S = 420
+DP_CHILD = "import sys, chip_smoke; chip_smoke.dp_child(int(sys.argv[1]), " \
+           "sys.argv[2])"
+GLOO_CUDA_COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
+                         "reduce_scatter_tensor")
+
+
+def _is_nccl_kernel(name: str) -> bool:
+    """NCCL's kernels (``ncclDevKernel_*``, and the one-rank reduction of
+    ``ncclLaunchOneRank``), not the ``nccl:*`` annotations the profiler
+    also puts on the device's timeline."""
+    low = name.lower()
+    return "onerank" in low or (low.startswith("nccl") and ":" not in low)
+
+
+def _dp_step_trace(step) -> dict:
+    """One step traced with the CPU and CUDA activities: the NCCL kernels
+    on the device (count, busy ms), the collective ops the host issued, by
+    name, and every host op's self time (ms, by name) and call count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [(e.time_range.start, e.time_range.end, e.name)
+               for e in events if e.device_type ==
+               torch.autograd.DeviceType.CUDA and _is_nccl_kernel(e.name)]
+    host, host_ms = {}, {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.name.startswith(("nccl:", "gloo:", "c10d::")):
+            host[e.name] = host.get(e.name, 0) + 1
+            host_ms[e.name] = host_ms.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    names = sorted({n for _, _, n in kernels})
+    self_ms = {e.key: e.self_cpu_time_total / 1e3
+               for e in prof.key_averages()}
+    return {"nccl_kernels": len(kernels),
+            "nccl_kernel_names": [n[:80] for n in names],
+            "nccl_busy_ms": _busy_us(kernels, "", 1) / 1e3,
+            "host_collective_ops": host, "host_collective_ms": host_ms,
+            "host_self_ms": self_ms,
+            "host_calls": sum(e.count for e in prof.key_averages())}
+
+
+def _host_difference(dp: dict, plain: dict) -> dict:
+    """Where a data-parallel step's host time goes beyond the plain
+    step's: the self-time totals, each step's DP_HOST_TOP ops by self
+    time, and the DP_HOST_TOP largest differences by op (ms)."""
+    a, b = dp["host_self_ms"], plain["host_self_ms"]
+    diff = {k: a.get(k, 0.0) - b.get(k, 0.0) for k in set(a) | set(b)}
+
+    def top(d):
+        return {k: round(v, 3) for k, v in sorted(
+            d.items(), key=lambda kv: -kv[1])[:DP_HOST_TOP]}
+
+    return {"dp_self_ms": sum(a.values()), "plain_self_ms": sum(b.values()),
+            "dp_calls": dp["host_calls"], "plain_calls": plain["host_calls"],
+            "dp_top": top(a), "plain_top": top(b), "difference_top": top(diff)}
+
+
+def _bare_collectives(dev, n_buckets: int, n_bn: int, reps: int = 3):
+    """The host cost of a step's collectives alone, no profiler: the
+    median over ``reps`` of ``n_buckets + 2 n_bn`` plain all-reduces of a
+    4096-float tensor, and of ``n_bn`` differentiable all-reduces forward
+    and backward (BatchNorm's), each to a synchronize (ms)."""
+    from deeplearning4j_tpu_torch.runtime import distributed
+
+    x = torch.zeros(4096, device=dev)
+    plain, autograd = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n_buckets + 2 * n_bn):
+            torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t1) * 1e3)
+        leaf = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        total = sum(distributed.all_reduce_sum(
+            leaf, torch.distributed.group.WORLD).sum() for _ in range(n_bn))
+        total.backward()
+        torch.cuda.synchronize()
+        autograd.append((time.perf_counter() - t1) * 1e3)
+    return {"all_reduces": n_buckets + 2 * n_bn,
+            "all_reduces_ms": float(np.median(plain[1:])),
+            "batchnorm_fwd_bwd": n_bn,
+            "batchnorm_fwd_bwd_ms": float(np.median(autograd[1:]))}
+
+
+def _dp_vs_plain(tag, got, want, noise=None, tol_l2=TOL_GRAD_L2) -> dict:
+    """(loss, state, grads by name) of a data-parallel step against the
+    plain step's: the loss to TOL_LOSS_REL, the BatchNorm state to
+    TOL_STATE of max(1, |plain|), the gradients by relative L2 error (each
+    leaf and all) to ``tol_l2`` (ResNet-50's float64 limit by default);
+    each leaf's max |difference| over its max reported beside them, and
+    ``noise`` (the plain step against itself) beside that."""
+    loss, state, grads = got
+    wloss, wstate, wgrads = want
+    state = {n: a.to(wstate[n].device) for n, a in state.items()}
+    grads = {n: g.to(wgrads[n].device) for n, g in grads.items()}
+    loss_rel = abs(loss - wloss) / abs(wloss)
+    state_err = max(float((state[n].double() - w.double()).abs().max())
+                    / max(1.0, float(w.abs().max()))
+                    for n, w in wstate.items())
+    leaf_l2, all_l2 = _l2_errors(grads, {n: w.double()
+                                         for n, w in wgrads.items()})
+    fracs = {n: float((grads[n] - w).abs().max())
+             / max(float(w.abs().max()), 1e-30) for n, w in wgrads.items()}
+    worst = max(fracs, key=fracs.get)
+    out = {"loss": loss, "plain_loss": wloss, "loss_rel": loss_rel,
+           "state_err": state_err, "l2_err": all_l2,
+           "worst_l2_leaf": max(leaf_l2, key=leaf_l2.get),
+           "worst_l2_err": max(leaf_l2.values()),
+           "worst_max_leaf": worst, "worst_max_frac": fracs[worst]}
+    ok = (loss_rel <= TOL_LOSS_REL and state_err <= TOL_STATE
+          and all_l2 <= tol_l2 and out["worst_l2_err"] <= tol_l2)
+    log(f"[{tag}] vs the plain step: loss {loss:.7f} vs {wloss:.7f} (rel "
+        f"{loss_rel:.2e}, tol {TOL_LOSS_REL:.0e}); BatchNorm state "
+        f"{state_err:.2e} (tol {TOL_STATE:.0e}); gradients relative L2 "
+        f"{all_l2:.2e}, worst leaf {out['worst_l2_leaf']} "
+        f"{out['worst_l2_err']:.2e} (tol {tol_l2:.0e}); worst max "
+        f"|difference| {worst} {fracs[worst]:.2e} of its max"
+        + (f"; the plain step against itself: loss rel "
+           f"{noise['loss_rel']:.2e}, state {noise['state_err']:.2e}, "
+           f"relative L2 {noise['l2_err']:.2e}, worst max "
+           f"{noise['worst_max_frac']:.2e}" if noise else ""))
+    if not ok:
+        raise SystemExit(f"chip_smoke: {tag}: the data-parallel step is not "
+                         "the plain step")
+    return out
+
+
+def _named(tree):
+    from deeplearning4j_tpu_torch.utils.pytree import flatten_with_names
+
+    return dict(flatten_with_names(tree))
+
+
+def phase_dp_resnet_train(dev, smi):
+    """ResNet-50 at full width through ``Trainer(mesh=...)`` at world size
+    1 over NCCL, joined by ``runtime.distributed.initialize``: the first
+    step against the plain Trainer's, the collectives of a step and its
+    host time against the plain step's, DP_TURNS steps of each in turns,
+    fit through
+    ShardedDataSetIterator with a checkpoint, evaluate_model(mesh=)
+    against evaluate_model. The process group is torn down at the end."""
+    from deeplearning4j_tpu_torch.data import ShardedDataSetIterator
+    from deeplearning4j_tpu_torch.evaluation import evaluate_model
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    from deeplearning4j_tpu_torch.parallel.data_parallel import _buckets
+    from deeplearning4j_tpu_torch.parallel.specs import data_parallel_plan
+    from deeplearning4j_tpu_torch.runtime import distributed
+    from deeplearning4j_tpu_torch.runtime.device import MeshSpec, build_mesh
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    t0 = time.monotonic()
+    wd = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    distributed.initialize(f"file://{wd}/store", num_processes=1,
+                           process_id=0)
+    try:
+        backend = torch.distributed.get_backend()
+        mesh = build_mesh(MeshSpec(data=-1))
+        state_sh, batch_sh = data_parallel_plan(mesh)
+        model = resnet50(device=dev, updater=Adam(1e-3), seed=SEED)
+        plain = Trainer(model)
+        dp = Trainer(model, mesh=mesh, state_sharding=state_sh,
+                     batch_sharding=batch_sh)
+        ts0 = plain.init_state()
+        dts0 = dp.init_state(plain.variables(ts0))
+        host = _resnet_batches()
+        on_dev = [batch_to_device(b, dev) for b in host]
+        n_bn = sum(1 for n in _named(ts0.model_state) if n.endswith("/mean"))
+        grads_like = list(_named(ts0.params).values())
+        n_buckets = len(_buckets(grads_like + [torch.zeros(3, device=dev)]))
+        log(f"[dp_resnet_train] {distributed.process_count()} rank over "
+            f"{backend} on {distributed.rank_device()}, mesh {mesh}; "
+            f"ResNet-50 batch {RESNET_BATCH}: {n_buckets} gradient buckets, "
+            f"{n_bn} BatchNorms; built in {time.monotonic() - t0:.1f} s")
+
+        want = _grads_by_name(plain, ts0.params, ts0.model_state, on_dev[0])
+        again = _grads_by_name(plain, ts0.params, ts0.model_state,
+                               on_dev[0])
+        _dispatch.reset_launch_counts()
+        loss, state, _, grads = dp.dp_grads(dts0, on_dev[0])
+        got = (float(loss), _named(state), _named(grads))
+        first_launches = _dispatch.launch_counts()
+        noise = _dp_vs_plain("dp_resnet_train plain", (
+            again[0], again[1], {n: g.double() for n, g in
+                                 again[2].items()}), want)
+        first = _dp_vs_plain("dp_resnet_train", (
+            got[0], got[1], {n: g.double() for n, g in got[2].items()}),
+            want, noise, tol_l2=TOL_DP_SAME_L2)
+        del want, again, got, grads, state
+
+        trace = _dp_step_trace(lambda: dp.train_step(dts0, on_dev[0]))
+        plain_trace = _dp_step_trace(lambda: plain.train_step(ts0,
+                                                              on_dev[0]))
+        expected = n_buckets + 2 * n_bn
+        issued = trace["host_collective_ops"].get("c10d::allreduce_", 0)
+        log(f"[dp_resnet_train] one step's collectives: {expected} expected "
+            f"({n_buckets} gradient buckets + {n_bn} BatchNorm all-reduces "
+            f"forward + {n_bn} backward); host ops "
+            f"{trace['host_collective_ops']}, their host ms "
+            f"{ {k: round(v, 2) for k, v in trace['host_collective_ms'].items()} }; "
+            f"NCCL kernels on the card "
+            f"{trace['nccl_kernels']} ({trace['nccl_kernel_names']}), busy "
+            f"{trace['nccl_busy_ms']:.3f} ms (NCCL launches none for a sum "
+            f"on one rank)")
+        if issued != expected:
+            raise SystemExit(f"chip_smoke: the data-parallel step issued "
+                             f"{issued} all-reduces, not {expected}")
+        host_time = _host_difference(trace, plain_trace)
+        ht = host_time
+        log(f"[dp_resnet_train] host self time in the traced step: "
+            f"data-parallel {ht['dp_self_ms']:.2f} ms over {ht['dp_calls']} "
+            f"ops, plain {ht['plain_self_ms']:.2f} ms over "
+            f"{ht['plain_calls']}; largest differences (ms) "
+            f"{ht['difference_top']}; data-parallel top {ht['dp_top']}; "
+            f"plain top {ht['plain_top']}")
+
+        walls = {"plain": [], "dp": []}
+        for i in range(DP_TURNS):
+            for name in (("plain", "dp") if i % 2 == 0 else ("dp", "plain")):
+                trainer, ts = (plain, ts0) if name == "plain" else (dp, dts0)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                trainer.train_step(ts, on_dev[i % len(on_dev)])
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t1) * 1e3)
+        med = {k: float(np.median(v[1:])) for k, v in walls.items()}
+        breakdown = {
+            "plain": _step_breakdown(plain, ts0, on_dev[0], (), iters=2),
+            "dp": _step_breakdown(dp, dts0, on_dev[0], (), iters=2)}
+        log(f"[dp_resnet_train] {DP_TURNS} steps each in turns: median "
+            f"plain {med['plain']:.2f} ms, data-parallel {med['dp']:.2f} ms "
+            f"(difference {med['dp'] - med['plain']:+.2f} ms); device "
+            f"{breakdown['plain']['device_ms']:.2f} / "
+            f"{breakdown['dp']['device_ms']:.2f} ms, idle "
+            f"{breakdown['plain']['device_idle_share']:.1%} / "
+            f"{breakdown['dp']['device_idle_share']:.1%}")
+        bare = _bare_collectives(dev, n_buckets, n_bn)
+        log(f"[dp_resnet_train] the collectives alone, no profiler: "
+            f"{bare['all_reduces']} all-reduces {bare['all_reduces_ms']:.2f} "
+            f"ms; {n_bn} differentiable all-reduces forward and backward "
+            f"{bare['batchnorm_fwd_bwd_ms']:.2f} ms")
+
+        it = ShardedDataSetIterator(host[:DP_BATCHES], mesh, batch_sh)
+        fit = _fit_and_restore("dp_resnet_train", dp, dts0, it, DP_EPOCHS,
+                               dev, next_batch=on_dev[0])
+        losses = fit["losses"]
+        n = DP_BATCHES
+        lfirst, llast = float(np.mean(losses[:n])), float(np.mean(
+            losses[-n:]))
+        if fit["ts"].step != n * DP_EPOCHS or not (
+                np.all(np.isfinite(losses)) and llast < lfirst):
+            raise SystemExit(f"chip_smoke: dp_resnet_train: the loss did "
+                             f"not fall ({lfirst:.4f} -> {llast:.4f})")
+        if first_launches or fit["launches"]:
+            raise SystemExit(f"chip_smoke: dp_resnet_train launched hand "
+                             f"kernels {first_launches} {fit['launches']}")
+
+        trained = dp.variables(fit["ts"])
+        tail = {k: v[:5] for k, v in host[0].items()}
+        ev_batches = host + [tail]
+        t1 = time.monotonic()
+        ev_dp = evaluate_model(model, trained, ev_batches, 1000, mesh=mesh)
+        ev = evaluate_model(model, trained, ev_batches, 1000)
+        same_eval = torch.equal(ev_dp.cm, ev.cm)
+        log(f"[dp_resnet_train] fit through ShardedDataSetIterator: "
+            f"{fit['ts'].step} steps, loss {lfirst:.4f} -> {llast:.4f}, "
+            f"median step {fit['median_step_ms']:.2f} ms, peak memory "
+            f"{fit['peak_memory_gib']:.2f} GiB; evaluate_model(mesh=) on "
+            f"{sum(len(b['labels']) for b in ev_batches)} images equal to "
+            f"evaluate_model: {same_eval} ({time.monotonic() - t1:.1f} s); "
+            f"launch counts {first_launches} / {fit['launches']}")
+        if not same_eval:
+            raise SystemExit("chip_smoke: evaluate_model(mesh=) differs")
+        out = {"model": "resnet50", "world_size": 1, "backend": backend,
+               "batch": RESNET_BATCH, "first_step": first,
+               "plain_vs_itself": noise,
+               "step_trace": {k: v for k, v in trace.items()
+                              if k != "host_self_ms"},
+               "host_time": host_time, "bare_collectives": bare,
+               "collectives_per_step_expected": expected,
+               "gradient_buckets": n_buckets, "batchnorms": n_bn,
+               "median_step_ms": med, "step_ms_turns": walls,
+               "dp_minus_plain_ms": med["dp"] - med["plain"],
+               "step_breakdown": breakdown, "fit_losses": losses,
+               "fit_median_step_ms": fit["median_step_ms"],
+               "peak_memory_gib": fit["peak_memory_gib"],
+               "checkpoint_next_loss": fit["checkpoint_next_loss"],
+               "evaluate_equal": same_eval,
+               "launches": {"first_step": first_launches,
+                            "fit": fit["launches"]},
+               "phase_seconds": time.monotonic() - t0, "card": smi}
+        del fit, trained, dts0, ts0, on_dev
+        return out
+    finally:
+        distributed.shutdown()
+        shutil.rmtree(wd, ignore_errors=True)
+
+
+# -- 46. two ranks on one card ---------------------------------------------------
+
+def _probe_gloo_cuda(dev, wd: Path, rank: int) -> dict:
+    """Each of GLOO_CUDA_COLLECTIVES over gloo on CUDA tensors, its result
+    checked: collective → True, or the error it raised. What each one did
+    is written to ``wd`` before the next starts, so a collective that
+    crashes the process is named in the files it left."""
+    import torch.distributed as dist
+
+    out = {}
+    for c in GLOO_CUDA_COLLECTIVES:
+        (wd / f"probe.{rank}.json").write_text(json.dumps(
+            {**out, c: "started, did not return"}))
+        x = torch.arange(4.0, device=dev) + 10 * rank
+        try:
+            if c == "all_reduce":
+                got = x.clone()
+                dist.all_reduce(got)
+                want = torch.arange(4.0) * 2 + 10
+            elif c == "broadcast":
+                got = x.clone()
+                dist.broadcast(got, 0)
+                want = torch.arange(4.0)
+            elif c == "all_gather_into_tensor":
+                got = torch.empty(8, device=dev)
+                dist.all_gather_into_tensor(got, x)
+                want = torch.cat([torch.arange(4.0), torch.arange(4.0) + 10])
+            else:
+                got = torch.empty(2, device=dev)
+                dist.reduce_scatter_tensor(got, x)
+                want = (torch.arange(4.0) * 2 + 10)[2 * rank:2 * rank + 2]
+            torch.cuda.synchronize()
+            out[c] = (True if torch.equal(got.cpu(), want)
+                      else f"wrong result {got.tolist()}")
+        except (RuntimeError, ValueError) as e:
+            out[c] = f"{type(e).__name__}: {str(e)[:200]}"
+    (wd / f"probe.{rank}.json").write_text(json.dumps(out))
+    return out
+
+
+def dp_child(rank: int, workdir: str, device: str = "cuda:0"):
+    """One of phase 46's two ranks: ``device`` (cuda:0) over gloo; which
+    gloo collectives take CUDA tensors (``_probe_gloo_cuda``); ResNet-50
+    from the seed, its data-parallel step over the global batch (and one
+    FSDP step where gloo all-gathers and reduce-scatters CUDA tensors)
+    written to ``workdir`` for the parent to hold against the plain step.
+    It logs each stage, so a rank that dies shows where."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    from deeplearning4j_tpu_torch.parallel.specs import (
+        data_parallel_plan,
+        fsdp_plan,
+        train_state_sharding,
+    )
+    from deeplearning4j_tpu_torch.runtime import distributed
+    from deeplearning4j_tpu_torch.runtime.device import MeshSpec, build_mesh
+    from deeplearning4j_tpu_torch.train.trainer import Trainer
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    wd = Path(workdir)
+    distributed.initialize(f"file://{wd}/store", num_processes=2,
+                           process_id=rank, device=dev, backend="gloo")
+    try:
+        res = {"backend": dist.get_backend(),
+               "collectives": _probe_gloo_cuda(dev, wd, rank)}
+        if res["collectives"]["all_reduce"] is not True:
+            raise SystemExit(f"gloo does not all-reduce CUDA tensors here: "
+                             f"{res['collectives']}")
+        batch = _resnet_batches()[0]
+        model = resnet50(device=dev, updater=Adam(1e-3), seed=SEED)
+        variables = model.init(SEED)
+        plans = {"dp": build_mesh(MeshSpec(data=-1))}
+        if all(res["collectives"][c] is True for c in (
+                "all_gather_into_tensor", "reduce_scatter_tensor")):
+            plans["fsdp"] = build_mesh(MeshSpec(data=1, fsdp=2))
+        log(f"[dp_child {rank}] joined {res['backend']} on {dev}; plans "
+            f"{list(plans)}")
+        for name, mesh in plans.items():
+            if name == "dp":
+                state_sh, batch_sh = data_parallel_plan(mesh)
+            else:
+                tmpl = Trainer(model).init_state(variables)
+                params_sh, batch_sh = fsdp_plan(mesh, tmpl.params)
+                state_sh = train_state_sharding(mesh, tmpl, params_sh)
+                del tmpl
+            trainer = Trainer(model, mesh=mesh, state_sharding=state_sh,
+                              batch_sharding=batch_sh)
+            ts = trainer.init_state(variables)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, state, _, grads = trainer.dp_grads(ts, batch)
+            torch.cuda.synchronize()
+            grads_s = time.perf_counter() - t0
+            log(f"[dp_child {rank}] {name}: gradients in {grads_s:.2f} s, "
+                f"loss {float(loss):.6f}")
+            dims = trainer._dp.param_dims
+            full = {n: (distributed.full_tensor(DTensor.from_local(
+                g, mesh, _named(state_sh.params)[n].placements(),
+                run_check=False)) if n in dims else g)
+                for n, g in _named(grads).items()}
+            walls = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ts1, _ = trainer.train_step(ts, batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            params = _named(trainer.variables(ts1)["params"])
+            digest = hashlib.sha256()
+            for n in sorted(params):
+                digest.update(params[n].cpu().numpy().tobytes())
+            res[name] = {"loss": float(loss), "grads_seconds": grads_s,
+                         "step_ms": walls, "params_sha256": digest.hexdigest(),
+                         "sharded_leaves": len(dims),
+                         "peak_memory_gib": torch.cuda.max_memory_allocated(
+                             dev) / 2 ** 30}
+            if rank == 0:
+                torch.save({"loss": float(loss),
+                            "state": {n: a.cpu() for n, a in
+                                      _named(state).items()},
+                            "grads": {n: g.cpu() for n, g in full.items()}},
+                           wd / f"{name}.pt")
+            del trainer, ts, ts1, grads, full, state
+        (wd / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        distributed.shutdown()
+
+
+def phase_dp_two_ranks(dev, smi):
+    """Two processes on cuda:0 over gloo (NCCL refuses two ranks on one
+    device), ResNet-50 at full width, global batch RESNET_BATCH: which
+    gloo collectives take CUDA tensors there, then each rank's
+    data-parallel step (and FSDP data=1, fsdp=2 where gloo takes CUDA
+    tensors in all_gather and reduce_scatter) against the plain step over
+    the same batch in this process, ResNet-50's float64 limits; both
+    ranks' params after a step bit-identical. Each child runs under
+    DP_CHILD_TIMEOUT_S; a failed child fails the phase."""
+    import subprocess
+
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    from deeplearning4j_tpu_torch.train.trainer import Trainer, batch_to_device
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    t0 = time.monotonic()
+    wd = Path(tempfile.mkdtemp(prefix="chip_smoke_dp2_"))
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DP_CHILD, str(r), str(wd)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        model = resnet50(device=dev, updater=Adam(1e-3), seed=SEED)
+        plain = Trainer(model)
+        ts0 = plain.init_state(model.init(SEED))
+        batch = batch_to_device(_resnet_batches()[0], dev)
+        _dispatch.reset_launch_counts()
+        want = _grads_by_name(plain, ts0.params, ts0.model_state, batch)
+        again = _grads_by_name(plain, ts0.params, ts0.model_state, batch)
+        del plain, ts0, model
+        outs = []
+        deadline = time.monotonic() + DP_CHILD_TIMEOUT_S
+        try:
+            for p in procs:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            raise SystemExit(f"chip_smoke: dp_two_ranks: a rank ran past "
+                             f"{DP_CHILD_TIMEOUT_S} s")
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                probe = wd / f"probe.{r}.json"
+                raise SystemExit(
+                    f"chip_smoke: dp_two_ranks: rank {r} exited "
+                    f"{p.returncode}; its gloo probe "
+                    f"{probe.read_text() if probe.exists() else 'not run'}:"
+                    f"\n{out[-3000:]}")
+        for r, text in enumerate(outs):
+            log(f"[dp_two_ranks] rank {r}: " + " | ".join(
+                ln for ln in text.splitlines() if "[dp_child" in ln))
+        ranks = [json.loads((wd / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        collectives = ranks[0]["collectives"]
+        log(f"[dp_two_ranks] gloo over CUDA tensors on this card: "
+            f"{collectives}")
+        noise = _dp_vs_plain("dp_two_ranks plain", (
+            again[0], again[1], {n: g.double() for n, g in
+                                 again[2].items()}), want)
+        out = {"world_size": 2, "backend": ranks[0]["backend"],
+               "batch": RESNET_BATCH, "collectives": collectives,
+               "plain_vs_itself": noise, "card": smi}
+        for plan in ("dp", "fsdp"):
+            if plan not in ranks[0]:
+                log(f"[dp_two_ranks] {plan}: not run (gloo does not take "
+                    f"CUDA tensors in all_gather_into_tensor and "
+                    f"reduce_scatter_tensor here: {collectives})")
+                out[plan] = None
+                continue
+            got = torch.load(wd / f"{plan}.pt")
+            cmp = _dp_vs_plain(f"dp_two_ranks {plan}", (
+                got["loss"], got["state"],
+                {n: g.to(dev).double() for n, g in got["grads"].items()}),
+                want, noise)
+            same = ranks[0][plan]["params_sha256"] == \
+                ranks[1][plan]["params_sha256"]
+            log(f"[dp_two_ranks] {plan}: both ranks' params after a step "
+                f"bit-identical: {same}; step ms (gloo over one card, not a "
+                f"multi-GPU number) {ranks[0][plan]['step_ms']}; sharded "
+                f"leaves {ranks[0][plan]['sharded_leaves']}; peak memory a "
+                f"rank {ranks[0][plan]['peak_memory_gib']:.2f} GiB")
+            if not same:
+                raise SystemExit(f"chip_smoke: dp_two_ranks {plan}: the "
+                                 "ranks' params differ")
+            out[plan] = {**cmp, **{k: ranks[0][plan][k] for k in (
+                "step_ms", "sharded_leaves", "peak_memory_gib")}}
+        launches = _dispatch.launch_counts()
+        if launches:
+            raise SystemExit(f"chip_smoke: dp_two_ranks launched {launches}")
+        out.update(launches=launches, phase_seconds=time.monotonic() - t0)
+        log(f"[dp_two_ranks] {out['phase_seconds']:.1f} s")
+        return out
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+
+
+def repeat_attention_layers(dev, runs=10) -> list:
+    """Phase 18's layer checks ``runs`` times, none of them fatal, and the
+    recurrent attention on the card and on the CPU each against itself:
+    which leaf is worst in each run, and on which side a difference
+    between runs arises. To run it alone: ``python3 -c "import chip_smoke
+    as c; d, s = c.phase_device(); c.repeat_attention_layers(d)"``."""
+    from deeplearning4j_tpu_torch.nn.layers import attention as attention_mod
+
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn((LAYER_N, LAYER_T, LAYER_E), generator=g)
+    lengths = torch.randint(1, LAYER_T + 1, (LAYER_N,), generator=g)
+    mask = (torch.arange(LAYER_T)[None, :] < lengths[:, None]).float()
+    w_out = torch.randn((LAYER_N, LAYER_T, LAYER_E), generator=g)
+    layer = attention_mod.RecurrentAttention(units=LAYER_E, num_heads=4)
+    params, _ = layer.init(torch.Generator().manual_seed(1),
+                           (LAYER_T, LAYER_E), torch.float32)
+
+    def run(device):
+        p = {k: a.to(device).requires_grad_() for k, a in params.items()}
+        xd = x.to(device).requires_grad_()
+        y, _ = layer.apply(p, {}, xd, mask=mask.to(device))
+        grads = torch.autograd.grad((y * w_out.to(device)).sum(),
+                                    [xd, *p.values()])
+        return {n: a.detach().cpu() for n, a in zip(["y", "x", *p],
+                                                    [y, *grads])}
+
+    def worst(a, b):
+        errs = {n: float((a[n] - b[n]).abs().max())
+                / max(1.0, float(b[n].abs().max())) for n in b}
+        n = max(errs, key=errs.get)
+        return n, errs[n]
+
+    out = []
+    for i in range(runs):
+        try:
+            phase_attention_layers(dev)
+            passed = True
+        except SystemExit:
+            passed = False
+        card, card2, cpu, cpu2 = run(dev), run(dev), run("cpu"), run("cpu")
+        row = {"run": i, "phase_passed": passed,
+               "card_vs_cpu": worst(card, cpu),
+               "card_vs_card": worst(card2, card),
+               "cpu_vs_cpu": worst(cpu2, cpu)}
+        log(f"[layers_repeat] {row}")
+        out.append(row)
+    return out
+
+
 def _delta_entry(bwd_cases, training, gpt_training, s2s_training,
                  smi) -> dict:
     """The kernels line's entry of flash_bwd_delta: the main row is the
@@ -8022,6 +8659,10 @@ def main() -> int:
         f"{tiny_yolo_training['phase_seconds']:.1f}, yolo2_serve "
         f"{yolo2_serving['phase_seconds']:.1f}")
     advanced = phase_advanced_zoo(dev, smi)
+    dp = phase_dp_resnet_train(dev, smi)
+    dp["two_ranks"] = phase_dp_two_ranks(dev, smi)
+    log(f"[dp] phase seconds: dp_resnet_train {dp['phase_seconds']:.1f}, "
+        f"dp_two_ranks {dp['two_ranks']['phase_seconds']:.1f}")
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
         "name": "flash_fwd", "route": "cuda",
@@ -8162,6 +8803,7 @@ def main() -> int:
     print(json.dumps({"yolo2_serving": yolo2_serving}), flush=True)
     for key, line in advanced.items():
         print(json.dumps({key: line}), flush=True)
+    print(json.dumps({"dp": dp}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

@@ -13,8 +13,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.data.dataset import as_batch_dict
+from deeplearning4j_tpu_torch.runtime.distributed import full_tensor
 
 
 def _as_tensor(a, device=None):
@@ -241,19 +243,41 @@ def _select_output(out, output_name, caller: str):
 
 
 def evaluate_model(model, variables, data_iter, num_classes: int,
+                   mesh=None,
                    output_name: Optional[str] = None) -> Evaluation:
     """↔ MultiLayerNetwork.evaluate(DataSetIterator): each batch's
     inference forward (``model.output``, on the model's device) and its
     confusion counts accumulated there, with no host sync inside the loop.
-    For a multi-output graph model ``output_name`` picks the head. The
-    JAX package's ``mesh`` argument (sharded evaluation) is not ported."""
+    For a multi-output graph model ``output_name`` picks the head.
+
+    With ``mesh`` (every rank calls it with the same batches): each rank
+    forwards and counts its contiguous block of each batch's rows (a tail
+    batch the ranks do not divide is split unevenly, so every row counts
+    once), and the confusion matrix is summed over the ranks at the end —
+    the counts of the single-process evaluation."""
     ev = Evaluation(num_classes)
     cm = ev.cm.to(model.device)
     for batch in data_iter:
         b = as_batch_dict(batch)
-        out = _select_output(model.output(variables, b["features"]),
-                             output_name, "evaluate_model")
-        cm = _confusion_update(cm, out, _as_tensor(b["labels"],
-                                                   model.device))
+        feats, labels = b["features"], b["labels"]
+        if mesh is not None:
+            feats, labels = (_rank_rows(full_tensor(v))
+                             for v in (feats, labels))
+            if labels.shape[0] == 0:
+                continue
+        out = _select_output(model.output(variables, feats), output_name,
+                             "evaluate_model")
+        cm = _confusion_update(cm, out, _as_tensor(labels, model.device))
+    if mesh is not None:
+        dist.all_reduce(cm)
     ev.cm = cm
     return ev
+
+
+def _rank_rows(v):
+    """This rank's contiguous block of ``v``'s rows (``np.array_split``'s
+    division)."""
+    n, p, r = v.shape[0], dist.get_world_size(), dist.get_rank()
+    per, rem = divmod(n, p)
+    lo = r * per + min(r, rem)
+    return v[lo:lo + per + (r < rem)]

@@ -8,8 +8,13 @@ values with DL4J's ``decay`` convention; both are written as plain tensor
 ops because ``F.batch_norm(training=True)`` computes another function (its
 momentum is ``1 - decay`` and its running variance is the unbiased one).
 
-Cross-replica statistics (``axis_name``) wait for the distributed slice
-(ROADMAP queue 1 item 8).
+Under a data-parallel plan (``Trainer(mesh=...)``) the JAX package's
+pjitted mean is a global mean over the batch; the port's ranks each hold
+rows of it, so every training forward all-reduces each BatchNorm's
+float32 ``[Σx, Σx²]`` over the ranks (one differentiable all-reduce a
+layer: its backward carries the other ranks' terms), whether or not
+``axis_name`` is set, and the running state stays the same on every rank.
+``axis_name`` reduces over that mesh axis alone.
 """
 
 from __future__ import annotations
@@ -18,10 +23,12 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_config
 from deeplearning4j_tpu_torch.ops import nn as opsnn
+from deeplearning4j_tpu_torch.runtime import distributed
 
 
 @register_config
@@ -50,17 +57,25 @@ class BatchNorm(LayerConfig):
     def apply(self, params, state, x, *, train=False, generator=None):
         gamma, beta = params.get("gamma"), params.get("beta")
         if train:
-            if self.axis_name is not None:
-                raise NotImplementedError(
-                    f"BatchNorm(axis_name={self.axis_name!r}): cross-replica "
-                    "statistics are not ported yet (ROADMAP queue 1 item 8)")
             dims = tuple(range(x.ndim - 1))
             # statistics in float32 (float64 for a float64 activation)
-            # from the compute-dtype activation: the mean and E[x²] are
-            # one pass each, var = E[x²] − mean²
+            # from the compute-dtype activation: Σx and Σx² are one pass
+            # each, summed over the replicas under a plan (every replica
+            # holds as many rows: the trainer splits batches evenly), and
+            # var = E[x²] − mean²
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = torch.mean(xf, dim=dims)
-            ex2 = torch.mean(torch.square(xf), dim=dims)
+            c = xf.shape[-1]
+            s1 = torch.sum(xf, dim=dims)
+            s2 = torch.sum(torch.square(xf), dim=dims)
+            n = xf.numel() // c
+            group = distributed.replica_group(self.axis_name)
+            if group is not None:
+                stats = distributed.all_reduce_sum(torch.cat([s1, s2]),
+                                                   group)
+                s1, s2 = stats[:c], stats[c:]
+                n *= dist.get_world_size(group)
+            mean = s1 / n
+            ex2 = s2 / n
             var = torch.clamp(ex2 - torch.square(mean), min=0.0)
             m = self.momentum
             new_state = {"mean": m * state["mean"] + (1 - m) * mean,

@@ -16,6 +16,13 @@ TrainState's ``rng`` is written as its key data (threefry2x32 or rbg) with
 the ``key_paths``/``key_impls`` entries the JAX package writes, so a
 checkpoint restores in both directions. Every array the port loads is
 checked against its manifest digest.
+
+Under several processes (``runtime/distributed.py``) every rank takes the
+snapshot — a sharded (FSDP) leaf is gathered whole, so a checkpoint holds
+the same names and bytes whatever the topology — rank 0 writes, and every
+rank meets the others at ``checkpoint_sync`` before it returns. A restore
+into a template whose leaves are ``DTensor`` shards (``Trainer(mesh=...)``
+under any world size and plan) keeps each rank's shard of the full array.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from deeplearning4j_tpu_torch import __version__
+from deeplearning4j_tpu_torch.runtime import distributed
 from deeplearning4j_tpu_torch.nn.config import config_to_json
 from deeplearning4j_tpu_torch.utils.pytree import (
     flatten_with_names,
@@ -84,6 +93,9 @@ def _snapshot_tree(tree: Any):
             arrays[name] = leaf.key_data()
             key_paths.append(name)
             key_impls[name] = leaf.impl
+        elif isinstance(leaf, DTensor):
+            arrays[name] = distributed.full_tensor(
+                leaf).detach().cpu().numpy()
         elif torch.is_tensor(leaf):
             arrays[name] = leaf.detach().cpu().numpy()
         elif isinstance(leaf, int):
@@ -98,8 +110,17 @@ def save_state_tree(directory, tree: Any, extra_meta: Optional[dict] = None):
     the JAX package's crash-consistent order: ``state.npz`` to a tmp
     sibling then ``os.replace``; then ``manifest.json``; then
     ``meta.json``. A caller indexes the directory only after this
-    returns."""
+    returns. Under several processes every rank calls it, rank 0 writes
+    and all meet at ``checkpoint_sync``."""
+    _write_tree(directory, tree, extra_meta)
+    distributed.checkpoint_sync(Path(directory).name)
+
+
+def _write_tree(directory, tree: Any, extra_meta: Optional[dict]):
+    """The snapshot (every rank) and rank 0's write."""
     arrays, key_paths, key_impls = _snapshot_tree(tree)
+    if distributed.process_index() != 0:
+        return
     d = Path(directory)
     d.mkdir(parents=True, exist_ok=True)
     npz, tmp = d / "state.npz", d / "state.npz.tmp"
@@ -162,10 +183,24 @@ def load_state_tree(directory, template: Any, alias=None) -> Any:
         if tuple(arr.shape) != tuple(tmpl.shape):
             raise ValueError(f"{hit}: shape {arr.shape} != "
                              f"{tuple(tmpl.shape)}")
+        if isinstance(tmpl, DTensor):
+            return _shard_like(arr, tmpl)
         return torch.from_numpy(np.array(arr)).to(dtype=tmpl.dtype,
                                                   device=tmpl.device)
 
     return tree_map_with_names(restore, template)
+
+
+def _shard_like(arr: np.ndarray, tmpl: DTensor) -> DTensor:
+    """This rank's shard of the full array ``arr``, placed as ``tmpl``."""
+    mesh = tmpl.device_mesh
+    for i, p in enumerate(tmpl.placements):
+        if isinstance(p, Shard):
+            arr = np.array_split(arr, mesh.size(i),
+                                 axis=p.dim)[mesh.get_local_rank(i)]
+    local = torch.from_numpy(np.array(arr)).to(
+        dtype=tmpl.dtype, device=tmpl.to_local().device)
+    return DTensor.from_local(local, mesh, tmpl.placements, run_check=False)
 
 
 _index_lock = threading.Lock()
@@ -206,10 +241,13 @@ def save_checkpoint(directory, train_state, *, model=None, tag: str = "",
     meta = {"step": step, "tag": tag}
     if extra_meta:
         meta.update(extra_meta)
-    save_state_tree(root / name, train_state, meta)
-    return _finalize_checkpoint(
-        root, name, step, tag, keep_last,
-        config_to_json(model.config) if model is not None else None)
+    _write_tree(root / name, train_state, meta)
+    if distributed.process_index() == 0:
+        _finalize_checkpoint(
+            root, name, step, tag, keep_last,
+            config_to_json(model.config) if model is not None else None)
+    distributed.checkpoint_sync(name)
+    return str(root / name)
 
 
 def latest_checkpoint(directory) -> Optional[str]:
@@ -228,7 +266,8 @@ def latest_checkpoint(directory) -> Optional[str]:
 
 def restore_checkpoint(ckpt_dir, train_state_template):
     """The TrainState saved in ``ckpt_dir`` (by either package), shaped,
-    typed and placed like ``train_state_template``."""
+    typed and placed like ``train_state_template`` (its ``DTensor``
+    leaves: this rank's shards)."""
     return load_state_tree(ckpt_dir, train_state_template)
 
 

@@ -22,14 +22,21 @@ by ``loss_fn_tbptt`` from the recurrent carries the window before it left
 one iteration by ``fit``. Layer weight constraints (``nn/constraints.py``)
 are projected after every update, that of each window included.
 
-Not ported (ROADMAP queue 1 item 2): meshes and sharding, ``check_nan``,
-``make_chained_step``, ``step_flops``, and the telemetry, incident,
-fault-injection, heartbeat, compile-cache and auto-prefetch hooks of
-``fit``.
+Meshes (``mesh``, ``state_sharding``, ``batch_sharding``): the JAX package
+pjits the same step over a mesh; the port runs it on every rank over its
+rows of the global batch and writes the collectives out
+(``parallel/data_parallel.py``): BatchNorm's statistics and gradients are
+all-reduced, FSDP plans keep params and optimizer state sharded, and the
+result is the single-device step over the global batch.
+
+Not ported (ROADMAP queue 1 item 2): ``check_nan``, ``make_chained_step``,
+``step_flops``, and the telemetry, incident, fault-injection, heartbeat,
+compile-cache and auto-prefetch hooks of ``fit``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Iterable, List, Optional, Sequence
 
@@ -39,7 +46,11 @@ import torch
 from deeplearning4j_tpu_torch.data.dataset import as_batch_dict
 from deeplearning4j_tpu_torch.nn.config import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.constraints import constrain_params
-from deeplearning4j_tpu_torch.ops import math as opsmath
+from deeplearning4j_tpu_torch.parallel.data_parallel import (
+    DataParallel,
+    leaf_sq_sums,
+)
+from deeplearning4j_tpu_torch.runtime import distributed
 from deeplearning4j_tpu_torch.train.updaters import (
     apply_updates,
     resolve_updater,
@@ -120,23 +131,35 @@ class TrainState:
     rng: RngKey
 
 
-def _normalize_gradients(grads, net: NeuralNetConfiguration):
-    """↔ GradientNormalization enum handling in BaseLayer.update."""
+# the modes that read norms of whole leaves
+_NORM_MODES = ("clip_l2_global", "clip_l2_per_param",
+               "renormalize_l2_per_layer")
+
+
+def _normalize_gradients(grads, net: NeuralNetConfiguration, sq=None):
+    """↔ GradientNormalization enum handling in BaseLayer.update. The L2
+    modes read ``sq``, each leaf's full sum of squares by name (default:
+    the leaves' own; under FSDP, where ``grads`` hold shards, the shards'
+    sums all-reduced)."""
     mode = net.gradient_normalization
     thr = net.gradient_normalization_threshold
     if mode is None:
         return grads
     if mode == "clip_value":
         return tree_map(lambda g: torch.clamp(g, -thr, thr), grads)
+    if mode not in _NORM_MODES:
+        raise ValueError(f"unknown gradient normalization {mode}")
+    sq = leaf_sq_sums(grads) if sq is None else sq
     if mode == "clip_l2_global":
-        clipped, _ = opsmath.clip_by_global_norm(grads, thr)
-        return clipped
+        gnorm = torch.sqrt(sum(sq.values()))
+        scale = torch.clamp(thr / torch.clamp(gnorm, min=1e-12), max=1.0)
+        return tree_map(lambda g: g * scale, grads)
+    norm = {n: torch.sqrt(v) for n, v in sq.items()}
     if mode == "clip_l2_per_param":
-        return tree_map(lambda g: opsmath.clip_by_norm(g, thr), grads)
-    if mode == "renormalize_l2_per_layer":
-        return tree_map(lambda g: g / torch.clamp(
-            torch.sqrt(torch.sum(torch.square(g))), min=1e-12), grads)
-    raise ValueError(f"unknown gradient normalization {mode}")
+        return tree_map_with_names(lambda n, g: g * torch.clamp(
+            thr / torch.clamp(norm[n], min=1e-12), max=1.0), grads)
+    return tree_map_with_names(
+        lambda n, g: g / torch.clamp(norm[n], min=1e-12), grads)
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -154,6 +177,12 @@ def _to_bf16(tree):
     return tree_map(lambda a: a.to(torch.bfloat16)
                     if torch.is_tensor(a) and a.dtype == torch.float32
                     else a, tree)
+
+
+def _weighted(total, w: float, x: torch.Tensor):
+    """``total + w·x`` (``w·x`` when ``total`` is None)."""
+    x = x if w == 1.0 else w * x
+    return x if total is None else total + x
 
 
 def _first_dim(batch) -> int:
@@ -198,6 +227,19 @@ class Trainer:
     mean, weighted by ``model.loss_weight(microbatch)`` where the model
     has one. A batch that does not split evenly runs unsplit.
 
+    ``mesh`` / ``state_sharding`` / ``batch_sharding`` (``parallel/specs.py``
+    plans over ``runtime/device.build_mesh``): every rank computes its
+    rows of the global batch (or of each global microbatch) and the
+    gradients are averaged over the ranks, weighted by each rank's
+    ``model.loss_weight`` share where the model has one — the
+    single-device step's global weighted mean — and equally without it
+    (exact for unweighted means, an approximation for masked or weighted
+    losses whose weight differs between the ranks' rows). BatchNorm
+    reduces its statistics over the ranks. The batch is the global batch
+    on every rank or ``DTensor``s from ``ShardedDataSetIterator``. Under
+    an FSDP plan the state holds ``DTensor`` shards; ``variables(ts)``
+    gathers them.
+
     ``net.mixed_precision``: bf16 compute with float32 master params and
     updater state. The cast sits inside the differentiated function, so
     gradients come back float32. Only params and features are cast: layer
@@ -210,6 +252,9 @@ class Trainer:
         self,
         model,
         *,
+        mesh=None,
+        state_sharding=None,
+        batch_sharding=None,
         extra_metrics: Optional[Callable] = None,
         frozen_layers: Optional[Sequence[str]] = None,
         grad_accum: int = 1,
@@ -249,6 +294,18 @@ class Trainer:
         self._constrained_layers = [(n, l) for n, l in named
                                     if getattr(l, "constraints", None)]
         self.grad_metrics = bool(grad_metrics)
+        self.mesh = mesh
+        self._dp = None
+        if mesh is not None:
+            if torch.device(mesh.device_type).type != self.device.type:
+                raise ValueError(
+                    f"the model runs on {self.device}, the mesh on "
+                    f"{mesh.device_type} devices")
+            self._dp = DataParallel(mesh, state_sharding, batch_sharding)
+            if self._dp.fsdp and self._constrained_layers:
+                raise NotImplementedError(
+                    "weight constraints under an FSDP plan (they read whole "
+                    "leaves; the updater runs on shards)")
 
     # -- one step -----------------------------------------------------------
 
@@ -275,81 +332,161 @@ class Trainer:
                    for (n, p), g in zip(named, grads)}
         return tree_map_with_names(lambda n, _: by_name[n], leaves)
 
-    def _grad_of(self, params, model_state, batch, generator):
+    def _grad_of(self, params, model_state, batch, generator,
+                 scale: float = 1.0):
         """Loss and gradients of every param leaf (float32 leaves; the
-        mixed-precision cast is inside the differentiated function)."""
+        mixed-precision cast is inside the differentiated function); the
+        gradients are those of ``scale · loss``."""
         leaves, compute = self._leaves(params)
         loss, (new_state, metrics) = self.model.loss_fn(
             compute, model_state, batch, generator=generator)
-        grads = self._grads(loss, leaves)
+        grads = self._grads(loss if scale == 1.0 else scale * loss, leaves)
         # layer state (BatchNorm's running statistics) leaves the graph
         new_state = tree_map(torch.Tensor.detach, new_state)
         return loss.detach(), new_state, metrics, grads
 
     def train_step(self, ts: TrainState, batch):
         """One update from ``batch`` → (new TrainState, metrics)."""
-        batch = self._cast_batch(batch_to_device(as_batch_dict(batch),
-                                                 self.device))
+        batch = as_batch_dict(batch)
+        if self._dp is not None:
+            loss, state, metrics, grads = self.dp_grads(ts, batch)
+            return self._finish_step(ts, grads, state, metrics, loss, batch)
+        batch = self._cast_batch(batch_to_device(batch, self.device))
+        k = self._splits(_first_dim(batch))
+        size = _first_dim(batch) // k
+        microbatches = [batch] if k == 1 else [
+            tree_map(lambda a, i=i: a[i * size:(i + 1) * size], batch)
+            for i in range(k)]
+        gsum, loss, metrics, wsum, model_state = self._accumulate(
+            ts, ts.params, microbatches, weighted=k > 1)
+        if wsum != 1.0:
+            denom = max(wsum, 1e-12)
+            gsum = tree_map(lambda g: g / denom, gsum)
+            metrics = {n: m / denom for n, m in metrics.items()}
+            loss = loss / denom
+        return self._finish_step(ts, gsum, model_state, metrics, loss, batch)
+
+    def _splits(self, n: int) -> int:
+        """Microbatches of an ``n``-row batch: ``grad_accum`` where it
+        divides ``n``, else 1."""
         k = self.grad_accum
-        n0 = _first_dim(batch)
-        if k == 1 or n0 % k:
-            gen = ts.rng.generator(self.device, ts.step)
-            loss, new_state, metrics, grads = self._grad_of(
-                ts.params, ts.model_state, batch, gen)
-            return self._finish_step(ts, grads, new_state, metrics, loss,
-                                     batch)
-        weight_of = getattr(self.model, "loss_weight", None)
-        size = n0 // k
+        return k if k > 1 and n % k == 0 else 1
+
+    def _accumulate(self, ts: TrainState, params, microbatches,
+                    weighted: bool):
+        """Σ over ``microbatches`` of w·gradients, w·loss and w·metrics,
+        Σ w and the BatchNorm state after the last: w is
+        ``model.loss_weight`` of the microbatch when ``weighted`` (and the
+        model has one), else 1. The gradients are those of w·loss, so a
+        reduction in the backward (BatchNorm's, under a mesh) weighs each
+        term by its w."""
+        weight_of = (getattr(self.model, "loss_weight", None) if weighted
+                     else None)
         model_state = ts.model_state
-        gsum = msum = loss_sum = None
-        wsum = 0.0
-        for i in range(k):
-            mb = tree_map(lambda a: a[i * size:(i + 1) * size], batch)
-            gen = ts.rng.generator(self.device, ts.step, i)
-            loss, model_state, metrics, grads = self._grad_of(
-                ts.params, model_state, mb, gen)
+        gsum = loss_sum = None
+        msum, wsum = {}, 0.0
+        for i, mb in enumerate(microbatches):
+            mb = self._cast_batch(batch_to_device(mb, self.device))
+            gen = ts.rng.generator(self.device, ts.step,
+                                   *((i,) if len(microbatches) > 1 else ()))
             w = float(weight_of(mb)) if weight_of is not None else 1.0
-            if gsum is None:
-                gsum = tree_map(lambda g: w * g, grads)
-                msum = {n: w * m for n, m in metrics.items()}
-                loss_sum = w * loss
-            else:
-                gsum = tree_map(lambda s, g: s + w * g, gsum, grads)
-                msum = {n: msum[n] + w * m for n, m in metrics.items()}
-                loss_sum = loss_sum + w * loss
+            loss, model_state, metrics, grads = self._grad_of(
+                params, model_state, mb, gen, scale=w)
+            gsum = grads if gsum is None else tree_map(torch.add, gsum,
+                                                       grads)
+            loss_sum = _weighted(loss_sum, w, loss)
+            msum = {m: _weighted(msum.get(m), w, v)
+                    for m, v in metrics.items()}
             wsum += w
-        denom = max(wsum, 1e-12)
-        return self._finish_step(
-            ts, tree_map(lambda g: g / denom, gsum), model_state,
-            {n: m / denom for n, m in msum.items()}, loss_sum / denom, batch)
+        return gsum, loss_sum, msum, wsum, model_state
+
+    # -- data parallel ------------------------------------------------------
+
+    def _dp_reduce(self, gsum, loss_sum, wsum: float, msum):
+        """Sums of this rank's weighted gradients, loss and metrics → the
+        global weighted means (one bucketed reduction)."""
+        scal = [n for n, m in msum.items() if torch.is_tensor(m)
+                and m.ndim == 0 and m.is_floating_point()]
+        # full_like, not torch.tensor(..., device=): a host-to-device copy
+        # would wait for the backward queued before it
+        grads, sums = self._dp.reduce(gsum, [
+            loss_sum, torch.full_like(loss_sum, wsum),
+            *(msum[n] for n in scal)])
+        denom = torch.clamp(sums[1], min=1e-12)
+        metrics = {n: m / max(wsum, 1e-12) for n, m in msum.items()}
+        metrics.update({n: s / denom for n, s in zip(scal, sums[2:])})
+        return tree_map(lambda g: g / denom, grads), sums[0] / denom, metrics
+
+    def dp_grads(self, ts: TrainState, batch):
+        """The data-parallel step's loss, BatchNorm state, metrics and
+        gradients (this rank's shard of them under FSDP): those of the
+        single-device step over the global ``batch``."""
+        dp = self._dp
+        rows = dp.local_rows(batch, self._splits(dp.global_rows(batch)))
+        params = dp.full_params(ts.params)
+        with self._replicas():
+            gsum, loss_sum, msum, wsum, model_state = self._accumulate(
+                ts, params, rows, weighted=True)
+        grads, loss, metrics = self._dp_reduce(gsum, loss_sum, wsum, msum)
+        return loss, model_state, metrics, grads
+
+    def _replicas(self):
+        """The context in which BatchNorm reduces over the mesh's ranks
+        (none without a mesh)."""
+        return (contextlib.nullcontext() if self._dp is None
+                else distributed.replica_context(self._dp.mesh))
+
+    def _rows(self, batch):
+        """This rank's rows of a global batch (the batch without a mesh)."""
+        batch = as_batch_dict(batch)
+        return batch if self._dp is None else self._dp.local_rows(batch,
+                                                                  1)[0]
+
+    def _sq_sums(self, grads):
+        """Each gradient leaf's full sum of squares, by name."""
+        return (leaf_sq_sums(grads) if self._dp is None
+                else self._dp.leaf_sq_sums(grads))
 
     @torch.no_grad()
     def _finish_step(self, ts: TrainState, grads, new_model_state, metrics,
-                     loss, batch):
+                     loss, batch, n_rows: Optional[int] = None):
         """Freeze-mask, normalize, updater, metric assembly, new state —
-        the JAX package's ``_finish_step``."""
+        the JAX package's ``_finish_step``. Under an FSDP plan ``grads``
+        are this rank's shards and the updater runs on the shards."""
+        dp = self._dp
+        fsdp = dp is not None and dp.fsdp
+        params = dp.local(ts.params) if fsdp else ts.params
+        opt_state = dp.local(ts.opt_state) if fsdp else ts.opt_state
         raw_grad_norms = {}
         if self.grad_metrics:
             # raw per-layer norms, before freeze-masking and clipping
+            sq = self._sq_sums(grads)
             for lname, g in grads.items():
-                sq = sum(torch.sum(torch.square(leaf))
-                         for leaf in tree_leaves(g))
-                raw_grad_norms[f"grad_norm/{lname}"] = torch.sqrt(sq)
+                raw_grad_norms[f"grad_norm/{lname}"] = torch.sqrt(sum(
+                    sq[f"{lname}/{n}" if n else lname]
+                    for n, _ in flatten_with_names(g)))
         grads = self._mask_frozen(grads)
-        grads = _normalize_gradients(grads, self.net)
-        updates, new_opt = self._upd_update(grads, ts.opt_state, ts.params,
+        grads = _normalize_gradients(
+            grads, self.net, self._sq_sums(grads)
+            if self.net.gradient_normalization in _NORM_MODES else None)
+        updates, new_opt = self._upd_update(grads, opt_state, params,
                                             ts.step)
         updates = self._mask_frozen(updates)
-        new_params = apply_updates(ts.params, updates)
+        new_params = apply_updates(params, updates)
         if self._constrained_layers:
             new_params = constrain_params(self._constrained_layers,
                                           new_params)
+        if fsdp:
+            new_params = dp.like(new_params, ts.params)
+            new_opt = dp.like(new_opt, ts.opt_state)
         metrics = dict(metrics)
         metrics["total_loss"] = loss
-        metrics["batch_size"] = _first_dim(batch)
+        metrics["batch_size"] = _first_dim(batch) if n_rows is None \
+            else n_rows
         metrics.update(raw_grad_norms)
         if self._extra_metrics is not None:
-            metrics.update(self._extra_metrics(new_params, batch))
+            metrics.update(self._extra_metrics(
+                dp.full(new_params) if fsdp else new_params, batch))
         new_ts = TrainState(params=new_params, model_state=new_model_state,
                             opt_state=new_opt, step=ts.step + 1, rng=ts.rng)
         return new_ts, metrics
@@ -364,14 +501,27 @@ class Trainer:
         gen = ts.rng.generator(self.device, ts.step)
         batch = self._cast_batch(batch)
         carries = tree_map(torch.Tensor.detach, carries)
-        leaves, compute = self._leaves(ts.params)
-        loss, (new_state, metrics, new_carries) = self.model.loss_fn_tbptt(
-            compute, ts.model_state, batch, carries, generator=gen)
-        grads = self._grads(loss, leaves)
+        dp = self._dp
+        params = ts.params if dp is None else dp.full_params(ts.params)
+        weight_of = getattr(self.model, "loss_weight", None)
+        w = (float(weight_of(batch)) if dp is not None and weight_of
+             is not None else 1.0)
+        leaves, compute = self._leaves(params)
+        with self._replicas():
+            loss, (new_state, metrics, new_carries) = \
+                self.model.loss_fn_tbptt(compute, ts.model_state, batch,
+                                         carries, generator=gen)
+            grads = self._grads(loss if w == 1.0 else w * loss, leaves)
         new_state = tree_map(torch.Tensor.detach, new_state)
         new_carries = tree_map(torch.Tensor.detach, new_carries)
+        loss, n_rows = loss.detach(), None
+        if dp is not None:
+            grads, loss, metrics = self._dp_reduce(
+                grads, _weighted(None, w, loss), w,
+                {m: _weighted(None, w, v) for m, v in metrics.items()})
+            n_rows = _first_dim(batch) * dp.world
         new_ts, metrics = self._finish_step(ts, grads, new_state, metrics,
-                                            loss.detach(), batch)
+                                            loss, batch, n_rows)
         return new_ts, new_carries, metrics
 
     def _zero_carries(self, ts: TrainState, x_window):
@@ -409,36 +559,41 @@ class Trainer:
         one compiled scan; here the windows run one after another). The
         carries let a caller run a shorter tail through
         ``train_step_tbptt``."""
-        span = n_windows * window_len
-
         def program(ts: TrainState, batch):
-            batch = batch_to_device(as_batch_dict(batch), self.device)
-            t_len = tree_leaves(batch["features"])[0].shape[1]
-            if t_len != span:
-                raise ValueError(
-                    f"make_tbptt_step({n_windows}, {window_len}) takes "
-                    f"sequences of {span} steps, got {t_len}")
-            timed = {k for k, v in batch.items()
-                     if _is_time_distributed(k, v, span)}
-            carries, metrics = None, []
-            for w in range(n_windows):
-                lo, hi = w * window_len, (w + 1) * window_len
-                wb = {k: v[:, lo:hi] if k in timed else v
-                      for k, v in batch.items()}
-                if carries is None:
-                    carries = self._zero_carries(ts, wb["features"])
-                ts, carries, m = self._tbptt_window_step(ts, wb, carries)
-                metrics.append(m)
-            return ts, metrics, carries
+            return self._windows(ts, batch_to_device(self._rows(batch),
+                                                     self.device),
+                                 n_windows, window_len)
 
         return program
+
+    def _windows(self, ts: TrainState, batch, n_windows: int,
+                 window_len: int):
+        """``make_tbptt_step``'s windows over this rank's rows."""
+        span = n_windows * window_len
+        t_len = tree_leaves(batch["features"])[0].shape[1]
+        if t_len != span:
+            raise ValueError(
+                f"make_tbptt_step({n_windows}, {window_len}) takes "
+                f"sequences of {span} steps, got {t_len}")
+        timed = {k for k, v in batch.items()
+                 if _is_time_distributed(k, v, span)}
+        carries, metrics = None, []
+        for w in range(n_windows):
+            lo, hi = w * window_len, (w + 1) * window_len
+            wb = {k: v[:, lo:hi] if k in timed else v
+                  for k, v in batch.items()}
+            if carries is None:
+                carries = self._zero_carries(ts, wb["features"])
+            ts, carries, m = self._tbptt_window_step(ts, wb, carries)
+            metrics.append(m)
+        return ts, metrics, carries
 
     def train_step_tbptt(self, ts: TrainState, batch, carries):
         """One TBPTT window from ``carries`` → (ts, final carries,
         metrics): the tail window of a batch, and the building block a
         caller can drive directly."""
-        batch = batch_to_device(as_batch_dict(batch), self.device)
-        return self._tbptt_window_step(ts, batch, carries)
+        return self._tbptt_window_step(
+            ts, batch_to_device(self._rows(batch), self.device), carries)
 
     def _fit_tbptt_batch(self, ts: TrainState, batch):
         """One batch of long sequences by truncated BPTT: the full windows
@@ -452,7 +607,7 @@ class Trainer:
         length = int(self.net.tbptt_length)
         if length <= 0:
             raise ValueError("backprop_type='tbptt' requires tbptt_length>0")
-        batch = batch_to_device(as_batch_dict(batch), self.device)
+        batch = batch_to_device(self._rows(batch), self.device)
         feats = batch["features"]
         if not (hasattr(feats, "ndim") and feats.ndim >= 3):
             raise ValueError(
@@ -476,13 +631,13 @@ class Trainer:
 
         wmetrics, carries = [], None
         if n_w:
-            ts, wmetrics, carries = self.make_tbptt_step(n_w, length)(
-                ts, time_slice(0, span))
+            ts, wmetrics, carries = self._windows(ts, time_slice(0, span),
+                                                  n_w, length)
         if rem:
             tail = time_slice(span, t_total)
             if carries is None:
                 carries = self._zero_carries(ts, tail["features"])
-            ts, _, metrics = self.train_step_tbptt(ts, tail, carries)
+            ts, _, metrics = self._tbptt_window_step(ts, tail, carries)
             wmetrics.append(metrics)
         return ts, wmetrics
 
@@ -499,7 +654,8 @@ class Trainer:
                    seed: Optional[int] = None) -> TrainState:
         """A fresh TrainState from ``variables`` (tensors or numpy arrays,
         JAX names; default: ``model.init(seed)``), copied onto the model's
-        device; the model's own parameters are not trained in place."""
+        device (and sharded as an FSDP plan says); the model's own
+        parameters are not trained in place."""
         if variables is None:
             variables = self.model.init(seed)
         seed = self.net.seed if seed is None else seed
@@ -508,14 +664,17 @@ class Trainer:
             return _as_tensor(a).detach().to(self.device, copy=True)
 
         params = tree_map(own, variables["params"])
-        return TrainState(params=params,
-                          model_state=tree_map(own,
-                                               variables.get("state", {})),
-                          opt_state=self._upd_init(params), step=0,
-                          rng=RngKey(seed, self.net.rng_impl or THREEFRY))
+        ts = TrainState(params=params,
+                        model_state=tree_map(own, variables.get("state", {})),
+                        opt_state=self._upd_init(params), step=0,
+                        rng=RngKey(seed, self.net.rng_impl or THREEFRY))
+        return ts if self._dp is None else self._dp.shard_state(ts)
 
     def variables(self, ts: TrainState):
-        return {"params": ts.params, "state": ts.model_state}
+        """``{"params", "state"}``; under an FSDP plan the params are
+        gathered whole (a collective every rank takes part in)."""
+        params = ts.params if self._dp is None else self._dp.full(ts.params)
+        return {"params": params, "state": ts.model_state}
 
     # -- fit loop (↔ MultiLayerNetwork.fit(DataSetIterator)) ----------------
 

@@ -661,3 +661,32 @@ def test_facenet_recipe_and_frozen_list_are_the_jax_packages():
     # the stem (5 conv + BatchNorm pairs), 5 A blocks (6 pairs and the
     # projection each) and Reduction-A's 3 pairs
     assert len(frozen) == 10 + 5 * 13 + 6 == 81 and "red_a_d2_bn" in frozen
+
+
+def test_host_difference_names_where_the_data_parallel_host_time_goes():
+    dp = {"host_self_ms": {"aten::cat": 5.0, "c10d::allreduce_": 20.0,
+                           "aten::mm": 30.0},
+          "host_calls": 400}
+    plain = {"host_self_ms": {"aten::cat": 1.0, "aten::mm": 30.0},
+             "host_calls": 300}
+    got = chip_smoke._host_difference(dp, plain)
+    assert got["dp_self_ms"] == 55.0 and got["plain_self_ms"] == 31.0
+    assert (got["dp_calls"], got["plain_calls"]) == (400, 300)
+    assert list(got["difference_top"]) == ["c10d::allreduce_", "aten::cat",
+                                          "aten::mm"]
+    assert got["difference_top"]["aten::cat"] == 4.0
+    assert list(got["dp_top"])[0] == "aten::mm"
+
+
+def test_dp_vs_plain_holds_the_gradients_to_the_limit_it_is_given():
+    import torch
+
+    want = (2.0, {"bn/mean": torch.zeros(3)},
+            {"w": torch.ones(4, dtype=torch.float64)})
+    near = (2.0, {"bn/mean": torch.zeros(3)},
+            {"w": torch.full((4,), 1.0 + 1e-3, dtype=torch.float64)})
+    out = chip_smoke._dp_vs_plain("t", near, want)
+    assert out["l2_err"] == pytest.approx(1e-3)
+    with pytest.raises(SystemExit):
+        chip_smoke._dp_vs_plain("t", near, want,
+                                tol_l2=chip_smoke.TOL_DP_SAME_L2)

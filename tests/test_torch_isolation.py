@@ -90,6 +90,10 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.models.zoo.advanced",
     "deeplearning4j_tpu_torch.train",
     "deeplearning4j_tpu_torch.train.transfer",
+    "deeplearning4j_tpu_torch.runtime.device",
+    "deeplearning4j_tpu_torch.runtime.distributed",
+    "deeplearning4j_tpu_torch.parallel.specs",
+    "deeplearning4j_tpu_torch.parallel.data_parallel",
 ]
 
 
@@ -159,3 +163,44 @@ def test_explicit_cpu_is_honoured():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "cpu"
+
+
+def test_distributed_entry_points_take_the_card_and_nccl_unless_asked():
+    """``initialize()`` and ``build_mesh()`` (so ``Trainer(mesh=...)``)
+    join NCCL on ``cuda:{LOCAL_RANK}`` by default and gloo only when asked
+    for the CPU; without CUDA the default raises, as ``default_device``
+    does, and no process group is made."""
+    code = (
+        "import os, tempfile, torch\n"
+        "import torch.distributed as dist\n"
+        "from deeplearning4j_tpu_torch.runtime import distributed as d\n"
+        "from deeplearning4j_tpu_torch.runtime.device import build_mesh\n"
+        "store = 'file://' + os.path.join(tempfile.mkdtemp(), 's')\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "for call in (lambda: d.initialize(store, 1, 0),\n"
+        "             lambda: build_mesh()):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA is not available' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('fell back to the CPU')\n"
+        "    assert not dist.is_initialized()\n"
+        "seen = []\n"
+        "real = dist.init_process_group\n"
+        "torch.cuda.is_available = lambda: True\n"
+        "torch.cuda.device_count = lambda: 2\n"
+        "torch.cuda.set_device = lambda dev: seen.append(str(dev))\n"
+        "dist.init_process_group = lambda backend, **kw: seen.append(backend)\n"
+        "os.environ['LOCAL_RANK'] = '1'\n"
+        "d.initialize(store, 2, 1)\n"
+        "dist.init_process_group = real\n"
+        "d.initialize(store, 1, 0, device='cpu')\n"
+        "seen.append(dist.get_backend())\n"
+        "mesh = build_mesh()\n"
+        "seen.append(mesh.device_type)\n"
+        "d.shutdown()\n"
+        "print(seen)\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert out.stdout.strip() == "['cuda:1', 'nccl', 'gloo', 'cpu']"
