@@ -266,8 +266,13 @@ caught:
    steps of sd.fit on one batch with a falling loss; save -> load with
    identical outputs and updater state, and the next fit step the same
    on both; serving and training tokens/s beside the native forward's,
-   idle shares. No hand kernel runs on it (launch counts {}, read for
-   serving and for fit).
+   idle shares. The imported graph exported (export_stablehlo, a
+   torch.export program) and run from the bytes: against sd.output
+   (TOL_EXPORTED of its max) and Bert.encode (TOL_HIDDEN), with its size,
+   export, save and load seconds and tokens/s; after the fit, the tuned
+   graph exported and run against its sd.output (the north-star chain).
+   No hand kernel runs on it (launch counts {}, read for serving, export
+   and fit).
 34. convlstm_train — Keras 2's examples/conv_lstm.py next-frame model at
    its full width (4 × [ConvLSTM2D(40, 3×3, SAME) → BatchNorm], Conv3D(1,
    3×3×3) with sigmoid + binary cross-entropy, AdaDelta(rho 0.95, eps
@@ -383,6 +388,29 @@ caught:
    under DP_CHILD_TIMEOUT_S; a failed child fails the phase. Phases 45–46
    run last; their launch counts must be {}. Neither gives a multi-GPU
    number.
+47. tf_gru_import — the TensorFlow tutorial's char-GRU at full width
+   (Embedding(66, 256) → GRU(1024, reset_after) → Dense(66), seq 100),
+   random weights from the seed, written as TensorFlow freezes the Keras
+   model with lower_control_flow=False (chargru_graph_def: a functional
+   While over TensorLists, the cell's weights carried as loop inputs) at
+   batch 8 and 64 and imported with import_tf_graph: the loop static with
+   trip 100 (no condition read); served by sd.output under
+   set_sync_debug_mode("error") against a float64 replay (TOL_TF_GRU of
+   the logits' max); exported at [8, 100] and the program run (TOL_EXPORTED
+   of the replay); the weights promoted (the counters stay CONSTANT) and 5
+   Adam steps of sd.fit at batch 64 with a falling loss, float32 gradients
+   against float64 (TOL_SD_GRAD_L2); save -> load identical; tokens/s of
+   the replay, the program and the native char-GRU's forward (hand
+   gru_fwd) at each batch, each path's wall, device and idle share at
+   batch 8. No hand kernel on either import path.
+48. tf_control_flow — four small graphs written as TensorFlow freezes them
+   (tf_cf_graph_def: a lowered counter loop with an accumulator, a lowered
+   cond, a functional If, a data-dependent functional While) on the card
+   and on the CPU, each output against numpy and the CPU's (TOL_TF_CF);
+   the lowered loop static (trip 5) with its gradient 1.1^5, the
+   data-dependent loop reading its condition each iteration and refusing
+   a gradient; each graph exported on the card and run against
+   sd.output. Phases 47–48 run right after phase 33.
 
 No TPU kernel lies on phases 13–15, 17, 24 and 27–39: the convolutions,
 transposed convs and pools run in cuDNN and PyTorch (as the JAX package
@@ -391,7 +419,10 @@ reduce_window), and generation's prefill and decode attend with plain
 matmuls (as the JAX package's einsums, models/gpt.py:298-304, :370-375);
 they launch none of the port's hand kernels. An imported graph's
 attention (phase 33) is BatchMatMulV2 + Softmax, computed by
-torch.matmul, as the JAX package's SameDiff leaves it to XLA. ConvLSTM2D
+torch.matmul, as the JAX package's SameDiff leaves it to XLA; an imported
+loop (phases 47–48) is lax.scan or lax.while_loop there
+(deeplearning4j_tpu/autodiff/samediff.py:1125-1154), an eager loop over
+the same ops here, and the char-GRU's cell plain matmuls, not gru_scan. ConvLSTM2D
 (phases 34–36) is, in the JAX package, a lax.scan over XLA convs
 (deeplearning4j_tpu/nn/layers/recurrent.py:316-432); in the port an eager
 loop over cuDNN convs. The YOLO family's output layer, decode and NMS
@@ -413,8 +444,9 @@ It prints the kernels line ({"kernels": [...]}), the serving, training,
 char-RNN (TBPTT and sampling too), char-GRU (TBPTT too), bitmap, LeNet-5,
 ResNet-50, GPT-2-small (prefix serving and the warm restart too), loss
 guard, seq2seq, Xception, U-Net, zoo_cnn, conv_layers, samediff_bert,
-convlstm (training, TBPTT, serving), YOLO (yolo2 training, tiny_yolo
-training, yolo2 serving), NASNet (training, serving) and FaceNet
+tf_gru_import, tf_control_flow, convlstm (training, TBPTT, serving), YOLO
+(yolo2 training, tiny_yolo training, yolo2 serving), NASNet (training,
+serving) and FaceNet
 (training, fine-tune, serving) and dp (both phases) lines,
 the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
@@ -6072,6 +6104,13 @@ TOL_SD_INTERP = 1e-6          # interpreted vs the cached plan, max |diff|
 # TOL_GRAD_L2: float32 reads ~7e-7 against float64 (the float64 copy's own
 # noise ~7e-7 on an H100), a TF32 or bf16 backward 1e-3 or more
 TOL_SD_GRAD_L2 = 1e-4
+TOL_EXPORTED = 1e-6           # an exported program vs sd.output, of its max
+
+
+def _rel_max(got, want) -> float:
+    """max |got − want| / max |want|."""
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max())
 
 
 def bert_encoder_params(model) -> dict:
@@ -6261,6 +6300,500 @@ def bert_graph_def(params, *, num_heads, eps, batch, seq_len) -> bytes:
     return pb.GraphDef(node=g.nodes).encode()
 
 
+# -- TensorFlow control flow: graphs as TensorFlow freezes them ---------------
+
+DT_FLOAT, DT_INT32, DT_BOOL, DT_VARIANT = 1, 3, 10, 21
+# a node's output in a FunctionDef body is ``node:out_arg:idx``: the
+# out_arg of the ops these functions hold (the rest name theirs "output")
+_OUT_ARG = {"AddV2": "z", "Sub": "z", "Mul": "z", "Less": "z",
+            "LogicalAnd": "z", "MatMul": "product", "Sigmoid": "y",
+            "Tanh": "y", "TensorListGetItem": "item",
+            "TensorListSetItem": "output_handle"}
+
+
+class _FunctionWriter(_GraphWriter):
+    """A FunctionDef body: nodes as _GraphWriter writes them, each returned
+    as its output reference ``node:out_arg:0``; arguments are referenced
+    by their bare names."""
+
+    def node(self, op, inputs, attrs=None, name=None):
+        name = super().node(op, inputs, attrs, name)
+        return f"{name}:{_OUT_ARG.get(op, 'output')}:0"
+
+    def function(self, name, args, rets):
+        """The FunctionDef: args [(name, dtype enum)], rets [(name, dtype
+        enum, body reference or argument name)]."""
+        pb = self.pb
+        sig = pb.OpDef(name=name,
+                       input_arg=[pb.ArgDef(name=a, type=t) for a, t in args],
+                       output_arg=[pb.ArgDef(name=r, type=t)
+                                   for r, t, _ in rets])
+        return pb.FunctionDef(signature=sig, node_def=self.nodes,
+                              ret={r: ref for r, _, ref in rets})
+
+
+def _bare(ref):
+    return ref.split(":")[0]
+
+
+def _shape_attr(g, dims):
+    return g.attr("shape", g.pb.TensorShapeProto([g.pb.Dim(d) for d in dims]))
+
+
+def _list_attr(g, **kw):
+    return g.attr("list", g.pb.ListValue(**kw))
+
+
+def _splat(g, name, value, shape):
+    """A Const of one value over ``shape`` (TensorFlow writes tf.zeros and
+    the like as a single typed value)."""
+    pb = g.pb
+    t = pb.TensorProto(dtype=DT_FLOAT, tensor_shape=pb.TensorShapeProto(
+        [pb.Dim(d) for d in shape]), vals={"float_val": np.float32([value])})
+    return g.node("Const", [], {"value": g.attr("tensor", t),
+                                "dtype": g.type_(DT_FLOAT)},
+                  name=g._name(name))
+
+
+def _while_attrs(g, types, shapes, cond, body, parallel_iterations):
+    pb = g.pb
+    return {"T": _list_attr(g, type=list(types)),
+            "cond": g.attr("func", pb.NameAttrList(name=cond)),
+            "body": g.attr("func", pb.NameAttrList(name=body)),
+            "output_shapes": _list_attr(g, shape=[
+                pb.TensorShapeProto([pb.Dim(d) for d in s]) for s in shapes]),
+            "parallel_iterations": g.attr("i", parallel_iterations),
+            "_lower_using_switch_merge": g.attr("b", False),
+            "_num_original_outputs": g.attr("i", len(types))}
+
+
+CHARGRU_INPUT = "x"
+CHARGRU_OUTPUT = "Identity"
+
+
+def chargru_params(vocab, embed, hidden, seed=SEED) -> dict:
+    """Random weights of the tutorial's char-GRU in Keras' layouts
+    (Embedding [vocab, embed]; GRU kernel [embed, 3H] and recurrent kernel
+    [H, 3H], gates z, r, h; bias [2, 3H], input then recurrent, as
+    reset_after keeps it; Dense [H, vocab] + [vocab]): Keras' glorot
+    uniform and uniform(±0.05) embedding from the seed, biases drawn too
+    so that both are exercised."""
+    r = np.random.default_rng(seed)
+
+    def glorot(shape):
+        lim = np.sqrt(6.0 / sum(shape))
+        return r.uniform(-lim, lim, shape).astype(np.float32)
+
+    return {"embedding": r.uniform(-0.05, 0.05, (vocab, embed)).astype(
+                np.float32),
+            "kernel": glorot((embed, 3 * hidden)),
+            "recurrent_kernel": glorot((hidden, 3 * hidden)),
+            "bias": (0.1 * r.standard_normal((2, 3 * hidden))).astype(
+                np.float32),
+            "dense_kernel": glorot((hidden, vocab)),
+            "dense_bias": (0.1 * r.standard_normal(vocab)).astype(np.float32)}
+
+
+def chargru_graph_def(params, *, batch, seq_len) -> bytes:
+    """A frozen GraphDef of the TensorFlow tutorial's char-GRU
+    (``Embedding → GRU(return_sequences=True, reset_after=True) → Dense``)
+    at a fixed [batch, seq_len], laid out as Keras 3 and TensorFlow's
+    ``convert_variables_to_constants_v2(lower_control_flow=False)`` lay it
+    out (tests/test_torch_tfimport.py holds the two to the same ops and
+    outputs): the embedding's negative-id wrap (Less, SelectV2) and
+    GatherV2; the inputs unstacked into a TensorList; a functional While
+    whose cond is ``loop_counter < max_iterations AND time < T`` and whose
+    body reads x[time] (TensorListGetItem), runs the GRU cell (the bias
+    split into its input and recurrent halves, the recurrent product
+    sliced into z, r, h) and writes h (TensorListSetItem), carrying the
+    cell's weights as loop inputs; the list stacked, transposed back, and
+    the Dense head as BatchMatMulV2 + BiasAdd. The one output is
+    ``Identity`` [batch, seq_len, vocab], the logits."""
+    g = _GraphWriter()
+    pb = g.pb
+    n, t = batch, seq_len
+    vocab, embed = params["embedding"].shape
+    hidden = params["recurrent_kernel"].shape[0]
+    i32, f32 = np.int32, np.float32
+    fl, it = g.type_(DT_FLOAT), g.type_(DT_INT32)
+    body_name, cond_name = "gru_while_body", "gru_while_cond"
+
+    x = g.node("Placeholder", [], {"dtype": it, "shape": _shape_attr(g, (n, t))},
+               name=CHARGRU_INPUT)
+    counter0 = g.const("gru/while/loop_counter", i32(0))
+    max_in = g.const("gru/Max/input", i32(t))
+    r_start = g.const("gru/range/start", i32(0))
+    rank = g.const("gru/Rank", i32(0))
+    r_delta = g.const("gru/range/delta", i32(1))
+    time0 = g.const("gru/time", i32(0))
+    out_shape = g.const("gru/TensorArrayV2_1/element_shape", i32([n, hidden]))
+    num = g.const("gru/TensorArrayV2_1/num_elements", i32(t))
+    zeros = _splat(g, "gru/zeros", 0.0, (n, hidden))
+    table = g.const("embedding/Shape/ReadVariableOp/resource",
+                    params["embedding"])
+    less_y = g.const("embedding/Less/y", i32(0))
+    table_shape = g.const("embedding/Shape", i32([vocab, embed]))
+    stacks = [g.const(f"embedding/strided_slice/stack{s}", i32([v]))
+              for s, v in (("", 0), ("_1", 1), ("_2", 1))]
+    axis = g.const("embedding/GatherV2/axis", i32(0))
+    perm = g.const("gru/transpose/perm", i32([1, 0, 2]))
+    in_shape = g.const("gru/TensorArrayUnstack/TensorListFromTensor/"
+                       "element_shape", i32([n, embed]))
+    bias = g.const("gru/gru_cell/split/ReadVariableOp/resource",
+                   params["bias"])
+    kernel = g.const("gru/gru_cell/Cast/ReadVariableOp/resource",
+                     params["kernel"])
+    rkernel = g.const("gru/gru_cell/Cast_1/ReadVariableOp/resource",
+                      params["recurrent_kernel"])
+    stack_shape = g.const("gru/TensorArrayV2Stack/TensorListStack/"
+                          "element_shape", i32([n, hidden]))
+    perm_1 = g.const("gru/transpose_1/perm", i32([1, 0, 2]))
+    dense_k = g.const("dense/Cast/ReadVariableOp/resource",
+                      params["dense_kernel"])
+    dense_b = g.const("dense/BiasAdd/ReadVariableOp/resource",
+                      params["dense_bias"])
+
+    positions = g.node("Range", [r_start, rank, r_delta], {"Tidx": it},
+                       name="gru/range")
+    max_iter = g.node("Max", [max_in, positions], {
+        "T": it, "Tidx": it, "keep_dims": g.attr("b", False)}, name="gru/Max")
+    reserve = g.node("TensorListReserve", [out_shape, num], {
+        "element_dtype": fl, "shape_type": it}, name="gru/TensorArrayV2_1")
+    reads = [g.node("Identity", [table], {"T": fl},
+                    name="embedding/GatherV2/ReadVariableOp")]
+    negative = g.node("Less", [x, less_y], {"T": it}, name="embedding/Less")
+    n_rows = g.node("StridedSlice", [table_shape, *stacks], {
+        "T": it, "Index": it, "begin_mask": g.attr("i", 0),
+        "end_mask": g.attr("i", 0), "ellipsis_mask": g.attr("i", 0),
+        "new_axis_mask": g.attr("i", 0), "shrink_axis_mask": g.attr("i", 1)},
+        name="embedding/strided_slice")
+    wrapped = g.node("AddV2", [x, n_rows], {"T": it}, name="embedding/add")
+    ids = g.node("SelectV2", [negative, wrapped, x], {"T": it},
+                 name="embedding/SelectV2")
+    emb = g.node("GatherV2", [reads[0], ids, axis], {
+        "Tparams": fl, "Tindices": it, "Taxis": it,
+        "batch_dims": g.attr("i", 0)}, name="embedding/GatherV2")
+    xt = g.node("Transpose", [emb, perm], {"T": fl, "Tperm": it},
+                name="gru/transpose")
+    xs = g.node("TensorListFromTensor", [xt, in_shape], {
+        "element_dtype": fl, "shape_type": it},
+        name="gru/TensorArrayUnstack/TensorListFromTensor")
+    types = [DT_INT32] * 3 + [DT_VARIANT, DT_FLOAT, DT_VARIANT] + [DT_FLOAT] * 3
+    shapes = [(), (), (), (), (n, hidden), (), (2, 3 * hidden),
+              (embed, 3 * hidden), (hidden, 3 * hidden)]
+    loop = g.node("While", [counter0, max_iter, time0, reserve, zeros, xs,
+                            bias, kernel, rkernel],
+                  dict(_while_attrs(g, types, shapes, cond_name, body_name,
+                                    32),
+                       _read_only_resource_inputs=_list_attr(g, i=[6, 7, 8])),
+                  name="gru/while")
+    stacked = g.node("TensorListStack", [f"{loop}:3", stack_shape], {
+        "element_dtype": fl, "num_elements": g.attr("i", t)},
+        name="gru/TensorArrayV2Stack/TensorListStack")
+    seq = g.node("Transpose", [stacked, perm_1], {"T": fl, "Tperm": it},
+                 name="gru/transpose_1")
+    reads.append(g.node("Identity", [dense_k], {"T": fl},
+                        name="dense/Cast/ReadVariableOp"))
+    mm = g.node("BatchMatMulV2", [seq, reads[-1]], {
+        "T": fl, "adj_x": g.attr("b", False), "adj_y": g.attr("b", False)},
+        name="dense/MatMul")
+    reads.append(g.node("Identity", [dense_b], {"T": fl},
+                        name="dense/BiasAdd/ReadVariableOp"))
+    logits = g.node("BiasAdd", [mm, reads[-1]], {
+        "T": fl, "data_format": g.attr("s", b"NHWC")}, name="dense/BiasAdd")
+    for res, nm in ((kernel, "Cast"), (rkernel, "Cast_1"), (bias, "split")):
+        # the cell's reads outside the loop, held only by the NoOp
+        reads.append(g.node("Identity", [res], {"T": fl},
+                            name=f"gru/gru_cell/{nm}/ReadVariableOp"))
+    hold = g.node("NoOp", [f"^{r}" for r in reads] + [f"^{loop}"])
+    g.node("Identity", [logits, f"^{hold}"], {"T": fl}, name=CHARGRU_OUTPUT)
+
+    args = [("loop_counter", DT_INT32), ("max_iterations", DT_INT32),
+            ("time", DT_INT32), ("output_list", DT_VARIANT), ("h", DT_FLOAT),
+            ("input_list", DT_VARIANT), ("bias", DT_FLOAT),
+            ("kernel", DT_FLOAT), ("recurrent_kernel", DT_FLOAT)]
+    # body: the GRU cell at step `time`
+    b = _FunctionWriter()
+    bfl, bit = b.type_(DT_FLOAT), b.type_(DT_INT32)
+    elem = b.const("while/TensorListGetItem/element_shape", i32([n, embed]))
+    split_dim = b.const("while/split/split_dim", i32(0))
+    split1_dim = b.const("while/split_1/split_dim", i32(-1))
+    h3 = hidden
+    bounds = [([0, 0], [0, h3]), ([0, h3], [0, 2 * h3]),
+              ([0, 2 * h3], [0, 0])]
+    slice_consts = [(b.const(f"while/strided_slice_{k}/stack", i32(lo)),
+                     b.const(f"while/strided_slice_{k}/stack_1", i32(hi)),
+                     b.const(f"while/strided_slice_{k}/stack_2", i32([1, 1])))
+                    for k, (lo, hi) in enumerate(bounds)]
+    one = b.const("while/sub/x", f32(1.0))
+    add_y = b.const("while/add/y", i32(1))
+    add1_y = b.const("while/add_1/y", i32(1))
+    wreads = [b.node("Identity", [a], {"T": bfl}, name=f"while/{a}/read")
+              for a in ("bias", "kernel", "recurrent_kernel")]
+    x_t = b.node("TensorListGetItem", ["input_list", "time", elem], {
+        "element_dtype": bfl, "Tshape": bit}, name="while/TensorListGetItem")
+    time1 = b.node("AddV2", ["time", add_y], {"T": bit}, name="while/add")
+    count1 = b.node("AddV2", ["loop_counter", add1_y], {"T": bit},
+                    name="while/add_1")
+    bsplit = b.node("Split", [split_dim, wreads[0]], {
+        "T": bfl, "num_split": b.attr("i", 2)}, name="while/split")
+    no_t = {"T": bfl, "transpose_a": b.attr("b", False),
+            "transpose_b": b.attr("b", False)}
+    inner_mm = b.node("MatMul", ["h", wreads[2]], no_t, name="while/MatMul_1")
+    noop = b.node("NoOp", [f"^{_bare(r)}" for r in wreads], name="while/NoOp")
+    x_mm = b.node("MatMul", [x_t, wreads[1]], no_t, name="while/MatMul")
+    dims0 = {"T": bfl, "squeeze_dims": _list_attr(b, i=[0])}
+    b_in = b.node("Squeeze", [bsplit], dims0, name="while/Squeeze")
+    b_rec = b.node("Squeeze", [bsplit.replace(":0", ":1")], dims0,
+                   name="while/Squeeze_1")
+    ctrl = f"^{_bare(noop)}"
+    outs = [b.node("Identity", [count1, ctrl], {"T": bit},
+                   name="while/Identity"),
+            b.node("Identity", ["max_iterations", ctrl], {"T": bit},
+                   name="while/Identity_1"),
+            b.node("Identity", [time1, ctrl], {"T": bit},
+                   name="while/Identity_2")]
+    x_b = b.node("BiasAdd", [x_mm, b_in], {
+        "T": bfl, "data_format": b.attr("s", b"NHWC")}, name="while/BiasAdd")
+    inner = b.node("AddV2", [inner_mm, b_rec], {"T": bfl}, name="while/add_2")
+    xsplit = b.node("Split", [split1_dim, x_b], {
+        "T": bfl, "num_split": b.attr("i", 3)}, name="while/split_1")
+    rec = []
+    for k, (masks, (lo, hi, st)) in enumerate(zip(((3, 1), (1, 1), (1, 3)),
+                                                  slice_consts)):
+        rec.append(b.node("StridedSlice", [inner, lo, hi, st], {
+            "T": bfl, "Index": bit, "begin_mask": b.attr("i", masks[0]),
+            "end_mask": b.attr("i", masks[1]),
+            "ellipsis_mask": b.attr("i", 0), "new_axis_mask": b.attr("i", 0),
+            "shrink_axis_mask": b.attr("i", 0)},
+            name=f"while/strided_slice_{k}"))
+    gates_x = [xsplit.replace(":0", f":{k}") for k in range(3)]
+    z = b.node("Sigmoid", [b.op("AddV2", gates_x[0], rec[0])], {"T": bfl})
+    r_ = b.node("Sigmoid", [b.op("AddV2", gates_x[1], rec[1])], {"T": bfl})
+    zh = b.op("Mul", z, "h")
+    one_minus_z = b.op("Sub", one, z)
+    hh = b.node("Tanh", [b.op("AddV2", gates_x[2], b.op("Mul", r_, rec[2]))],
+                {"T": bfl})
+    h_new = b.op("AddV2", zh, b.op("Mul", one_minus_z, hh))
+    written = b.node("TensorListSetItem", ["output_list", "time", h_new], {
+        "element_dtype": bfl,
+        "resize_if_index_out_of_bounds": b.attr("b", False)},
+        name="while/TensorListSetItem")
+    h_out = b.node("Identity", [h_new, ctrl], {"T": bfl},
+                   name="while/Identity_4")
+    list_out = b.node("Identity", [written, ctrl],
+                      {"T": b.type_(DT_VARIANT)}, name="while/Identity_3")
+    rets = [(f"out_{a}", t_, ref) for (a, t_), ref in zip(
+        args, outs + [list_out, h_out, "input_list", "bias", "kernel",
+                      "recurrent_kernel"])]
+    body = b.function(body_name, args, rets)
+    # cond: loop_counter < max_iterations AND time < T
+    c = _FunctionWriter()
+    cit = c.type_(DT_INT32)
+    t_bound = c.const("while/Less/y", i32(t))
+    below_max = c.node("Less", ["loop_counter", "max_iterations"],
+                       {"T": cit}, name="while/Less_1")
+    below_t = c.node("Less", ["time", t_bound], {"T": cit}, name="while/Less")
+    both = c.node("LogicalAnd", [below_max, below_t], {}, name="while/and")
+    go = c.node("Identity", [both], {"T": c.type_(DT_BOOL)},
+                name="while/Identity")
+    cond = c.function(cond_name, args, [("out", DT_BOOL, go)])
+    return pb.GraphDef(node=g.nodes, library=pb.FunctionDefLibrary(
+        function=[body, cond])).encode()
+
+
+# the four small programs of tf_control_flow (tests/test_tf_control_flow.py's):
+#   lowered_loop   while i < 5: acc = acc * 1.1 + 0.5     (TF1 frames)
+#   lowered_cond   2x + 1 if sum(x) > 0 else x - 1       (Switch/Merge)
+#   functional_if  2x if sum(x) > 0 else x - 1           (StatelessIf)
+#   dynamic_while  while sum(acc) < 100: acc *= 2        (StatelessWhile)
+TF_CF_GRAPHS = ("lowered_loop", "lowered_cond", "functional_if",
+                "dynamic_while")
+TF_CF_INPUT, TF_CF_OUTPUT = "x", "Identity"
+TF_CF_LOOP_TRIP, TF_CF_BOUND = 5, 100.0
+
+
+def tf_cf_reference(name, x) -> np.ndarray:
+    """numpy's value of one of the four programs, in float32."""
+    f32 = np.float32
+    x = np.asarray(x, f32)
+    if name == "lowered_loop":
+        for _ in range(TF_CF_LOOP_TRIP):
+            x = x * f32(1.1) + f32(0.5)
+        return x
+    if name == "lowered_cond":
+        return x * f32(2.0) + f32(1.0) if x.sum() > 0 else x - f32(1.0)
+    if name == "functional_if":
+        return x * f32(2.0) if x.sum() > 0 else x - f32(1.0)
+    while x.sum(dtype=f32) < f32(TF_CF_BOUND):
+        x = x * f32(2.0)
+    return x
+
+
+def tf_cf_graph_def(name, shape) -> bytes:
+    """One of the four programs as TensorFlow freezes it for a float32
+    input of ``shape``: the lowered forms with TensorFlow's frame and
+    branch machinery (Enter/Merge/Switch/NextIteration/Exit/LoopCond,
+    pivots, the input/output Identities and control NoOps, the unused
+    control-flow placeholders), the functional forms with their
+    FunctionDefs (tests/test_torch_tfimport.py holds each to TensorFlow's
+    freeze: the same ops, the same outputs)."""
+    g = _GraphWriter()
+    pb = g.pb
+    i32, f32 = np.int32, np.float32
+    fl, it, bo = g.type_(DT_FLOAT), g.type_(DT_INT32), g.type_(DT_BOOL)
+    x = g.node("Placeholder", [], {"dtype": fl, "shape": _shape_attr(g, shape)},
+               name=TF_CF_INPUT)
+    functions = []
+    if name == "lowered_loop":
+        frame = {"frame_name": g.attr("s", b"while"),
+                 "is_constant": g.attr("b", False),
+                 "parallel_iterations": g.attr("i", 10)}
+        counter0 = g.const("while/loop_counter", i32(0))
+        i0 = g.const("Const", i32(0))
+        inits = [(counter0, it), (i0, it), (x, fl)]
+        enters = [g.node("Enter", [v], dict(frame, T=t_), name=g._name("while/enter"))
+                  for v, t_ in inits]
+        for t_ in (it, bo, it, fl):  # what the lowering leaves unused
+            g.node("Placeholder", [], {"dtype": t_, "shape": _shape_attr(g, ())},
+                   name=g._name("unused_control_flow_input"))
+        nexts = [f"while/next_iteration/_{k}" for k in range(3)]
+        merges = [g.node("Merge", [e, ni], {"T": t_, "N": g.attr("i", 2)},
+                         name=g._name("while/merge"))
+                  for e, ni, (_, t_) in zip(enters, nexts, inits)]
+        loop_cond = "while/LoopCond"
+        switches = [g.node("Switch", [m, loop_cond], {"T": t_},
+                           name=g._name("while/switch"))
+                    for m, (_, t_) in zip(merges, inits)]
+        body_ctrl = g.node("Identity", [f"{switches[0]}:1"], {"T": it},
+                           name="while/loop_body_control")
+        in_ctrl = g.node("NoOp", [f"^{body_ctrl}"],
+                         name="while/body/input_control_node")
+        ins = [g.node("Identity", [f"{s}:1", f"^{in_ctrl}"], {"T": t_},
+                      name=g._name("while/body/input"))
+               for s, (_, t_) in zip(switches, inits)]
+        out_ctrl = g.node("NoOp", [f"^{in_ctrl}"],
+                          name="while/body/output_control_node")
+
+        def body_const(nm, v):
+            c_ = g.const(f"while/body/{nm}", v)
+            g.nodes[-1].input.append(f"^{in_ctrl}")
+            return c_
+
+        counter1 = g.op("AddV2", ins[0], body_const("add_2/y", i32(1)), T=it)
+        i1 = g.op("AddV2", ins[1], body_const("add/y", i32(1)), T=it)
+        acc1 = g.op("AddV2", g.op("Mul", ins[2],
+                                  body_const("mul/y", f32(1.1))),
+                    body_const("add_1/y", f32(0.5)))
+        for ni, v, (_, t_) in zip(nexts, (counter1, i1, acc1), inits):
+            inner = g.node("Identity", [v], {"T": t_}, name=g._name("while/body/Identity"))
+            out = g.node("Identity", [inner], {"T": t_},
+                         name=g._name("while/body/output"))
+            g.node("NextIteration", [out, f"^{out_ctrl}"], {"T": t_}, name=ni)
+        c_ctrl = g.node("NoOp", [f"^{merges[0]}"],
+                        name="while/cond/input_control_node")
+        c_in = g.node("Identity", [merges[1], f"^{c_ctrl}"], {"T": it},
+                      name="while/cond/input")
+        bound = g.const("while/cond/Less/y", i32(TF_CF_LOOP_TRIP))
+        g.nodes[-1].input.append(f"^{c_ctrl}")
+        less = g.op("Less", c_in, bound, T=it)
+        pred = g.node("Identity", [g.node("Identity", [less], {"T": bo},
+                                          name="while/cond/Identity")],
+                      {"T": bo}, name="while/cond/output")
+        g.node("LoopCond", [pred], {}, name=loop_cond)
+        result = g.node("Exit", [switches[2]], {"T": fl}, name="while/exit")
+    elif name == "lowered_cond":
+        total = g.node("Sum", [x, g.const("Const", i32([0, 1]))], {
+            "T": fl, "Tidx": it, "keep_dims": g.attr("b", False)})
+        pred = g.op("Greater", total, g.const("Greater/y", f32(0.0)))
+        x_sw = g.node("Switch", [x, pred], {"T": fl}, name="cond/x")
+        p_sw = g.node("Switch", [pred, pred], {"T": bo}, name="cond/switch_pred")
+        outs = []
+        for side, idx in (("then", ":1"), ("else", "")):
+            pivot = g.node("Identity", [f"{p_sw}{idx}"], {"T": bo},
+                           name=f"cond/pivot_{side[0]}")
+            ctrl = g.node("NoOp", [f"^{pivot}"],
+                          name=f"cond/{side}/input_control_node")
+            v = g.node("Identity", [f"{x_sw}{idx}", f"^{ctrl}"], {"T": fl},
+                       name=f"cond/{side}/input")
+
+            def const(nm, val):
+                c_ = g.const(f"cond/{side}/{nm}", f32(val))
+                g.nodes[-1].input.append(f"^{ctrl}")
+                return c_
+
+            if side == "then":
+                v = g.op("AddV2", g.op("Mul", v, const("mul/y", 2.0)),
+                         const("add/y", 1.0))
+            else:
+                v = g.op("Sub", v, const("sub/y", 1.0))
+            v = g.node("Identity", [v], {"T": fl}, name=f"cond/{side}/Identity")
+            outs.append(g.node("Identity", [v], {"T": fl},
+                               name=f"cond/{side}/output"))
+        merged = g.node("Merge", outs, {"T": fl, "N": g.attr("i", 2)},
+                        name="cond/output")
+        result = g.node("Identity", [merged], {"T": fl}, name="cond/Identity")
+    elif name == "functional_if":
+        total = g.node("Sum", [x, g.const("Const", i32([0, 1]))], {
+            "T": fl, "Tidx": it, "keep_dims": g.attr("b", False)})
+        pred = g.op("Greater", total, g.const("Greater/y", f32(0.0)))
+        for fname, op, val in (("cond_true", "Mul", 2.0),
+                               ("cond_false", "Sub", 1.0)):
+            b = _FunctionWriter()
+            y = b.const(f"cond/{op.lower()}/y", f32(val))
+            v = b.op(op, "cond_x", y)
+            out = b.node("Identity", [v], {"T": b.type_(DT_FLOAT)},
+                         name="cond/Identity")
+            functions.append(b.function(fname, [("cond_x", DT_FLOAT)],
+                                        [("cond_identity", DT_FLOAT, out)]))
+        node = g.node("StatelessIf", [pred, x], {
+            "Tcond": bo, "Tin": _list_attr(g, type=[DT_FLOAT]),
+            "Tout": _list_attr(g, type=[DT_FLOAT]),
+            "then_branch": g.attr("func", pb.NameAttrList(name="cond_true")),
+            "else_branch": g.attr("func", pb.NameAttrList(name="cond_false")),
+            "_lower_using_switch_merge": g.attr("b", False),
+            "output_shapes": _list_attr(g, shape=[pb.TensorShapeProto(
+                [pb.Dim(d) for d in shape])])}, name="cond")
+        result = g.node("Identity", [node], {"T": fl}, name="cond/Identity")
+    elif name == "dynamic_while":
+        args = [("loop_counter", DT_INT32), ("maximum_iterations", DT_INT32),
+                ("acc", DT_FLOAT)]
+        b = _FunctionWriter()
+        two = b.const("while/mul/y", f32(2.0))
+        one = b.const("while/add/y", i32(1))
+        same_max = b.node("Identity", ["maximum_iterations"],
+                          {"T": b.type_(DT_INT32)}, name="while/Identity_1")
+        doubled = b.op("Mul", "acc", two)
+        counter = b.op("AddV2", "loop_counter", one, T=b.type_(DT_INT32))
+        outs = [b.node("Identity", [counter], {"T": b.type_(DT_INT32)},
+                       name="while/Identity"), same_max,
+                b.node("Identity", [doubled], {"T": b.type_(DT_FLOAT)},
+                       name="while/Identity_2")]
+        functions.append(b.function("while_body", args, [
+            (f"out_{a}", t_, ref) for (a, t_), ref in zip(args, outs)]))
+        c = _FunctionWriter()
+        total = c.node("Sum", ["acc", c.const("while/Const", i32([0, 1]))], {
+            "T": c.type_(DT_FLOAT), "Tidx": c.type_(DT_INT32),
+            "keep_dims": c.attr("b", False)}, name="while/Sum")
+        less = c.op("Less", total, c.const("while/Less/y", f32(TF_CF_BOUND)))
+        go = c.node("Identity", [less], {"T": c.type_(DT_BOOL)},
+                    name="while/Identity")
+        functions.append(c.function("while_cond", args,
+                                    [("out", DT_BOOL, go)]))
+        loop = g.node("StatelessWhile", [
+            g.const("while/loop_counter", i32(0)),
+            g.const("while/maximum_iterations", i32(-1)), x],
+            _while_attrs(g, [DT_INT32, DT_INT32, DT_FLOAT],
+                         [(), (), shape], "while_cond", "while_body", 10),
+            name="while")
+        result = f"{loop}:2"
+    else:
+        raise ValueError(f"no program {name!r}")
+    g.node("Identity", [result], {"T": fl}, name=TF_CF_OUTPUT)
+    return pb.GraphDef(node=g.nodes, library=pb.FunctionDefLibrary(
+        function=functions)).encode()
+
+
 def _sd_batch(vocab, seed=SEED):
     """[SD_BATCH, SD_T] ids, segments and a key mask (lengths 8..T, no row
     fully masked: the flash kernel gives such a row zeros, the graph's
@@ -6281,16 +6814,22 @@ def _sd_batch(vocab, seed=SEED):
 
 
 def _sd_float64(sd):
-    """The same graph with every floating value in float64, on the same
-    device (built from to_dict; under enable_x64 the values keep 64
-    bits)."""
+    """The same graph with every floating value in float64, control-flow
+    subgraphs' values too, on the same device (built from to_dict; under
+    enable_x64 the values keep 64 bits)."""
     from deeplearning4j_tpu_torch.autodiff import SameDiff, enable_x64
+
+    def copy_values(src, dst):
+        for name, value in src._values.items():
+            dst.set_value(name, value.double() if value.is_floating_point()
+                          else value)
+        for node, twin in zip(src._nodes, dst._nodes):
+            for key, sub in (node.subgraphs or {}).items():
+                copy_values(sub, twin.subgraphs[key])
 
     with enable_x64():
         sd64 = SameDiff.from_dict(sd.to_dict(), device=sd.device)
-        for name, value in sd._values.items():
-            sd64.set_value(name, value.double() if value.is_floating_point()
-                           else value)
+        copy_values(sd, sd64)
     return sd64
 
 
@@ -6397,7 +6936,43 @@ def phase_samediff_bert(dev, smi):
     if max(err_native, err_64, err_native_64) > TOL_HIDDEN or \
             interp_err > TOL_SD_INTERP:
         raise SystemExit("chip_smoke: samediff_bert: outputs disagree")
-    del h_native, h64, h_interp
+    del h64, h_interp
+
+    # -- the whole graph exported (torch.export) and run from the bytes ----
+    specs = {in_map[k]: ((SD_BATCH, SD_T), "float32" if k == "mask"
+                         else "int32") for k in BERT_GRAPH_INPUTS}
+    _dispatch.reset_launch_counts()
+    blob = sd.export_stablehlo([hidden], specs)
+    exported = {"bytes": len(blob), **sd.export_seconds}
+    t0 = time.monotonic()
+    program = SameDiff.load_stablehlo(blob)
+    exported["load_s"] = time.monotonic() - t0
+    del blob
+    h_exp = program(feeds)[hidden]
+    exported_ms = _sd_timed(lambda: program(feeds))
+    launches["export"] = dict(_dispatch.launch_counts())
+    exported.update({
+        "rel_err_vs_output": _rel_max(h_exp, h_plan),
+        "max_abs_err_vs_native": float((h_exp - h_native).abs().max()),
+        "tokens_per_s": tokens / (np.median(exported_ms) / 1e3),
+        "p50_ms": float(np.percentile(exported_ms, 50)),
+        "breakdown": _step_breakdown(None, None, None, (),
+                                     step=lambda: program(feeds))})
+    del program, h_exp
+    log(f"[samediff_bert] exported program of the frozen graph: "
+        f"{exported['bytes']:,} bytes, export {exported['export_s']:.2f} s, "
+        f"save {exported['save_s']:.2f} s, load {exported['load_s']:.2f} s; "
+        f"vs sd.output {exported['rel_err_vs_output']:.3e} of max (tol "
+        f"{TOL_EXPORTED:.0e}), vs Bert.encode "
+        f"{exported['max_abs_err_vs_native']:.3e} (tol {TOL_HIDDEN:.0e}); "
+        f"{exported['tokens_per_s']:.0f} tokens/s (p50 "
+        f"{exported['p50_ms']:.2f} ms)")
+    if exported["rel_err_vs_output"] > TOL_EXPORTED or \
+            exported["max_abs_err_vs_native"] > TOL_HIDDEN or \
+            launches["export"]:
+        raise SystemExit("chip_smoke: samediff_bert: the exported program "
+                         "disagrees")
+    del h_native
 
     # -- fine-tune: weights promoted, a [CLS] head and the sparse loss ------
     weights = [n for n in params if n in sd._vars]
@@ -6528,6 +7103,19 @@ def phase_samediff_bert(dev, smi):
                          "resume")
     del sd2
 
+    # -- the north-star chain: the tuned graph exported and run -------------
+    blob = sd.export_stablehlo([hidden], specs)
+    tuned = sd.output(train_feeds, [hidden])[hidden]
+    chain_err = _rel_max(SameDiff.run_stablehlo(blob, feeds)[hidden], tuned)
+    exported["tuned"] = {"bytes": len(blob), **sd.export_seconds,
+                         "rel_err_vs_output": chain_err}
+    del blob, tuned
+    log(f"[samediff_bert] sd.fit -> export -> run: the tuned graph's program "
+        f"vs its sd.output {chain_err:.3e} of max (tol {TOL_EXPORTED:.0e})")
+    if chain_err > TOL_EXPORTED:
+        raise SystemExit("chip_smoke: samediff_bert: the tuned graph's "
+                         "exported program disagrees with sd.output")
+
     serve_bd = _step_breakdown(None, None, None, (),
                                step=lambda: sd.output(feeds, [hidden]))
     train_bd = _step_breakdown(None, None, None, (),
@@ -6556,15 +7144,397 @@ def phase_samediff_bert(dev, smi):
         "train_tokens_per_s": tokens / (np.median(step_ms) / 1e3),
         "save_s": save_s, "load_s": load_s, "saved_bytes": size,
         "launches": launches, "serve_breakdown": serve_bd,
-        "train_breakdown": train_bd, "card": smi,
+        "train_breakdown": train_bd, "exported": exported, "card": smi,
     }
     log(f"[samediff_bert] serving {out['serve_tokens_per_s']:.0f} tokens/s "
         f"(p50 {out['serve_p50_ms']:.2f} ms, p99 {out['serve_p99_ms']:.2f} ms"
         f" a call) beside the native Bert.encode's "
         f"{out['native_tokens_per_s']:.0f} (p50 {out['native_p50_ms']:.2f} ms)"
+        f"; the exported program {exported['tokens_per_s']:.0f}"
         f"; training {out['train_tokens_per_s']:.0f} tokens/s; idle share "
         f"serving {serve_bd['device_idle_share']:.1%}, training "
         f"{train_bd['device_idle_share']:.1%}, on {smi}")
+    return out
+
+
+# -- 47. tf_gru_import: the tutorial's char-GRU as a frozen While graph --------
+
+# the frozen graph's Const names of the char-GRU's weights (the resources
+# chargru_graph_def writes), by chargru_params' keys
+CHARGRU_WEIGHTS = {
+    "embedding": "embedding/Shape/ReadVariableOp/resource",
+    "bias": "gru/gru_cell/split/ReadVariableOp/resource",
+    "kernel": "gru/gru_cell/Cast/ReadVariableOp/resource",
+    "recurrent_kernel": "gru/gru_cell/Cast_1/ReadVariableOp/resource",
+    "dense_kernel": "dense/Cast/ReadVariableOp/resource",
+    "dense_bias": "dense/BiasAdd/ReadVariableOp/resource",
+}
+TF_GRU_BATCHES = (8, GRU_BATCH)    # served; fine-tuned at GRU_BATCH
+TF_GRU_EXPORT_BATCH = 8
+TF_GRU_CALLS = 10                 # timed calls of each path
+TF_GRU_FIT_STEPS = 5
+TF_GRU_LR = 1e-3
+TOL_TF_GRU = 1e-5                 # served logits vs float64, of their max
+def _tokens_per_s(rows, t, ms) -> float:
+    return rows * t / (float(np.median(ms)) / 1e3)
+
+
+def phase_tf_gru_import(dev, smi):
+    """The TensorFlow tutorial's char-GRU at full width (Embedding(66, 256)
+    → GRU(1024, return_sequences, reset_after) → Dense(66), seq 100),
+    random weights from SEED, written as Keras 3 and TensorFlow freeze it
+    with lower_control_flow=False (a functional While over TensorLists,
+    the cell's weights carried as loop inputs), at batch 8 and 64;
+    imported with import_tf_graph onto the card; the loop's route static
+    (trip 100) with no host read; served by sd.output under
+    set_sync_debug_mode("error") against a float64 replay of the same
+    graph; exported at [8, 100] and the program run; the weights promoted
+    and fine-tuned with sd.fit (float32 gradients against float64);
+    save -> load. Tokens/s of the replay, the exported program and the
+    native char-GRU's forward (the hand gru_fwd kernel) at each batch, with
+    a breakdown of each at batch 8. No hand kernel runs on either import
+    path."""
+    from deeplearning4j_tpu_torch.autodiff import (
+        SameDiff,
+        TrainingConfig,
+        VariableType,
+        enable_x64,
+    )
+    from deeplearning4j_tpu_torch.autodiff import samediff as sdm
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.modelimport import import_tf_graph, tf_proto
+
+    t_phase = time.monotonic()
+    params = chargru_params(GRU_VOCAB, GRU_EMBED, GRU_HIDDEN)
+    n_params = sum(a.size for a in params.values())
+    graphs, sds = {}, {}
+    for n in TF_GRU_BATCHES:
+        t0 = time.monotonic()
+        blob = chargru_graph_def(params, batch=n, seq_len=GRU_T)
+        write_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        gd = tf_proto.GraphDef.decode(blob)
+        decode_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        sd, in_map, out_map = import_tf_graph(gd, device=dev)
+        torch.cuda.synchronize()
+        import_s = time.monotonic() - t0
+        graphs[n] = {"bytes": len(blob), "nodes": len(gd.node),
+                     "function_nodes": {f.signature.name: len(f.node_def)
+                                        for f in gd.library.function},
+                     "samediff_ops": len(sd.ops()), "write_s": write_s,
+                     "decode_s": decode_s, "import_s": import_s}
+        sds[n] = (sd, in_map[CHARGRU_INPUT], out_map[CHARGRU_OUTPUT])
+    log(f"[tf_gru_import] char-GRU ({n_params:,} parameters) as a frozen "
+        f"While/TensorList GraphDef at batch {TF_GRU_BATCHES}: {graphs}")
+
+    def loop_of(sd):
+        (loop,) = [nd for nd in sd.ops() if nd.op == "__while__"]
+        return loop
+
+    trips = {n: sdm._while_static_trip(sd, loop_of(sd))
+             for n, (sd, _, _) in sds.items()}
+    if set(trips.values()) != {GRU_T}:
+        raise SystemExit(f"chip_smoke: tf_gru_import: the loop is not "
+                         f"static with trip {GRU_T}: {trips}")
+
+    windows = _text_windows(GRU_VOCAB, max(TF_GRU_BATCHES), GRU_T)[0]
+    feeds = {n: torch.from_numpy(windows[:n, :-1].astype(np.int32)).to(dev)
+             for n in TF_GRU_BATCHES}
+    labels = torch.from_numpy(windows[:GRU_BATCH, 1:].astype(
+        np.int32).reshape(-1)).to(dev)
+
+    # -- serve: every count at 0 before the path -----------------------------
+    _dispatch.reset_launch_counts()
+    sdm.reset_loop_stats()
+    served, serve_ms = {}, {}
+    for n, (sd, x, y) in sds.items():
+        sd.output({x: feeds[n]}, [y])  # binds the plan: the trip read once
+        torch.cuda.set_sync_debug_mode("error")  # a host read raises
+        try:
+            served[n] = sd.output({x: feeds[n]}, [y])[y]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        serve_ms[n] = _sd_timed(lambda: sd.output({x: feeds[n]}, [y]),
+                                calls=TF_GRU_CALLS)
+    launches = {"serving": dict(_dispatch.launch_counts())}
+    routes = sdm.loop_stats()
+    if routes["dynamic_loops"] or routes["cond"] or \
+            set(routes["static"]) != {GRU_T}:
+        raise SystemExit(f"chip_smoke: tf_gru_import: loop routes {routes}")
+
+    errs = {}
+    for n, (sd, x, y) in sds.items():
+        out = served[n]
+        if not (out.dtype == torch.float32 and out.device.type == torch.device(dev).type
+                and tuple(out.shape) == (n, GRU_T, GRU_VOCAB)
+                and bool(torch.isfinite(out).all())):
+            raise SystemExit(f"chip_smoke: tf_gru_import: bad logits at "
+                             f"batch {n}")
+        sd64 = _sd_float64(sd)
+        with enable_x64():
+            errs[n] = _rel_max(out, sd64.output({x: feeds[n]}, [y])[y])
+        del sd64
+    log(f"[tf_gru_import] served logits vs the float64 replay, of their max:"
+        f" {errs} (tol {TOL_TF_GRU:.0e}); loop routes {routes}")
+    if max(errs.values()) > TOL_TF_GRU:
+        raise SystemExit("chip_smoke: tf_gru_import: served logits disagree "
+                         "with float64")
+
+    # -- export at [8, 100] and run the program -----------------------------
+    sd8, x8, y8 = sds[TF_GRU_EXPORT_BATCH]
+    _dispatch.reset_launch_counts()
+    blob = sd8.export_stablehlo([y8], {x8: ((TF_GRU_EXPORT_BATCH, GRU_T),
+                                            "int32")})
+    export_s = dict(sd8.export_seconds)
+    t0 = time.monotonic()
+    program = SameDiff.load_stablehlo(blob)
+    load_s = time.monotonic() - t0
+    exported = program({x8: feeds[TF_GRU_EXPORT_BATCH]})[y8]
+    export_ms = _sd_timed(lambda: program({x8: feeds[TF_GRU_EXPORT_BATCH]}),
+                          calls=TF_GRU_CALLS)
+    launches["export"] = dict(_dispatch.launch_counts())
+    export_err = _rel_max(exported, served[TF_GRU_EXPORT_BATCH])
+    log(f"[tf_gru_import] exported program ({len(blob):,} bytes; export "
+        f"{export_s['export_s']:.2f} s, save {export_s['save_s']:.2f} s, "
+        f"load {load_s:.2f} s) vs the replay {export_err:.3e} of max (tol "
+        f"{TOL_EXPORTED:.0e})")
+    if export_err > TOL_EXPORTED or \
+            exported.device.type != torch.device(dev).type:
+        raise SystemExit("chip_smoke: tf_gru_import: the exported program "
+                         "disagrees with sd.output")
+
+    # -- the native char-GRU's forward (hand gru_fwd) at the same batches ---
+    model = _char_gru(dev, "pallas")
+    variables = model.init()
+    native_ms = {}
+    with torch.inference_mode():
+        for n in TF_GRU_BATCHES:
+            native_ms[n] = _sd_timed(lambda: model.output(variables, feeds[n]),
+                                     calls=TF_GRU_CALLS)
+    b8 = TF_GRU_EXPORT_BATCH
+    breakdown = {
+        "replay": _step_breakdown(None, None, None, (), step=lambda: sd8.output(
+            {x8: feeds[b8]}, [y8])),
+        "exported": _step_breakdown(None, None, None, (), step=lambda: program(
+            {x8: feeds[b8]})),
+        "native": _step_breakdown(None, None, None, ("gru_fwd",),
+                                  step=lambda: model.output(variables,
+                                                            feeds[b8]))}
+    del model, variables, program
+
+    # -- fine-tune at batch 64: the weights promoted, gradients vs float64 --
+    sd, x, y = sds[GRU_BATCH]
+    for name in CHARGRU_WEIGHTS.values():
+        sd.convert_to_variable(name)
+    loop = loop_of(sd)
+    counters = [sd._vars[loop.inputs[k]].var_type for k in (0, 1, 2)]
+    if counters != [VariableType.CONSTANT] * 3 or \
+            sdm._while_static_trip(sd, loop) != GRU_T:
+        raise SystemExit(f"chip_smoke: tf_gru_import: the counters left the "
+                         f"static route after promotion: {counters}")
+    lab = sd.placeholder("labels", (GRU_BATCH * GRU_T,), "int32")
+    loss = sd.loss.sparse_softmax_cross_entropy(
+        sd.get_variable(y).reshape(-1, GRU_VOCAB), lab)
+    train_feeds = {x: feeds[GRU_BATCH], "labels": labels}
+    g32 = sd.calculate_gradients(train_feeds, loss.name)
+    sd64 = _sd_float64(sd)
+    with enable_x64():
+        g64 = sd64.calculate_gradients(train_feeds, loss.name)
+    del sd64
+    leaf_l2, all_l2 = _l2_errors(g32, g64)
+    zero = [k for k, name in CHARGRU_WEIGHTS.items()
+            if float(g32[name].norm()) == 0.0]
+    del g32, g64
+    log(f"[tf_gru_import] calculate_gradients float32 vs float64 over "
+        f"{len(leaf_l2)} weights: relative L2 {all_l2:.2e} (tol "
+        f"{TOL_SD_GRAD_L2:.0e}), by leaf "
+        f"{ {k: f'{leaf_l2[v]:.2e}' for k, v in CHARGRU_WEIGHTS.items()} }")
+    if all_l2 > TOL_SD_GRAD_L2 or zero:
+        raise SystemExit(f"chip_smoke: tf_gru_import: gradients disagree "
+                         f"with float64 (or none flowed to {zero})")
+    cfg = TrainingConfig(loss_variable=loss.name, feature_placeholders=[x],
+                         label_placeholders=["labels"], updater="adam",
+                         updater_args={"learning_rate": TF_GRU_LR})
+    events = _step_events()
+    _dispatch.reset_launch_counts()
+    sdm.reset_loop_stats()
+    t0 = time.monotonic()
+    history = sd.fit([train_feeds], cfg, epochs=TF_GRU_FIT_STEPS,
+                     listeners=[events])
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches["fit"] = dict(_dispatch.launch_counts())
+    fit_routes = sdm.loop_stats()
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in
+                          zip(events.events, events.events[1:])])
+    log(f"[tf_gru_import] sd.fit {TF_GRU_FIT_STEPS} Adam({TF_GRU_LR}) steps "
+        f"at batch {GRU_BATCH}: loss {' '.join(f'{h:.4f}' for h in history)}"
+        f"; step {np.median(step_ms):.1f} ms; routes {fit_routes}; "
+        f"hand-kernel launches {launches} (the import paths run none)")
+    if not (np.all(np.isfinite(history)) and history[-1] < history[0]):
+        raise SystemExit(f"chip_smoke: tf_gru_import: the loss did not fall: "
+                         f"{history}")
+    if any(launches.values()) or set(fit_routes["static"]) != {GRU_T}:
+        raise SystemExit("chip_smoke: tf_gru_import: a hand kernel ran, or "
+                         "the loop left the static route")
+
+    # -- save -> load ------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "chargru.sdz"
+        t0 = time.monotonic()
+        sd.save(path)
+        save_s = time.monotonic() - t0
+        size = path.stat().st_size
+        sd2 = SameDiff.load(path, device=dev)
+    outs = [y, loss.name]
+    a, b = sd.output(train_feeds, outs), sd2.output(train_feeds, outs)
+    same = all(torch.equal(a[k], b[k]) for k in outs)
+    if not same or sdm._while_static_trip(sd2, loop_of(sd2)) != GRU_T:
+        raise SystemExit("chip_smoke: tf_gru_import: save/load changed the "
+                         "outputs or the loop's route")
+    del sd2
+
+    tokens = {"replay": {n: _tokens_per_s(n, GRU_T, serve_ms[n])
+                         for n in TF_GRU_BATCHES},
+              "exported": {b8: _tokens_per_s(b8, GRU_T, export_ms)},
+              "native_gru_fwd": {n: _tokens_per_s(n, GRU_T, native_ms[n])
+                                 for n in TF_GRU_BATCHES}}
+    out = {
+        "params": n_params, "graphs": graphs, "loop_trip": GRU_T,
+        "loop_routes": routes, "fit_loop_routes": fit_routes,
+        "max_rel_err_vs_float64": errs, "exported_rel_err": export_err,
+        "export_bytes": len(blob), **export_s, "load_s": load_s,
+        "grad_l2_vs_float64": all_l2,
+        "grad_leaf_l2": {k: leaf_l2[v] for k, v in CHARGRU_WEIGHTS.items()},
+        "loss_history": history, "fit_step_ms": float(np.median(step_ms)),
+        "fit_s": fit_s, "save_s": save_s, "saved_bytes": size,
+        "save_load_identical": same,
+        "ms_p50": {"replay": {n: float(np.median(v))
+                              for n, v in serve_ms.items()},
+                   "exported": {b8: float(np.median(export_ms))},
+                   "native_gru_fwd": {n: float(np.median(v))
+                                      for n, v in native_ms.items()}},
+        "tokens_per_s": tokens, "breakdown_batch8": breakdown,
+        "launches": launches, "card": smi,
+        "phase_seconds": time.monotonic() - t_phase,
+    }
+    log(f"[tf_gru_import] tokens/s {tokens}; batch-8 breakdown wall/device/"
+        f"idle: " + ", ".join(
+            f"{k} {v['wall_ms']:.2f}/{v['device_ms']:.2f} ms/"
+            f"{v['device_idle_share']:.1%}" for k, v in breakdown.items())
+        + f"; {out['phase_seconds']:.1f} s, on {smi}")
+    return out
+
+
+# -- 48. tf_control_flow: four small TF control-flow graphs --------------------
+
+TF_CF_SHAPE = (8, 128)
+TOL_TF_CF = 1e-6  # the card vs numpy and vs the CPU, of the output's max
+
+
+def _tf_cf_inputs(name):
+    """Inputs that take each branch; the loop's from a sum that needs a
+    few doublings to pass TF_CF_BOUND."""
+    a = np.abs(np.random.default_rng(SEED).standard_normal(
+        TF_CF_SHAPE)).astype(np.float32)
+    if name == "dynamic_while":
+        return [a * np.float32(1e-3), a * np.float32(1e-2)]
+    if name == "lowered_loop":
+        return [a - np.float32(0.5)]
+    return [a, -a]
+
+
+def phase_tf_control_flow(dev, smi):
+    """Four control-flow graphs written as TensorFlow freezes them
+    (tf_cf_graph_def: a lowered counter loop with an accumulator, a
+    lowered cond, a functional If and a data-dependent functional While),
+    imported onto the card and onto the CPU; each output against numpy
+    (tf_cf_reference) and against the CPU's (TOL_TF_CF of its max); the
+    lowered loop static (trip 5) and its gradient 1.1^5, the data-dependent
+    loop one condition read an iteration and its gradient refused; each
+    graph exported on the card and the program run against sd.output.
+    Launch counts {}."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, VariableType
+    from deeplearning4j_tpu_torch.autodiff import samediff as sdm
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.modelimport import import_tf_graph
+
+    t_phase = time.monotonic()
+    out = {}
+    _dispatch.reset_launch_counts()
+    for name in TF_CF_GRAPHS:
+        blob = tf_cf_graph_def(name, TF_CF_SHAPE)
+        card = import_tf_graph(blob, device=dev)
+        cpu = import_tf_graph(blob, device="cpu")
+        (sd, ins, outs), (sd_cpu, ins_c, outs_c) = card, cpu
+        x, y = ins[TF_CF_INPUT], outs[TF_CF_OUTPUT]
+        row = {"ops": sorted({nd.op for nd in sd.ops()}), "cases": []}
+        blob_x = sd.export_stablehlo([y], {x: (TF_CF_SHAPE, "float32")})
+        program = SameDiff.load_stablehlo(blob_x)
+        for xv in _tf_cf_inputs(name):
+            sdm.reset_loop_stats()
+            got = sd.output({x: xv}, [y])[y]
+            routes = sdm.loop_stats()
+            want = torch.from_numpy(tf_cf_reference(name, xv))
+            on_cpu = sd_cpu.output({ins_c[TF_CF_INPUT]: xv},
+                                   [outs_c[TF_CF_OUTPUT]])[
+                outs_c[TF_CF_OUTPUT]]
+            exported = program({x: xv})[y]
+            case = {"sum": float(xv.sum()),
+                    "vs_numpy": _rel_max(got.cpu(), want),
+                    "vs_cpu": _rel_max(got.cpu(), on_cpu),
+                    "exported_vs_output": _rel_max(exported, got),
+                    "routes": routes}
+            row["cases"].append(case)
+            on_card = {got.device.type, exported.device.type} == {
+                torch.device(dev).type}
+            if not on_card or max(case["vs_numpy"], case["vs_cpu"],
+                                  case["exported_vs_output"]) > TOL_TF_CF:
+                raise SystemExit(f"chip_smoke: tf_control_flow {name}: "
+                                 f"{case}")
+            if name == "lowered_loop" and routes["static"] != {
+                    TF_CF_LOOP_TRIP: 1}:
+                raise SystemExit(f"chip_smoke: tf_control_flow: the lowered "
+                                 f"loop is not static: {routes}")
+            if name == "dynamic_while" and not (
+                    routes["dynamic_loops"] == 1
+                    and routes["dynamic_iterations"] >= 1):
+                raise SystemExit(f"chip_smoke: tf_control_flow: the "
+                                 f"data-dependent loop's routes {routes}")
+        if name in ("lowered_loop", "dynamic_while"):
+            # d sum(out) / dx: 1.1^5 through the static loop; refused
+            # through the data-dependent one, as lax.while_loop refuses
+            xv = _tf_cf_inputs(name)[0]
+            sd._vars[x].var_type = VariableType.VARIABLE
+            sd._values[x] = torch.from_numpy(xv).to(dev)
+            loss = sd.get_variable(y).sum()
+            try:
+                g = sd.calculate_gradients({}, loss.name, [x])[x]
+            except ValueError as e:
+                if name != "dynamic_while" or "while_loop" not in str(e):
+                    raise
+                row["gradient"] = f"refused: {e}"
+            else:
+                if name == "dynamic_while":
+                    raise SystemExit("chip_smoke: tf_control_flow: a gradient "
+                                     "through the data-dependent loop did "
+                                     "not raise")
+                err = _rel_max(g.cpu(), torch.full(
+                    TF_CF_SHAPE, np.float32(1.1) ** TF_CF_LOOP_TRIP))
+                row["gradient_rel_err"] = err
+                if err > TOL_TF_CF:
+                    raise SystemExit(f"chip_smoke: tf_control_flow: the "
+                                     f"loop's gradient is off by {err:.2e}")
+        out[name] = row
+        log(f"[tf_control_flow] {name}: {row}")
+    out["launches"] = dict(_dispatch.launch_counts())
+    out["card"] = smi
+    out["phase_seconds"] = time.monotonic() - t_phase
+    if out["launches"]:
+        raise SystemExit("chip_smoke: tf_control_flow launched a hand kernel")
+    log(f"[tf_control_flow] {out['phase_seconds']:.1f} s, launches "
+        f"{out['launches']}")
     return out
 
 
@@ -8640,6 +9610,10 @@ def main() -> int:
     zoo_cnn = phase_zoo_cnn(dev, smi)
     conv_layers = phase_conv_layers(dev, smi)
     samediff_bert = phase_samediff_bert(dev, smi)
+    tf_gru = phase_tf_gru_import(dev, smi)
+    tf_cf = phase_tf_control_flow(dev, smi)
+    log(f"[tf] phase seconds: tf_gru_import {tf_gru['phase_seconds']:.1f}, "
+        f"tf_control_flow {tf_cf['phase_seconds']:.1f}")
     convlstm_training, convlstm_model, convlstm_vars = phase_convlstm_train(
         dev, smi)
     convlstm_tbptt = phase_convlstm_tbptt(dev, smi)
@@ -8794,6 +9768,8 @@ def main() -> int:
     print(json.dumps({"zoo_cnn": zoo_cnn}), flush=True)
     print(json.dumps({"conv_layers": conv_layers}), flush=True)
     print(json.dumps({"samediff_bert": samediff_bert}), flush=True)
+    print(json.dumps({"tf_gru_import": tf_gru}), flush=True)
+    print(json.dumps({"tf_control_flow": tf_cf}), flush=True)
     print(json.dumps({"convlstm_training": convlstm_training}), flush=True)
     print(json.dumps({"convlstm_tbptt": convlstm_tbptt}), flush=True)
     print(json.dumps({"convlstm_serving": convlstm_serving}), flush=True)

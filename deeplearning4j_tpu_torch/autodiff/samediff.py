@@ -34,12 +34,29 @@ ops that an output needs. What differs, and why:
 - **Gradients and fit** run on ``torch.autograd``; ``fit`` steps through
   the port's updaters (``train/updaters.py``), with the updater state on
   the device. ``save`` writes the JAX package's zip (graph.json,
-  arrays.npz, updater.npz with the leaves in pytree order: dict keys
-  sorted), so files move between the two packages both ways.
+  arrays.npz with the subgraphs' values under ``__sub__|`` keys,
+  updater.npz with the leaves in pytree order: dict keys sorted), so
+  files move between the two packages both ways, control flow included.
 
-Not ported yet: ``cond``/``while_loop`` and the StableHLO export (ROADMAP
-queue 1 item 11). A saved graph that holds control flow is refused at
-``load``.
+- **Control flow** (``cond``, ``while_loop``; the ops ``__cond__`` and
+  ``__while__``, with their branches as subgraphs) runs eagerly where the
+  JAX package lowers to ``lax.cond``/``lax.scan``/``lax.while_loop``. A
+  loop whose trip count is static (``_while_static_trip``: integer
+  counters, a positive constant step, CONSTANT inits; every imported
+  Keras RNN) replays its body ``trip`` times in Python with no host read,
+  and differentiates like the JAX package's ``lax.scan``. A data-dependent
+  loop reads its condition once an iteration (one host sync each) and
+  refuses reverse-mode differentiation, as ``lax.while_loop`` does.
+  ``cond`` reads its predicate and runs one branch; gradients flow through
+  the branch taken. Each branch's plan is bound once and cached in its
+  subgraph. ``loop_stats()`` counts the routes taken.
+- **Whole-graph export.** ``export_stablehlo`` keeps the JAX package's
+  name and signature; the blob is a ``torch.export`` archive of an
+  ``ExportedProgram`` over the placeholders in sorted order. Inside it a
+  static-trip loop unrolls, a data-dependent loop is
+  ``torch._higher_order_ops.while_loop`` and ``cond`` is ``torch.cond``;
+  an op that cannot be exported raises naming its node. ``run_stablehlo``
+  returns tensors on the program's device, as ``output`` does.
 """
 
 from __future__ import annotations
@@ -47,8 +64,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import enum
+import inspect
 import io
 import json
+import keyword
+import re
+import time
 import warnings
 import zipfile
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -197,10 +218,6 @@ def _op_fn(op: str) -> Callable:
     if op not in OP_REGISTRY and op.startswith("tfimport."):
         # a loaded graph that was imported from TF in another process
         from deeplearning4j_tpu_torch.modelimport import tf  # noqa: F401
-    if op in ("__cond__", "__while__"):
-        raise NotImplementedError(
-            f"control-flow op {op} is not ported yet (SameDiff cond / "
-            "while_loop)")
     if op not in OP_REGISTRY:
         raise KeyError(f"op {op!r} not registered")
     return OP_REGISTRY[op]
@@ -210,6 +227,8 @@ def promote(*xs):
     """jnp's type promotion for the ops that torch does not promote
     (matmul, stack, einsum)."""
     dt = xs[0].dtype
+    if all(x.dtype == dt for x in xs):
+        return list(xs)  # nothing to convert: no op (an export records one)
     for x in xs[1:]:
         dt = torch.promote_types(dt, x.dtype)
     return [x.to(dt) for x in xs]
@@ -292,10 +311,21 @@ def _gather(x, indices, axis=0):
 
 
 def _dynamic_slice(x, begin, size):
-    """``lax.dynamic_slice``: ``begin`` is clamped so the window fits."""
+    """``lax.dynamic_slice``: a negative start counts from the end, and the
+    start is clamped so the window fits. A start given as a tensor stays
+    on the device (an ``index_select`` of the window: no host read,
+    differentiable, exportable)."""
     for d, (b, s) in enumerate(zip(begin, size)):
-        b = min(max(int(b), 0), x.shape[d] - int(s))
-        x = x.narrow(d, b, int(s))
+        n, s = x.shape[d], int(s)
+        if isinstance(b, torch.Tensor):
+            start = b.reshape(())
+            start = torch.where(start < 0, start + n, start).clamp(
+                0, max(n - s, 0))
+            x = torch.index_select(x, d, start + torch.arange(
+                s, device=x.device))
+        else:
+            b = int(b)
+            x = x.narrow(d, min(max(b + n if b < 0 else b, 0), n - s), s)
     return x
 
 
@@ -640,6 +670,155 @@ def _replay(node: OpNode, fn, vals: List[Any]):
     return _narrow(_bind(fn, node.attrs)(vals))
 
 
+_CONTROL_FLOW = ("__cond__", "__while__")
+_BRANCH_KEY = ("__branch__",)  # a subgraph's cached branch fn
+_EXPORTING = False  # set while export_stablehlo traces the plan
+_LOOP_STATS: Dict[str, Any] = {}
+
+
+def reset_loop_stats() -> None:
+    _LOOP_STATS.clear()
+    _LOOP_STATS.update({"static": {}, "dynamic_loops": 0,
+                        "dynamic_iterations": 0, "cond": 0})
+
+
+reset_loop_stats()
+
+
+def loop_stats() -> Dict[str, Any]:
+    """The control-flow routes run since ``reset_loop_stats``: static
+    loops by trip count, data-dependent loops and their iterations (each
+    one host read of the condition), and conds (one host read each)."""
+    return {"static": dict(_LOOP_STATS["static"]),
+            **{k: v for k, v in _LOOP_STATS.items() if k != "static"}}
+
+
+def _as_tuple(out) -> tuple:
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def _unaliased(fn):
+    """``fn`` with every output cloned: the export's ``torch.cond`` and
+    ``while_loop`` take no output that aliases an input (a pass-through
+    loop var, an identity branch), and the branch is traced by dynamo,
+    which cannot compare tensors by identity."""
+    def call(*vals):
+        out = fn(*vals)
+        outs = tuple(o.clone() for o in _as_tuple(out))
+        return outs if isinstance(out, tuple) else outs[0]
+
+    return call
+
+
+def _cond_call(node: OpNode) -> Callable:
+    true_fn = node.subgraphs["true"]._as_branch_fn()
+    false_fn = node.subgraphs["false"]._as_branch_fn()
+
+    def run(vals):
+        pred, *operands = vals
+        if _EXPORTING:
+            return torch.cond(pred.reshape(()) != 0, _unaliased(true_fn),
+                              _unaliased(false_fn), tuple(operands))
+        _LOOP_STATS["cond"] += 1
+        return (true_fn if bool(pred.reshape(()) != 0) else false_fn)(
+            *operands)
+
+    return run
+
+
+def _while_call(sd: "SameDiff", node: OpNode) -> Callable:
+    body = node.subgraphs["body"]._as_branch_fn()
+    cond = node.subgraphs["cond"]._as_branch_fn()
+    trip = _while_static_trip(sd, node)  # one host read, at bind time
+
+    def run(vals):
+        carry = tuple(vals)
+        if trip is not None:  # lax.scan's route: the body `trip` times
+            stats = _LOOP_STATS["static"]
+            stats[trip] = stats.get(trip, 0) + 1
+            for _ in range(trip):
+                carry = _as_tuple(body(*carry))
+            return carry
+        if _EXPORTING:
+            from torch._higher_order_ops.while_loop import while_loop
+
+            return tuple(while_loop(
+                lambda *c: _as_tuple(cond(*c))[0].reshape(()) != 0,
+                lambda *c: _as_tuple(_unaliased(body)(*c)), carry))
+        if torch.is_grad_enabled() and any(
+                isinstance(c, torch.Tensor) and c.requires_grad
+                for c in carry):
+            raise ValueError(
+                "Reverse-mode differentiation does not work for a "
+                "while_loop with a data-dependent trip count (as "
+                "lax.while_loop / lax.fori_loop with dynamic bounds); "
+                "express the loop with a static trip count")
+        _LOOP_STATS["dynamic_loops"] += 1
+        while bool(_as_tuple(cond(*carry))[0].reshape(()) != 0):
+            _LOOP_STATS["dynamic_iterations"] += 1
+            carry = _as_tuple(body(*carry))
+        return carry
+
+    return run
+
+
+def _bind_node(sd: "SameDiff", node: OpNode) -> Callable:
+    """A callable over the node's input values: control flow runs its
+    subgraphs, every other op its registered callable with the attrs
+    resolved once."""
+    if node.op == "__cond__":
+        return _cond_call(node)
+    if node.op == "__while__":
+        return _while_call(sd, node)
+    return _bind(_op_fn(node.op), node.attrs)
+
+
+def _meta_branch(sub: "SameDiff", metas: List[torch.Tensor]):
+    """The branch outputs of ``sub`` on ``meta`` tensors (shape and dtype
+    only; nothing runs on a device)."""
+    env: Dict[str, Any] = {n: torch.empty(v.shape, dtype=v.dtype,
+                                          device="meta")
+                           for n, v in sub._values.items()}
+    env.update(zip(sub._placeholder_names(), metas))
+    outs = sub._branch_output_names()
+    for idx in sub._ancestors(outs):
+        node = sub._nodes[idx]
+        vals = [env[n] for n in node.inputs]
+        if node.op in _CONTROL_FLOW:
+            out = _meta_control(node.op, vals, node.subgraphs)
+        else:
+            out = _replay(node, _op_fn(node.op), vals)
+        _store(env, node, out)
+    return [env[n] for n in outs]
+
+
+def _same_types(what, got, want) -> None:
+    if len(got) != len(want) or any(
+            g.dtype != w.dtype or tuple(g.shape) != tuple(w.shape)
+            for g, w in zip(got, want)):
+        raise TypeError(f"{what}: {[(tuple(g.shape), g.dtype) for g in got]}"
+                        f" vs {[(tuple(w.shape), w.dtype) for w in want]}")
+
+
+def _meta_control(op, metas, subgraphs) -> list:
+    """``jax.eval_shape`` of ``lax.cond``/``lax.while_loop``: a cond's
+    branches must agree, a loop's body must give its carry's types back,
+    its condition a boolean scalar."""
+    if op == "__cond__":
+        pred, *operands = metas
+        t = _meta_branch(subgraphs["true"], operands)
+        _same_types("true and false branches differ", t,
+                    _meta_branch(subgraphs["false"], operands))
+        return t
+    _same_types("body output and carry differ",
+                _meta_branch(subgraphs["body"], metas), metas)
+    (c, *rest) = _meta_branch(subgraphs["cond"], metas)
+    if rest or c.dtype != torch.bool or c.dim() != 0:
+        raise TypeError(f"cond must return a boolean scalar, got "
+                        f"{tuple(c.shape)} {c.dtype}")
+    return [torch.empty(m.shape, dtype=m.dtype, device="meta") for m in metas]
+
+
 def _store(env, node: OpNode, out) -> None:
     if isinstance(out, (tuple, list)):
         for n, o in zip(node.outputs, out):
@@ -680,6 +859,12 @@ class SameDiff:
         self._updater_leaves = None  # loaded-from-checkpoint leaves, pending restore
         self._iteration = 0
         self.listeners: List[Any] = []
+        # When this graph is a control-flow branch (cond/while subgraph),
+        # an explicit ordered output list; None = the terminal-vars
+        # heuristic in _branch_output_names. The TF importer sets it: a
+        # FunctionDef's rets are named and ordered, and the loop carry's
+        # order must match the while's inputs exactly.
+        self.branch_outputs: Optional[List[str]] = None
 
     # -- construction ------------------------------------------------------
 
@@ -802,7 +987,11 @@ class SameDiff:
 
     def _infer(self, op, inputs, attrs, subgraphs):
         """Shape/dtype inference by running the op on ``meta`` tensors (↔
-        libnd4j shape functions; the JAX package's ``jax.eval_shape``)."""
+        libnd4j shape functions; the JAX package's ``jax.eval_shape``).
+        Control flow runs its branches on ``meta`` tensors once (a loop's
+        body once, never the loop) and MUST infer: its output arity is the
+        carry's or the branches', and a silent unknown would mis-wire
+        every consumer."""
         fn = _op_fn(op)
         node = OpNode(op, [v.name for v in inputs], [], dict(attrs), subgraphs)
         try:
@@ -813,8 +1002,14 @@ class SameDiff:
                 metas.append(torch.empty(
                     shape, dtype=_canon(torch_dtype(v.dtype or "float32")),
                     device="meta"))
-            out = _replay(node, fn, metas)
-        except Exception:
+            if op in _CONTROL_FLOW:
+                out = _meta_control(op, metas, subgraphs)
+            else:
+                out = _replay(node, fn, metas)
+        except Exception as e:
+            if op in _CONTROL_FLOW:
+                raise ValueError(f"control-flow op {op} failed shape "
+                                 f"inference: {e}") from e
             return [_UnknownStruct()]
         leaves = out if isinstance(out, (tuple, list)) else [out]
         sym = any(v.shape is not None and any(d in (None, -1) for d in v.shape)
@@ -842,8 +1037,7 @@ class SameDiff:
     def _build_fn(self, output_names: Tuple[str, ...], placeholder_names: Tuple[str, ...]):
         """fn(variables, constants, placeholders) -> outputs: the recorded
         ops an output needs, each bound to its callable and attrs once."""
-        plan = [(self._nodes[i], _bind(_op_fn(self._nodes[i].op),
-                                       self._nodes[i].attrs))
+        plan = [(self._nodes[i], _bind_node(self, self._nodes[i]))
                 for i in self._ancestors(output_names)]
 
         def fn(variables, constants, placeholders):
@@ -852,7 +1046,17 @@ class SameDiff:
             env.update(variables)
             env.update(placeholders)
             for node, call in plan:
-                _store(env, node, _narrow(call([env[n] for n in node.inputs])))
+                vals = [env[n] for n in node.inputs]
+                if _EXPORTING:
+                    try:
+                        out = call(vals)
+                    except Exception as e:
+                        raise RuntimeError(
+                            f"cannot export node {node.outputs[0]!r} (op "
+                            f"{node.op}): {type(e).__name__}: {e}") from e
+                else:
+                    out = call(vals)
+                _store(env, node, _narrow(out))
             missing = [n for n in output_names if n not in env]
             if missing:
                 raise KeyError(f"outputs not computable: {missing}")
@@ -905,8 +1109,7 @@ class SameDiff:
         env = {**constants, **variables, **placeholders}
         for idx in self._ancestors(outputs):
             node = self._nodes[idx]
-            f = _op_fn(node.op)
-            out = _replay(node, f, [env[n] for n in node.inputs])
+            out = _narrow(_bind_node(self, node)([env[n] for n in node.inputs]))
             _store(env, node, out)
             for lst in self.listeners:
                 if hasattr(lst, "on_op"):
@@ -939,6 +1142,58 @@ class SameDiff:
 
     def grad(self, feeds, loss, var_name):
         return self.calculate_gradients(feeds, loss, [var_name])[var_name]
+
+    # -- control flow (↔ sd.ifCond / sd.whileLoop) --------------------------
+
+    def cond(self, pred: SDVariable, true_graph: "SameDiff",
+             false_graph: "SameDiff", inputs: Sequence[SDVariable]):
+        """Record an If: the branch subgraphs map their placeholders
+        (declared order) to ``inputs`` (↔ sd.ifCond). It reads ``pred`` and
+        runs one branch; gradients flow through the branch taken."""
+        return self._record("__cond__", [pred, *inputs], {},
+                            {"true": true_graph, "false": false_graph})
+
+    def while_loop(self, cond_graph: "SameDiff", body_graph: "SameDiff",
+                   inits: Sequence[SDVariable]):
+        """Record a While (↔ sd.whileLoop). A counter-bounded loop (see
+        ``_while_static_trip``) replays its body a fixed number of times
+        and is differentiable; a data-dependent one reads its condition
+        each iteration, and ``calculate_gradients``/``fit`` through it
+        raise, as the JAX package's ``lax.while_loop`` does."""
+        return self._record("__while__", list(inits), {},
+                            {"cond": cond_graph, "body": body_graph})
+
+    def _placeholder_names(self) -> List[str]:
+        return [n for n, v in self._vars.items()
+                if v.var_type == VariableType.PLACEHOLDER]
+
+    def _branch_output_names(self) -> List[str]:
+        """``branch_outputs`` when set (explicit, ordered; may name
+        placeholders, for pass-through loop vars), else every terminal
+        ARRAY var (no consumer)."""
+        if self.branch_outputs is not None:
+            return list(self.branch_outputs)
+        consumed = {n for node in self._nodes for n in node.inputs}
+        return [n for n, v in self._vars.items()
+                if v.var_type == VariableType.ARRAY and n not in consumed]
+
+    def _as_branch_fn(self) -> Callable:
+        """This graph as fn(*placeholder_values) -> an output or a tuple
+        of outputs, its plan bound once and cached until the graph
+        changes; the stored values are read at each call."""
+        fn = self._fn_cache.get(_BRANCH_KEY)
+        if fn is None:
+            ph = self._placeholder_names()
+            outs = self._branch_output_names()
+            plan = self._build_fn(tuple(outs), tuple(ph))
+
+            def fn(*vals):
+                res = plan({}, self._values, dict(zip(ph, vals)))
+                out_vals = tuple(res[n] for n in outs)
+                return out_vals[0] if len(out_vals) == 1 else out_vals
+
+            self._fn_cache[_BRANCH_KEY] = fn
+        return fn
 
     # -- training (↔ TrainingSession + SameDiff.fit) -----------------------
 
@@ -1058,7 +1313,7 @@ class SameDiff:
     # -- serialization (↔ SameDiff.save/load FlatBuffers .fb) --------------
 
     def to_dict(self) -> Dict[str, Any]:
-        return {
+        d = {
             "format": "deeplearning4j_tpu.samediff.v1",
             "variables": [
                 {"name": n, "type": v.var_type.value, "shape": list(v.shape) if v.shape else None,
@@ -1068,28 +1323,31 @@ class SameDiff:
             "ops": [
                 {"op": node.op, "inputs": node.inputs,
                  "outputs": node.outputs, "attrs": node.attrs,
-                 "subgraphs": None}
+                 "subgraphs": {k: g.to_dict()
+                               for k, g in node.subgraphs.items()}
+                 if node.subgraphs else None}
                 for node in self._nodes
             ],
             "training_config": dataclasses.asdict(self.training_config)
             if self.training_config else None,
             "iteration": self._iteration,
         }
+        if self.branch_outputs is not None:
+            d["branch_outputs"] = list(self.branch_outputs)
+        return d
 
     @staticmethod
     def from_dict(d: Dict[str, Any], device=None) -> "SameDiff":
-        if d.get("branch_outputs") is not None or any(
-                o.get("subgraphs") for o in d["ops"]):
-            raise NotImplementedError(
-                "the graph holds control flow; SameDiff cond / while_loop "
-                "are not ported yet")
         sd = SameDiff(device)
         for v in d["variables"]:
             sd._vars[v["name"]] = SDVariable(
                 sd, v["name"], VariableType(v["type"]), v["shape"], v["dtype"])
         for i, o in enumerate(d["ops"]):
+            subgraphs = {k: SameDiff.from_dict(g, sd.device)
+                         for k, g in o["subgraphs"].items()} \
+                if o.get("subgraphs") else None
             node = OpNode(o["op"], list(o["inputs"]), list(o["outputs"]),
-                          dict(o["attrs"]))
+                          dict(o["attrs"]), subgraphs)
             sd._nodes.append(node)
             for out in node.outputs:
                 sd._producer[out] = i
@@ -1097,7 +1355,35 @@ class SameDiff:
             sd.training_config = TrainingConfig(**d["training_config"])
         sd._iteration = int(d.get("iteration", 0))
         sd._counter = len(sd._vars)
+        if d.get("branch_outputs") is not None:
+            sd.branch_outputs = list(d["branch_outputs"])
         return sd
+
+    def _collect_subgraph_values(self, prefix: str, out: Dict[str, Any]) -> None:
+        """Flatten control-flow subgraph values into npz keys
+        ``__sub__|<node_idx>|<subgraph_key>|...|<var_name>`` (the JAX
+        package's layout): subgraphs hold their own values (loop bounds,
+        or captured weights of a functional TF import), which the
+        top-level arrays otherwise never see."""
+        for i, node in enumerate(self._nodes):
+            if not node.subgraphs:
+                continue
+            for k, g in node.subgraphs.items():
+                p = f"{prefix}{i}|{k}|"
+                for n, v in g._values.items():
+                    if "|" in n:
+                        raise ValueError(
+                            f"subgraph variable name {n!r} contains '|'")
+                    out[f"__sub__|{p}{n}"] = _to_numpy(v)
+                g._collect_subgraph_values(p, out)
+
+    def _inject_subgraph_value(self, key: str, value) -> None:
+        tokens = key.split("|")
+        g = self
+        while len(tokens) > 1:
+            g = g._nodes[int(tokens[0])].subgraphs[tokens[1]]
+            tokens = tokens[2:]
+        g._values[tokens[0]] = _as_tensor(value, g.device)
 
     def save(self, path, save_updater_state: bool = True) -> None:
         """One-file zip: graph.json + arrays.npz (+ updater.npz, its
@@ -1108,10 +1394,13 @@ class SameDiff:
             leaves = (tree_leaves(self._updater_state)
                       if self._updater_state is not None
                       else self._updater_leaves)
+        sub_vals: Dict[str, Any] = {}
+        self._collect_subgraph_values("", sub_vals)
         with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
             zf.writestr("graph.json", json.dumps(self.to_dict(), indent=1))
             buf = io.BytesIO()
-            np.savez(buf, **{n: _to_numpy(v) for n, v in self._values.items()})
+            np.savez(buf, **{n: _to_numpy(v) for n, v in self._values.items()},
+                     **sub_vals)
             zf.writestr("arrays.npz", buf.getvalue(),
                         compress_type=zipfile.ZIP_STORED)
             if leaves is not None:
@@ -1127,12 +1416,240 @@ class SameDiff:
             sd = SameDiff.from_dict(json.loads(zf.read("graph.json")), device)
             with np.load(io.BytesIO(zf.read("arrays.npz"))) as npz:
                 sd._values = {k: _as_tensor(npz[k], sd.device)
-                              for k in npz.files}
+                              for k in npz.files
+                              if not k.startswith("__sub__|")}
+                for k in npz.files:
+                    if k.startswith("__sub__|"):
+                        sd._inject_subgraph_value(k[len("__sub__|"):],
+                                                  npz[k])
             if "updater.npz" in zf.namelist():
                 with np.load(io.BytesIO(zf.read("updater.npz"))) as unpz:
                     sd._updater_leaves = [
                         unpz[f"leaf_{i}"] for i in range(len(unpz.files))]
         return sd
+
+    # -- whole-graph export (↔ the JAX package's StableHLO export) ----------
+
+    def _export(self, outputs, feed_specs):
+        """The ExportedProgram of ``outputs`` over the placeholders of
+        ``feed_specs`` ({name: (shape, dtype name)}) in sorted order, with
+        the values it reads as buffers, and its input and output lists."""
+        outputs = tuple(outputs)
+        self._require_placeholders(feed_specs)
+        ph_names = tuple(sorted(feed_specs))
+        program = _Program(self, outputs, ph_names)
+        dtypes = [dtype_name(_canon(torch_dtype(feed_specs[n][1])))
+                  for n in ph_names]
+        example = tuple(
+            torch.zeros(tuple(feed_specs[n][0]), dtype=torch_dtype(d),
+                        device=self.device)
+            for n, d in zip(ph_names, dtypes))
+        global _EXPORTING
+        _EXPORTING = True
+        try:
+            with torch.no_grad():
+                ep = torch.export.export(program, example, strict=False)
+        finally:
+            _EXPORTING = False
+        meta = {"inputs": list(ph_names), "dtypes": dtypes,
+                "outputs": list(outputs), "device": str(self.device)}
+        return ep, meta
+
+    def export_stablehlo(self, outputs: Sequence[str],
+                         feed_specs: Dict[str, Tuple[Tuple[int, ...], str]]) -> bytes:
+        """The whole graph from the placeholders to ``outputs`` as one
+        program: a ``torch.export.save`` archive of its ExportedProgram
+        (the JAX package's name; there a serialized ``jax.export``).
+        feed_specs maps placeholder name -> (shape, dtype). Exported on the
+        graph's device, the program runs there."""
+        t0 = time.perf_counter()
+        ep, meta = self._export(outputs, feed_specs)
+        t1 = time.perf_counter()
+        buf = io.BytesIO()
+        torch.export.save(ep, buf, extra_files={_EXPORT_META: json.dumps(meta)})
+        # host seconds of the last export: tracing, and writing the archive
+        self.export_seconds = {"export_s": t1 - t0,
+                               "save_s": time.perf_counter() - t1}
+        return buf.getvalue()
+
+    def _require_placeholders(self, names) -> None:
+        """Exported-program inputs must be PLACEHOLDERs: a VARIABLE or
+        CONSTANT name here would silently become a runtime input shadowing
+        its stored value (the hazard _split_feeds rejects for feeds)."""
+        for n in names:
+            if n not in self._vars:
+                raise KeyError(f"unknown placeholder {n!r}")
+            vt = self._vars[n].var_type
+            if vt != VariableType.PLACEHOLDER:
+                raise ValueError(
+                    f"export input {n!r} is {vt.name}, not a placeholder")
+
+    @staticmethod
+    def load_stablehlo(blob: bytes) -> Callable[[Dict[str, Any]], Dict[str, torch.Tensor]]:
+        """The program of an ``export_stablehlo`` blob, loaded once, as
+        run(feeds) -> {output name: tensor on the program's device}."""
+        extra = {_EXPORT_META: ""}
+        module = torch.export.load(io.BytesIO(blob),
+                                   extra_files=extra).module()
+        meta = json.loads(extra[_EXPORT_META])
+        device = torch.device(meta["device"])
+        specs = list(zip(meta["inputs"], meta["dtypes"]))
+
+        def run(feeds: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+            args = [_as_tensor(feeds[n], device).to(torch_dtype(d))
+                    for n, d in specs]
+            with torch.no_grad():
+                out = module(*args)
+            return dict(zip(meta["outputs"], out))
+
+        return run
+
+    @staticmethod
+    def run_stablehlo(blob: bytes, feeds: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Load an ``export_stablehlo`` blob and run it on ``feeds``."""
+        return SameDiff.load_stablehlo(blob)(feeds)
+
+    def export_stablehlo_text(self, outputs: Sequence[str],
+                              feed_specs: Dict[str, Tuple[Tuple[int, ...], str]]
+                              ) -> Tuple[str, List[str]]:
+        """The exported program printed (its graph signature and ATen
+        graph), and the positional argument order (the sorted placeholder
+        names). Every declared placeholder stays an argument, whether or
+        not an output reads it (the JAX package's ``keep_unused=True``)."""
+        ep, meta = self._export(outputs, feed_specs)
+        return str(ep), list(meta["inputs"])
+
+
+_EXPORT_META = "samediff_program.json"
+
+
+class _Program(torch.nn.Module):
+    """``outputs`` of a SameDiff as a module over its placeholders: the
+    plan bound once, the stored values it reads held as buffers. Its
+    ``forward`` takes one argument a placeholder, named after it (made an
+    identifier), so the exported program's signature names them."""
+
+    def __init__(self, sd: SameDiff, outputs, ph_names):
+        super().__init__()
+        fn = sd._build_fn(outputs, ph_names)
+        read = {n for i in sd._ancestors(outputs) for n in sd._nodes[i].inputs}
+        names = [n for n in sd._values if n in read | set(outputs)]
+        for i, n in enumerate(names):
+            self.register_buffer(f"v{i}", sd._values[n])
+
+        def forward(*placeholders):
+            values = {n: getattr(self, f"v{i}") for i, n in enumerate(names)}
+            out = fn({}, values, dict(zip(ph_names, placeholders)))
+            return tuple(out[o] for o in outputs)
+
+        taken: set = set()
+        params = []
+        for n in ph_names:
+            ident = re.sub(r"\W", "_", n)
+            ident = ident if ident[:1].isalpha() else f"p_{ident}"
+            while ident in taken or keyword.iskeyword(ident):
+                ident += "_"
+            taken.add(ident)
+            params.append(inspect.Parameter(
+                ident, inspect.Parameter.POSITIONAL_OR_KEYWORD))
+        forward.__signature__ = inspect.Signature(params)
+        self.forward = forward
+
+
+def _scalar(sd: SameDiff, name: str, var_type: VariableType):
+    """The value of a one-element ``var_type`` variable of ``sd`` as a
+    Python number (a host read), else None."""
+    v = sd._vars.get(name)
+    if v is None or v.var_type != var_type:
+        return None
+    t = sd._values[name]
+    return t.reshape(()).item() if t.numel() == 1 else None
+
+
+def _while_static_trip(sd: SameDiff, node: OpNode) -> Optional[int]:
+    """Static trip count of a counter-bounded while, or None (the JAX
+    package's rule, exactly).
+
+    Recognizes conds that are (conjunctions of) ``lt(counter, bound)``
+    where each counter carry slot is updated by ``add(counter, step)``
+    with a positive body-constant step, the bound is a cond-graph
+    constant or a pass-through carry slot, and every needed init is a
+    CONSTANT of the outer graph: the loop TF/Keras RNN imports produce
+    (loop_counter < max_iterations AND time < T).
+    """
+    cond_sd = (node.subgraphs or {}).get("cond")
+    body_sd = (node.subgraphs or {}).get("body")
+    if cond_sd is None or body_sd is None:
+        return None
+    if cond_sd.branch_outputs is None or body_sd.branch_outputs is None:
+        return None
+    phc = cond_sd._placeholder_names()
+    phb = body_sd._placeholder_names()
+    if len(phc) != len(node.inputs) or len(phb) != len(node.inputs):
+        return None
+    slot_c = {n: i for i, n in enumerate(phc)}
+    b_outs = body_sd.branch_outputs
+    if len(b_outs) != len(node.inputs):
+        return None
+    const = VariableType.CONSTANT
+
+    def body_step(j):
+        idx = body_sd._producer.get(b_outs[j])
+        if idx is None:
+            return None
+        nd = body_sd._nodes[idx]
+        if nd.op != "add" or len(nd.inputs) != 2:
+            return None
+        a, b = nd.inputs
+        other = b if a == phb[j] else (a if b == phb[j] else None)
+        if other is None:
+            return None
+        step = _scalar(body_sd, other, const)
+        return step if step is not None and step > 0 else None
+
+    def analyze(name):
+        idx = cond_sd._producer.get(name)
+        if idx is None:
+            return None
+        nd = cond_sd._nodes[idx]
+        if nd.op == "math.logical_and" and len(nd.inputs) == 2:
+            left = analyze(nd.inputs[0])
+            right = analyze(nd.inputs[1])
+            return None if left is None or right is None else left + right
+        if nd.op == "lt" and len(nd.inputs) == 2:
+            j = slot_c.get(nd.inputs[0])
+            if j is None:
+                return None
+            bound = _scalar(cond_sd, nd.inputs[1], const)
+            if bound is None:
+                m = slot_c.get(nd.inputs[1])
+                if m is None or b_outs[m] != phb[m]:
+                    return None  # bound must be invariant
+                bound = _scalar(sd, node.inputs[m], const)
+            i0 = _scalar(sd, node.inputs[j], const)
+            step = body_step(j)
+            if bound is None or i0 is None or step is None:
+                return None
+            # INTEGER counters only: a float counter's accumulated value
+            # can disagree with ceil((bound-i0)/step)
+            if not (float(step).is_integer() and float(bound).is_integer()
+                    and float(i0).is_integer()):
+                return None
+            return [max(0, -(-(int(bound) - int(i0)) // int(step)))]
+        return None
+
+    trips = analyze(cond_sd.branch_outputs[0])
+    return None if trips is None else int(min(trips))
+
+
+def _control_flow_impl(*a, **k):
+    raise RuntimeError("control flow is replayed by _bind_node")
+
+
+# Registered at import so a graph holding control flow runs after load() in
+# a fresh process.
+register_op("__cond__", _control_flow_impl)
+register_op("__while__", _control_flow_impl)
 
 
 def _grads(loss, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -9,6 +9,15 @@ for the subset of the public schema the importer reads:
 
 - ``graph.proto``        GraphDef {node = 1, library = 2, version = 3,
                          versions = 4, debug_info = 5}
+- ``function.proto``     FunctionDefLibrary {function = 1, gradient = 2,
+                         registered_gradients = 3}, FunctionDef
+                         {signature = 1, node_def = 3, ret = 4 (map<string,
+                         string>), attr = 5, control_ret = 6, arg_attr = 7,
+                         resource_arg_unique_id = 8}
+- ``op_def.proto``       OpDef {name = 1, input_arg = 2, output_arg = 3,
+                         attr = 4, ...}, ArgDef {name = 1, description = 2,
+                         type = 3, type_attr = 4, number_attr = 5,
+                         type_list_attr = 6, handle_data = 7, ...}
 - ``node_def.proto``     NodeDef {name = 1, op = 2, input = 3, device = 4,
                          attr = 5 (map<string, AttrValue>), ...}
 - ``attr_value.proto``   AttrValue (oneof list = 1, s = 2, i = 3, f = 4,
@@ -21,16 +30,23 @@ for the subset of the public schema the importer reads:
 - ``tensor_shape.proto`` TensorShapeProto {dim = 2 {size = 1, name = 2},
                          unknown_rank = 3}
 
-Fields outside the subset (the function library, versions, debug info) are
-kept as raw bytes and written back unchanged, so decode → encode keeps a
-graph whole. ``make_ndarray`` is ``tensor_util.MakeNdarray``'s rule: the
+Fields outside the subset (versions, debug info, an OpDef's attrs) are
+kept as raw bytes and written back unchanged after the decoded fields.
+Each message writes its fields in field-number order and its maps in the
+order of protobuf's deterministic serialization (``_map_keys``), so decode
+→ encode of a TensorFlow graph gives ``SerializeToString(deterministic=
+True)`` of the parsed graph, byte for byte. A function-valued attr
+(``While``'s ``cond``/``body``, ``If``'s branches) is a ``NameAttrList``;
+a list attr of types or shapes (``T``, ``output_shapes``) a ``ListValue``.
+
+``make_ndarray`` is ``tensor_util.MakeNdarray``'s rule: the
 bytes of ``tensor_content`` when present (a read-only numpy view into the
 decoded buffer: a 440 MB graph is not copied), else the typed values, a
 short list padded with its last value to the full shape. bfloat16 has no
 numpy dtype: such a tensor comes back as a ``torch.bfloat16`` tensor.
 
 Both directions are implemented: decode (the importer) and encode (the
-card check writes a frozen BERT-base GraphDef with it). Encoding collects
+card check writes its frozen GraphDefs with it). Encoding collects
 byte chunks and joins them once, so a large ``tensor_content`` is copied
 once.
 """
@@ -431,8 +447,19 @@ def _decode_attr_map(data, into: Dict[str, AttrValue]) -> None:
     into[key] = value
 
 
+def _map_keys(keys):
+    """Map keys in the order protobuf's deterministic serialization
+    writes them (the upb runtime's): string keys by their bytes, a key
+    after every longer key it is a prefix of ("Tidx" before "T");
+    integer keys descending."""
+    keys = list(keys)
+    if keys and isinstance(keys[0], int):
+        return sorted(keys, reverse=True)
+    return sorted(keys, key=lambda k: k.encode() + b"\xff")
+
+
 def _write_attr_map(w: _Writer, num: int, attrs: Dict[str, AttrValue]) -> None:
-    for key in sorted(attrs):
+    for key in _map_keys(attrs):
         entry = _Writer()
         entry.bytes_(1, key.encode())
         entry.message(2, attrs[key].writer())
@@ -504,9 +531,202 @@ class NodeDef:
 
 
 @dataclass
+class ArgDef:
+    """OpDef.ArgDef: one input or output of a function's signature."""
+
+    name: str = ""
+    description: str = ""
+    type: int = 0
+    type_attr: str = ""
+    number_attr: str = ""
+    type_list_attr: str = ""
+    unknown: List[Any] = field(default_factory=list)  # fields 7, 16, 17
+
+    @classmethod
+    def decode(cls, data) -> "ArgDef":
+        out = cls()
+        for num, wt, val, raw in _iter_fields(data):
+            if num == 3 and wt == _WT_VARINT:
+                out.type = val
+            elif num in (1, 2, 4, 5, 6) and wt == _WT_LEN:
+                setattr(out, _ARG_STR[num], bytes(val).decode())
+            else:
+                out.unknown.append(raw)
+        return out
+
+    def writer(self) -> _Writer:
+        w = _Writer()
+        for num in (1, 2, 3, 4, 5, 6):
+            if num == 3:
+                if self.type:
+                    w.varint(3, self.type)
+                continue
+            v = getattr(self, _ARG_STR[num])
+            if v:
+                w.bytes_(num, v.encode())
+        for raw in self.unknown:
+            w.raw(raw)
+        return w
+
+
+_ARG_STR = {1: "name", 2: "description", 4: "type_attr", 5: "number_attr",
+            6: "type_list_attr"}
+
+
+@dataclass
+class OpDef:
+    """A function's signature: its name and typed inputs and outputs (the
+    attrs, summary and flags after them kept raw)."""
+
+    name: str = ""
+    input_arg: List[ArgDef] = field(default_factory=list)
+    output_arg: List[ArgDef] = field(default_factory=list)
+    unknown: List[Any] = field(default_factory=list)
+
+    @classmethod
+    def decode(cls, data) -> "OpDef":
+        out = cls()
+        for num, wt, val, raw in _iter_fields(data):
+            if num == 1 and wt == _WT_LEN:
+                out.name = bytes(val).decode()
+            elif num == 2 and wt == _WT_LEN:
+                out.input_arg.append(ArgDef.decode(val))
+            elif num == 3 and wt == _WT_LEN:
+                out.output_arg.append(ArgDef.decode(val))
+            else:
+                out.unknown.append(raw)
+        return out
+
+    def writer(self) -> _Writer:
+        w = _Writer()
+        if self.name:
+            w.bytes_(1, self.name.encode())
+        for a in self.input_arg:
+            w.message(2, a.writer())
+        for a in self.output_arg:
+            w.message(3, a.writer())
+        for raw in self.unknown:
+            w.raw(raw)
+        return w
+
+
+def _decode_str_map(data, into: Dict[str, str]) -> None:
+    key, value = "", ""
+    for n2, _, v2, _ in _iter_fields(data):
+        if n2 == 1:
+            key = bytes(v2).decode()
+        elif n2 == 2:
+            value = bytes(v2).decode()
+    into[key] = value
+
+
+@dataclass
+class FunctionDef:
+    """A function of the library: ``signature`` (an OpDef), its body
+    ``node_def`` (inputs named ``node:out_arg:idx`` or by argument name)
+    and ``ret`` mapping each output argument to a body tensor."""
+
+    signature: OpDef = field(default_factory=OpDef)
+    node_def: List[NodeDef] = field(default_factory=list)
+    ret: Dict[str, str] = field(default_factory=dict)
+    attr: Dict[str, AttrValue] = field(default_factory=dict)
+    control_ret: Dict[str, str] = field(default_factory=dict)
+    arg_attr: Dict[int, Dict[str, AttrValue]] = field(default_factory=dict)
+    resource_arg_unique_id: Dict[int, int] = field(default_factory=dict)
+
+    @classmethod
+    def decode(cls, data) -> "FunctionDef":
+        out = cls()
+        for num, wt, val, raw in _iter_fields(data):
+            if num == 1:
+                out.signature = OpDef.decode(val)
+            elif num == 3:
+                out.node_def.append(NodeDef.decode(val))
+            elif num == 4:
+                _decode_str_map(val, out.ret)
+            elif num == 5:
+                _decode_attr_map(val, out.attr)
+            elif num == 6:
+                _decode_str_map(val, out.control_ret)
+            elif num == 7:
+                key, attrs = 0, {}
+                for n2, _, v2, _ in _iter_fields(val):
+                    if n2 == 1:
+                        key = v2
+                    elif n2 == 2:  # ArgAttrs {attr = 1}
+                        for n3, _, v3, _ in _iter_fields(v2):
+                            if n3 == 1:
+                                _decode_attr_map(v3, attrs)
+                out.arg_attr[key] = attrs
+            elif num == 8:
+                key = value = 0
+                for n2, _, v2, _ in _iter_fields(val):
+                    if n2 == 1:
+                        key = v2
+                    elif n2 == 2:
+                        value = v2
+                out.resource_arg_unique_id[key] = value
+        return out
+
+    def writer(self) -> _Writer:
+        w = _Writer()
+        w.message(1, self.signature.writer())
+        for n in self.node_def:
+            w.message(3, n.writer())
+        _write_str_map(w, 4, self.ret)
+        _write_attr_map(w, 5, self.attr)
+        _write_str_map(w, 6, self.control_ret)
+        for key in _map_keys(self.arg_attr):
+            entry, arg_attrs = _Writer(), _Writer()
+            entry.varint(1, key)  # a map entry writes its key and value
+            _write_attr_map(arg_attrs, 1, self.arg_attr[key])
+            entry.message(2, arg_attrs)
+            w.message(7, entry)
+        for key in _map_keys(self.resource_arg_unique_id):
+            entry = _Writer()
+            entry.varint(1, key)
+            entry.varint(2, self.resource_arg_unique_id[key])
+            w.message(8, entry)
+        return w
+
+
+def _write_str_map(w: _Writer, num: int, m: Dict[str, str]) -> None:
+    for key in _map_keys(m):
+        entry = _Writer()
+        entry.bytes_(1, key.encode())
+        entry.bytes_(2, m[key].encode())
+        w.message(num, entry)
+
+
+@dataclass
+class FunctionDefLibrary:
+    function: List[FunctionDef] = field(default_factory=list)
+    unknown: List[Any] = field(default_factory=list)  # gradients, raw
+
+    @classmethod
+    def decode(cls, data) -> "FunctionDefLibrary":
+        out = cls()
+        for num, wt, val, raw in _iter_fields(data):
+            if num == 1 and wt == _WT_LEN:
+                out.function.append(FunctionDef.decode(val))
+            else:
+                out.unknown.append(raw)
+        return out
+
+    def writer(self) -> _Writer:
+        w = _Writer()
+        for f in self.function:
+            w.message(1, f.writer())
+        for raw in self.unknown:
+            w.raw(raw)
+        return w
+
+
+@dataclass
 class GraphDef:
     node: List[NodeDef] = field(default_factory=list)
-    # library, version, versions, debug_info: raw, written back unchanged
+    library: Optional[FunctionDefLibrary] = None  # None: the field is absent
+    # version, versions, debug_info: raw, written back unchanged
     unknown: List[Any] = field(default_factory=list)
 
     @classmethod
@@ -516,6 +736,8 @@ class GraphDef:
         for num, wt, val, raw in _iter_fields(data):
             if num == 1 and wt == _WT_LEN:
                 out.node.append(NodeDef.decode(val))
+            elif num == 2 and wt == _WT_LEN:
+                out.library = FunctionDefLibrary.decode(val)
             else:
                 out.unknown.append(raw)
         return out
@@ -524,6 +746,8 @@ class GraphDef:
         w = _Writer()
         for n in self.node:
             w.message(1, n.writer())
+        if self.library is not None:
+            w.message(2, self.library.writer())
         for raw in self.unknown:
             w.raw(raw)
         return w.join()

@@ -18,7 +18,15 @@
   of the largest leaf's, ``chip_smoke._check_grads``' limit); and
   ``chip_smoke.bert_graph_def`` at the same size against TensorFlow's freeze of the same ``tf.function``: the same
   op histogram, the same outputs after import, and ``Bert.encode``'s.
-- A graph with TF control flow raises ``TFImportError`` naming the op.
+- A graph with TF control flow the importer cannot raise raises
+  ``TFImportError`` naming the op.
+- The codec round trip of a GraphDef with a function library (a Keras GRU
+  frozen with functional While, a loop with an If in it, and the lowered
+  form) is byte-equal to TensorFlow's deterministic serialization of the
+  parsed graph.
+- ``chip_smoke``'s char-GRU writer and its ``tf_control_flow`` graphs
+  against TensorFlow's freeze of the same programs: the same op multiset
+  in the outer graph and in each function, and the same outputs.
 """
 
 import collections
@@ -549,21 +557,37 @@ def test_chip_smoke_writer_matches_tfs_freeze(bert, tf_bert):
                                atol=ATOL)
 
 
-# -- what the straight-line importer refuses ----------------------------------
+# -- control flow, and what the importer refuses --------------------------------
 
 def test_control_flow_graph_raises_naming_the_op():
+    """A lowered (TF1-frame) loop imports and gives TensorFlow's output
+    (tests/test_torch_tf_control_flow.py holds every control-flow form);
+    a frame the importer cannot raise (a ref-typed RefEnter, which neither
+    package maps) raises TFImportError naming the node it stops at."""
     def f(x):
         return tf.while_loop(lambda i, s: i < 3,
                              lambda i, s: (i + 1, s * 2.0),
                              [tf.constant(0), x])[1]
 
+    x = np.arange(3, dtype=np.float32)
     gd, in_names, out_names = freeze_tf_function(
         f, tf.constant(np.ones(3, np.float32)))
     ops = {n.op for n in gd.node}
-    with pytest.raises(TFImportError, match="control-flow op") as e:
-        import_tf_graph(gd, inputs={in_names[0]: (3,)}, outputs=out_names,
-                        device="cpu")
-    assert any(f"'{op}'" in str(e.value) for op in ops)
+    assert {"Enter", "Merge", "Switch", "LoopCond"} <= ops
+    sd, ins, outs = import_tf_graph(gd, inputs={in_names[0]: (3,)},
+                                    outputs=out_names, device="cpu")
+    got = sd.output({ins[in_names[0]]: x}, [outs[out_names[0]]])
+    np.testing.assert_allclose(got[outs[out_names[0]]].numpy(),
+                               f(tf.constant(x)).numpy(), rtol=RTOL)
+    broken = tf_proto.as_graph_def(gd)
+    next(n for n in broken.node if n.op == "Enter").op = "RefEnter"
+    with pytest.raises(TFImportError) as e:
+        import_tf_graph(broken, inputs={in_names[0]: (3,)},
+                        outputs=out_names, device="cpu")
+    # the message names the control-flow node (or op) the raise stops at
+    assert any(f"{n.name}'" in str(e.value) or f" {n.op} " in str(e.value)
+               for n in broken.node if n.op in ops | {"RefEnter"}
+               and n.op not in ("Const", "Placeholder", "Identity", "NoOp"))
 
 
 def test_unsupported_op_clear_error():
@@ -602,3 +626,172 @@ def test_conv2d_backprop_input_keeps_tfs_input_size():
                                 outputs=out_names)
     assert jsd.output({jin[in_names[0]]: x}, [jout[out_names[0]]])[
         jout[out_names[0]]].shape == (2, 8, 8, 5)
+
+
+# -- graphs with a function library: the codec and chip_smoke's writers --------
+
+def _keras_chargru(vocab=11, embed=8, hidden=16, t=12, batch=2):
+    """The tutorial's char-GRU at a small width, frozen by TensorFlow with
+    functional control flow, and Keras' weights under chip_smoke's
+    names."""
+    from tensorflow import keras
+    from tensorflow.python.framework.convert_to_constants import (
+        convert_variables_to_constants_v2,
+    )
+
+    keras.utils.set_random_seed(0)
+    m = keras.Sequential([
+        keras.layers.Input((t,), dtype="int32"),
+        keras.layers.Embedding(vocab, embed),
+        keras.layers.GRU(hidden, return_sequences=True, reset_after=True),
+        keras.layers.Dense(vocab)])
+    (emb,), (k, rk, b), (dk, db) = (layer.get_weights() for layer in m.layers)
+    # a bias that is not zero, so both halves are exercised
+    b = (0.1 * _rs(9).randn(*b.shape)).astype(np.float32)
+    db = (0.1 * _rs(10).randn(*db.shape)).astype(np.float32)
+    m.layers[1].set_weights([k, rk, b])
+    m.layers[2].set_weights([dk, db])
+    conc = tf.function(lambda x: m(x, training=False)).get_concrete_function(
+        tf.TensorSpec((batch, t), tf.int32))
+    gd = convert_variables_to_constants_v2(
+        conc, lower_control_flow=False).graph.as_graph_def()
+    params = {"embedding": emb, "kernel": k, "recurrent_kernel": rk,
+              "bias": b, "dense_kernel": dk, "dense_bias": db}
+    return m, gd, params
+
+
+def _functions_by_role(gd):
+    """{role: op multiset}: the outer graph, and each function under the
+    attr that names it on its While/If (body, cond, then_branch, ...). The
+    lowering's unread ``unused_control_flow_input`` placeholders are left
+    out: their number changes from one TensorFlow freeze to the next (4 or
+    5 for the same loop), and the importer skips them."""
+    lib = {f.signature.name: f for f in gd.library.function} \
+        if gd.library else {}
+    roles = {"graph": collections.Counter(
+        n.op for n in gd.node
+        if not n.name.startswith("unused_control_flow_input"))}
+    for n in gd.node:
+        for key, a in n.attr.items():
+            if a.kind == "func" if hasattr(a, "kind") else \
+                    a.WhichOneof("value") == "func":
+                name = a.value.name if hasattr(a, "kind") else a.func.name
+                roles[f"{n.op}.{key}"] = collections.Counter(
+                    nd.op for nd in lib[name].node_def)
+    return roles
+
+
+@pytest.mark.parametrize("program", ["keras_gru", "loop_with_if", "lowered"])
+def test_codec_round_trip_with_function_library_is_byte_equal(program):
+    """decode → encode of a GraphDef with a function library is TensorFlow's
+    deterministic serialization of the parsed graph, byte for byte."""
+    from tensorflow.python.framework.convert_to_constants import (
+        convert_variables_to_constants_v2,
+    )
+
+    if program == "keras_gru":
+        gd = _keras_chargru()[1]
+    else:
+        def loop(x):
+            return tf.while_loop(
+                lambda i, a: i < 3,
+                lambda i, a: (i + 1, tf.cond(tf.reduce_sum(a) > 0,
+                                             lambda: a * 0.5,
+                                             lambda: a + 1.0)),
+                [tf.constant(0), x])[1]
+
+        conc = tf.function(loop).get_concrete_function(
+            tf.TensorSpec((2,), tf.float32))
+        gd = convert_variables_to_constants_v2(
+            conc, lower_control_flow=program == "lowered").graph.as_graph_def()
+    assert (len(gd.library.function) > 0) == (program != "lowered")
+    blob = gd.SerializeToString()
+    mine = tf_proto.GraphDef.decode(blob)
+    assert [f.signature.name for f in (mine.library or tf_proto.
+            FunctionDefLibrary()).function] == [
+        f.signature.name for f in gd.library.function]
+    want = tf.compat.v1.GraphDef.FromString(blob).SerializeToString(
+        deterministic=True)
+    assert mine.encode() == want
+    assert tf.compat.v1.GraphDef.FromString(mine.encode()) == gd
+
+
+def test_chip_smoke_chargru_writer_matches_tfs_freeze():
+    """chip_smoke.chargru_graph_def at vocab 11, embedding 8, GRU 16, T 12
+    against TensorFlow's freeze of the same Keras model with the same
+    weights: the same op multiset in the outer graph, the While's body and
+    its cond; the same logits after import, and Keras' own."""
+    m, gd, params = _keras_chargru()
+    blob = chip_smoke.chargru_graph_def(params, batch=2, seq_len=12)
+    tf.compat.v1.GraphDef.FromString(blob)  # TF parses the writer's bytes
+    mine = tf_proto.GraphDef.decode(blob)
+    assert _functions_by_role(mine) == _functions_by_role(gd)
+    ids = _rs(11).randint(0, 11, (2, 12)).astype(np.int32)
+    ids[0, 0] = -3  # the embedding's wrap of a negative id
+    sd_w, in_w, out_w = import_tf_graph(blob, device="cpu")
+    sd_t, in_t, out_t = import_tf_graph(gd, device="cpu")
+    got = sd_w.output({in_w[chip_smoke.CHARGRU_INPUT]: ids},
+                      [out_w[chip_smoke.CHARGRU_OUTPUT]])[
+        out_w[chip_smoke.CHARGRU_OUTPUT]].numpy()
+    (out_name,) = out_t
+    want = sd_t.output({in_t["x"]: ids}, [out_t[out_name]])[
+        out_t[out_name]].numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, np.asarray(m(ids, training=False)),
+                               rtol=2e-5, atol=2e-6)
+
+
+def _tf_cf_program(name):
+    """The TensorFlow program chip_smoke.tf_cf_graph_def writes."""
+    if name == "lowered_loop":
+        return (lambda x: tf.while_loop(
+            lambda i, acc: i < 5, lambda i, acc: (i + 1, acc * 1.1 + 0.5),
+            [tf.constant(0), x])[1]), True
+    if name == "lowered_cond":
+        return (lambda x: tf.cond(tf.reduce_sum(x) > 0.0,
+                                  lambda: x * 2.0 + 1.0,
+                                  lambda: x - 1.0)), True
+    if name == "functional_if":
+        return (lambda x: tf.cond(tf.reduce_sum(x) > 0.0, lambda: x * 2.0,
+                                  lambda: x - 1.0)), False
+    return (lambda x: tf.while_loop(lambda acc: tf.reduce_sum(acc) < 100.0,
+                                    lambda acc: (acc * 2.0,), [x])[0]), False
+
+
+@pytest.mark.parametrize("name", ["lowered_loop", "lowered_cond",
+                                  "functional_if", "dynamic_while"])
+def test_chip_smoke_tf_control_flow_writer_matches_tfs_freeze(name):
+    """chip_smoke.tf_cf_graph_def against TensorFlow's freeze of the same
+    program: the same op multisets (outer graph and each function) and
+    the same outputs after import, TensorFlow's and numpy's
+    (chip_smoke.tf_cf_reference) for inputs that take each branch."""
+    from tensorflow.python.framework.convert_to_constants import (
+        convert_variables_to_constants_v2,
+    )
+
+    fn, lower = _tf_cf_program(name)
+    shape = (2, 3)
+    conc = tf.function(fn).get_concrete_function(
+        tf.TensorSpec(shape, tf.float32))
+    frozen = convert_variables_to_constants_v2(conc, lower_control_flow=lower)
+    gd = frozen.graph.as_graph_def()
+    blob = chip_smoke.tf_cf_graph_def(name, shape)
+    tf.compat.v1.GraphDef.FromString(blob)
+    assert _functions_by_role(tf_proto.GraphDef.decode(blob)) == \
+        _functions_by_role(gd)
+    out_name = frozen.outputs[0].name.split(":")[0]
+    sd_w, in_w, out_w = import_tf_graph(blob, device="cpu")
+    sd_t, in_t, out_t = import_tf_graph(gd, outputs=[out_name], device="cpu")
+    a = np.abs(_rs(12).randn(*shape)).astype(np.float32) * 0.1
+    # each branch; the loop from two starts (a negative sum never ends it)
+    for x in (a, 3 * a) if name == "dynamic_while" else (a, -a):
+        got = sd_w.output({in_w[chip_smoke.TF_CF_INPUT]: x},
+                          [out_w[chip_smoke.TF_CF_OUTPUT]])[
+            out_w[chip_smoke.TF_CF_OUTPUT]].numpy()
+        want = sd_t.output({in_t["x"]: x}, [out_t[out_name]])[
+            out_t[out_name]].numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(got, fn(tf.constant(x)).numpy(),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(got, chip_smoke.tf_cf_reference(name, x),
+                                   rtol=1e-6)
