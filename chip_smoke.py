@@ -46,10 +46,12 @@ caught:
    the char-RNN's training shape (N=32, T=256, H=256, Graves peepholes,
    forget bias 1), without peepholes, at H=200 with N=3, from a non-zero
    initial state and at H=1024 (the step route: RW too large to stay in
-   a cluster's shared memory); the launch plan of each logged; then
+   a cluster's shared memory), and at the ONNX word LM's N=20, T=35,
+   H=650 (the step route); the launch plan of each logged; then
    timed beside their bounds (3xTF32 on the tensor cores, and on the
    CUDA cores), the plain versions and torch.nn.LSTM (cuDNN, the case
-   without peepholes; also the forward at the serving bucket N=8), the
+   without peepholes; the char-RNN's forward also at the serving bucket
+   N=8), the
    kernel launches a call counted by the profiler (one persistent kernel
    on the resident route). It runs right
    after phase 3, before phases 4 and 5.
@@ -411,6 +413,31 @@ caught:
    data-dependent loop reading its condition each iteration and refusing
    a gradient; each graph exported on the card and run against
    sd.output. Phases 47–48 run right after phase 33.
+49. onnx_resnet50 — the zoo's ResNet-50 (224², 1000 classes, random
+   weights and BatchNorm statistics from SEED) written as ONNX with the
+   port's codec in torch.onnx.export's layout (resnet_onnx: Conv +
+   BatchNormalization + Relu, MaxPool, Add, GlobalAveragePool, Flatten,
+   Gemm; the zoo's SAME pads), imported with import_onnx_model onto the
+   card and served by sd.output at batch 1, 8 and 32: logits against the
+   native model's (TOL_ONNX_LOGITS of their max), their softmax against
+   output_single; images/s, latency p50/p99, import seconds. No hand
+   kernel.
+50. onnx_word_lm — PyTorch's word-language-model LSTM (650/650, 2 layers,
+   bptt 35, batch 20, a 33,278-token vocabulary) written as
+   torch.onnx.export writes RNNModel (word_lm_onnx), imported onto the
+   card, served under set_sync_debug_mode("error") with each LSTM node
+   through lstm_fwd on the step route (2 wrapper launches a call, 70 step
+   kernels by the profiler), the log-probabilities against a float64 CPU
+   replay (TOL_WORD_LM); every initializer promoted, the NLL's gradients
+   against float64 (TOL_SD_GRAD_L2), 3 sd.fit Adam steps (lstm_fwd +
+   lstm_bwd, 72 backward step kernels a step) with a falling loss;
+   tokens/s and idle shares of a served call and a fit step.
+51. onnx_ops — small graphs of each mapper family (asymmetric and
+   SAME_UPPER pads, ties, remainders, cumsum, DepthToSpace, If, a static
+   and a data-dependent Loop, a reversed Scan, a bidirectional LSTM node
+   and a GRU node) on the card against the CPU (where lstm_fwd and
+   gru_fwd meet their plain versions) and numpy (TOL_ONNX_OPS), with the
+   loops' routes and the nodes' launches. Phases 49–51 run last.
 
 No TPU kernel lies on phases 13–15, 17, 24 and 27–39: the convolutions,
 transposed convs and pools run in cuDNN and PyTorch (as the JAX package
@@ -434,7 +461,11 @@ cuDNN and plain torch here; transfer learning is host-side graph surgery
 and the Trainer's gradient mask. Data-parallel training (phases 45–46) is
 placement in the JAX package (deeplearning4j_tpu/parallel/specs.py:48,
 train/trainer.py:324-326) and NCCL or gloo collectives here, around the
-same ResNet-50.
+same ResNet-50. The ONNX import (phases 49–51) runs the JAX package's
+mappers (deeplearning4j_tpu/modelimport/onnx.py): XLA convs and pools for
+ResNet-50, and ops/rnn.lstm and ops/rnn.gru for LSTM and GRU nodes
+(onnx.py:493-575), which are the hand sweeps here (lstm_fwd, lstm_bwd,
+gru_fwd).
 
 On the recurrent paths the plain ops/rnn.lstm and ops/rnn.gru must never
 see a CUDA tensor (they are the plain paths the kernels are held against,
@@ -447,7 +478,7 @@ guard, seq2seq, Xception, U-Net, zoo_cnn, conv_layers, samediff_bert,
 tf_gru_import, tf_control_flow, convlstm (training, TBPTT, serving), YOLO
 (yolo2 training, tiny_yolo training, yolo2 serving), NASNet (training,
 serving) and FaceNet
-(training, fine-tune, serving) and dp (both phases) lines,
+(training, fine-tune, serving), dp (both phases) and the three ONNX lines,
 the nvidia-smi line and, last, {"ok": true, "device": {...}}. It imports nothing of JAX
 nor of the JAX package.
 """
@@ -745,9 +776,9 @@ def _device_us_by_kernel(fn, iters=50, launches=None, spans=None) -> dict:
     return out
 
 
-def _device_ms(fn) -> float:
+def _device_ms(fn, iters=50) -> float:
     """Device time per call: the sum of its CUDA kernels' time."""
-    return sum(_device_us_by_kernel(fn).values()) / 1e3
+    return sum(_device_us_by_kernel(fn, iters=iters).values()) / 1e3
 
 
 def _step_launches(fn, kernel: str, want: int, attempts: int = 3,
@@ -947,17 +978,19 @@ def phase_kernels(dev, train_lengths):
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_cuda_cores_ms": cores_ms, "ops": ops, "bytes": nbytes}
         # one call each in turn, twice (kernel, plain, library, library,
-        # plain, kernel): the spread between the two shows the noise
+        # plain, kernel): the spread between the two shows the noise; 50
+        # calls a run and 20 traced, as the backward phase times (200 and
+        # 50 before PR 27, which needed the seconds)
         ms = {"kernel": [], "plain": [], "library": []}
         for which in ("kernel", "plain", "library", "library", "plain",
                       "kernel"):
             fn = {"kernel": kernel, "plain": plain, "library": library}[which]
-            ms[which].append(_time_ms(fn))
+            ms[which].append(_time_ms(fn, iters=50, warmup=5))
         row.update({f"{w}_ms": min(v) for w, v in ms.items()})
         row.update({f"{w}_ms_runs": v for w, v in ms.items()})
-        row["kernel_device_ms"] = _device_ms(kernel)
-        row["plain_device_ms"] = _device_ms(plain)
-        by_kernel = _device_us_by_kernel(library)
+        row["kernel_device_ms"] = _device_ms(kernel, iters=20)
+        row["plain_device_ms"] = _device_ms(plain, iters=20)
+        by_kernel = _device_us_by_kernel(library, iters=20)
         row["library_device_ms"] = sum(by_kernel.values()) / 1e3
         row["library_device_us_by_kernel"] = {kn[:80]: us for kn, us in
                                               by_kernel.items()}
@@ -1231,8 +1264,9 @@ def _time_bwd(q, k, v, mask, out, lse, dout, lengths, causal):
 # -- 4. slice: BERT-base behind the port's ModelServer ------------------------
 
 # Closed loop: CLIENT_THREADS clients, each sending its next request when
-# the last one returns. 1000 requests leave 10 samples beyond the p99.
-N_REQUESTS = 1000
+# the last one returns. 500 requests leave 5 samples beyond the p99 (1000
+# before PR 27, whose ONNX phases needed the seconds).
+N_REQUESTS = 500
 CLIENT_THREADS = 8
 T = 128
 
@@ -1815,6 +1849,9 @@ LSTM_CASES = [
      True, 1.0, True, True),
     ("charrnn_prime_t64", CHAR_BATCH, CHAR_PRIME, CHAR_HIDDEN, True, 1.0,
      False, True),
+    # each layer of the ONNX word language model (onnx_word_lm): N=20,
+    # T=35, H=650 (the step route), no peepholes, from carried (h0, c0)
+    ("word_lm_n20_t35_h650", 20, 35, 650, False, 0.0, True, True),
 ]
 # the cases with peepholes whose library yardstick is torch.nn.LSTM at the
 # same shape without them, from the case's (h0, c0)
@@ -1823,7 +1860,13 @@ LSTM_LIBRARY_AT_SHAPE = ("charrnn_tbptt_window_t50", "charrnn_tbptt_tail_t6",
 # the input (N, T, width) torch.nn.LSTM is timed on beside a case without
 # peepholes: the char-RNN's batch by default; the seq2seq encoder's reads
 # the 64-wide embedding
-LSTM_CUDNN_INPUT = {"seq2seq_encoder_n1024_t10_h32": (1024, 10, 64)}
+LSTM_CUDNN_INPUT = {"seq2seq_encoder_n1024_t10_h32": (1024, 10, 64),
+                    "word_lm_n20_t35_h650": (20, 35, 650)}
+# the cases whose rows report the forward at the serving bucket N=8 (the
+# char-RNN's), and without the workspace at their own N (the TBPTT and
+# prime shapes, and the word LM's serving): only these time them
+LSTM_SERVING_N8 = ("char_rnn_train_graves", "char_rnn_train_no_peepholes")
+LSTM_NO_WORKSPACE = LSTM_LIBRARY_AT_SHAPE + ("word_lm_n20_t35_h650",)
 
 
 def _lstm_inputs(dev, n, t, h, peep, init, seed):
@@ -1920,16 +1963,19 @@ def phase_kernels_lstm(dev):
                "lstm_bwd_max_abs_err": bwd_abs,
                "lstm_bwd_max_err_frac": bwd_frac}
         if timed:
+            n8 = name in LSTM_SERVING_N8
             row.update(_time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc,
-                                  gates, cs, plan["route"]))
+                                  gates, cs, plan["route"], n8=n8,
+                                  no_ws=name in LSTM_NO_WORKSPACE))
+            serving = (f"; serving N=8 without workspace "
+                       f"{row['lstm_fwd_n8_ms']:.4f}" if n8 else "")
             log(f"[kernels] lstm {name} ({plan['route']} route): lstm_fwd "
                 f"{row['lstm_fwd_ms']:.4f} ms (device "
                 f"{row['lstm_fwd_device_ms']:.4f}, bound "
                 f"{row['lstm_fwd_bound_ms']:.4f} {row['lstm_fwd_bound_by']}"
                 f" on the tensor cores, "
                 f"{row['lstm_fwd_bound_cuda_cores_ms']:.4f} on the CUDA "
-                f"cores; serving N=8 without workspace "
-                f"{row['lstm_fwd_n8_ms']:.4f}), plain "
+                f"cores{serving}), plain "
                 f"{row['lstm_fwd_plain_ms']:.4f} ms; lstm_bwd "
                 f"{row['lstm_bwd_ms']:.4f} ms (device "
                 f"{row['lstm_bwd_device_ms']:.4f}, bound "
@@ -1940,22 +1986,25 @@ def phase_kernels_lstm(dev):
             if not peep:
                 n_in, t_in, width = LSTM_CUDNN_INPUT.get(
                     name, (CHAR_BATCH, CHAR_T, h))
-                row.update(_time_cudnn(dev, rw, b, fb, n_in, t_in, width))
+                row.update(_time_cudnn(dev, rw, b, fb, n_in, t_in, width,
+                                       n8=n8))
                 row["cudnn_input"] = [n_in, t_in, width]
+                serving = (f"; serving N=8 forward: kernel "
+                           f"{row['lstm_fwd_n8_ms']:.4f}, plain "
+                           f"{row['lstm_fwd_n8_plain_ms']:.4f}, op "
+                           f"{row['op_fwd_n8_ms']:.4f} vs cuDNN "
+                           f"{row['cudnn_fwd_n8_ms']:.4f} ms" if n8 else "")
                 log(f"[kernels] lstm {name} vs torch.nn.LSTM (cuDNN), input "
                     f"{n_in} x {t_in} x {width}: forward op "
                     f"{row['op_fwd_ms']:.4f}"
                     f" ms vs cuDNN {row['cudnn_fwd_ms']:.4f} ms; backward "
                     f"op {row['op_bwd_ms']:.4f} ms vs cuDNN "
                     f"{row['cudnn_bwd_ms']:.4f} ms; outputs agree to "
-                    f"{row['cudnn_max_abs_err']:.3e}; serving N=8 forward: "
-                    f"kernel {row['lstm_fwd_n8_ms']:.4f}, plain "
-                    f"{row['lstm_fwd_n8_plain_ms']:.4f}, op "
-                    f"{row['op_fwd_n8_ms']:.4f} vs cuDNN "
-                    f"{row['cudnn_fwd_n8_ms']:.4f} ms")
+                    f"{row['cudnn_max_abs_err']:.3e}{serving}")
             elif name in LSTM_LIBRARY_AT_SHAPE:
                 row.update(_time_cudnn(dev, rw, b, fb, n, t, h,
-                                       *((h0, c0) if init else ())))
+                                       *((h0, c0) if init else ()),
+                                       n8=False))
                 row["cudnn_input"] = [n, t, h]
                 log(f"[kernels] lstm {name} beside torch.nn.LSTM (cuDNN, no "
                     f"peepholes, the case's h0/c0), input {n} x {t} x {h}: "
@@ -1971,16 +2020,17 @@ def phase_kernels_lstm(dev):
     return results
 
 
-def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
+def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route,
+               n8=True, no_ws=True):
     """Both kernels and both plain versions by CUDA events (one call each
     in turn, twice: kernel, plain, plain, kernel), the kernels' device
     time (busy time) and launches a call from the profiler — on the
     resident route one persistent kernel a call, on the step route T
     forward and T + 1 backward, or the run fails — and the forward without
-    the workspace (as inference runs it) at the case's N and at the
-    serving bucket N=8, beside its plain version. On the resident route
-    the profiler's count shows the route only (``_step_launches``'s
-    ``route_only``)."""
+    the workspace (as inference runs it) at the case's N (``no_ws``) and at
+    the serving bucket N=8 (``n8``), beside its plain version. On the
+    resident route the profiler's count shows the route only
+    (``_step_launches``'s ``route_only``)."""
     from deeplearning4j_tpu_torch.kernels.lstm_scan import (
         lstm_bwd_cuda,
         lstm_fwd_cuda,
@@ -2007,12 +2057,16 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
         "lstm_fwd_no_ws_plain": lambda: reference_lstm_fwd(xp, rw, b, h0,
                                                            c0, pe, fb),
     }
-    runs = {k: [] for k in fns}
-    for k in ("lstm_fwd", "lstm_fwd_plain", "lstm_fwd_plain", "lstm_fwd",
-              "lstm_bwd", "lstm_bwd_plain", "lstm_bwd_plain", "lstm_bwd",
-              "lstm_fwd_n8", "lstm_fwd_n8_plain", "lstm_fwd_n8_plain",
-              "lstm_fwd_n8", "lstm_fwd_no_ws", "lstm_fwd_no_ws_plain",
-              "lstm_fwd_no_ws_plain", "lstm_fwd_no_ws"):
+    order = ["lstm_fwd", "lstm_fwd_plain", "lstm_fwd_plain", "lstm_fwd",
+             "lstm_bwd", "lstm_bwd_plain", "lstm_bwd_plain", "lstm_bwd"]
+    if n8:
+        order += ["lstm_fwd_n8", "lstm_fwd_n8_plain", "lstm_fwd_n8_plain",
+                  "lstm_fwd_n8"]
+    if no_ws:
+        order += ["lstm_fwd_no_ws", "lstm_fwd_no_ws_plain",
+                  "lstm_fwd_no_ws_plain", "lstm_fwd_no_ws"]
+    runs = {k: [] for k in order}
+    for k in order:
         runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
     row = {f"{k}_ms": min(v) for k, v in runs.items()}
     row.update({f"{k}_ms_runs": v for k, v in runs.items()})
@@ -2045,22 +2099,26 @@ def _time_lstm(dev, xp, rw, b, h0, c0, pe, fb, gh, gc, gates, cs, route):
                     f"{kernel}_bound_by": bound_by,
                     f"{kernel}_bound_cuda_cores_ms": cores_ms,
                     f"{kernel}_ops": ops, f"{kernel}_bytes": nbytes})
-    n8 = _lstm_bound("lstm_fwd", 8, t, h, peep, zero_init, workspace=False)
-    row["lstm_fwd_n8_bound_ms"] = n8[0]
-    row["lstm_fwd_n8_bound_cuda_cores_ms"] = n8[4]
-    no_ws = _lstm_bound("lstm_fwd", n, t, h, peep, zero_init,
-                        workspace=False)
-    row["lstm_fwd_no_ws_bound_ms"], row["lstm_fwd_no_ws_bound_by"] = no_ws[:2]
+    if n8:
+        bound = _lstm_bound("lstm_fwd", 8, t, h, peep, zero_init,
+                            workspace=False)
+        row["lstm_fwd_n8_bound_ms"] = bound[0]
+        row["lstm_fwd_n8_bound_cuda_cores_ms"] = bound[4]
+    if no_ws:
+        bound = _lstm_bound("lstm_fwd", n, t, h, peep, zero_init,
+                            workspace=False)
+        row["lstm_fwd_no_ws_bound_ms"], row["lstm_fwd_no_ws_bound_by"] = \
+            bound[:2]
     return row
 
 
 def _time_cudnn(dev, rw, b, fb, n=CHAR_BATCH, t=CHAR_T, width=None,
-                h0=None, c0=None):
+                h0=None, c0=None, n8=True):
     """torch.nn.LSTM (cuDNN) on an input x [n, t, width] (width H by
     default) beside the port's op on the same x and weights (forget bias
     folded into b_ih's f slice, RW transposed to weight_hh, gate order
-    i,f,g,o as the port's), forward without grad (also at the serving
-    bucket N=8) and backward to x and every weight: the library yardstick
+    i,f,g,o as the port's), forward without grad (with ``n8`` also at the
+    serving bucket N=8) and backward to x and every weight: the library yardstick
     of the case without peepholes. With ``h0``/``c0`` both start from that
     state. The outputs must agree."""
     from deeplearning4j_tpu_torch.kernels.lstm_scan import lstm
@@ -2114,10 +2172,12 @@ def _time_cudnn(dev, rw, b, fb, n=CHAR_BATCH, t=CHAR_T, width=None,
         "cudnn_bwd": lambda: torch.autograd.grad(out_lib, lib_leaves, dout,
                                                  retain_graph=True),
     }
-    runs = {k: [] for k in fns}
+    forward = ["op_fwd", "cudnn_fwd", "cudnn_fwd", "op_fwd"]
+    if n8:
+        forward += ["op_fwd_n8", "cudnn_fwd_n8", "cudnn_fwd_n8", "op_fwd_n8"]
+    runs = {k: [] for k in fns if n8 or not k.endswith("_n8")}
     with torch.no_grad():
-        for k in ("op_fwd", "cudnn_fwd", "cudnn_fwd", "op_fwd",
-                  "op_fwd_n8", "cudnn_fwd_n8", "cudnn_fwd_n8", "op_fwd_n8"):
+        for k in forward:
             runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
     for k in ("op_bwd", "cudnn_bwd", "cudnn_bwd", "op_bwd"):
         runs[k].append(_time_ms(fns[k], iters=10, warmup=2))
@@ -2898,7 +2958,7 @@ def phase_gru_tbptt(dev, smi):
 
 
 def _lstm_entries(cases, serving, training, s2s_serving, s2s_training,
-                  tbptt, gen, smi):
+                  tbptt, gen, onnx, smi):
     """The kernels-line entries of lstm_fwd and lstm_bwd: times at the
     char-RNN's training shape with Graves peepholes (no library call
     computes those), the case without peepholes beside torch.nn.LSTM, the
@@ -2922,6 +2982,14 @@ def _lstm_entries(cases, serving, training, s2s_serving, s2s_training,
                          s2s_training["launches"]["lstm_bwd"],
                      "tbptt_training": tbptt["launches"]["lstm_bwd"]},
     }
+    word_lm = onnx["onnx_word_lm"]["launches"]
+    for kernel in by_path:
+        by_path[kernel].update({
+            "onnx_word_lm_serving": word_lm["serving"].get(kernel, 0),
+            "onnx_word_lm_gradients": word_lm["gradients"].get(kernel, 0),
+            "onnx_word_lm_fit": word_lm["fit"].get(kernel, 0),
+            "onnx_ops": onnx["onnx_ops"]["launches"].get(kernel, 0)})
+    wl = cases["word_lm_n20_t35_h650"]
     library = {"lstm_fwd": ("cudnn_fwd_ms", "op_fwd_ms"),
                "lstm_bwd": ("cudnn_bwd_ms", "op_bwd_ms")}
     entries = []
@@ -3005,6 +3073,21 @@ def _lstm_entries(cases, serving, training, s2s_serving, s2s_training,
                 "library": "torch.nn.LSTM (cuDNN) on the encoder's input "
                            f"{s2s['cudnn_input']}; op_ms the port's lstm "
                            "op on it"},
+            "onnx_word_lm": {
+                "shape": wl["shape"], "route": wl[f"{kernel}_route"],
+                "kernel_launches_per_call": wl[
+                    f"{kernel}_launches_per_call"],
+                "max_abs_err": wl[f"{kernel}_max_abs_err"],
+                "ms": wl[f"{kernel}_ms"],
+                "device_ms": wl[f"{kernel}_device_ms"],
+                "plain_ms": wl[f"{kernel}_plain_ms"],
+                "bound_ms": wl[f"{kernel}_bound_ms"],
+                "bound_by": wl[f"{kernel}_bound_by"],
+                "op_ms": wl[op_key], "library_ms": wl[lib_key],
+                "library": "torch.nn.LSTM (cuDNN) on a [20, 35, 650] input "
+                           "from zeros; op_ms the port's lstm op on it",
+                "no_workspace_ms": (wl["lstm_fwd_no_ws_ms"]
+                                    if kernel == "lstm_fwd" else None)},
             "shape": main_row["shape"], "card": smi,
         })
     return entries
@@ -3649,14 +3732,16 @@ def phase_bitmap(dev, smi, n_bert, grads):
     return row
 
 
-def _gru_entries(cases, serving, training, tbptt, bitmap, smi):
+def _gru_entries(cases, serving, training, tbptt, bitmap, onnx, smi):
     """The kernels-line entries of gru_fwd, gru_bwd and bitmap_pack."""
     main_row = cases["char_gru_train"]
     window = cases["gru_tbptt_window_t50"]
     by_path = {
         "gru_fwd": {"serving": serving["gru_fwd_launches"],
                     "training": training["launches"]["gru_fwd"],
-                    "tbptt_training": tbptt["launches"]["gru_fwd"]},
+                    "tbptt_training": tbptt["launches"]["gru_fwd"],
+                    "onnx_ops": onnx["onnx_ops"]["launches"].get(
+                        "gru_fwd", 0)},
         "gru_bwd": {"training": training["launches"]["gru_bwd"],
                     "tbptt_training": tbptt["launches"]["gru_bwd"]},
     }
@@ -5034,14 +5119,14 @@ def _unchecked_sparse_ce(logits, label_ids, weights=None, reduction="mean"):
     return _reduce(ce, reduction, weights)
 
 
-def _time_loss_check(trainer, ts, batch, pairs=20) -> dict:
+def _time_loss_check(trainer, ts, batch, pairs=10) -> dict:
     """A train step's wall ms (synchronised) with the sparse loss's range
     check and without it, alternating step by step over ``pairs`` pairs
     (check first in every other pair): each one's median and the median
     of the paired differences, which host drift across the run cancels
-    out of. Then each one's ``_step_breakdown`` in turns (check,
-    unchecked, unchecked, check): wall, device busy ms and the device's
-    idle share, which a host sync that stalls the queue raises."""
+    out of. Then each one's ``_step_breakdown`` (check, then unchecked):
+    wall, device busy ms and the device's idle share, which a host sync
+    that stalls the queue raises."""
     from deeplearning4j_tpu_torch.ops import loss as loss_mod
 
     def unchecked():
@@ -5069,7 +5154,7 @@ def _time_loss_check(trainer, ts, batch, pairs=20) -> dict:
                                   "device_idle_share")}
 
     idle = {True: [], False: []}
-    for checked in (True, False, False, True):
+    for checked in (True, False):  # (True, False, False, True) before PR 27
         idle[checked].append(breakdown(checked))
     return {"pairs": pairs,
             "checked_median_ms": float(np.median(walls[True])),
@@ -6813,14 +6898,16 @@ def _sd_batch(vocab, seed=SEED):
     }
 
 
-def _sd_float64(sd):
+def _sd_float64(sd, device=None):
     """The same graph with every floating value in float64, control-flow
-    subgraphs' values too, on the same device (built from to_dict; under
-    enable_x64 the values keep 64 bits)."""
+    subgraphs' values too, on ``device`` (the graph's own by default; built
+    from to_dict; under enable_x64 the values keep 64 bits). On the CPU the
+    recurrent sweeps' plain versions run in float64 too."""
     from deeplearning4j_tpu_torch.autodiff import SameDiff, enable_x64
 
     def copy_values(src, dst):
         for name, value in src._values.items():
+            value = value.to(dst.device)
             dst.set_value(name, value.double() if value.is_floating_point()
                           else value)
         for node, twin in zip(src._nodes, dst._nodes):
@@ -6828,7 +6915,7 @@ def _sd_float64(sd):
                 copy_values(sub, twin.subgraphs[key])
 
     with enable_x64():
-        sd64 = SameDiff.from_dict(sd.to_dict(), device=sd.device)
+        sd64 = SameDiff.from_dict(sd.to_dict(), device=device or sd.device)
         copy_values(sd, sd64)
     return sd64
 
@@ -7535,6 +7622,891 @@ def phase_tf_control_flow(dev, smi):
         raise SystemExit("chip_smoke: tf_control_flow launched a hand kernel")
     log(f"[tf_control_flow] {out['phase_seconds']:.1f} s, launches "
         f"{out['launches']}")
+    return out
+
+
+# -- 49-51. ONNX import: ResNet-50, the word-language-model LSTM, small graphs --
+
+# The models are written as ONNX with the port's own codec (onnx_proto), node
+# for node in the layout torch.onnx.export (the TorchScript exporter,
+# opset 13) gives the same nn.Module in eval mode, with random weights from
+# SEED: nothing is downloaded. tests/test_torch_onnx_models.py holds both
+# writers' node lists to the exporter's at narrow width.
+
+ONNX_OPSET = 13
+
+
+def _onnx_graph(nodes, inputs, outputs, inits, name):
+    """A ModelProto: ``inputs``/``outputs`` as (name, elem type, shape),
+    ``inits`` as (name, array), in order."""
+    from deeplearning4j_tpu_torch.modelimport import onnx_proto as op
+
+    def vi(name, elem, shape):
+        return op.ValueInfoProto(name=name, type=op.TypeProto(
+            elem_type=elem, shape=op.TensorShapeProto(list(shape))))
+
+    graph = op.GraphProto(
+        node=nodes, name=name,
+        initializer=[op.TensorProto.from_numpy(a, name=n) for n, a in inits],
+        input=[vi(*i) for i in inputs], output=[vi(*o) for o in outputs])
+    return op.ModelProto(ir_version=7, producer_name="chip_smoke",
+                         graph=graph,
+                         opset_import=[op.OperatorSetIdProto("", ONNX_OPSET)])
+
+
+def _onnx_node(op_type, inputs, outputs, name, **attrs):
+    """A NodeProto with ``attrs`` in the exporter's order (sorted by name):
+    ints, floats, strings, int lists, or a tensor (a numpy array)."""
+    from deeplearning4j_tpu_torch.modelimport import onnx_proto as op
+
+    protos = []
+    for k in sorted(attrs):
+        v = attrs[k]
+        if isinstance(v, np.ndarray):
+            protos.append(op.AttributeProto(name=k, type=op.ATTR_TENSOR,
+                                            t=op.TensorProto.from_numpy(v)))
+        elif isinstance(v, float):
+            protos.append(op.AttributeProto(name=k, type=op.ATTR_FLOAT, f=v))
+        elif isinstance(v, int):
+            protos.append(op.AttributeProto(name=k, type=op.ATTR_INT, i=v))
+        elif isinstance(v, str):
+            protos.append(op.AttributeProto(name=k, type=op.ATTR_STRING,
+                                            s=v.encode()))
+        else:
+            protos.append(op.AttributeProto(name=k, type=op.ATTR_INTS,
+                                            ints=[int(x) for x in v]))
+    return op.NodeProto(input=list(inputs), output=list(outputs), name=name,
+                        op_type=op_type, attribute=protos)
+
+
+def _np_tree(tree):
+    return {k: (_np_tree(v) if isinstance(v, dict) else
+                (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v)))
+            for k, v in tree.items()}
+
+
+def _scope(module_path):
+    """The exporter's node-name scope of a module path: an attribute's
+    name, a numbered child as ``parent.N`` (``layer1.0.downsample.0`` →
+    ``/layer1/layer1.0/downsample/downsample.0``)."""
+    parts, out = module_path.split("."), []
+    for i, p in enumerate(parts):
+        out.append(f"{parts[i - 1]}.{p}" if p.isdigit() else p)
+    return "/" + "/".join(out)
+
+
+def resnet_onnx(config, variables, *, batch) -> bytes:
+    """The port's zoo ResNet (``resnet_config``: its blocks, classes and
+    input size; the variables of ``GraphModel.init`` or trained) as the
+    ONNX graph torch.onnx.export writes for torchvision's ResNet in eval
+    mode with BatchNorm kept (``TrainingMode.PRESERVE``): NCHW input
+    ``input`` [batch, 3, H, W]; per conv a ``Conv`` (OIHW kernel, no bias)
+    and a ``BatchNormalization`` of the running statistics, ``Relu``,
+    ``MaxPool``, each bottleneck's ``Add``, then ``GlobalAveragePool``,
+    ``Flatten`` and ``Gemm`` (transB) to ``logits``; torchvision's node and
+    initializer names (``layer1.0.conv1.weight``). The pads are the zoo's
+    SAME padding, asymmetric at stride 2 ([2, 2, 3, 3] at the 224² stem,
+    where torchvision's model pads [3, 3, 3, 3]), so the graph computes
+    the zoo model's function."""
+    from deeplearning4j_tpu_torch.ops.cnn import _same_pads
+
+    v = _np_tree(variables)
+    params, state = v["params"], v["state"]
+    verts = config.vertices
+    h, w = config.input_shapes["input"][:2]
+    nodes, inits = [], []
+    stem_bn = verts["stem_bn"].layer
+    eps, momentum = float(np.float32(stem_bn.eps)), float(np.float32(
+        stem_bn.momentum))
+
+    def add(op_type, inputs, scope, **attrs):
+        name = f"{scope}/{op_type}"
+        nodes.append(_onnx_node(op_type, inputs, [f"{name}_output_0"], name,
+                                **attrs))
+        return f"{name}_output_0"
+
+    def conv_bn(x, vert, conv_path, bn_path, size):
+        """conv + BatchNorm of the zoo's ``vert``; returns (output, its
+        spatial size)."""
+        conv = verts[f"{vert}_conv"].layer
+        k = (conv.kernel,) * 2 if isinstance(conv.kernel, int) \
+            else tuple(conv.kernel)
+        s = (conv.stride,) * 2 if isinstance(conv.stride, int) \
+            else tuple(conv.stride)
+        (pt, pb), (pl, pr) = (_same_pads(size[0], k[0], s[0], 1),
+                              _same_pads(size[1], k[1], s[1], 1))
+        inits.append((f"{conv_path}.weight", np.ascontiguousarray(
+            params[f"{vert}_conv"]["W"].transpose(3, 2, 0, 1))))
+        y = add("Conv", [x, f"{conv_path}.weight"], _scope(conv_path),
+                dilations=[1, 1], group=1, kernel_shape=list(k),
+                pads=[pt, pl, pb, pr], strides=list(s))
+        bn_vals = (("weight", params[f"{vert}_bn"]["gamma"]),
+                   ("bias", params[f"{vert}_bn"]["beta"]),
+                   ("running_mean", state[f"{vert}_bn"]["mean"]),
+                   ("running_var", state[f"{vert}_bn"]["var"]))
+        inits.extend((f"{bn_path}.{n}", a.astype(np.float32))
+                     for n, a in bn_vals)
+        y = add("BatchNormalization",
+                [y] + [f"{bn_path}.{n}" for n, _ in bn_vals],
+                _scope(bn_path), epsilon=eps, momentum=momentum)
+        return y, (-(-size[0] // s[0]), -(-size[1] // s[1]))
+
+    x, size = conv_bn("input", "stem", "conv1", "bn1", (h, w))
+    x = add("Relu", [x], "/relu")
+    pool = verts["stem_pool"].layer
+    (pt, pb), (pl, pr) = (_same_pads(size[0], pool.window, pool.stride, 1),
+                          _same_pads(size[1], pool.window, pool.stride, 1))
+    x = add("MaxPool", [x], "/maxpool", ceil_mode=0, dilations=[1, 1],
+            kernel_shape=[pool.window] * 2, pads=[pt, pl, pb, pr],
+            strides=[pool.stride] * 2)
+    size = (-(-size[0] // pool.stride), -(-size[1] // pool.stride))
+    stage = 0
+    while f"s{stage}b0_a_conv" in verts:
+        block = 0
+        while f"s{stage}b{block}_a_conv" in verts:
+            mod, pre = f"layer{stage + 1}.{block}", f"s{stage}b{block}"
+            scope = _scope(mod)
+            y, sz = conv_bn(x, f"{pre}_a", f"{mod}.conv1", f"{mod}.bn1", size)
+            y = add("Relu", [y], f"{scope}/relu")
+            y, sz = conv_bn(y, f"{pre}_b", f"{mod}.conv2", f"{mod}.bn2", sz)
+            y = add("Relu", [y], f"{scope}/relu_1")
+            y, sz = conv_bn(y, f"{pre}_c", f"{mod}.conv3", f"{mod}.bn3", sz)
+            short = x
+            if f"{pre}_proj_conv" in verts:
+                short, _ = conv_bn(x, f"{pre}_proj", f"{mod}.downsample.0",
+                                   f"{mod}.downsample.1", size)
+            y = add("Add", [y, short], scope)
+            x, size = add("Relu", [y], f"{scope}/relu_2"), sz
+            block += 1
+        stage += 1
+    x = add("GlobalAveragePool", [x], "/avgpool")
+    x = add("Flatten", [x], "", axis=1)
+    out_w, out_b = params["output"]["W"], params["output"]["b"]
+    inits += [("fc.weight", np.ascontiguousarray(out_w.T)),
+              ("fc.bias", out_b.astype(np.float32))]
+    nodes.append(_onnx_node("Gemm", [x, "fc.weight", "fc.bias"], ["logits"],
+                            "/fc/Gemm", alpha=1.0, beta=1.0, transB=1))
+    return _onnx_graph(nodes, [("input", 1, (batch, 3, h, w))],
+                       [("logits", 1, (batch, out_w.shape[1]))], inits,
+                       "main_graph").encode()
+
+
+# PyTorch's examples/word_language_model, its README's medium LSTM:
+# `--model LSTM --emsize 650 --nhid 650 --nlayers 2 --bptt 35`, batch 20
+# (its default), WikiText-2's 33,278-token vocabulary; 50,065,078 parameters
+# (untied). The vocabulary is a width; the ids are random from SEED.
+WORD_LM_VOCAB, WORD_LM_EMSIZE, WORD_LM_NHID = 33278, 650, 650
+WORD_LM_LAYERS, WORD_LM_BPTT, WORD_LM_BATCH = 2, 35, 20
+
+
+def word_lm_params(vocab, emsize, nhid, nlayers, seed=SEED) -> dict:
+    """Random weights of ``RNNModel('LSTM', ...)`` by its state_dict names:
+    the encoder and decoder uniform(±0.1) as its ``init_weights``,
+    ``nn.LSTM``'s uniform(±1/sqrt(nhid)); the decoder bias drawn too (its
+    init zeroes it) so that it is exercised."""
+    r = np.random.default_rng(seed)
+    u = lambda lim, *shape: r.uniform(-lim, lim, shape).astype(  # noqa: E731
+        np.float32)
+    k = 1.0 / np.sqrt(nhid)
+    p = {"encoder.weight": u(0.1, vocab, emsize)}
+    for layer in range(nlayers):
+        width = emsize if layer == 0 else nhid
+        p[f"rnn.weight_ih_l{layer}"] = u(k, 4 * nhid, width)
+        p[f"rnn.weight_hh_l{layer}"] = u(k, 4 * nhid, nhid)
+        p[f"rnn.bias_ih_l{layer}"] = u(k, 4 * nhid)
+        p[f"rnn.bias_hh_l{layer}"] = u(k, 4 * nhid)
+    p["decoder.weight"] = u(0.1, vocab, nhid)
+    p["decoder.bias"] = u(0.1, vocab)
+    return p
+
+
+def _ifgo_to_iofc(a, nhid):
+    """torch's LSTM gate blocks (i, f, g, o) in ONNX's order (i, o, f, c)."""
+    i, f, g, o = (a[k * nhid:(k + 1) * nhid] for k in range(4))
+    return np.concatenate([i, o, f, g])
+
+
+def word_lm_onnx(params, *, seq_len, batch) -> bytes:
+    """``RNNModel`` (LSTM) as torch.onnx.export writes it in eval mode at
+    opset 13, time-major: inputs ``input`` int64 [seq_len, batch], ``h0``
+    and ``c0`` [layers, batch, nhid]; ``Gather`` (encoder), per layer a
+    ``Slice`` of h0 and of c0 and an ``LSTM`` node (W, R in ONNX's iofc
+    gate blocks, B = [W_b, R_b], sequence_lens empty, initial_h,
+    initial_c) and a ``Squeeze`` of its direction axis; ``Concat`` of the
+    final states; ``MatMul`` + ``Add`` (decoder, weight transposed),
+    ``Reshape`` to [-1, vocab], ``LogSoftmax``. Outputs ``log_probs``
+    [seq_len·batch, vocab], ``hn``, ``cn``."""
+    vocab, emsize = params["encoder.weight"].shape
+    nhid = params["rnn.weight_hh_l0"].shape[1]
+    layers = sum(1 for k in params if k.startswith("rnn.weight_hh_l"))
+    i64 = lambda *v: np.asarray(v, np.int64)  # noqa: E731
+    nodes, inits = [], [("encoder.weight", params["encoder.weight"]),
+                        ("decoder.bias", params["decoder.bias"])]
+    n_const = [0]
+
+    def const(value):
+        k = n_const[0]
+        n_const[0] += 1
+        name = f"/rnn/Constant{'' if k == 0 else f'_{k}'}"
+        nodes.append(_onnx_node("Constant", [], [f"{name}_output_0"], name,
+                                value=value))
+        return f"{name}_output_0"
+
+    nodes.append(_onnx_node("Gather", ["encoder.weight", "input"],
+                            ["/encoder/Gather_output_0"], "/encoder/Gather"))
+    x, hs, cs = "/encoder/Gather_output_0", [], []
+    for layer in range(layers):
+        w = _ifgo_to_iofc(params[f"rnn.weight_ih_l{layer}"], nhid)[None]
+        r = _ifgo_to_iofc(params[f"rnn.weight_hh_l{layer}"], nhid)[None]
+        b = np.concatenate([
+            _ifgo_to_iofc(params[f"rnn.bias_ih_l{layer}"], nhid),
+            _ifgo_to_iofc(params[f"rnn.bias_hh_l{layer}"], nhid)])[None]
+        names = [f"onnx::LSTM_{3 * layer + j}" for j in range(3)]
+        inits += list(zip(names, (w, r, b)))
+        states = []
+        for src in ("h0", "c0"):
+            axes, starts, ends = const(i64(0)), const(i64(layer)),                 const(i64(layer + 1))
+            k = len([nd for nd in nodes if nd.op_type == "Slice"])
+            name = f"/rnn/Slice{'' if k == 0 else f'_{k}'}"
+            nodes.append(_onnx_node("Slice", [src, starts, ends, axes],
+                                    [f"{name}_output_0"], name))
+            states.append(f"{name}_output_0")
+        name = f"/rnn/LSTM{'' if layer == 0 else f'_{layer}'}"
+        outs = [f"{name}_output_{j}" for j in range(3)]
+        nodes.append(_onnx_node("LSTM", [x, *names, "", *states], outs, name,
+                                hidden_size=nhid))
+        axes = const(i64(1))
+        name = f"/rnn/Squeeze{'' if layer == 0 else f'_{layer}'}"
+        nodes.append(_onnx_node("Squeeze", [outs[0], axes],
+                                [f"{name}_output_0"], name))
+        x = f"{name}_output_0"
+        hs.append(outs[1])
+        cs.append(outs[2])
+    nodes.append(_onnx_node("Concat", hs, ["hn"], "/rnn/Concat", axis=0))
+    nodes.append(_onnx_node("Concat", cs, ["cn"], "/rnn/Concat_1", axis=0))
+    inits.append(("onnx::MatMul_dec", np.ascontiguousarray(
+        params["decoder.weight"].T)))
+    nodes.append(_onnx_node("MatMul", [x, "onnx::MatMul_dec"],
+                            ["/decoder/MatMul_output_0"], "/decoder/MatMul"))
+    nodes.append(_onnx_node("Add", ["decoder.bias", "/decoder/MatMul_output_0"],
+                            ["/decoder/Add_output_0"], "/decoder/Add"))
+    nodes.append(_onnx_node("Constant", [], ["/Constant_output_0"],
+                            "/Constant", value=i64(-1, vocab)))
+    nodes.append(_onnx_node("Reshape", ["/decoder/Add_output_0",
+                                        "/Constant_output_0"],
+                            ["/Reshape_output_0"], "/Reshape"))
+    nodes.append(_onnx_node("LogSoftmax", ["/Reshape_output_0"],
+                            ["log_probs"], "/LogSoftmax", axis=1))
+    state_shape = (layers, batch, nhid)
+    return _onnx_graph(
+        nodes, [("input", 7, (seq_len, batch)), ("h0", 1, state_shape),
+                ("c0", 1, state_shape)],
+        [("log_probs", 1, (seq_len * batch, vocab)),
+         ("hn", 1, state_shape), ("cn", 1, state_shape)],
+        inits, "main_graph").encode()
+
+
+def _random_bn_state(variables, seed=SEED):
+    """``variables`` with every BatchNorm's gamma, beta and running
+    statistics drawn from the seed (the init's 1, 0, 0, 1 would leave the
+    graph's BatchNormalization nodes untested)."""
+    r = np.random.default_rng(seed)
+    params, state = variables["params"], variables["state"]
+    for name, st in state.items():
+        c = st["mean"].shape[0]
+        dev = st["mean"].device
+
+        def t(a):
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+        st["mean"] = t(0.1 * r.standard_normal(c))
+        st["var"] = t(r.uniform(0.5, 1.5, c))
+        params[name]["gamma"] = t(r.uniform(0.5, 1.5, c))
+        params[name]["beta"] = t(0.1 * r.standard_normal(c))
+    return variables
+
+
+ONNX_RESNET_BATCHES = (1, 8, 32)
+ONNX_RESNET_SIZE, ONNX_RESNET_CLASSES = 224, 1000
+ONNX_RESNET_BLOCKS = (3, 4, 6, 3)
+ONNX_CALLS = 20                 # timed calls of each served path
+TOL_ONNX_LOGITS = 1e-5          # logits vs the native model, of their max
+
+
+def phase_onnx_resnet50(dev, smi):
+    """The zoo's ResNet-50 (224², 1000 classes, random weights and
+    BatchNorm statistics from SEED) written as torch.onnx.export writes
+    torchvision's (``resnet_onnx``, a symbolic batch), decoded and imported
+    with ``import_onnx_model`` onto the card, served by ``sd.output`` at
+    batch 1, 8 and 32: each batch's logits against the native model's on
+    the same images in NHWC (its output layer's pre-activation, from
+    ``feed_forward``; TOL_ONNX_LOGITS of their max) and their softmax
+    against ``output_single`` (TOL_SERVED); images/s and latency p50/p99
+    per batch, a batch-32 call's breakdown. No hand kernel on this path:
+    launch counts {}."""
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_onnx_model,
+        onnx_proto,
+    )
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet_config
+    from deeplearning4j_tpu_torch.nn.model import GraphModel
+    from deeplearning4j_tpu_torch.ops.nn import linear
+
+    t_phase = time.monotonic()
+    size, classes = ONNX_RESNET_SIZE, ONNX_RESNET_CLASSES
+    config = resnet_config(blocks=ONNX_RESNET_BLOCKS, num_classes=classes,
+                           input_shape=(size, size, 3), seed=SEED)
+    model = GraphModel(config, device=dev)
+    variables = _random_bn_state(model.init(SEED))
+    n_params = model.num_params(variables)
+    t0 = time.monotonic()
+    blob = resnet_onnx(config, variables, batch="batch")
+    write_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    proto = onnx_proto.ModelProto.decode(blob)
+    decode_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    sd, ins, outs = import_onnx_model(proto, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.monotonic() - t0
+    x_name, y_name = ins["input"], outs["logits"]
+    log(f"[onnx_resnet50] ResNet-50 ({n_params:,} parameters) as ONNX: "
+        f"{len(blob):,} bytes, {len(proto.graph.node)} nodes; write "
+        f"{write_s:.2f} s, decode {decode_s:.2f} s, import {import_s:.2f} s")
+    r = np.random.default_rng(SEED)
+    _dispatch.reset_launch_counts()
+    rows = {}
+    for n in ONNX_RESNET_BATCHES:
+        x = torch.from_numpy(r.standard_normal((n, 3, size, size)).astype(
+            np.float32)).to(dev)
+        got = sd.output({x_name: x}, [y_name])[y_name]
+        ms = _sd_timed(lambda: sd.output({x_name: x}, [y_name]),
+                       calls=ONNX_CALLS)
+        p50, p99 = float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+        x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+        with torch.inference_mode():
+            values, _ = model.feed_forward(variables, x_nhwc)
+            p = variables["params"]["output"]
+            want = linear(values["avgpool"], p["W"], p["b"])
+        probs = model.output_single(variables, x_nhwc)
+        ok = (tuple(got.shape) == (n, classes)
+              and got.device.type == torch.device(dev).type
+              and bool(torch.isfinite(got).all()))
+        rows[n] = {
+            "logits_rel_err": _rel_max(got, want),
+            "probs_max_abs_err": float((torch.softmax(got, -1) - probs)
+                                       .abs().max()),
+            "latency_ms_p50": p50, "latency_ms_p99": p99,
+            "images_per_s": n / (p50 / 1e3)}
+        log(f"[onnx_resnet50] batch {n}: {rows[n]}")
+        if not ok or rows[n]["logits_rel_err"] > TOL_ONNX_LOGITS or \
+                rows[n]["probs_max_abs_err"] > TOL_SERVED:
+            raise SystemExit(f"chip_smoke: onnx_resnet50: batch {n} disagrees "
+                             f"with the native model: {rows[n]}")
+    launches = dict(_dispatch.launch_counts())
+    breakdown = _step_breakdown(None, None, None, (), step=lambda: sd.output(
+        {x_name: x}, [y_name]))
+    if launches:
+        raise SystemExit(f"chip_smoke: onnx_resnet50 launched a hand kernel: "
+                         f"{launches}")
+    out = {"params": n_params, "onnx_bytes": len(blob),
+           "nodes": len(proto.graph.node), "samediff_ops": len(sd.ops()),
+           "write_s": write_s, "decode_s": decode_s, "import_s": import_s,
+           "batches": rows, "breakdown_batch32": breakdown,
+           "launches": launches, "card": smi,
+           "phase_seconds": time.monotonic() - t_phase}
+    log(f"[onnx_resnet50] batch 32 wall/device/idle "
+        f"{breakdown['wall_ms']:.2f}/{breakdown['device_ms']:.2f} ms/"
+        f"{breakdown['device_idle_share']:.1%}; {out['phase_seconds']:.1f} s,"
+        f" on {smi}")
+    del sd, model, variables
+    return out
+
+
+TOL_WORD_LM = 1e-5              # log-probabilities vs float64, of their max
+WORD_LM_FIT_STEPS = 3
+WORD_LM_LR = 1e-3
+WORD_LM_CALLS = 10
+
+
+def _on_cpu64(feeds):
+    return {k: (v.cpu().double() if v.is_floating_point() else v.cpu())
+            for k, v in feeds.items()}
+
+
+def phase_onnx_word_lm(dev, smi):
+    """PyTorch's word-language-model LSTM (its README's medium config:
+    emsize = nhid = 650, 2 layers, bptt 35, batch 20, WikiText-2's
+    33,278-token vocabulary; random weights and ids from SEED) written as
+    torch.onnx.export writes ``RNNModel`` (``word_lm_onnx``), imported onto
+    the card. Served by ``sd.output`` (under set_sync_debug_mode("error"))
+    with each LSTM node through the hand ``lstm_fwd`` on the step route
+    (H = 650 > 320): 1 wrapper launch a layer, T = 35 step kernels each by
+    the profiler; the log-probabilities and final states against the same
+    graph replayed in float64 on the CPU (TOL_WORD_LM of their max). Then
+    every initializer promoted, the next-token NLL added, its gradients
+    against float64 (relative L2 TOL_SD_GRAD_L2), and WORD_LM_FIT_STEPS
+    ``sd.fit`` Adam steps (``lstm_fwd`` + ``lstm_bwd``, T + 1 = 36 backward
+    step kernels a layer) with a falling loss. Tokens/s of a served call
+    and of a fit step, each with its breakdown (device idle share)."""
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig, enable_x64
+    from deeplearning4j_tpu_torch.kernels import _dispatch, lstm_scan
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_onnx_model,
+        onnx_proto,
+    )
+
+    t_phase = time.monotonic()
+    t_len, n, hid = WORD_LM_BPTT, WORD_LM_BATCH, WORD_LM_NHID
+    params = word_lm_params(WORD_LM_VOCAB, WORD_LM_EMSIZE, hid,
+                            WORD_LM_LAYERS)
+    n_params = sum(a.size for a in params.values())
+    t0 = time.monotonic()
+    blob = word_lm_onnx(params, seq_len=t_len, batch=n)
+    write_s = time.monotonic() - t0
+    del params
+    t0 = time.monotonic()
+    proto = onnx_proto.ModelProto.decode(blob)
+    decode_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    sd, ins, outs = import_onnx_model(proto, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.monotonic() - t0
+    route = lstm_scan.route(hid)
+    log(f"[onnx_word_lm] word LM ({n_params:,} parameters) as ONNX: "
+        f"{len(blob):,} bytes, {len(proto.graph.node)} nodes; write "
+        f"{write_s:.2f} s, decode {decode_s:.2f} s, import {import_s:.2f} s;"
+        f" lstm route at H={hid}: {route}")
+    if route != "step":
+        raise SystemExit(f"chip_smoke: onnx_word_lm: H={hid} takes the "
+                         f"{route} route, expected step")
+    r = np.random.default_rng(SEED)
+    ids = r.integers(0, WORD_LM_VOCAB, (t_len + 1, n))
+    state = lambda: torch.from_numpy(r.uniform(  # noqa: E731
+        -0.5, 0.5, (WORD_LM_LAYERS, n, hid)).astype(np.float32)).to(dev)
+    feeds = {ins["input"]: torch.from_numpy(ids[:-1]).to(dev),
+             ins["h0"]: state(), ins["c0"]: state()}
+    names = [outs["log_probs"], outs["hn"], outs["cn"]]
+    y = outs["log_probs"]
+
+    # -- serve ----------------------------------------------------------------
+    def serve():
+        return sd.output(feeds, names)
+
+    serve()  # binds the plan
+    _dispatch.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")  # a host read raises
+    try:
+        served = serve()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ms = _sd_timed(serve, calls=WORD_LM_CALLS)
+    calls = 1 + 2 + WORD_LM_CALLS
+    serve_launches = dict(_dispatch.launch_counts())
+    if serve_launches != {"lstm_fwd": WORD_LM_LAYERS * calls}:
+        raise SystemExit(f"chip_smoke: onnx_word_lm: {serve_launches} "
+                         f"wrapper launches for {calls} calls, expected "
+                         f"{WORD_LM_LAYERS} lstm_fwd a call")
+    steps, _, traces = _step_launches(serve, "lstm_fwd",
+                                      WORD_LM_LAYERS * t_len)
+    logp = served[y]
+    if not (logp.dtype == torch.float32
+            and logp.device.type == torch.device(dev).type
+            and tuple(logp.shape) == (t_len * n, WORD_LM_VOCAB)
+            and bool(torch.isfinite(logp).all())):
+        raise SystemExit("chip_smoke: onnx_word_lm: bad log-probabilities")
+    sd64 = _sd_float64(sd, "cpu")
+    with enable_x64():
+        want = sd64.output(_on_cpu64(feeds), names)
+    errs = {k: _rel_max(served[outs[k]].cpu(), want[outs[k]])
+            for k in ("log_probs", "hn", "cn")}
+    del sd64, want
+    sums = float(torch.logsumexp(logp.double(), -1).abs().max())
+    log(f"[onnx_word_lm] served vs the float64 CPU replay, of their max: "
+        f"{errs} (tol {TOL_WORD_LM:.0e}); max |logsumexp| {sums:.2e}; "
+        f"{steps} lstm_fwd_step_kernel launches a call (traces {traces})")
+    if max(errs.values()) > TOL_WORD_LM or sums > 1e-4:
+        raise SystemExit("chip_smoke: onnx_word_lm: served outputs disagree "
+                         "with float64")
+    serve_breakdown = _step_breakdown(None, None, None, ("lstm_fwd",),
+                                      step=serve)
+
+    # -- fine-tune: every initializer promoted, next-token NLL ----------------
+    for t in proto.graph.initializer:
+        sd.convert_to_variable(t.name)
+    lab = sd.placeholder("labels", (t_len * n,), "int32")
+    loss = sd.loss.sparse_softmax_cross_entropy(sd.get_variable(y), lab)
+    train = dict(feeds, labels=torch.from_numpy(
+        ids[1:].reshape(-1).astype(np.int32)).to(dev))
+    _dispatch.reset_launch_counts()
+    g32 = {k: v.cpu() for k, v in sd.calculate_gradients(
+        train, loss.name).items()}
+    grad_launches = dict(_dispatch.launch_counts())
+    sd64 = _sd_float64(sd, "cpu")
+    with enable_x64():
+        g64 = sd64.calculate_gradients(_on_cpu64(train), loss.name)
+    del sd64
+    leaf_l2, all_l2 = _l2_errors(g32, g64)
+    zero = [k for k, g in g32.items() if float(g.norm()) == 0.0]
+    del g32, g64
+    log(f"[onnx_word_lm] calculate_gradients float32 (card) vs float64 (CPU) "
+        f"over {len(leaf_l2)} weights: relative L2 {all_l2:.2e} (tol "
+        f"{TOL_SD_GRAD_L2:.0e}); worst leaf "
+        f"{max(leaf_l2.values()):.2e}; launches {grad_launches}")
+    if all_l2 > TOL_SD_GRAD_L2 or zero or grad_launches != {
+            "lstm_fwd": WORD_LM_LAYERS, "lstm_bwd": WORD_LM_LAYERS}:
+        raise SystemExit(f"chip_smoke: onnx_word_lm: gradients disagree with "
+                         f"float64, none flowed to {zero}, or launches "
+                         f"{grad_launches}")
+    cfg = TrainingConfig(loss_variable=loss.name,
+                         feature_placeholders=[ins["input"], ins["h0"],
+                                               ins["c0"]],
+                         label_placeholders=["labels"], updater="adam",
+                         updater_args={"learning_rate": WORD_LM_LR})
+    events = _step_events()
+    _dispatch.reset_launch_counts()
+    t0 = time.monotonic()
+    history = sd.fit([train], cfg, epochs=WORD_LM_FIT_STEPS,
+                     listeners=[events])
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    fit_launches = dict(_dispatch.launch_counts())
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in
+                          zip(events.events, events.events[1:])])
+    log(f"[onnx_word_lm] sd.fit {WORD_LM_FIT_STEPS} Adam({WORD_LM_LR}) steps "
+        f"at batch {n}: loss {' '.join(f'{h:.4f}' for h in history)}; step "
+        f"{np.median(step_ms):.2f} ms; launches {fit_launches}")
+    want_fit = {"lstm_fwd": WORD_LM_LAYERS * WORD_LM_FIT_STEPS,
+                "lstm_bwd": WORD_LM_LAYERS * WORD_LM_FIT_STEPS}
+    if not (np.all(np.isfinite(history)) and history[-1] < history[0]) or \
+            fit_launches != want_fit:
+        raise SystemExit(f"chip_smoke: onnx_word_lm: the loss did not fall "
+                         f"({history}) or launches {fit_launches}")
+
+    def fit_step():
+        sd.fit([train], cfg, epochs=1)
+
+    bwd_steps, _, bwd_traces = _step_launches(
+        fit_step, "lstm_bwd", WORD_LM_LAYERS * (t_len + 1))
+    fit_breakdown = _step_breakdown(None, None, None,
+                                    ("lstm_fwd", "lstm_bwd"), step=fit_step)
+    tokens = t_len * n
+    out = {
+        "params": n_params, "onnx_bytes": len(blob),
+        "nodes": len(proto.graph.node), "samediff_ops": len(sd.ops()),
+        "write_s": write_s, "decode_s": decode_s, "import_s": import_s,
+        "lstm_route": route, "max_rel_err_vs_float64": errs,
+        "serve_ms_p50": float(np.median(ms)),
+        "serve_tokens_per_s": tokens / (float(np.median(ms)) / 1e3),
+        "lstm_fwd_step_kernels_per_call": steps,
+        "lstm_bwd_step_kernels_per_step": bwd_steps,
+        "step_kernel_traces": {"lstm_fwd": traces, "lstm_bwd": bwd_traces},
+        "grad_l2_vs_float64": all_l2,
+        "grad_worst_leaf_l2": max(leaf_l2.values()),
+        "loss_history": history, "fit_step_ms": float(np.median(step_ms)),
+        "fit_tokens_per_s": tokens / (float(np.median(step_ms)) / 1e3),
+        "fit_s": fit_s,
+        "launches": {"serving": serve_launches, "gradients": grad_launches,
+                     "fit": fit_launches},
+        "breakdown": {"serve": serve_breakdown, "fit_step": fit_breakdown},
+        "card": smi, "phase_seconds": time.monotonic() - t_phase,
+    }
+    log(f"[onnx_word_lm] tokens/s: serve {out['serve_tokens_per_s']:,.0f}, "
+        f"fit {out['fit_tokens_per_s']:,.0f}; wall/device/idle serve "
+        f"{serve_breakdown['wall_ms']:.2f}/{serve_breakdown['device_ms']:.2f}"
+        f" ms/{serve_breakdown['device_idle_share']:.1%}, fit step "
+        f"{fit_breakdown['wall_ms']:.2f}/{fit_breakdown['device_ms']:.2f} ms/"
+        f"{fit_breakdown['device_idle_share']:.1%}; "
+        f"{out['phase_seconds']:.1f} s, on {smi}")
+    del sd
+    return out
+
+
+TOL_ONNX_OPS = 1e-5  # the card vs the CPU and vs numpy, of the output's max
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def _np_lstm(x, w, r, b, reverse):
+    """One ONNX LSTM direction in numpy float64 (gates i, o, f, c)."""
+    x, w, r, b = (a.astype(np.float64) for a in (x, w, r, b))
+    t_len, n, _ = x.shape
+    hid = r.shape[1]
+    h, c = np.zeros((n, hid)), np.zeros((n, hid))
+    ys = np.zeros((t_len, n, hid))
+    bias = b[:4 * hid] + b[4 * hid:]
+    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
+        z = x[t] @ w.T + h @ r.T + bias
+        i, o, f, g = (z[:, k * hid:(k + 1) * hid] for k in range(4))
+        c = _sigmoid(f) * c + _sigmoid(i) * np.tanh(g)
+        h = _sigmoid(o) * np.tanh(c)
+        ys[t] = h
+    return ys, h, c
+
+
+def _np_gru(x, w, r, b, h0):
+    """One ONNX GRU direction in numpy float64, the JAX op's cell (zrh
+    gates, r ⊙ (h·R_h), Rb_h zero)."""
+    x, w, r, b, h = (a.astype(np.float64) for a in (x, w, r, b, h0))
+    hid = r.shape[1]
+    ys = np.zeros((x.shape[0],) + h.shape)
+    wb, rb = b[:3 * hid], b[3 * hid:]
+    for t in range(x.shape[0]):
+        xz = x[t] @ w.T + wb
+        hz = h @ r.T + rb
+        z = _sigmoid(xz[:, :hid] + hz[:, :hid])
+        rr = _sigmoid(xz[:, hid:2 * hid] + hz[:, hid:2 * hid])
+        hh = np.tanh(xz[:, 2 * hid:] + rr * (h @ r[2 * hid:].T))
+        h = (1 - z) * hh + z * h
+        ys[t] = h
+    return ys, h
+
+
+def onnx_ops_graphs():
+    """Small ONNX graphs of each mapper family, as (name, model bytes,
+    feeds, numpy reference of the outputs or None, expected loop routes
+    or None, hand-kernel launches a call)."""
+    from deeplearning4j_tpu_torch.modelimport import onnx_proto as op
+
+    r = np.random.default_rng(SEED)
+    f32 = lambda *s: r.standard_normal(s).astype(np.float32)  # noqa: E731
+    i64 = lambda *v: np.asarray(v, np.int64)  # noqa: E731
+    nd = _onnx_node
+    out = []
+
+    def graph(nodes, ins, outs, inits=()):
+        return _onnx_graph(nodes, ins, [(o, 1, ()) for o in outs],
+                           list(inits), "g")
+
+    # convs, pools and norms: asymmetric pads, SAME_UPPER, -inf / exclude pad
+    x = f32(2, 3, 15, 15)
+    m = graph([nd("Conv", ["x", "w", "b"], ["c"], "c", kernel_shape=[3, 3],
+                  pads=[0, 1, 2, 1], strides=[2, 2]),
+               nd("BatchNormalization", ["c", "s", "bb", "mu", "var"], ["n"],
+                  "n", epsilon=1e-5),
+               nd("Relu", ["n"], ["a"], "a"),
+               nd("MaxPool", ["a"], ["mp"], "mp", kernel_shape=[3, 3],
+                  strides=[2, 2], pads=[0, 0, 1, 1]),
+               nd("AveragePool", ["a"], ["ap"], "ap", kernel_shape=[3, 3],
+                  strides=[2, 2], pads=[1, 0, 1, 1], count_include_pad=0),
+               nd("Conv", ["a", "w2"], ["su"], "su", kernel_shape=[3, 3],
+                  strides=[2, 2], auto_pad="SAME_UPPER"),
+               nd("GlobalAveragePool", ["mp"], ["g"], "g"),
+               nd("Flatten", ["g"], ["fl"], "fl", axis=1),
+               nd("Gemm", ["fl", "fw", "fb"], ["logits"], "fc", transB=1)],
+              [("x", 1, x.shape)], ["mp", "ap", "su", "logits"],
+              [("w", f32(4, 3, 3, 3)), ("b", f32(4)),
+               ("s", np.abs(f32(4)) + 0.5), ("bb", f32(4)),
+               ("mu", 0.1 * f32(4)), ("var", np.abs(f32(4)) + 0.5),
+               ("w2", f32(5, 4, 3, 3)), ("fw", f32(6, 4)), ("fb", f32(6))])
+    out.append(("conv_pool_norm_gemm", m.encode(), {"x": x}, None, None, {}))
+
+    # ties, remainders, out-of-range gathers, cumsum, depth_to_space
+    t = np.asarray([[3, 1, 3, 2, 1, 3], [0, 5, 5, 1, 5, 0]], np.float32)
+    a = np.asarray([-7.5, 7.5, -7.5, 7.5], np.float32)
+    b = np.asarray([2.0, -2.0, -2.0, 2.0], np.float32)
+    e = f32(5, 3)
+    d = f32(1, 8, 2, 2)
+    m = graph([nd("TopK", ["t", "k"], ["tv", "ti"], "tk"),
+               nd("ArgMax", ["t"], ["am"], "am", axis=1, keepdims=0),
+               nd("Mod", ["a", "b"], ["fm"], "fm"),
+               nd("Mod", ["a", "b"], ["cm"], "cm", fmod=1),
+               nd("Gather", ["e", "ids"], ["ga"], "ga"),
+               nd("CumSum", ["e", "ax"], ["cs"], "cs", exclusive=1,
+                  reverse=1),
+               nd("DepthToSpace", ["d"], ["dcr"], "dcr", blocksize=2),
+               nd("DepthToSpace", ["d"], ["crd"], "crd", blocksize=2,
+                  mode="CRD")],
+              [("t", 1, t.shape), ("a", 1, a.shape), ("b", 1, b.shape),
+               ("e", 1, e.shape), ("d", 1, d.shape)],
+              ["tv", "ti", "am", "fm", "cm", "ga", "cs", "dcr", "crd"],
+              [("k", i64(4)), ("ids", i64(-1, 0, 4)), ("ax", i64(0))])
+    order = np.argsort(-t, axis=1, kind="stable")[:, :4]
+    cs = np.flip(np.cumsum(np.flip(e, 0), 0), 0) - e
+    dcr = d.reshape(1, 2, 2, 2, 2, 2).transpose(0, 3, 4, 1, 5, 2).reshape(
+        1, 2, 4, 4)
+    crd = d.reshape(1, 2, 2, 2, 2, 2).transpose(0, 1, 4, 2, 5, 3).reshape(
+        1, 2, 4, 4)
+    ref = {"tv": np.take_along_axis(t, order, 1), "ti": order,
+           "am": np.argmax(t, 1), "fm": np.mod(a, b), "cm": np.fmod(a, b),
+           "ga": e[[-1, 0, 4]], "cs": cs, "dcr": dcr, "crd": crd}
+    out.append(("ties_mod_gather_cumsum_d2s", m.encode(),
+                {"t": t, "a": a, "b": b, "e": e, "d": d}, ref, None, {}))
+
+    # If (both branches), static Loop with scan outputs, data-dependent Loop
+    then_g = op.GraphProto(node=[nd("Mul", ["x", "x"], ["y"], "m")],
+                           name="then", output=[op.ValueInfoProto("y")])
+    else_g = op.GraphProto(node=[nd("Sub", ["x", "w"], ["y"], "s")],
+                           name="else", output=[op.ValueInfoProto("y")])
+    for p in (True, False):
+        x = f32(2, 3)
+        w = f32(2, 3)
+        m = graph([nd("If", ["p"], ["out"], "if")],
+                  [("p", 9, ()), ("x", 1, (2, 3))], ["out"], [("w", w)])
+        m.graph.node[0].attribute = [
+            op.AttributeProto(name="else_branch", type=op.ATTR_GRAPH,
+                              g=else_g),
+            op.AttributeProto(name="then_branch", type=op.ATTR_GRAPH,
+                              g=then_g)]
+        out.append((f"if_{p}", m.encode(), {"p": np.asarray(p), "x": x},
+                    {"out": x * x if p else x - w}, "cond", {}))
+
+    def body_vi(name, elem, shape):
+        return op.ValueInfoProto(name=name, type=op.TypeProto(
+            elem_type=elem, shape=op.TensorShapeProto(list(shape))))
+
+    body = op.GraphProto(
+        node=[nd("Identity", ["cond_in"], ["cond_out"], "i"),
+              nd("Add", ["v_in", "w"], ["v_out"], "a"),
+              nd("Tanh", ["v_out"], ["scan"], "t")],
+        name="body", input=[body_vi("iter", 7, ()), body_vi("cond_in", 9, ()),
+                            body_vi("v_in", 1, (4,))],
+        output=[body_vi("cond_out", 9, ()), body_vi("v_out", 1, (4,)),
+                body_vi("scan", 1, (4,))])
+    v0, w = f32(4), f32(4)
+    m = graph([nd("Loop", ["M", "", "v0"], ["vf", "scans"], "loop")],
+              [("v0", 1, (4,))], ["vf", "scans"],
+              [("M", np.asarray(6, np.int64)), ("w", w)])
+    m.graph.node[0].attribute = [op.AttributeProto(
+        name="body", type=op.ATTR_GRAPH, g=body)]
+    vs = [v0 + w * (k + 1) for k in range(6)]
+    out.append(("loop_static", m.encode(), {"v0": v0},
+                {"vf": vs[-1], "scans": np.tanh(np.stack(vs))},
+                {"static": {6: 1}}, {}))
+    body = op.GraphProto(
+        node=[nd("Mul", ["v_in", "two"], ["v_out"], "m"),
+              nd("ReduceSum", ["v_out"], ["s"], "s", keepdims=0),
+              nd("Less", ["s", "hundred"], ["cond_out"], "l")],
+        name="body", input=[body_vi("iter", 7, ()), body_vi("cond_in", 9, ()),
+                            body_vi("v_in", 1, (2,))],
+        output=[body_vi("cond_out", 9, ()), body_vi("v_out", 1, (2,))])
+    m = graph([nd("Loop", ["M", "c0", "v0"], ["vf"], "loop")],
+              [("v0", 1, (2,))], ["vf"],
+              [("M", np.asarray(100, np.int64)), ("c0", np.asarray(True)),
+               ("two", np.asarray(2.0, np.float32)),
+               ("hundred", np.asarray(100.0, np.float32))])
+    m.graph.node[0].attribute = [op.AttributeProto(
+        name="body", type=op.ATTR_GRAPH, g=body)]
+    v = np.asarray([1.0, 2.0], np.float32)
+    out.append(("loop_data_dependent", m.encode(), {"v0": v},
+                {"vf": v * 64}, {"dynamic_iterations": 6}, {}))
+
+    # Scan, input and output reversed
+    body = op.GraphProto(
+        node=[nd("Add", ["s_in", "x_elem"], ["s_out"], "a"),
+              nd("Mul", ["s_out", "s_out"], ["y_elem"], "m")],
+        name="body", input=[body_vi("s_in", 1, (3,)),
+                            body_vi("x_elem", 1, (3,))],
+        output=[body_vi("s_out", 1, (3,)), body_vi("y_elem", 1, (3,))])
+    s0, xs = f32(3), f32(5, 3)
+    m = graph([nd("Scan", ["s0", "xs"], ["sf", "ys"], "scan",
+                  num_scan_inputs=1, scan_input_directions=[1],
+                  scan_output_directions=[1])],
+              [("s0", 1, (3,)), ("xs", 1, (5, 3))], ["sf", "ys"])
+    m.graph.node[0].attribute.append(op.AttributeProto(
+        name="body", type=op.ATTR_GRAPH, g=body))
+    acc, ys = s0.astype(np.float64), []
+    for k in range(4, -1, -1):
+        acc = acc + xs[k]
+        ys.append(acc * acc)
+    out.append(("scan_reversed", m.encode(), {"s0": s0, "xs": xs},
+                {"sf": acc, "ys": np.stack(ys[::-1])}, {"static": {5: 1}},
+                {}))
+
+    # a bidirectional LSTM node (lstm_fwd twice) and a GRU node (gru_fwd)
+    t_len, n, i, h = 6, 5, 8, 16
+    x = f32(t_len, n, i)
+    w, rr, b = 0.3 * f32(2, 4 * h, i), 0.3 * f32(2, 4 * h, h), \
+        0.1 * f32(2, 8 * h)
+    m = graph([nd("LSTM", ["x", "w", "r", "b"], ["y", "yh", "yc"], "lstm",
+                  hidden_size=h, direction="bidirectional")],
+              [("x", 1, x.shape)], ["y", "yh", "yc"],
+              [("w", w), ("r", rr), ("b", b)])
+    fwd = _np_lstm(x, w[0], rr[0], b[0], False)
+    bwd = _np_lstm(x, w[1], rr[1], b[1], True)
+    out.append(("lstm_bidirectional", m.encode(), {"x": x},
+                {"y": np.stack([fwd[0], bwd[0]], 1),
+                 "yh": np.stack([fwd[1], bwd[1]]),
+                 "yc": np.stack([fwd[2], bwd[2]])}, None, {"lstm_fwd": 2}))
+    w, rr, b = 0.3 * f32(1, 3 * h, i), 0.3 * f32(1, 3 * h, h), \
+        0.1 * f32(1, 6 * h)
+    b[:, 5 * h:] = 0.0
+    h0 = f32(1, n, h)
+    m = graph([nd("GRU", ["x", "w", "r", "b", "", "h0"], ["y", "yh"], "gru",
+                  hidden_size=h)],
+              [("x", 1, x.shape), ("h0", 1, h0.shape)], ["y", "yh"],
+              [("w", w), ("r", rr), ("b", b)])
+    ys, hn = _np_gru(x, w[0], rr[0], b[0], h0[0])
+    out.append(("gru_forward", m.encode(), {"x": x, "h0": h0},
+                {"y": ys[:, None], "yh": hn[None]}, None, {"gru_fwd": 1}))
+    return out
+
+
+def phase_onnx_ops(dev, smi):
+    """Each ``onnx_ops_graphs`` graph imported onto the card and onto the
+    CPU: every output on the card against the CPU's (the recurrent nodes'
+    plain versions there: this holds ``lstm_fwd`` and ``gru_fwd`` against
+    them) and against numpy where the graph has a reference, TOL_ONNX_OPS
+    of its max (integer outputs equal); the loops' routes (the static
+    Loop and the Scan no condition read, the data-dependent Loop one an
+    iteration) and each graph's hand-kernel launches a call."""
+    from deeplearning4j_tpu_torch.autodiff import samediff as sdm
+    from deeplearning4j_tpu_torch.kernels import _dispatch
+    from deeplearning4j_tpu_torch.modelimport import import_onnx_model
+
+    t_phase = time.monotonic()
+    rows, launches = {}, {}
+    for name, blob, feeds, ref, routes, kernels in onnx_ops_graphs():
+        sd, ins, outs = import_onnx_model(blob, device=dev)
+        sd_cpu, _, outs_cpu = import_onnx_model(blob, device="cpu")
+        names = list(outs)
+        _dispatch.reset_launch_counts()
+        sdm.reset_loop_stats()
+        got = sd.output(feeds, [outs[k] for k in names])
+        torch.cuda.synchronize()
+        stats = sdm.loop_stats()
+        counts = dict(_dispatch.launch_counts())
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        cpu = sd_cpu.output(feeds, [outs_cpu[k] for k in names])
+        row = {"vs_cpu": {}, "vs_numpy": {}, "launches": counts,
+               "routes": stats}
+        for k in names:
+            g, c = got[outs[k]], cpu[outs_cpu[k]]
+            if g.device.type != torch.device(dev).type or \
+                    g.dtype != c.dtype or \
+                    g.shape != c.shape:
+                raise SystemExit(f"chip_smoke: onnx_ops {name}: {k} is "
+                                 f"{g.dtype} {tuple(g.shape)} on "
+                                 f"{g.device}, the CPU's {c.dtype} "
+                                 f"{tuple(c.shape)}")
+            if g.is_floating_point():
+                row["vs_cpu"][k] = _rel_max(g.cpu(), c)
+            else:
+                row["vs_cpu"][k] = float(not torch.equal(g.cpu(), c))
+            if ref is not None:
+                want = torch.from_numpy(np.asarray(ref[k]))
+                row["vs_numpy"][k] = (_rel_max(g.cpu(), want)
+                                      if g.is_floating_point() else
+                                      float(not torch.equal(
+                                          g.cpu().long(), want.long())))
+        worst = max([*row["vs_cpu"].values(), *row["vs_numpy"].values()])
+        route_ok = routes is None or (
+            stats["cond"] == 1 if routes == "cond" else
+            all(stats[key] == val for key, val in routes.items()))
+        log(f"[onnx_ops] {name}: worst {worst:.2e} (tol "
+            f"{TOL_ONNX_OPS:.0e}); launches {counts}; routes {stats}")
+        if worst > TOL_ONNX_OPS or counts != kernels or not route_ok:
+            raise SystemExit(f"chip_smoke: onnx_ops {name}: {row}")
+        rows[name] = row
+    out = {"graphs": rows, "launches": launches, "card": smi,
+           "phase_seconds": time.monotonic() - t_phase}
+    log(f"[onnx_ops] {len(rows)} graphs, launches {launches}; "
+        f"{out['phase_seconds']:.1f} s")
     return out
 
 
@@ -9637,6 +10609,11 @@ def main() -> int:
     dp["two_ranks"] = phase_dp_two_ranks(dev, smi)
     log(f"[dp] phase seconds: dp_resnet_train {dp['phase_seconds']:.1f}, "
         f"dp_two_ranks {dp['two_ranks']['phase_seconds']:.1f}")
+    onnx = {"onnx_resnet50": phase_onnx_resnet50(dev, smi),
+            "onnx_word_lm": phase_onnx_word_lm(dev, smi),
+            "onnx_ops": phase_onnx_ops(dev, smi)}
+    log("[onnx] phase seconds: " + ", ".join(
+        f"{k} {v['phase_seconds']:.1f}" for k, v in onnx.items()))
     main_case = cases["bert_base_serving_fp32"]
     fwd = {
         "name": "flash_fwd", "route": "cuda",
@@ -9737,9 +10714,9 @@ def main() -> int:
                                 s2s_training, smi))
     entries += _lstm_entries(lstm_cases, char_serving, char_training,
                              s2s_serving, s2s_training, char_tbptt,
-                             char_gen, smi)
+                             char_gen, onnx, smi)
     entries += _gru_entries(gru_cases, gru_serving, gru_training, gru_tbptt,
-                            bitmap, smi)
+                            bitmap, onnx, smi)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
@@ -9780,6 +10757,8 @@ def main() -> int:
     for key, line in advanced.items():
         print(json.dumps({key: line}), flush=True)
     print(json.dumps({"dp": dp}), flush=True)
+    for key, line in onnx.items():
+        print(json.dumps({key: line}), flush=True)
     log(f"[done] {time.monotonic() - t_start:.1f} s; launch counts now "
         f"{_dispatch.launch_counts()}")
     print(smi, flush=True)

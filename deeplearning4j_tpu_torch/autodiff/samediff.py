@@ -218,6 +218,9 @@ def _op_fn(op: str) -> Callable:
     if op not in OP_REGISTRY and op.startswith("tfimport."):
         # a loaded graph that was imported from TF in another process
         from deeplearning4j_tpu_torch.modelimport import tf  # noqa: F401
+    if op not in OP_REGISTRY and op.startswith("onnximport."):
+        # ... or from ONNX
+        from deeplearning4j_tpu_torch.modelimport import onnx  # noqa: F401
     if op not in OP_REGISTRY:
         raise KeyError(f"op {op!r} not registered")
     return OP_REGISTRY[op]
@@ -1654,6 +1657,8 @@ register_op("__while__", _control_flow_impl)
 
 def _grads(loss, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     names = list(params)
+    if not loss.requires_grad:  # no variable reaches the loss: zeros
+        return {n: torch.zeros_like(params[n]) for n in names}
     grads = torch.autograd.grad(loss, [params[n] for n in names],
                                 allow_unused=True)
     return {n: (g if g is not None else torch.zeros_like(params[n]))

@@ -20,8 +20,10 @@
   Without grad (serving under ``torch.inference_mode()``) no workspace is
   written.
 
-Everything inside the sweeps is float32 whatever the input dtype; outputs
-come back in ``x``'s dtype. Two deliberate differences from the JAX
+Everything inside the sweeps is float32 whatever the input dtype, but
+for a float64 input on the CPU, whose plain sweeps run in float64 (the
+path of a float64 reference; the card's kernels are float32 only);
+outputs come back in ``x``'s dtype. Two deliberate differences from the JAX
 package's routing, neither changing the function computed: its kernels
 take only the TPU's tiled shapes (N % 8 == 0, H % 128 == 0) and a zero
 initial state, and send everything else to ``ops/rnn.lstm``; the CUDA
@@ -92,12 +94,14 @@ def reference_lstm_fwd(xp_tm, rw, b, h0, c0, peep, forget_bias,
     """Plain forward sweep; xp_tm [T,N,4H] (``x·W``, time-major), rw
     [H,4H], b [4H], h0/c0 [N,H], peep [3,H] or None. Returns (hs [T,N,H],
     hT, cT) and, with ``save_workspace``, the post-activation gates
-    [T,N,4H] and the cell states [T,N,H]; all float32."""
-    rw, b = rw.float(), b.float()
-    h, c = h0.float(), c0.float()
+    [T,N,4H] and the cell states [T,N,H]; all float32 (float64 for a
+    float64 ``xp_tm``)."""
+    dt = _ref_dtype(xp_tm)
+    rw, b = rw.to(dt), b.to(dt)
+    h, c = h0.to(dt), c0.to(dt)
     hs, gates, cs = [], [], []
     for t in range(xp_tm.shape[0]):
-        z = xp_tm[t].float() + h @ rw + b
+        z = xp_tm[t].to(dt) + h @ rw + b
         zi, zf, zg, zo = _split4(z)
         if peep is not None:
             zi = zi + peep[0] * c
@@ -124,11 +128,13 @@ def reference_lstm_bwd(gates_tm, cs_tm, c_prev_tm, gh_tm, gcT, rw, peep):
     """Plain reversed dgrad sweep → (dxp_tm [T,N,4H], dh0 [N,H], dc0
     [N,H]). ``gh_tm`` [T,N,H] is the upstream dL/dh_t with dL/dh_T folded
     into the last step, ``gcT`` dL/dc_T; the dh carry starts at 0. dh0 and
-    dc0 are the carries left after step 0."""
-    rw = rw.float()
-    dh = torch.zeros_like(gcT, dtype=torch.float32)
-    dc = gcT.float()
-    dxp = torch.empty_like(gates_tm, dtype=torch.float32)
+    dc0 are the carries left after step 0. Float32, or float64 for
+    float64 ``gates_tm``."""
+    dt = _ref_dtype(gates_tm)
+    rw = rw.to(dt)
+    dh = torch.zeros_like(gcT, dtype=dt)
+    dc = gcT.to(dt)
+    dxp = torch.empty_like(gates_tm, dtype=dt)
     for t in range(gates_tm.shape[0] - 1, -1, -1):
         ig, fg, gg, og = _split4(gates_tm[t])
         c_prev = c_prev_tm[t]
@@ -266,25 +272,38 @@ def launch_plan(n_rows, hidden, device=None):
 
 # -- dispatch and autograd ----------------------------------------------------
 
-def _f32(t):
-    return None if t is None else t.float().contiguous()
+def _ref_dtype(t):
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _sweep_dtype(x):
+    """The sweeps' dtype for an input ``x``: float32, or float64 for a
+    float64 CPU tensor (its plain sweeps keep the precision)."""
+    return (torch.float64 if x.dtype == torch.float64
+            and x.device.type == "cpu" else torch.float32)
+
+
+def _f32(t, dtype=torch.float32):
+    """``t`` contiguous in the sweeps' dtype (float32 unless given)."""
+    return None if t is None else t.to(dtype).contiguous()
 
 
 def _sweep_fwd(xp_tm, rw, b, h0, c0, peep, forget_bias, save_workspace):
-    args = (xp_tm, _f32(rw), _f32(b), _f32(h0), _f32(c0), _f32(peep),
-            forget_bias, save_workspace)
+    dt = xp_tm.dtype
+    args = (xp_tm, _f32(rw, dt), _f32(b, dt), _f32(h0, dt), _f32(c0, dt),
+            _f32(peep, dt), forget_bias, save_workspace)
     if _dispatch.use_kernel(xp_tm):
         return lstm_fwd_cuda(*args)
     return reference_lstm_fwd(*args)
 
 
-def _project(x, w_x):
-    """x [N,T,I] · W [I,G·H] → xp [T,N,G·H] float32, contiguous: the
+def _project(x, w_x, dtype=torch.float32):
+    """x [N,T,I] · W [I,G·H] → xp [T,N,G·H] in ``dtype``, contiguous: the
     input projection of every step as one product outside the sweep (G =
     4 gates for the LSTM, 3 for the GRU). Time-major by multiplying x's
     transposed view, which is already contiguous when x is the previous
     recurrent layer's output."""
-    return torch.matmul(x.transpose(0, 1), w_x).float().contiguous()
+    return torch.matmul(x.transpose(0, 1), w_x).to(dtype).contiguous()
 
 
 class _LSTM(torch.autograd.Function):
@@ -294,7 +313,7 @@ class _LSTM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w_x, w_h, b, peep, h0, c0, forget_bias):
-        xp_tm = _project(x, w_x)
+        xp_tm = _project(x, w_x, _sweep_dtype(x))
         hs, hT, cT, gates, cs = _sweep_fwd(xp_tm, w_h, b, h0, c0, peep,
                                            forget_bias, True)
         ctx.save_for_backward(x, w_x, w_h, b, peep, h0, c0, hs, gates, cs)
@@ -304,27 +323,28 @@ class _LSTM(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, ghT, gcT):
         x, w_x, w_h, b, peep, h0, c0, hs, gates, cs = ctx.saved_tensors
-        h0f, c0f = _f32(h0), _f32(c0)
+        dt = gates.dtype  # the sweeps' (float32, or float64 on the CPU)
+        h0f, c0f = _f32(h0, dt), _f32(c0, dt)
         # a copy: dL/dh_T is added into it, and g_out is autograd's
-        gh_tm = g_out.float().transpose(0, 1).clone(
+        gh_tm = g_out.to(dt).transpose(0, 1).clone(
             memory_format=torch.contiguous_format)
-        gh_tm[-1] += ghT.float()
-        gcT = _f32(gcT)
+        gh_tm[-1] += ghT.to(dt)
+        gcT = _f32(gcT, dt)
         c_prev_tm = torch.cat([c0f[None], cs[:-1]])
         if _dispatch.use_kernel(gates):
             dxp, dh0, dc0 = lstm_bwd_cuda(gates, cs, c0f, gh_tm, gcT,
                                           _f32(w_h), _f32(peep))
         else:
             dxp, dh0, dc0 = reference_lstm_bwd(gates, cs, c_prev_tm, gh_tm,
-                                               gcT, w_h, _f32(peep))
+                                               gcT, w_h, _f32(peep, dt))
         t_len, n, h4 = dxp.shape
         h_dim = h4 // 4
         dz = dxp.reshape(t_len * n, h4)
         h_prev = torch.cat([h0f[None], hs[:-1]]).reshape(t_len * n, h_dim)
-        x_tm = x.transpose(0, 1).float().reshape(t_len * n, -1)
+        x_tm = x.transpose(0, 1).to(dt).reshape(t_len * n, -1)
         d_rw = h_prev.t() @ dz
         d_b = dz.sum(0)
-        d_x = (dz @ w_x.float().t()).reshape(t_len, n, -1).transpose(0, 1)
+        d_x = (dz @ w_x.to(dt).t()).reshape(t_len, n, -1).transpose(0, 1)
         d_wx = x_tm.t() @ dz
         d_peep = None
         if peep is not None:
@@ -360,7 +380,8 @@ def lstm(x, w_x, w_h, b, *, peepholes=None, forget_bias: float = 0.0,
             a is not None and a.requires_grad for a in args):
         out, h_t, c_t = _LSTM.apply(*args, float(forget_bias))
         return out, LSTMState(h_t, c_t)
-    hs, h_t, c_t = _sweep_fwd(_project(x, w_x), w_h, b, h0, c0, peep,
+    hs, h_t, c_t = _sweep_fwd(_project(x, w_x, _sweep_dtype(x)), w_h, b,
+                              h0, c0, peep,
                               float(forget_bias), False)
     return (hs.transpose(0, 1).to(x.dtype),
             LSTMState(h_t.to(x.dtype), c_t.to(x.dtype)))

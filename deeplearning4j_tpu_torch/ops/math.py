@@ -1,6 +1,9 @@
 """Math ops (↔ deeplearning4j_tpu/ops/math.py) — the clipping that gradient
-normalization uses, and the elementwise ops that the TF importer records
-(``math.sign`` … ``math.one_hot``) and ``SDVariable.norm2`` calls."""
+normalization uses, and the elementwise ops that the TF and ONNX importers
+record (``math.sign`` … ``math.one_hot``, the trigonometric and logical
+families) and ``SDVariable.norm2`` calls. Each follows its ``jnp``
+counterpart: rounding is half to even, ``sign`` keeps a NaN, and
+``reciprocal`` of an integer is a float."""
 
 from __future__ import annotations
 
@@ -8,13 +11,32 @@ import torch
 
 from deeplearning4j_tpu_torch.utils.pytree import tree_leaves, tree_map
 
-sign = torch.sign
 floor = torch.floor
 ceil = torch.ceil
 round = torch.round  # noqa: A001 - half to even, as jnp.round
 sin = torch.sin
 cos = torch.cos
+tan = torch.tan
+asin = torch.asin
+acos = torch.acos
+atan = torch.atan
+sinh = torch.sinh
+cosh = torch.cosh
+asinh = torch.asinh
+acosh = torch.acosh
+atanh = torch.atanh
+reciprocal = torch.reciprocal  # an integer input gives a float, as jnp
 logical_and = torch.logical_and
+logical_or = torch.logical_or
+logical_not = torch.logical_not
+logical_xor = torch.logical_xor
+is_nan = torch.isnan
+
+
+def sign(x):
+    """``jnp.sign``: a NaN stays NaN (``torch.sign`` gives 0)."""
+    s = torch.sign(x)
+    return torch.where(torch.isnan(x), x, s) if x.is_floating_point() else s
 
 
 def norm2(x, axis=None, keepdims=False):

@@ -94,6 +94,8 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.runtime.distributed",
     "deeplearning4j_tpu_torch.parallel.specs",
     "deeplearning4j_tpu_torch.parallel.data_parallel",
+    "deeplearning4j_tpu_torch.modelimport.onnx",
+    "deeplearning4j_tpu_torch.modelimport.onnx_proto",
 ]
 
 
